@@ -1,0 +1,643 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port on one NVIDIA H100 and check it.
+
+    python3 chip_smoke.py
+
+Phases (each raises on failure, and the script then exits non-zero):
+
+1. device: CUDA must be available on a compute-capability 9.0 card; prints
+   ``nvidia-smi --query-gpu=name,power.limit``.
+2. build: compiles ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a.
+3. kernel parity: both CUDA kernels against their plain PyTorch versions on
+   the same inputs, at llama3.2-3b shapes (bf16, 24 query heads, 8 kv
+   heads, head_dim 128, page size 16) and a few others (window + softcap,
+   fp32, partial mode with negative shard-local positions). Tolerance, at
+   valid query positions, elementwise: fp32 ``|got - want| <= 2e-5 + 2e-5 *
+   |want|``; bf16 ``|got - want| <= 2**-7 * |want| + 0.05 * rms(want)``,
+   one bf16 rounding step of the element plus a twentieth of the RMS of its
+   head's D-vector, so the limit follows bf16 rounding, not the size of the
+   output (a kernel that skips one 64-key tile at a 4K context is off by
+   about a tenth of the RMS). The partial state's m and l are held to
+   ``1e-3 + 1e-5 * |m|`` and ``1e-4 * l``. Each case is timed with CUDA
+   events beside the plain version and one PyTorch library call used only
+   as a yardstick (``scaled_dot_product_attention`` on the gathered pages),
+   and its bound (bytes at 3.35 TB/s, flops at 989 TFLOP/s bf16 or 67
+   TFLOP/s fp32) is computed from the case's own inputs.
+4. end to end on a small input: the smoke llama3.2-3b engine on the GPU
+   gives the same greedy tokens as on the CPU (plain versions).
+5. full-width serving: llama3.2-3b (28 layers, d_model 3072, random weights
+   from a seed, bf16) through ``InferenceServer(EngineCore(...))`` with a
+   65536-token KV pool, 8 requests, once with ``spec_k=0`` and once with
+   ``spec_k=4``. The kernels' launch counters are set to 0 just before and
+   read just after, and must equal 28 x the dispatches that use them. A
+   third run repeats the first under ``torch.profiler`` and prints the
+   device busy time, idle share and largest device and host entries.
+
+The last lines are a ``{"kernels": [...]}`` JSON object, the card's name
+and power limit, and ``{"ok": true, "device": {...}}``. Per-case numbers go
+to ``chiprun_out/chip_smoke.json``.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PAGE = 16
+DEVICE = "cuda"
+
+
+def device_line() -> str:
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def vec_limit(want, dtype_name):
+    """Elementwise limit of an output or accumulator whose last axis is the
+    head dim, for a case whose inputs are in ``dtype_name``: 2e-5 +
+    2e-5*|want| in fp32; in bf16 one rounding step of the element
+    (2**-7*|want|) plus 0.05 x the RMS of its D-vector."""
+    w = want.float()
+    if dtype_name == "float32":
+        return 2e-5 + 2e-5 * w.abs()
+    rms = w.square().mean(dim=-1, keepdim=True).sqrt()
+    return 2.0 ** -7 * w.abs() + 0.05 * rms
+
+
+def check(what, got, want, limit, mask=None):
+    """Raise unless |got - want| <= limit at every (masked) element;
+    return max |got - want| and max |got - want| / limit there."""
+    import torch
+    diff = (got.float() - want.float()).abs()
+    limit = torch.broadcast_to(torch.as_tensor(limit, device=diff.device),
+                               diff.shape)
+    if mask is not None:
+        diff, limit = diff[mask], limit[mask]
+    if diff.numel() and not bool(torch.isfinite(diff).all()):
+        raise AssertionError(f"{what}: non-finite values")
+    bad = diff > limit
+    if bool(bad.any()):
+        i = int(bad.nonzero()[0, 0])
+        raise AssertionError(
+            f"{what}: {int(bad.sum())} of {diff.numel()} elements past the "
+            f"limit; first |got - want| {float(diff[i]):.3e} > "
+            f"{float(limit[i]):.3e}; max {float(diff.max()):.3e}")
+    if not diff.numel():
+        return 0.0, 0.0
+    return float(diff.max()), float((diff / limit).max())
+
+
+def ml_limits(want_m, want_l):
+    """Limits of the partial state's row max m and row sum l (fp32)."""
+    return 1e-3 + 1e-5 * want_m.abs(), 1e-4 * want_l.abs()
+
+
+class Cases:
+    """Kernel parity cases: runs, checks, times and records each one."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.rows = []
+        self.gen = torch.Generator(device=DEVICE).manual_seed(1234)
+
+    def randn(self, shape, dtype):
+        return self.torch.randn(shape, generator=self.gen, device=DEVICE,
+                                dtype=self.torch.float32).to(dtype)
+
+    def pool_and_tables(self, lens, n, Hkv, D, dtype):
+        """A pool holding every row's pages at random places, and tables
+        zero-padded past each row's last page, as the engine builds them."""
+        torch = self.torch
+        need = [max(math.ceil(int(x) / PAGE), 0) for x in lens]
+        P = max(sum(need), 1) + 1
+        perm = torch.randperm(P, generator=self.gen, device=DEVICE)
+        bt = torch.zeros((len(lens), n), dtype=torch.int32, device=DEVICE)
+        off = 0
+        for i, k in enumerate(need):
+            bt[i, :k] = perm[off:off + k].to(torch.int32)
+            off += k
+        kv = self.randn((Hkv, P, 2, PAGE, D), dtype)
+        return kv, bt, need
+
+    def record(self, row):
+        self.rows.append(row)
+        print(f"  {row['kernel']:<24} {row['case']:<44} err {row['max_abs_err']:.3e} "
+              f"({row['limit_share']:.3f} of limit) ms {row['ms']:.4f} plain {row['plain_ms']:.3f} "
+              f"lib {row['library_ms']} bound {row['bound_ms']:.4f} "
+              f"({row['bound_by']})", flush=True)
+
+
+def gathered(torch, kv, bt, G):
+    """K, V of each row's pages, heads expanded for GQA: [B, H, n*ps, D]."""
+    from repro_torch.kernels import ref_common as rc
+    k_pages, v_pages = rc.split_fused(kv)
+    k = rc.gather_seq(k_pages, bt).repeat_interleave(G, dim=1)
+    v = rc.gather_seq(v_pages, bt).repeat_interleave(G, dim=1)
+    return k, v
+
+
+def bound(nbytes, flops, dtype_name):
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_f = flops / PEAK_FLOPS[dtype_name]
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def decode_case(cs, name, B, lens, dtype, window=0, softcap=0.0, G=3, Hkv=8,
+                D=128, iters=20):
+    torch = cs.torch
+    from repro_torch.kernels.paged_attention.kernel import paged_attention_fused
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_attention_fused_ref, paged_attention_partial_ref)
+    from repro_torch.kernels import ref_common as rc
+    dn = str(dtype).split(".")[-1]
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+    n = 1 << max(math.ceil(max(lens) / PAGE) - 1, 0).bit_length()
+    kv, bt, need = cs.pool_and_tables(lens, n, Hkv, D, dtype)
+    q = cs.randn((B, Hkv * G, D), dtype)
+    kw = dict(scale=D ** -0.5, window=window, softcap=softcap)
+    got = paged_attention_fused(q, kv, bt, lens_t, **kw)
+    want = paged_attention_fused_ref(q, kv, bt, lens_t, **kw)
+    torch.cuda.synchronize()
+    err, share = check(f"decode {name}", got, want, vec_limit(want, dn))
+    # partial mode: finalize == full, the state (acc, m, l) == the plain
+    # version's, and two key halves at shard-local (partly negative)
+    # lengths combine to the whole
+    acc, m, l = paged_attention_fused(q, kv, bt, lens_t, partial=True, **kw)
+    check(f"decode {name}: finalize(partial)",
+          rc.finalize_partials(acc, l, q.dtype), want, vec_limit(want, dn))
+    racc, rm, rl = paged_attention_partial_ref(q, kv, bt, lens_t, **kw)
+    m_lim, l_lim = ml_limits(rm, rl)
+    check(f"decode {name}: partial m", m, rm, m_lim)
+    check(f"decode {name}: partial l", l, rl, l_lim)
+    check(f"decode {name}: partial acc", acc, racc, vec_limit(racc, dn))
+    h = n // 2
+    if h and window == 0:
+        p1 = paged_attention_fused(q, kv, bt[:, :h].contiguous(), lens_t,
+                                   partial=True, **kw)
+        p2 = paged_attention_fused(q, kv, bt[:, h:].contiguous(),
+                                   lens_t - h * PAGE, partial=True, **kw)
+        check(f"decode {name}: partial combine",
+              rc.combine_partials([p1, p2], q.dtype), want,
+              vec_limit(want, dn))
+    ms = cuda_ms(torch, lambda: paged_attention_fused(q, kv, bt, lens_t, **kw),
+                 iters)
+    plain = cuda_ms(torch, lambda: paged_attention_fused_ref(
+        q, kv, bt, lens_t, **kw), 3, warmup=1)
+    lib = None
+    if window == 0 and softcap == 0.0:
+        k, v = gathered(torch, kv, bt, G)
+        mask = (torch.arange(k.shape[2], device=DEVICE)[None, :]
+                < lens_t[:, None])[:, None, None, :]
+        qs = q[:, :, None, :]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = round(cuda_ms(torch, lambda: sdpa(qs, k, v, attn_mask=mask,
+                                                scale=D ** -0.5), iters), 5)
+        del k, v
+    elt = q.element_size()
+    keys = sum(need)
+    nbytes = (2 * q.numel() * elt + keys * PAGE * Hkv * 2 * D * elt
+              + bt.numel() * 4 + B * 4)
+    flops = 4 * D * Hkv * G * sum(int(x) for x in lens)
+    b_ms, b_by = bound(nbytes, flops, dn)
+    cs.record({"kernel": "paged_attention_fused", "case": name, "dtype": dn,
+               "max_abs_err": err, "limit_share": share, "ms": ms, "plain_ms": plain,
+               "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
+
+
+def prefill_case(cs, name, pos, lens, Sq, dtype, window=0, softcap=0.0, G=3,
+                 Hkv=8, D=128, iters=10, partial_split=False):
+    torch = cs.torch
+    import numpy as np
+    from repro_torch.kernels.paged_prefill_attention.kernel import (
+        paged_prefill_attention_fused)
+    from repro_torch.kernels.paged_prefill_attention.ref import (
+        paged_prefill_attention_fused_ref, paged_prefill_attention_partial_ref)
+    from repro_torch.kernels import ref_common as rc
+    dn = str(dtype).split(".")[-1]
+    R = len(pos)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=DEVICE)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+    n = 1 << max(math.ceil(max(lens) / PAGE) - 1, 0).bit_length()
+    kv, bt, _ = cs.pool_and_tables(lens, n, Hkv, D, dtype)
+    q = cs.randn((R, Sq, Hkv, G, D), dtype)
+    valid = ((pos_t[:, None] + torch.arange(Sq, device=DEVICE)[None])
+             < lens_t[:, None])
+    kw = dict(scale=D ** -0.5, window=window, softcap=softcap)
+    got = paged_prefill_attention_fused(q, kv, bt, pos_t, lens_t, **kw)
+    want = paged_prefill_attention_fused_ref(q, kv, bt, pos_t, lens_t, **kw)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"prefill {name}: non-finite output")
+    err, share = check(f"prefill {name}", got, want, vec_limit(want, dn),
+                       valid)
+    acc, m, l = paged_prefill_attention_fused(q, kv, bt, pos_t, lens_t,
+                                              partial=True, **kw)
+    check(f"prefill {name}: finalize(partial)",
+          rc.finalize_partials(acc, l, q.dtype), want, vec_limit(want, dn),
+          valid)
+    if partial_split:
+        # the second half of each table at shard-local (negative) positions
+        h = n // 2
+        off = h * PAGE
+        a2 = (q, kv, bt[:, h:].contiguous(), pos_t - off, lens_t - off)
+        k_acc, k_m, k_l = paged_prefill_attention_fused(*a2, partial=True, **kw)
+        r_acc, r_m, r_l = paged_prefill_attention_partial_ref(*a2, **kw)
+        live = r_m > rc.NEG_INF / 2
+        if not bool(live.any()) or int(pos_t.min()) - off >= 0:
+            raise AssertionError(f"prefill {name}: split has no negative rows")
+        m_lim, l_lim = ml_limits(r_m, r_l)
+        check(f"prefill {name}: partial m", k_m, r_m, m_lim, live)
+        check(f"prefill {name}: partial l", k_l, r_l, l_lim, live)
+        check(f"prefill {name}: partial acc", k_acc, r_acc,
+              vec_limit(r_acc, dn), live)
+        p1 = paged_prefill_attention_fused(q, kv, bt[:, :h].contiguous(),
+                                           pos_t, lens_t, partial=True, **kw)
+        check(f"prefill {name}: combine",
+              rc.combine_partials([p1, (k_acc, k_m, k_l)], q.dtype), want,
+              vec_limit(want, dn), valid)
+    ms = cuda_ms(torch, lambda: paged_prefill_attention_fused(
+        q, kv, bt, pos_t, lens_t, **kw), iters)
+    plain = cuda_ms(torch, lambda: paged_prefill_attention_fused_ref(
+        q, kv, bt, pos_t, lens_t, **kw), 2, warmup=1)
+    lib = None
+    if window == 0 and softcap == 0.0:
+        k, v = gathered(torch, kv, bt, G)
+        kpos = torch.arange(k.shape[2], device=DEVICE)
+        qpos = pos_t[:, None] + torch.arange(Sq, device=DEVICE)[None]
+        mask = ((kpos[None, None] <= qpos[:, :, None])
+                & (kpos[None, None] < lens_t[:, None, None]))[:, None]
+        qs = q.reshape(R, Sq, Hkv * G, D).transpose(1, 2)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = round(cuda_ms(torch, lambda: sdpa(qs, k, v, attn_mask=mask,
+                                                scale=D ** -0.5), iters), 5)
+        del k, v
+    # bytes: q and out once, each row's live pages once per kv head
+    elt = q.element_size()
+    pn, ln = np.asarray(pos), np.asarray(lens)
+    pages = [min(math.ceil(l_ / PAGE), math.ceil((p_ + Sq) / PAGE), n)
+             for p_, l_ in zip(pn, ln) if l_ > 0]
+    nbytes = (2 * q.numel() * elt + sum(pages) * PAGE * Hkv * 2 * D * elt
+              + bt.numel() * 4 + 2 * R * 4)
+    pairs = 0
+    for p_, l_ in zip(pn, ln):
+        qp = p_ + np.arange(Sq)
+        qp = qp[qp < l_]
+        hi = np.minimum(qp + 1, l_)
+        lo = np.maximum(qp - window + 1, 0) if window > 0 else 0
+        pairs += int(np.maximum(hi - lo, 0).sum())
+    flops = 4 * D * Hkv * G * pairs
+    b_ms, b_by = bound(nbytes, flops, dn)
+    cs.record({"kernel": "paged_prefill_attention_fused", "case": name,
+               "dtype": dn, "max_abs_err": err, "limit_share": share,
+               "ms": ms, "plain_ms": plain,
+               "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
+
+
+def kernel_phase(torch):
+    import numpy as np
+    cs = Cases(torch)
+    rng = np.random.default_rng(7)
+    bf, f32 = torch.bfloat16, torch.float32
+    edges = [4096, PAGE, PAGE - 3, 4096 - PAGE // 2]
+    for B in (1, 8, 64):
+        lens = [4093] if B == 1 else (
+            edges + [int(x) for x in rng.integers(1, 4097, B - 4)])
+        decode_case(cs, f"B{B} ctx<=4096 bf16", B, lens, bf)
+    main = [int(x) + 40 for x in rng.integers(128, 2049, 8)]
+    decode_case(cs, "B8 serving-like ctx bf16", 8, main, bf)
+    decode_case(cs, "B8 window1000 softcap30 bf16", 8,
+                edges + [int(x) for x in rng.integers(1, 4097, 4)], bf,
+                window=1000, softcap=30.0)
+    decode_case(cs, "B8 ctx<=4096 fp32", 8,
+                edges + [int(x) for x in rng.integers(1, 4097, 4)], f32)
+    decode_case(cs, "B4 G4 D256 fp32", 4, [300, 17, 1024, 5], f32, G=4,
+                Hkv=2, D=256)
+    for R in (1, 4):
+        for Sq in (16, 128, 512, 2048):
+            if R == 1:
+                pos, lens = [37], [37 + Sq]
+            else:
+                pos = [0, 1000, 2 * Sq + 5, 0]
+                lens = [Sq, 1000 + Sq - 3, 3 * Sq + 5, 0]   # last: padding
+            prefill_case(cs, f"R{R} Sq{Sq} bf16", pos, lens, Sq, bf,
+                         iters=5 if Sq == 2048 else 10,
+                         partial_split=(R == 4 and Sq == 128))
+    prefill_case(cs, "R4 Sq128 window300 softcap30 bf16", [0, 500, 900, 0],
+                 [128, 620, 1028, 0], 128, bf, window=300, softcap=30.0)
+    prefill_case(cs, "R4 Sq128 fp32 partial", [0, 1000, 261, 0],
+                 [128, 1125, 389, 0], 128, f32, partial_split=True)
+    prefill_case(cs, "R2 Sq4 verify-rows bf16", [1500, 700], [1504, 702], 4,
+                 bf)
+    return cs.rows
+
+
+def smoke_engine_phase(torch):
+    """The smoke engine on the GPU (CUDA kernels, fp32) and on the CPU
+    (plain versions) on the same weights: same greedy tokens."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import SlidingServeScheduler
+    from repro_torch.params import init_params
+    from repro_torch.serving.engine import EngineCore
+    from repro_torch.serving.request import Request
+    cfg = get_config("llama3.2-3b").smoke()
+    cpu_params = init_params(cfg, seed=0, device="cpu")
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, dev) for v in tree]
+        return tree.to(dev)
+
+    rng = np.random.default_rng(1)
+    spec = [(40, 6), (77, 5), (19, 8), (130, 4)]
+    prompts = {i: rng.integers(1, cfg.vocab_size, p).astype(np.int32)
+               for i, (p, _) in enumerate(spec)}
+    outs = {}
+    for dev in (DEVICE, "cpu"):
+        eng = EngineCore(cfg, SlidingServeScheduler(max_budget=64,
+                                                    max_iter_time=5.0),
+                         kv_capacity_tokens=2048, device=dev,
+                         params=to(cpu_params, dev))
+        reqs = [Request(rid=i, arrival=0.0, prompt_len=p, max_output=o,
+                        ttft_slo=900.0, tbt_slo=900.0)
+                for i, (p, o) in enumerate(spec)]
+        out = eng.serve(reqs, {k: v.copy() for k, v in prompts.items()},
+                        max_wall_s=300.0)
+        if out["unfinished"]:
+            raise AssertionError(f"smoke engine on {dev}: unfinished requests")
+        outs[dev] = out["outputs"]
+    if outs[DEVICE] != outs["cpu"]:
+        raise AssertionError(f"smoke engine GPU vs CPU tokens differ: "
+                             f"{outs[DEVICE]} vs {outs['cpu']}")
+    print(f"  smoke engine: GPU tokens == CPU tokens for {len(spec)} requests "
+          f"({sum(len(v) for v in outs[DEVICE].values())} tokens)")
+
+
+def serving_phase(torch, pa_kernel, ppa_kernel):
+    """Full-width llama3.2-3b through the streaming server, spec_k 0 and 4.
+    Returns the main path's launch counts."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import SlidingServeScheduler
+    from repro_torch.params import init_params
+    from repro_torch.serving.engine import EngineCore
+    from repro_torch.serving.server import InferenceServer
+    cfg = get_config("llama3.2-3b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    print(f"  init_params {cfg.name}: {time.perf_counter() - t0:.2f}s "
+          f"({sum(p.numel() for p in _leaves(params)) / 1e9:.3f}B params)")
+    rng = np.random.default_rng(0)
+    prompt_lens = [int(x) for x in rng.integers(128, 2049, 8)]
+    outputs = [int(x) for x in rng.integers(16, 65, 8)]
+    prompts = [rng.integers(0, cfg.vocab_size, p).astype(np.int32)
+               for p in prompt_lens]
+    layers = cfg.num_layers
+    pa_kernel.paged_attention_fused.launches = 0
+    ppa_kernel.paged_prefill_attention_fused.launches = 0
+    results = []
+    # the third run repeats the first under torch.profiler, for the
+    # host/device breakdown (its wall time includes the tracing cost)
+    for spec_k, traced in ((0, False), (4, False), (0, True)):
+        pa0 = pa_kernel.paged_attention_fused.launches
+        ppa0 = ppa_kernel.paged_prefill_attention_fused.launches
+        core = EngineCore(cfg, SlidingServeScheduler(max_budget=512,
+                                                     max_iter_time=2.0),
+                          kv_capacity_tokens=65536, spec_k=spec_k,
+                          params=params, device=DEVICE)
+        server = InferenceServer(core)
+        torch.cuda.synchronize()
+        prof = profiler(torch) if traced else contextlib.nullcontext()
+        with prof:
+            t_start = time.perf_counter()
+            handles = [server.submit(p, max_output=o)
+                       for p, o in zip(prompts, outputs)]
+            server.run(max_wall_s=600.0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_start
+        st = core.stats
+        toks = [h.collected for h in handles]
+        if not all(h.finished and not h.aborted for h in handles):
+            raise AssertionError(f"spec_k={spec_k}: unfinished requests")
+        if [len(t) for t in toks] != outputs:
+            raise AssertionError(f"spec_k={spec_k}: output lengths "
+                                 f"{[len(t) for t in toks]} != {outputs}")
+        if not all(0 <= x < cfg.vocab_size for t in toks for x in t):
+            raise AssertionError(f"spec_k={spec_k}: token id out of range")
+        if st.token_readbacks != st.iterations:
+            raise AssertionError(f"spec_k={spec_k}: {st.token_readbacks} "
+                                 f"readbacks for {st.iterations} rounds")
+        # decode + prefill without speculation; verify rows add a third kind
+        max_calls = 2 if spec_k == 0 else 3
+        if st.max_round_calls > max_calls:
+            raise AssertionError(f"spec_k={spec_k}: max_round_calls "
+                                 f"{st.max_round_calls} > {max_calls}")
+        pa = pa_kernel.paged_attention_fused.launches - pa0
+        ppa = ppa_kernel.paged_prefill_attention_fused.launches - ppa0
+        if pa != layers * st.decode_calls or \
+                ppa != layers * (st.prefill_calls + st.spec_calls):
+            raise AssertionError(
+                f"spec_k={spec_k}: launches decode {pa} / prefill {ppa} vs "
+                f"dispatches decode {st.decode_calls}, chunk "
+                f"{st.prefill_calls}, spec {st.spec_calls}")
+        if spec_k and st.spec_calls == 0:
+            raise AssertionError("spec_k=4: no verify dispatch ran")
+        if core.alloc.free_blocks != core.alloc.num_blocks:
+            raise AssertionError(f"spec_k={spec_k}: KV pages leaked")
+        n_out = sum(outputs)
+        n_in = sum(prompt_lens)
+        ttft = [h.first_token_t - h.request.arrival for h in handles]
+        rec = {"spec_k": spec_k, "requests": len(handles),
+               "prompt_tokens": n_in, "output_tokens": n_out,
+               "wall_s": wall, "output_tok_per_s": n_out / wall,
+               "total_tok_per_s": (n_in + n_out) / wall,
+               "iterations": st.iterations,
+               "round_ms": 1e3 * wall / st.iterations,
+               "ttft_s_mean": float(np.mean(ttft)),
+               "ttft_s_max": float(np.max(ttft)),
+               "decode_calls": st.decode_calls,
+               "prefill_calls": st.prefill_calls,
+               "spec_calls": st.spec_calls,
+               "max_round_calls": st.max_round_calls,
+               "token_readbacks": st.token_readbacks,
+               "sync_s": st.sync_s, "dispatch_s": st.dispatch_s,
+               "decode_kernel_launches": pa,
+               "prefill_kernel_launches": ppa,
+               "acceptance": core.spec_info()["acceptance_rate"],
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "traced": traced}
+        if traced:
+            rec["trace"] = trace_summary(torch, prof, wall)
+        results.append(rec)
+        print(f"  serve spec_k={spec_k}{' traced' if traced else ''}: "
+              f"{len(handles)} requests, "
+              f"{n_in} prompt + {n_out} output tokens in {wall:.3f}s: "
+              f"{rec['output_tok_per_s']:.1f} output tok/s, "
+              f"{rec['total_tok_per_s']:.1f} total tok/s, "
+              f"{st.iterations} rounds of {rec['round_ms']:.2f} ms, "
+              f"ttft mean {rec['ttft_s_mean']:.3f}s; dispatches decode "
+              f"{st.decode_calls} chunk {st.prefill_calls} spec "
+              f"{st.spec_calls}; kernel launches decode {pa} prefill {ppa}",
+              flush=True)
+        if traced:
+            tr = rec["trace"]
+            print(f"  trace: device busy {tr['device_busy_ms']:.1f} ms of "
+                  f"{1e3 * wall:.1f} ms wall (idle share "
+                  f"{tr['device_idle_share']:.3f})")
+            for k in tr["top_device"]:
+                print(f"    device {k['ms']:9.2f} ms {k['count']:6d}x  {k['name']}")
+            for k in tr["top_host"]:
+                print(f"    host   {k['ms']:9.2f} ms {k['count']:6d}x  {k['name']}")
+        del server, core
+        torch.cuda.empty_cache()
+    launches = {
+        "paged_attention_fused": pa_kernel.paged_attention_fused.launches,
+        "paged_prefill_attention_fused":
+            ppa_kernel.paged_prefill_attention_fused.launches}
+    return launches, results
+
+
+def profiler(torch):
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if DEVICE == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    return profile(activities=acts)
+
+
+def trace_summary(torch, prof, wall_s, top=8):
+    """Device busy time (sum of kernel time on the one stream), the idle
+    share of the wall time, and the largest device and host entries."""
+    from torch.autograd import DeviceType
+    rows = prof.key_averages()
+    dev = [e for e in rows if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    host = [e for e in rows if e.device_type == DeviceType.CPU]
+
+    def entries(evts, attr):
+        evts = sorted(evts, key=lambda e: -getattr(e, attr))[:top]
+        return [{"name": e.key[:90], "count": e.count,
+                 "ms": getattr(e, attr) / 1e3} for e in evts]
+    return {"device_busy_ms": busy_ms,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / (1e3 * wall_s)),
+            "top_device": entries(dev, "self_device_time_total"),
+            "top_host": entries(host, "self_cpu_time_total")}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 1
+    cap = torch.cuda.get_device_capability(0)
+    if cap != (9, 0):
+        print(f"chip_smoke: needs a compute-capability 9.0 card, got {cap}",
+              file=sys.stderr)
+        return 1
+    from repro_torch.kernels import build
+    from repro_torch.kernels.paged_attention import kernel as pa_kernel
+    from repro_torch.kernels.paged_prefill_attention import kernel as ppa_kernel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_all = time.perf_counter()
+
+    dev = device_line()
+    print(f"[1/5] device: {dev}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}", flush=True)
+
+    t0 = time.perf_counter()
+    report = build.build()
+    print(f"[2/5] build: {len(report)} libraries in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    for name, (_, log) in report.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    print("[3/5] kernel parity and timing", flush=True)
+    rows = kernel_phase(torch)
+
+    print("[4/5] smoke engine, GPU against CPU", flush=True)
+    smoke_engine_phase(torch)
+
+    print("[5/5] full-width llama3.2-3b serving", flush=True)
+    launches, serving = serving_phase(torch, pa_kernel, ppa_kernel)
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"{name} never launched on the main path")
+
+    rep = {"paged_attention_fused": ("B8 serving-like ctx bf16",
+                                     "src/repro_torch/csrc/paged_attention.cu",
+                                     "src/repro/kernels/paged_attention/kernel.py:231"),
+           "paged_prefill_attention_fused": (
+               "R4 Sq512 bf16", "src/repro_torch/csrc/paged_prefill_attention.cu",
+               "src/repro/kernels/paged_prefill_attention/kernel.py:271")}
+    kernels = []
+    for name, (case, source, replaces) in rep.items():
+        row = next(r for r in rows if r["kernel"] == name and r["case"] == case)
+        err = max(r["max_abs_err"] for r in rows
+                  if r["kernel"] == name and r["dtype"] == "bfloat16")
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": err, "ms": row["ms"],
+                        "plain_ms": row["plain_ms"],
+                        "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"],
+                        "library_ms": row["library_ms"], "shape": case})
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(
+        {"device": dev, "torch": torch.__version__, "cases": rows,
+         "serving": serving, "kernels": kernels,
+         "seconds": time.perf_counter() - t_all}, indent=1))
+    print(f"done in {time.perf_counter() - t_all:.1f}s")
+    print(json.dumps({"kernels": kernels}))
+    print(device_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

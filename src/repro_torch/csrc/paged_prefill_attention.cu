@@ -1,0 +1,113 @@
+// Ragged chunked-prefill attention over the fused KV pool, for Hopper
+// (sm_90a). Serves the engine's prefill rows and speculative-verify rows.
+//
+// Replaces the TPU kernel paged_prefill_attention_fused
+// (src/repro/kernels/paged_prefill_attention/kernel.py, _fused_kernel):
+// row r is a chunk of Sq queries at cache offset row_pos[r] with post-chunk
+// length lengths[r], attending over its pages through the block table with
+// causal, length and window masks and an optional softcap, fp32 online
+// softmax; partial != 0 returns the un-normalized state (acc, m, l).
+//
+// Bound on the H100: operations at the engine's chunk sizes. A q tile of
+// BQ tokens x G heads re-reads each live page, so a chunk of Sq tokens does
+// about 4*Sq*G*D flops per key against 4*D bytes of K and V per key (bf16):
+// Sq*G flops per byte, well above the 295 where HBM stops being the limit
+// for Sq >= 128. This first kernel does the products with scalar fp32 FMA
+// on shared-memory tiles, so it runs far below the tensor-core peak; what
+// its design does about the bound is prune: each (row, kv head, q tile)
+// loops only over pages [j_lo, j_hi) that some query of the tile can see
+// (causal frontier, window, length), with floor division so that negative
+// shard-local positions in partial mode stay exact. Query rows are
+// t*G + g, as in the TPU kernel, so a page is read once for all G heads.
+#include <algorithm>
+
+#include "paged_common.cuh"
+
+namespace {
+
+template <typename T>
+__global__ void __launch_bounds__(paged::kThreads)
+paged_prefill_attention_fused_kernel(
+    const T* __restrict__ q, const T* __restrict__ kv,
+    const int* __restrict__ block_tables, const int* __restrict__ row_pos,
+    const int* __restrict__ lengths, void* __restrict__ out,
+    float* __restrict__ m_out, float* __restrict__ l_out, int Sq, int Hkv,
+    int G, int D, int P, int ps, int n, float scale, int window, float softcap,
+    int partial, int block_q, int tile_pages) {
+  const int r = blockIdx.x, h = blockIdx.y, qi = blockIdx.z;
+  const int q0 = qi * block_q;
+  const int nt = min(block_q, Sq - q0);        // tokens in this q tile
+  const int pos = row_pos[r], length = lengths[r];
+  const int pages_needed = paged::floordiv(length + ps - 1, ps);
+  const int causal_hi = paged::floordiv(pos + q0 + nt - 1, ps) + 1;
+  const int j_hi = min(min(pages_needed, causal_hi), n);
+  int j_lo =
+      window > 0 ? max(paged::floordiv(pos + q0 - window + 1, ps), 0) : 0;
+  j_lo = min(j_lo, max(j_hi, 0));
+  const long tok0 = ((long)r * Sq + q0) * Hkv + h;   // (row, token q0, head h)
+  const long tok_stride = (long)Hkv * G * D;
+  void* o = partial ? (void*)(reinterpret_cast<float*>(out) + tok0 * G * D)
+                    : (void*)(reinterpret_cast<T*>(out) + tok0 * G * D);
+  paged::attend_rows<T>(
+      q + tok0 * G * D, tok_stride, o, partial ? m_out + tok0 * G : nullptr,
+      partial ? l_out + tok0 * G : nullptr, (long)Hkv * G,
+      kv + (size_t)h * P * 2 * ps * D, block_tables + (size_t)r * n, ps, D, G,
+      nt * G, pos + q0, length, window, scale, softcap, j_lo, j_hi,
+      tile_pages, partial != 0);
+}
+
+// Query tokens per block: as many as fit the block's rows (t*G + g), at
+// most kMaxBlockQ.
+constexpr int kMaxBlockQ = 64;
+
+template <typename T>
+int launch(const void* q, const void* kv, const int* bt, const int* row_pos,
+           const int* lengths, void* out, float* m_out, float* l_out, int R,
+           int Sq, int Hkv, int G, int D, int P, int ps, int n, float scale,
+           int window, float softcap, int partial, cudaStream_t stream) {
+  const int block_q = std::max(1, std::min(kMaxBlockQ, paged::max_rows(D) / G));
+  const int tile_pages = paged::tile_pages(block_q * G, ps, D, sizeof(T));
+  if (tile_pages == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      paged::smem_bytes(block_q * G, tile_pages * ps, D, sizeof(T));
+  cudaError_t err =
+      paged::reserve_smem(paged_prefill_attention_fused_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nq = (Sq + block_q - 1) / block_q;
+  if (R == 0 || Hkv == 0 || nq == 0) return 0;
+  paged_prefill_attention_fused_kernel<T>
+      <<<dim3(R, Hkv, nq), paged::kThreads, smem, stream>>>(
+          reinterpret_cast<const T*>(q), reinterpret_cast<const T*>(kv), bt,
+          row_pos, lengths, out, m_out, l_out, Sq, Hkv, G, D, P, ps, n, scale,
+          window, softcap, partial, block_q, tile_pages);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue when G query heads per kv head do not fit a block at
+// this D. Allocates nothing and does not synchronise: out (and m_out, l_out
+// when partial) are allocated by the caller, the launch goes on `stream`.
+int paged_prefill_attention_fused_launch(
+    const void* q, const void* kv, const int* block_tables, const int* row_pos,
+    const int* lengths, void* out, float* m_out, float* l_out, int R, int Sq,
+    int Hkv, int G, int D, int P, int ps, int n, float scale, int window,
+    float softcap, int partial, int is_bf16, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch<__nv_bfloat16>(q, kv, block_tables, row_pos, lengths, out,
+                                 m_out, l_out, R, Sq, Hkv, G, D, P, ps, n,
+                                 scale, window, softcap, partial, s);
+  return launch<float>(q, kv, block_tables, row_pos, lengths, out, m_out,
+                       l_out, R, Sq, Hkv, G, D, P, ps, n, scale, window,
+                       softcap, partial, s);
+}
+
+const char* paged_prefill_attention_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

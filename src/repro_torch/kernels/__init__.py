@@ -1,0 +1,12 @@
+"""Hand-written CUDA kernels for the serving hot path, each with a wrapper
+(``kernel.py``), its plain PyTorch version (``ref.py``) and the dispatch the
+model calls (``ops.py``):
+
+- ``paged_attention`` — decode GQA attention over the fused paged KV pool
+  ``[Hkv, P, 2, ps, D]`` through block tables (``csrc/paged_attention.cu``).
+- ``paged_prefill_attention`` — ragged chunked prefill over the same pool,
+  with per-(row, q tile) page-range pruning
+  (``csrc/paged_prefill_attention.cu``).
+- ``ref_common`` — the plain math both ``ref.py`` wrap.
+- ``build`` — nvcc build and ctypes loading of ``csrc/``.
+"""

@@ -1,0 +1,118 @@
+"""Build and load the CUDA kernels of ``repro_torch/csrc``.
+
+Each ``csrc/<name>.cu`` is compiled at first use by ``nvcc`` for ``sm_90a``
+into ``build/kernels/lib<name>-<hash>.so`` under the repository root (the
+hash covers the sources and flags, so an edited source rebuilds) and loaded
+with ``ctypes``. The sources expose plain C functions: no PyTorch headers,
+which keeps a build at seconds rather than minutes. A failed build raises;
+nothing falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Tuple
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("paged_attention", "paged_prefill_attention")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# Argument types of each library's launch function, in the order of the C
+# signatures in csrc/. Pointers and the stream are c_void_p: ctypes would
+# otherwise pass a Python int as a 32-bit int.
+SIGNATURES = {
+    "paged_attention": ("paged_attention_fused_launch", [
+        _P, _P, _P, _P,              # q, kv_pages, block_tables, lengths
+        _P, _P, _P,                  # out, m_out, l_out
+        _I, _I, _I, _I, _I, _I, _I,  # B, Hkv, G, D, P, ps, n
+        _F, _I, _F,                  # scale, window, softcap
+        _I, _I, _P]),                # partial, is_bf16, stream
+    "paged_prefill_attention": ("paged_prefill_attention_fused_launch", [
+        _P, _P, _P, _P, _P,          # q, kv_pages, block_tables, row_pos, lengths
+        _P, _P, _P,                  # out, m_out, l_out
+        _I, _I, _I, _I, _I, _I, _I, _I,  # R, Sq, Hkv, G, D, P, ps, n
+        _F, _I, _F,                  # scale, window, softcap
+        _I, _I, _P]),                # partial, is_bf16, stream
+}
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built with "
+                           "the CUDA toolkit's nvcc (PATH or /usr/local/cuda)")
+    return path
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[float, str]]:
+    """Compile every library of ``names`` that is not built yet, all nvcc
+    processes at once. Returns ``{name: (seconds, ptxas report)}`` for the
+    ones compiled here; raises RuntimeError if any build fails."""
+    todo = {n: _target(n) for n in names if not _target(n).exists()}
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name, out in todo.items():
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    report = {}
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+            continue
+        os.replace(tmp, out)
+        report[name] = (time.perf_counter() - t0, log)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return report
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name`` (built first if needed), with the
+    argument and return types of its launch function declared."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(_target(name)))
+        fn_name, argtypes = SIGNATURES[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _loaded[name] = lib
+    return lib
+
+
+def check(name: str, code: int) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if code != 0:
+        msg = getattr(library(name), f"{name}_error_string")(code).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {code} "
+                           f"({msg})")

@@ -1,0 +1,16 @@
+"""Dispatch of the paged-prefill kernel, as the model calls it (port of the
+reference ``paged_prefill_attention/ops.py``, single device only: the head-
+and sequence-sharded mesh paths are not ported yet)."""
+from __future__ import annotations
+
+from repro_torch.kernels.paged_prefill_attention.kernel import (
+    paged_prefill_attention_fused)
+
+
+def paged_prefill_attention_auto(q, kv_pages, block_tables, row_pos,
+                                 lengths, *, scale, window=0, softcap=0.0):
+    """Single-device dispatch: the CUDA kernel for tensors on the GPU, its
+    plain PyTorch version for tensors on the CPU."""
+    return paged_prefill_attention_fused(q, kv_pages, block_tables, row_pos,
+                                         lengths, scale=scale, window=window,
+                                         softcap=softcap)

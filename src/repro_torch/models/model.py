@@ -1,0 +1,294 @@
+"""Decoder LM over the paged KV cache (port of the paged path of the
+reference ``models/model.py``).
+
+Parameters are nested dicts mirroring the reference pytree: a list of
+*stacks*, each a list over the repeating period's slots whose leaves carry a
+leading ``[reps, ...]`` axis. ``forward`` loops over stacks and repetitions
+in Python where the reference uses ``lax.scan``. The paged cache mirrors the
+same structure, one fused pool ``[reps, Hkv, P, 2, ps, D]`` per slot, and
+the steps write it **in place** (the reference donates it).
+
+Only what the paged serving path of a pure-attention dense decoder needs is
+ported: ``forward`` raises ``NotImplementedError`` on every other config
+feature instead of computing something else.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import ATTN, DENSE, LOCAL_ATTN, ModelConfig
+from repro_torch.kernels.paged_attention.ops import paged_attention_auto
+from repro_torch.kernels.paged_prefill_attention.ops import (
+    paged_prefill_attention_auto)
+from repro_torch.models import attention as A
+from repro_torch.models.layers import apply_rope, mlp, rms_norm, softcap
+
+
+# =============================================================================
+# stack structure
+# =============================================================================
+def build_stacks(cfg: ModelConfig) -> list:
+    """Returns [(period_kinds, reps)] covering cfg.num_layers decoder layers."""
+    stacks = []
+    if cfg.first_k_dense:
+        mixer0 = cfg.layer_pattern[0]
+        stacks.append((((mixer0, DENSE),), cfg.first_k_dense))
+    period = tuple(
+        (cfg.layer_pattern[i % len(cfg.layer_pattern)],
+         cfg.ffn_pattern[i % len(cfg.ffn_pattern)])
+        for i in range(cfg.period)
+    )
+    stacks.append((period, cfg.num_pattern_reps))
+    return stacks
+
+
+def unsupported_features(cfg: ModelConfig) -> list:
+    """Config features this port does not compute yet (empty = supported)."""
+    found = []
+    for period, _ in build_stacks(cfg):
+        for mixer, ffn in period:
+            if mixer not in (ATTN, LOCAL_ATTN):
+                found.append(f"mixer {mixer!r}")
+            if ffn != DENSE:
+                found.append(f"ffn {ffn!r}")
+    for name in ("qk_norm", "post_norm", "embed_scale", "enc_dec"):
+        if getattr(cfg, name):
+            found.append(name)
+    if cfg.final_logit_softcap:
+        found.append("final_logit_softcap")
+    return sorted(set(found))
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    missing = unsupported_features(cfg)
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: the PyTorch port does not compute "
+            f"{', '.join(missing)} yet")
+
+
+# ---- paged cache -------------------------------------------------------------
+class PagedView(NamedTuple):
+    """Per-call paged-cache addressing shared by all layers.
+
+    ``block_tables``: [R, n] int32 logical->physical page map per batch row.
+    ``write_slots``:  [R*L] flat destination slot (page*page_size + offset)
+    for every token in the call, row-major; padding tokens point at the
+    reserved trash page."""
+
+    block_tables: torch.Tensor
+    write_slots: torch.Tensor
+
+
+def supports_paged_cache(cfg: ModelConfig) -> bool:
+    """Paged KV covers pure-attention decoders (ATTN/LOCAL_ATTN mixers)."""
+    return not cfg.enc_dec and set(cfg.layer_pattern) <= {ATTN, LOCAL_ATTN}
+
+
+PAGED_KV_LAYOUT = "fused-head-interleaved-v1"   # cache/upload versioning tag
+
+
+def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
+                     dtype=None, device=None) -> list:
+    """Zeroed fused KV page pools, one ``{"kv_pages": [reps, Hkv, num_pages,
+    2, page_size, Dh]}`` per period slot of each stack. ``num_pages``
+    includes any trash page the caller reserves."""
+    dtype = dtype or cfg.dtype
+    Hkv, Dh = cfg.num_kv_heads, cfg.resolved_head_dim
+    out = []
+    for period, reps in build_stacks(cfg):
+        slots = []
+        for mixer, _ in period:
+            if mixer not in (ATTN, LOCAL_ATTN):
+                raise ValueError(f"paged cache does not support mixer {mixer!r}")
+            slots.append({"kv_pages": torch.zeros(
+                (reps, Hkv, num_pages, 2, page_size, Dh), dtype=dtype,
+                device=device)})
+        out.append(slots)
+    return out
+
+
+# =============================================================================
+# blocks
+# =============================================================================
+def _qkv(cfg: ModelConfig, p, x, positions):
+    B, Sq, _ = x.shape
+    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = (x @ p["wq"]).reshape(B, Sq, H, Dh)
+    k = (x @ p["wk"]).reshape(B, Sq, Hkv, Dh)
+    v = (x @ p["wv"]).reshape(B, Sq, Hkv, Dh)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    # kv-major q layout: query head h belongs to kv head h // G
+    return q.reshape(B, Sq, Hkv, H // Hkv, Dh), k, v
+
+
+def _attn_scale(cfg: ModelConfig) -> float:
+    return cfg.attn_scale or 1.0 / math.sqrt(cfg.resolved_head_dim)
+
+
+def _positions(mode, pos, lengths, Sq):
+    if mode == "paged_decode":
+        return (lengths.long() - 1)[:, None]                 # [B, 1]
+    return pos.long()[:, None] + torch.arange(Sq, device=pos.device)[None, :]
+
+
+def attn_block(cfg, p, x, kv_pages, *, mode, pos, lengths, window, paged):
+    """Write the call's K/V into the layer's pool ``kv_pages`` (in place)
+    first, then attend (decode ``lengths`` count the token being written).
+    Returns the block's output."""
+    B, Sq, _ = x.shape
+    xin = rms_norm(x, p["ln"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, p, xin, _positions(mode, pos, lengths, Sq))
+    scale = _attn_scale(cfg)
+    kvp = A.write_pages_fused(kv_pages, k, v, paged.write_slots)
+    if mode == "paged_chunk":
+        o = paged_prefill_attention_auto(
+            q, kvp, paged.block_tables, pos, lengths, scale=scale,
+            window=window, softcap=cfg.attn_logit_softcap)
+    elif mode == "paged_decode":
+        H, Dh = cfg.num_heads, cfg.resolved_head_dim
+        o = paged_attention_auto(q[:, 0].reshape(B, H, Dh), kvp,
+                                 paged.block_tables, lengths, scale=scale,
+                                 window=window,
+                                 softcap=cfg.attn_logit_softcap)
+    else:
+        raise ValueError(mode)
+    o = o.reshape(B, Sq, cfg.num_heads * cfg.resolved_head_dim)
+    return o @ p["wo"]
+
+
+def _ffn_apply(cfg, slot, x):
+    return mlp(slot["ffn"], rms_norm(x, slot["ffn"]["ln"], cfg.norm_eps),
+               cfg.activation)
+
+
+def _rep(tree, r: int):
+    """Slice repetition ``r`` out of every ``[reps, ...]`` leaf."""
+    if isinstance(tree, dict):
+        return {k: _rep(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+def forward(cfg: ModelConfig, params, tokens, *, cache, mode: str, pos=None,
+            lengths=None, paged: PagedView):
+    """Paged forward (``mode`` "paged_chunk" or "paged_decode"). Returns
+    (final-normed hidden [B, S, d], cache updated in place)."""
+    check_supported(cfg)
+    x = params["embed"][tokens.long()]
+    for i, (period, reps) in enumerate(build_stacks(cfg)):
+        for r in range(reps):
+            for j, (mixer, _) in enumerate(period):
+                slot = _rep(params["stacks"][i][j], r)
+                window = cfg.sliding_window if mixer == LOCAL_ATTN else 0
+                x = x + attn_block(cfg, slot["attn"], x,
+                                   cache[i][j]["kv_pages"][r], mode=mode,
+                                   pos=pos, lengths=lengths, window=window,
+                                   paged=paged)
+                x = x + _ffn_apply(cfg, slot, x)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), cache
+
+
+# ---- sampling ---------------------------------------------------------------
+def _head(cfg, params, x):
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return softcap(x @ w, cfg.final_logit_softcap)
+
+
+def _greedy_sample(cfg: ModelConfig, params, hidden) -> torch.Tensor:
+    """Greedy sampling fused over the LM head on the device: [..., d] ->
+    int32 token ids [...]; the engine never reads logits back."""
+    return torch.argmax(_head(cfg, params, hidden), dim=-1).to(torch.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sampling:
+    """On-device sampling spec for the paged steps. ``temperature <= 0`` is
+    exact greedy argmax. Otherwise each dispatch draws Gumbel noise from a
+    ``torch.Generator`` seeded from ``(seed, nonce)``: the engine passes a
+    per-dispatch nonce, so a run is reproducible for a fixed seed (the
+    stream differs from the reference's, whose generator is JAX's)."""
+
+    temperature: float = 0.0
+    top_k: int = 0
+    seed: int = 0
+
+    @property
+    def greedy(self) -> bool:
+        return self.temperature <= 0.0
+
+
+def _sample_tokens(cfg: ModelConfig, params, hidden,
+                   sampling: Optional[Sampling], nonce) -> torch.Tensor:
+    """LM head + token selection on the device: ``hidden`` [..., d] ->
+    int32 token ids [...]. Temperature / top-k sampling uses the Gumbel-max
+    trick with noise independent per row and position."""
+    if sampling is None or sampling.greedy or nonce is None:
+        return _greedy_sample(cfg, params, hidden)
+    logits = _head(cfg, params, hidden).float() / sampling.temperature
+    if 0 < sampling.top_k < logits.shape[-1]:
+        kth = torch.topk(logits, sampling.top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits >= kth, logits,
+                             torch.full_like(logits, torch.finfo(logits.dtype).min))
+    gen = torch.Generator(device=logits.device)
+    gen.manual_seed((int(sampling.seed) << 32) ^ int(nonce))
+    u = torch.rand(logits.shape, generator=gen, device=logits.device)
+    gumbel = -torch.log(-torch.log(u.clamp_(min=1e-20)))
+    return torch.argmax(logits + gumbel, dim=-1).to(torch.int32)
+
+
+# ---- user-facing steps ------------------------------------------------------
+def paged_chunk_step(cfg: ModelConfig, params, tokens, cache, row_pos, *,
+                     row_lens, block_tables, write_slots, logits_at,
+                     sampling: Optional[Sampling] = None, nonce=None):
+    """Fused ragged chunked-prefill step over the paged cache: ``tokens``
+    [R, L] holds each request's (bucket-padded) chunk, ``row_pos`` [R] its
+    cache offset, ``row_lens`` [R] its post-chunk length, ``logits_at`` [R]
+    the index of its last real token. Returns (token_ids [R] int32, cache)."""
+    x, cache = forward(cfg, params, tokens, cache=cache, mode="paged_chunk",
+                       pos=row_pos, lengths=row_lens,
+                       paged=PagedView(block_tables, write_slots))
+    rows = torch.arange(x.shape[0], device=x.device)
+    sel = x[rows, logits_at.long()]
+    return _sample_tokens(cfg, params, sel, sampling, nonce), cache
+
+
+def paged_decode_step(cfg: ModelConfig, params, tokens, cache, *, lengths,
+                      block_tables, write_slots,
+                      sampling: Optional[Sampling] = None, nonce=None):
+    """One decode step for a ragged row batch over the paged cache.
+    ``lengths`` [R] counts each row's tokens *including* the one being
+    written. Returns (token_ids [R] int32, cache)."""
+    x, cache = forward(cfg, params, tokens, cache=cache, mode="paged_decode",
+                       lengths=lengths,
+                       paged=PagedView(block_tables, write_slots))
+    return _sample_tokens(cfg, params, x[:, -1], sampling, nonce), cache
+
+
+def paged_spec_step(cfg: ModelConfig, params, tokens, cache, row_pos, *,
+                    row_lens, block_tables, write_slots,
+                    sampling: Optional[Sampling] = None, nonce=None):
+    """Speculative **verify** step through the ragged paged-prefill path.
+
+    ``tokens`` [R, S] holds each row's pending token followed by its draft
+    candidates (bucket-padded past ``n_i = row_lens_i - row_pos_i``).
+    ``out[:, j]`` is the model's choice given the context through input
+    position ``j``; draft ``tokens[:, j+1]`` is accepted iff every earlier
+    draft matched. Returns ``(payload int32 [R * (S+1)], cache)``: per row
+    ``[accepted, out_0 .. out_{S-1}]``."""
+    S = tokens.shape[1]
+    x, cache = forward(cfg, params, tokens, cache=cache, mode="paged_chunk",
+                       pos=row_pos, lengths=row_lens,
+                       paged=PagedView(block_tables, write_slots))
+    out = _sample_tokens(cfg, params, x, sampling, nonce)          # [R, S]
+    n_real = (row_lens.long() - row_pos.long())[:, None]
+    jidx = torch.arange(1, S, device=x.device)[None, :]
+    matches = (tokens[:, 1:] == out[:, :-1]) & (jidx < n_real)
+    accepted = torch.cumprod(matches.to(torch.int32), dim=1).sum(dim=1)
+    payload = torch.cat([accepted[:, None].to(torch.int32), out], dim=1)
+    return payload.reshape(-1).to(torch.int32), cache

@@ -1,0 +1,104 @@
+"""Model parameters of the PyTorch port.
+
+* ``init_params(cfg, seed, device)`` draws the reference's distributions
+  (``models/layers.py`` ``dense_init``/``embed_init`` and ``init_params`` in
+  ``models/model.py``) with a ``torch.Generator``, directly on the device:
+  normal * 1/sqrt(fan_in) for dense weights, normal * 0.02 for the
+  embedding, zeros for norm weights (applied as ``1 + w``). This is how the
+  full-width model gets its weights on the card; the numbers differ from
+  JAX's for the same seed.
+* ``from_jax_numpy(cfg, tree)`` carries the reference's ``init_params``
+  pytree (or a paged cache from ``init_paged_cache``), given as numpy
+  arrays, across unchanged, so the tests can feed both frameworks the same
+  weights. Stacks keep their ``[reps, ...]`` leading axis.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import dense_init, embed_init
+from repro_torch.models.model import build_stacks, check_supported
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":          # ml_dtypes bfloat16 from JAX
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _convert(tree, device):
+    if isinstance(tree, dict):
+        return {k: _convert(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_convert(v, device) for v in tree]
+    return _tensor(tree, device)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def from_jax_numpy(cfg: ModelConfig, tree, device="cpu"):
+    """Nested dicts/lists of numpy arrays -> the same structure of tensors
+    on ``device`` (dtypes kept; bf16 arrays included). For a parameter tree
+    (a dict with ``"stacks"``) or a paged cache (a list of stacks), every
+    stacked leaf must carry ``cfg``'s repetition count as its leading axis."""
+    out = _convert(tree, device)
+    stacks = out.get("stacks") if isinstance(out, dict) else out
+    if isinstance(stacks, list):
+        built = build_stacks(cfg)
+        if len(stacks) != len(built):
+            raise ValueError(f"{len(stacks)} stacks, {cfg.name} has "
+                             f"{len(built)}")
+        for (_, reps), stack in zip(built, stacks):
+            for leaf in _leaves(stack):
+                if leaf.shape[0] != reps:
+                    raise ValueError(f"stacked leaf of shape "
+                                     f"{tuple(leaf.shape)}: {cfg.name} "
+                                     f"repeats its period {reps} times")
+    return out
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
+    """Random parameters in the reference's structure and distributions,
+    for the configs the port computes (pure attention + dense MLP)."""
+    check_supported(cfg)
+    device = torch.device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    d, H, Hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    Dh, dt = cfg.resolved_head_dim, cfg.param_dtype
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    def dense(reps, fan_in, fan_out):
+        return dense_init(gen, (reps, fan_in, fan_out), fan_in, dt, device)
+
+    params = {"embed": embed_init(gen, cfg.vocab_size, d, dt, device),
+              "final_norm": zeros(d), "stacks": []}
+    for period, reps in build_stacks(cfg):
+        params["stacks"].append([{
+            "attn": {"ln": zeros(reps, d),
+                     "wq": dense(reps, d, H * Dh),
+                     "wk": dense(reps, d, Hkv * Dh),
+                     "wv": dense(reps, d, Hkv * Dh),
+                     "wo": dense(reps, H * Dh, d)},
+            "ffn": {"ln": zeros(reps, d),
+                    "wi_gate": dense(reps, d, cfg.d_ff),
+                    "wi_up": dense(reps, d, cfg.d_ff),
+                    "wo": dense(reps, cfg.d_ff, d)},
+        } for _ in period])
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense(1, d, cfg.vocab_size)[0]
+    return params

@@ -1,0 +1,1255 @@
+"""Paged serving engine: SlidingServe driving the PyTorch model on the GPU.
+
+Port of the paged mode of the reference ``serving/engine.py``. KV lives in
+physical pages handed out by :class:`BlockAllocator`, the single admission
+and preemption authority (admit on free blocks, grow per emitted token,
+evict-and-recompute the lowest-priority owner when growth fails). A
+scheduler ``Decision`` runs as at most two fused dispatches of the row
+ladder (more only when a round exceeds ``ROW_BUCKETS[-1]`` rows or the top
+chunk bucket, or when speculative verify rows join decode and prefill rows):
+one ragged chunked-prefill batch through the paged-prefill kernel and one
+ragged decode batch through the paged-attention kernel.
+
+The hot path syncs with the device once per round. Both steps sample on the
+device and return int32 token ids; the engine runs one round ahead of the
+GPU (PyTorch launches are asynchronous), uploads its host-built operands
+from pinned buffers with ``non_blocking=True``, and reads round N's ids back
+with a single ``torch.cat(...).cpu()`` after round N+1's admission,
+scheduling and numpy assembly are done. Block-table uploads are cached by
+content. ``overlap=False`` syncs every round at once with one transfer per
+row, for A/B profiling.
+
+Not ported yet: slot mode for archs whose state is not paged (they raise),
+and the mesh.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import enum
+import heapq
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.scheduler import KVPressure, SchedulerBase
+from repro_torch.models.model import (PAGED_KV_LAYOUT, Sampling,
+                                      init_paged_cache, paged_chunk_step,
+                                      paged_decode_step, paged_spec_step,
+                                      supports_paged_cache)
+from repro_torch.params import init_params
+from repro_torch.serving.block_allocator import BlockAllocator
+from repro_torch.serving.drafter import DrafterBase, NGramDrafter
+from repro_torch.serving.request import ReqState, Request
+
+# chunk-length ladder for shape bucketing; allocations above the top rung
+# are split across dispatches instead of being silently truncated.
+CHUNK_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
+
+# fused-batch *row* ladder; row counts above the top rung split across
+# dispatches, so the set of dispatch shapes stays bounded.
+ROW_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+
+
+def _bucket(n: int, buckets=CHUNK_BUCKETS) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return buckets[-1]
+
+
+def _row_bucket(n: int) -> int:
+    return _bucket(n, ROW_BUCKETS)
+
+
+def _pow2(n: int, lo: int = 1) -> int:
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means the GPU. A CUDA device without a card raises: the
+    engine never falls back to the CPU on its own."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("EngineCore: no CUDA device is available; pass "
+                           "device='cpu' explicitly to run on the CPU")
+    return device
+
+
+class EventKind(enum.Enum):
+    QUEUED = "queued"            # request handed to the engine (arrival)
+    ADMITTED = "admitted"        # KV reserved; request is executable
+    FIRST_TOKEN = "first_token"  # first output token (token id attached)
+    TOKEN = "token"              # subsequent output token (token id attached)
+    FINISHED = "finished"        # reason: "length" (max_output) | "stop" (EOS)
+    EVICTED = "evicted"          # relegated by KV pressure; will re-prefill
+    ABORTED = "aborted"          # cancelled via EngineCore.abort()
+
+
+@dataclasses.dataclass
+class EngineEvent:
+    """One request-lifecycle transition, as observed by ``step()``. ``t`` is
+    seconds on the engine clock; for FIRST_TOKEN/TOKEN it is the readback
+    time, one round after dispatch."""
+
+    kind: EventKind
+    rid: int
+    t: float
+    token: Optional[int] = None
+    reason: str = ""
+
+
+@dataclasses.dataclass
+class EngineStats:
+    iterations: int = 0
+    prefill_calls: int = 0        # fused chunk dispatches
+    decode_calls: int = 0
+    compiled_shapes: int = 0      # distinct dispatch shapes seen
+    evictions: int = 0
+    aborted: int = 0              # requests cancelled via abort()
+    max_concurrency: int = 0      # peak simultaneously-admitted requests
+    max_round_calls: int = 0      # peak model dispatches in one scheduler round
+    # ---- prefix-cache accounting --------------------------------------------
+    cache_hit_tokens: int = 0     # prompt tokens served from frozen pages
+    prompt_tokens: int = 0        # prompt tokens admitted (hit-rate denominator)
+    prefill_tokens: int = 0       # prompt tokens actually computed
+    decode_tokens: int = 0        # output tokens computed (decode-step rows)
+    deferred_admissions: int = 0  # admission rounds a follower waited for an
+                                  # in-flight leader to commit a shared prefix
+    # ---- zero-sync hot-path accounting ---------------------------------------
+    token_readbacks: int = 0      # device->host token-id transfers
+    sync_s: float = 0.0           # wall time blocked waiting on the device
+    dispatch_s: float = 0.0       # wall time issuing (async) model dispatches
+    device_busy_s: float = 0.0    # wall covered by an in-flight round
+    host_s: float = 0.0           # wall with NO round in flight
+    reused_uploads: int = 0       # block-table uploads served from device cache
+    # ---- speculative decoding (spec_k > 0) -----------------------------------
+    spec_calls: int = 0           # fused verify dispatches
+    spec_rounds: int = 0          # rounds that dispatched >=1 verify row
+    spec_rows: int = 0            # verify rows read back
+    spec_drafts: int = 0          # draft tokens proposed (verify width - 1)
+    spec_accepted: int = 0        # draft tokens the model accepted
+    spec_emitted: int = 0         # tokens emitted by verify rows
+    # ---- per-SLO-class breakdown ---------------------------------------------
+    finished_by_class: Dict[str, int] = dataclasses.field(default_factory=dict)
+    evicted_by_class: Dict[str, int] = dataclasses.field(default_factory=dict)
+    aborted_by_class: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class _InflightRound:
+    """One dispatched-but-not-read-back scheduler round."""
+
+    toks: List                    # device int32 vectors, one per dispatch
+    emits: List[Tuple[int, int]]  # (rid, row in the concatenated tok vector)
+    t_dispatch: float             # perf_counter at dispatch
+    executed_batch: List = dataclasses.field(default_factory=list)
+    # (req, token index, was_first, was_finish): timestamps provisionally
+    # stamped at dispatch, corrected to readback time at flush.
+    stamped: List = dataclasses.field(default_factory=list)
+    # speculative verify rows: (rid, base offset of the row's [accepted,
+    # out_0..out_{Lb-1}] span in the concatenated vector, Lb, n_real, start).
+    spec_emits: List[Tuple[int, int, int, int, int]] = \
+        dataclasses.field(default_factory=list)
+
+
+class EngineCore:
+    """Continuous-batching engine core over the paged KV cache, driven one
+    scheduler round at a time: ``add_request(req, prompt)`` → ``step()``
+    (repeat while ``has_work()``) → per-round ``EngineEvent`` lists;
+    ``abort(rid)`` cancels a request and releases its pages at once;
+    ``serve(requests)`` is the offline wrapper over the same loop.
+
+    ``params``: the model's parameters (``repro_torch.params``); drawn from
+    ``seed`` on ``device`` when omitted. ``device``: the GPU by default;
+    raises when there is none. ``cache_mode`` must resolve to ``"paged"``.
+    ``prefix_cache`` reuses frozen full pages across requests sharing a
+    prefix; greedy tokens are the same with it on or off. ``spec_k > 0``
+    turns decode rows into speculative verify rows (n-gram drafter).
+    """
+
+    def __init__(self, cfg: ModelConfig, scheduler: SchedulerBase, *,
+                 cache_mode: str = "auto",
+                 max_slots: int = 8, max_len: int = 512,
+                 kv_capacity_tokens: Optional[int] = None,
+                 page_size: int = 16, decode_reserve_tokens: int = 64,
+                 overlap: bool = True, prefix_cache: bool = True,
+                 defer_shared: bool = True,
+                 spec_k: int = 0, drafter: Optional[DrafterBase] = None,
+                 spec_class_caps: Optional[Dict[int, int]] = None,
+                 temperature: float = 0.0, top_k: int = 0,
+                 sample_seed: int = 0, seed: int = 0,
+                 params=None, device=None):
+        if cache_mode == "auto":
+            cache_mode = "paged" if supports_paged_cache(cfg) else "slot"
+        if cache_mode != "paged" or not supports_paged_cache(cfg):
+            raise ValueError(
+                f"{cfg.name}: the PyTorch engine serves the paged cache of "
+                f"pure-attention decoders only (slot mode is not ported)")
+        self.cache_mode = cache_mode
+        self.cfg = cfg
+        self.sched = scheduler
+        self.max_slots = max_slots
+        self.max_len = max_len
+        self.overlap = overlap
+        self.device = resolve_device(device)
+        self.params = (init_params(cfg, seed, self.device) if params is None
+                       else params)
+        self.stats = EngineStats()
+        self._tokens_out: Dict[int, List[int]] = {}
+        self._seen_shapes = set()
+        self._resumed: set = set()    # evicted mid-decode; re-prefill, no emit
+        self._round_calls = 0
+        self._last_round_evictions = 0
+        self._t0 = time.perf_counter()
+
+        # ---- step-API state --------------------------------------------------
+        self._pending: List[Tuple[float, int, Request]] = []  # future arrivals
+        self._seq = 0                                  # heap tie-break counter
+        self._queued: collections.deque = collections.deque()  # arrived, no KV
+        self._active: List[Request] = []                        # KV-resident
+        self._done: List[Request] = []                          # FINISHED
+        self._aborted: List[Request] = []                       # ABORTED
+        self._prompts: Dict[int, np.ndarray] = {}
+        self._reqs: Dict[int, Request] = {}     # rid -> live (unretired) req
+        self._events: List[EngineEvent] = []
+        self._progress = "idle"   # "executed" | "empty" | "no-decision" | "idle"
+        self._inflight: Optional[_InflightRound] = None
+
+        # ---- speculative decoding + sampling policy --------------------------
+        self.spec_k = int(spec_k)
+        self.drafter = drafter or (NGramDrafter() if self.spec_k else None)
+        self.spec_class_caps = dict(spec_class_caps or {})
+        self.sampling = (Sampling(temperature=temperature, top_k=top_k,
+                                  seed=sample_seed)
+                         if temperature > 0 else None)
+        self._sample_nonce = 0          # monotonic per-dispatch RNG fold
+        self._round_spec_rids: set = set()
+        self._spec_acc_mean = 0.0       # EMA of accepted length per verify row
+        self._spec_acc_m2 = 0.0         # EMA of its square (for the std)
+        self._spec_draft_ema = 0.0      # EMA of drafts per decode-eligible row
+
+        self.prefix_cache = bool(prefix_cache)
+        # dependency-aware admission defer (in-flight burst sharing): when K
+        # concurrent requests share an uncommitted prefix, followers wait for
+        # the leader to commit the shared pages instead of prefilling it K
+        # times. Only meaningful with the prefix cache on.
+        self.defer_shared = bool(defer_shared) and self.prefix_cache
+        self._defer_rounds: Dict[int, int] = {}   # rid -> rounds deferred
+        self._defer_cap = 512                     # livelock safety valve
+
+        capacity = kv_capacity_tokens or max_slots * max_len
+        self.alloc = BlockAllocator(capacity, page_size)
+        self.page_size = page_size
+        self.decode_reserve = decode_reserve_tokens
+        # one extra physical page (the last) is the trash page: padding
+        # tokens' KV writes land there and are never read back.
+        self.cache = init_paged_cache(cfg, self.alloc.num_blocks + 1,
+                                      page_size, device=self.device)
+        self._trash_slot = self.alloc.num_blocks * page_size
+        self._length: Dict[int, int] = {}     # tokens resident per rid
+        self._folded: Dict[int, int] = {}     # gen tokens folded on evict
+        self._dev_cache: Dict[Tuple, Tuple[np.ndarray, torch.Tensor]] = {}
+
+    def shard_info(self) -> Dict:
+        """KV-pool accounting in the reference's record shape (one device:
+        the pool is not partitioned)."""
+        info = {"mesh": None, "kv_partition": "none", "kv_shards": 1,
+                "kv_heads_per_shard": self.cfg.num_kv_heads}
+        info.update(self.alloc.shard_stats(1))
+        return info
+
+    def _now(self) -> float:
+        return time.perf_counter() - self._t0
+
+    def now(self) -> float:
+        """Seconds on the engine clock (what event timestamps and request
+        arrivals are measured against)."""
+        return self._now()
+
+    # =========================================================================
+    # step API: add_request / abort / step / has_work
+    # =========================================================================
+    @staticmethod
+    def _bump(d: Dict[str, int], cls: str) -> None:
+        d[cls] = d.get(cls, 0) + 1
+
+    def _event(self, kind: EventKind, rid: int, t: float,
+               token: Optional[int] = None, reason: str = "") -> None:
+        self._events.append(EngineEvent(kind, rid, t, token, reason))
+
+    def _drain_events(self) -> List[EngineEvent]:
+        evts, self._events = self._events, []
+        return evts
+
+    def add_request(self, req: Request, prompt: Sequence[int]) -> None:
+        """Hand a request to the engine. ``req.arrival`` is on the engine
+        clock: a future arrival is held back, a past/now arrival joins the
+        admission queue immediately."""
+        if req.rid in self._reqs:
+            raise ValueError(f"duplicate rid {req.rid}")
+        # transcripts outlive retirement (serve() exposes them), so recycling
+        # a finished request's rid would splice two streams together.
+        if req.rid in self._tokens_out:
+            raise ValueError(
+                f"rid {req.rid} reuses a finished request's id on this engine")
+        self._reqs[req.rid] = req
+        self._prompts[req.rid] = np.asarray(prompt, np.int32)
+        if req.arrival > self._now():
+            heapq.heappush(self._pending, (req.arrival, self._seq, req))
+            self._seq += 1
+        else:
+            self._queued.append(req)
+            self._event(EventKind.QUEUED, req.rid, self._now())
+
+    def abort(self, rid: int) -> List[EngineEvent]:
+        """Cancel a request at any stage and free its KV pages. Returns the
+        events this produced (the in-flight round is flushed first when it
+        emits for the request, so its final TOKEN events surface here)."""
+        r = self._reqs.get(rid)
+        if r is None or r.state in (ReqState.FINISHED, ReqState.ABORTED):
+            return []
+        if any(e[2].rid == rid for e in self._pending):
+            self._pending = [e for e in self._pending if e[2].rid != rid]
+            heapq.heapify(self._pending)
+        try:
+            self._queued.remove(r)
+        except ValueError:
+            pass
+        if r in self._active:
+            # settle the in-flight round first when it will *emit* for this
+            # request (that round's one readback happening early). A
+            # non-emitting row needs no flush: its page writes are ordered
+            # on the stream before any later owner of the pages writes them.
+            fr = self._inflight
+            if fr is not None and (any(x == rid for x, _ in fr.emits)
+                                   or any(s[0] == rid for s in fr.spec_emits)):
+                self._flush_round()
+                if r.state == ReqState.FINISHED:  # the flush finished it (stop)
+                    return self._drain_events()
+        r.state = ReqState.ABORTED
+        r.finish_time = self._now()
+        self._retire(r)
+        self._aborted.append(r)
+        self.stats.aborted += 1
+        self._bump(self.stats.aborted_by_class, r.slo_class)
+        self._event(EventKind.ABORTED, rid, self._now())
+        return self._drain_events()
+
+    def has_work(self) -> bool:
+        """True while any request is pending/queued/active or a dispatched
+        round still awaits its readback."""
+        return bool(self._pending or self._queued or self._active
+                    or self._inflight is not None)
+
+    @property
+    def progress(self) -> str:
+        """What the last ``step()`` accomplished: ``"executed"``, ``"empty"``
+        (decision evicted away), ``"no-decision"`` or ``"idle"``."""
+        return self._progress
+
+    def next_arrival(self) -> Optional[float]:
+        """Engine-clock time of the earliest not-yet-due request, or None."""
+        return self._pending[0][0] if self._pending else None
+
+    @property
+    def queue_depth(self) -> int:
+        """Requests that have arrived but hold no KV yet."""
+        return len(self._queued)
+
+    def outstanding_tokens(self) -> int:
+        """Token work still owed across every live request: uncomputed
+        prompt tokens plus remaining output budget."""
+        tot = 0
+        for r in self._reqs.values():
+            if r.state in (ReqState.FINISHED, ReqState.ABORTED):
+                continue
+            tot += r.remaining_prefill() + max(r.max_output - r.generated, 0)
+        return tot
+
+    def class_queue_depth(self, max_rank: int) -> int:
+        """Live requests at SLO-class rank ``max_rank`` or more critical."""
+        return sum(1 for r in self._reqs.values()
+                   if r.state not in (ReqState.FINISHED, ReqState.ABORTED)
+                   and r.class_rank() <= max_rank)
+
+    @property
+    def last_round_evictions(self) -> int:
+        """Evictions the most recent executed round caused."""
+        return self._last_round_evictions
+
+    def stalled(self) -> bool:
+        """Wedge predicate shared by every driver: the last ``step()`` made
+        no progress and nothing external will change that."""
+        if self._progress == "empty" and self._last_round_evictions == 0:
+            return True
+        return (self._progress == "idle" and not self._pending
+                and bool(self._queued))
+
+    def flush(self) -> List[EngineEvent]:
+        """Settle any in-flight round now (its one readback happens early)
+        and return the events that surfaced."""
+        self._flush_round()
+        return self._drain_events()
+
+    def _retire(self, r: Request) -> None:
+        """Release a request's execution resources (idempotent)."""
+        if r.rid in self.alloc.owners:
+            self.alloc.free(r.rid)
+        self._length.pop(r.rid, None)
+        self._folded.pop(r.rid, None)
+        self._resumed.discard(r.rid)
+        self._defer_rounds.pop(r.rid, None)
+        if r in self._active:
+            self._active.remove(r)
+        self._reqs.pop(r.rid, None)
+        # the prompt array is the dominant per-request memory; transcripts
+        # and the _done list stay (serve() returns them).
+        self._prompts.pop(r.rid, None)
+
+    # ---- in-flight burst sharing (dependency-aware admission defer) ----------
+    def _shared_whole_pages(self, a: np.ndarray, b: np.ndarray) -> int:
+        """Whole pages of common prefix between two token arrays."""
+        ps = self.page_size
+        n = min(len(a), len(b)) // ps * ps
+        if n == 0:
+            return 0
+        eq = a[:n] == b[:n]
+        if eq.all():
+            return n // ps
+        return int(np.argmin(eq)) // ps
+
+    def _defer_for_leader(self, r: Request) -> bool:
+        """True when admitting ``r`` now would recompute a prefix that an
+        in-flight leader is about to commit (bounded by ``_defer_cap``)."""
+        if not self.defer_shared:
+            return False
+        prompt = self._prompts[r.rid]
+        cap = (r.prompt_len - 1) // self.page_size * self.page_size
+        if cap == 0:
+            return False
+        matched_now = self.alloc.match_prefix(prompt,
+                                              max_tokens=r.prompt_len - 1)[1]
+        gain = 0
+        for lead in self._active:
+            if lead.state == ReqState.DECODING:
+                continue    # prompt pages already committed (or stalled)
+            if (lead.rid not in self.alloc.owners
+                    or self.alloc.commit_stalled(lead.rid)):
+                continue
+            lp = self._prompts.get(lead.rid)
+            if lp is None:
+                continue
+            shared = min(self._shared_whole_pages(prompt, lp)
+                         * self.page_size, cap)
+            if (shared > matched_now
+                    and self.alloc.committed_count(lead.rid)
+                    * self.page_size < shared):
+                gain = max(gain, shared - matched_now)
+        if gain >= self.page_size \
+                and self._defer_rounds.get(r.rid, 0) < self._defer_cap:
+            self._defer_rounds[r.rid] = self._defer_rounds.get(r.rid, 0) + 1
+            self.stats.deferred_admissions += 1
+            return True
+        return False
+
+    def _admit(self) -> None:
+        """Move due arrivals into the admission queue, then admit while the
+        free pool lasts (full prompt + decode reserve), latency-critical SLO
+        classes first, FIFO within a class."""
+        while self._pending and self._pending[0][0] <= self._now():
+            _, _, r = heapq.heappop(self._pending)
+            self._queued.append(r)
+            self._event(EventKind.QUEUED, r.rid, r.arrival)
+        if self._queued and self.alloc.free_blocks > 0:
+            if len(self._queued) > 1:
+                self._queued = collections.deque(
+                    sorted(self._queued, key=lambda r: r.class_rank()))
+            failures = 0
+            for _ in range(len(self._queued)):
+                r = self._queued.popleft()
+                if self._defer_for_leader(r):
+                    self._queued.append(r)
+                    failures += 1
+                    continue
+                # admission reserves the full prompt + decode headroom; with
+                # the prefix cache, frozen pages matching the prompt are
+                # reused (capped at prompt_len - 1 so one prompt token is
+                # always computed for the first token's logits).
+                ok = self.alloc.admit(
+                    r.rid, r.remaining_prefill() + self.decode_reserve,
+                    token_ids=(self._prompts[r.rid]
+                               if self.prefix_cache else None),
+                    match_limit=r.prompt_len - 1)
+                if ok:
+                    self._active.append(r)
+                    self._defer_rounds.pop(r.rid, None)
+                    matched = self.alloc.cached_tokens(r.rid)
+                    self._length[r.rid] = matched
+                    if matched:
+                        # prefill resumes after the frozen prefix
+                        r.prefilled = matched
+                        r.cached_prefix = matched
+                    self.stats.cache_hit_tokens += matched
+                    self.stats.prompt_tokens += r.prompt_len
+                    self._event(EventKind.ADMITTED, r.rid, self._now())
+                else:
+                    self._queued.append(r)
+                    failures += 1
+                if self.alloc.free_blocks == 0:
+                    # pool just drained: rotate the failures back to the
+                    # front so FIFO order survives the early exit.
+                    self._queued.rotate(failures)
+                    break
+        self.stats.max_concurrency = max(self.stats.max_concurrency,
+                                         len(self._active))
+
+    def step(self) -> List[EngineEvent]:
+        """Run one scheduler round: admit, schedule, dispatch, and flush the
+        *previous* round's deferred readback. Returns the events that
+        settled during this call; an idle step flushes any in-flight round
+        so the final tokens always surface."""
+        self._admit()
+        if not self._active:
+            self._flush_round()         # device is idle anyway
+            self._progress = "idle"
+            return self._drain_events()
+
+        waiting = [r for r in self._active if r.state == ReqState.WAITING]
+        prefilling = [r for r in self._active
+                      if r.state == ReqState.PREFILLING]
+        decoding = [r for r in self._active if r.state == ReqState.DECODING]
+        decision = self.sched.schedule(self._now(), waiting, prefilling,
+                                       decoding, kv=self._kv_pressure())
+        if decision is None:
+            self._flush_round()
+            self._progress = "no-decision"
+            return self._drain_events()
+
+        self._round_calls = 0
+        executed = self._execute_paged(decision)
+        if not executed:
+            # every entry was evicted away: the driver should yield so
+            # re-admission can make progress.
+            self._flush_round()
+            self._progress = "empty"
+            return self._drain_events()
+        self._progress = "executed"
+        t_now = self._now()
+        self.stats.iterations += 1
+        self.stats.max_round_calls = max(self.stats.max_round_calls,
+                                         self._round_calls)
+
+        executed_batch = []
+        stamped = []
+        for entry in executed:
+            r, n, ctx = entry[0], entry[1], entry[2]
+            drafts = entry[3] if len(entry) > 3 else 0
+            if r.state in (ReqState.FINISHED, ReqState.ABORTED):
+                continue    # finished by the flush inside execute: dead row
+            executed_batch.append((n, ctx, drafts) if drafts else (n, ctx))
+            emitted = False
+            was_first = r.first_token_time is None
+            if r.state == ReqState.DECODING:
+                if r.rid in self._round_spec_rids:
+                    continue    # verify row: emission is decided at the flush
+                r.emit_token(t_now)
+                self.stats.decode_tokens += 1
+                emitted = True
+            else:
+                r.advance_prefill(n)
+                if r.remaining_prefill() == 0:
+                    if r.rid in self._resumed:
+                        # re-prefill after eviction: the pending token was
+                        # already emitted; resume decoding silently.
+                        self._resumed.discard(r.rid)
+                        r.state = ReqState.DECODING
+                    else:
+                        r.emit_token(t_now)
+                        emitted = True
+            if emitted:
+                # the token value is on the device; events settle at flush.
+                stamped.append((r, len(r.token_times) - 1, was_first,
+                                r.state == ReqState.FINISHED))
+            if r.state == ReqState.FINISHED:
+                self._retire(r)
+                self._done.append(r)
+                self._bump(self.stats.finished_by_class, r.slo_class)
+        # readback + observe happen at the next round's flush; the executed
+        # batch is recorded on the in-flight round.
+        if self._inflight is not None:
+            self._inflight.executed_batch = executed_batch
+            self._inflight.stamped = stamped
+        self.alloc.check_invariants()
+        if not self.overlap:
+            self._flush_round()
+        return self._drain_events()
+
+    # =========================================================================
+    # allocator-backed growth / eviction
+    # =========================================================================
+    def _kv_pressure(self) -> KVPressure:
+        """Snapshot for the scheduler, against tokens actually *written*;
+        shared pages count once, refcount-0 cached pages are reclaimable.
+        ``evictions`` reports the previous round's churn."""
+        capacity = self.alloc.num_blocks * self.page_size
+        ps = self.page_size
+        computed = ps * self.alloc.referenced_committed_blocks() + sum(
+            max(self._length.get(rid, 0) - ps * self.alloc.committed_count(rid),
+                0)
+            for rid in self.alloc.owners)
+        return KVPressure(utilization=computed / capacity,
+                          free_tokens=capacity - computed,
+                          reclaimable_tokens=self.alloc.cached_blocks * ps,
+                          evictions=self._last_round_evictions)
+
+    # ---- prefix-cache plumbing ----------------------------------------------
+    def _content_upto(self, rid: int, upto: int) -> np.ndarray:
+        """Token content of ``rid``'s first ``upto`` cache positions."""
+        prompt = self._prompts[rid]
+        if upto <= len(prompt):
+            return prompt[:upto]
+        gen = self._tokens_out.get(rid, [])
+        folded = self._folded.get(rid, 0)
+        tail = np.asarray(gen[folded:folded + upto - len(prompt)], np.int32)
+        return np.concatenate([prompt, tail])
+
+    def _commit(self, rid: int, upto: Optional[int] = None) -> None:
+        """Freeze ``rid``'s fully-written pages into the content index, only
+        after the covering writes were dispatched (a later reader is a later
+        launch on the same stream). ``upto`` caps the freeze below the
+        resident length: unconfirmed draft positions must never freeze."""
+        if not self.prefix_cache or rid not in self.alloc.owners:
+            return
+        if upto is None:
+            upto = self._length.get(rid, 0)
+        if (upto // self.page_size > self.alloc.committed_count(rid)
+                and not self.alloc.commit_stalled(rid)):
+            self.alloc.commit(rid, self._content_upto(rid, upto), upto)
+
+    def cache_info(self) -> Dict:
+        """Prefix-cache hit/commit accounting."""
+        st = self.stats
+        info = {"prefix_cache": self.prefix_cache,
+                "hit_tokens": st.cache_hit_tokens,
+                "prompt_tokens": st.prompt_tokens,
+                "hit_rate": st.cache_hit_tokens / max(st.prompt_tokens, 1),
+                "prefill_tokens_computed": st.prefill_tokens}
+        info.update(self.alloc.cache_stats())
+        return info
+
+    # ---- speculative decoding plumbing --------------------------------------
+    def _transcript(self, rid: int) -> np.ndarray:
+        """Full visible token history (the drafter's lookup corpus)."""
+        gen = self._tokens_out.get(rid, [])
+        tail = gen[self._folded.get(rid, 0):]
+        if not tail:
+            return self._prompts[rid]
+        return np.concatenate([self._prompts[rid],
+                               np.asarray(tail, np.int32)])
+
+    def _spec_pressure(self) -> bool:
+        """Should latency-critical classes stop speculating?"""
+        if self._last_round_evictions > 0:
+            return True
+        backoff = getattr(self.sched, "kv_backoff_util", 0.92)
+        return self._kv_pressure().utilization > backoff
+
+    def _propose_drafts(self, r: Request,
+                        pressure: bool) -> Optional[np.ndarray]:
+        """Draft tokens for one decode-eligible row after the per-class cap,
+        the remaining output budget and the interactive-under-pressure
+        opt-out. None -> plain decode row."""
+        k = self.spec_class_caps.get(r.class_rank(), self.spec_k)
+        k = min(k, self.spec_k, r.max_output - r.generated - 1)
+        if k <= 0 or (pressure and r.class_rank() == 0):
+            return None
+        drafts = self.drafter.propose(self._transcript(r.rid), k)
+        if drafts is None or len(drafts) == 0:
+            return None
+        return np.asarray(drafts[:k], np.int32)
+
+    def _note_spec_accept(self, a: int) -> None:
+        """EMA mean/second moment of per-row accepted length."""
+        beta = 0.9
+        if self.stats.spec_rows <= 1:
+            self._spec_acc_mean, self._spec_acc_m2 = float(a), float(a * a)
+        else:
+            self._spec_acc_mean = (beta * self._spec_acc_mean
+                                   + (1 - beta) * a)
+            self._spec_acc_m2 = beta * self._spec_acc_m2 + (1 - beta) * a * a
+
+    def _feed_spec_signals(self, round_drafts: int, round_rows: int) -> None:
+        """Publish speculation price signals to the scheduler's forwarder."""
+        if round_rows <= 0:
+            return
+        beta = 0.8
+        per_row = round_drafts / round_rows
+        self._spec_draft_ema = (per_row if self.stats.spec_rounds <= 1
+                                else beta * self._spec_draft_ema
+                                + (1 - beta) * per_row)
+        F = getattr(self.sched, "F", None)
+        if F is not None and hasattr(F, "spec_draft_tokens"):
+            F.spec_draft_tokens = self._spec_draft_ema
+            var = max(self._spec_acc_m2 - self._spec_acc_mean ** 2, 0.0)
+            F.spec_len_std = var ** 0.5
+
+    def spec_info(self) -> Dict:
+        """Speculation accounting."""
+        st = self.stats
+        return {
+            "spec_k": self.spec_k,
+            "spec_rounds": st.spec_rounds,
+            "verify_rows": st.spec_rows,
+            "draft_tokens": st.spec_drafts,
+            "accepted_tokens": st.spec_accepted,
+            "acceptance_rate": st.spec_accepted / max(st.spec_drafts, 1),
+            "emitted_tokens": st.spec_emitted,
+            "tokens_per_verify_row": st.spec_emitted / max(st.spec_rows, 1),
+            "decode_tokens_per_round": st.decode_tokens / max(st.iterations, 1),
+        }
+
+    def _evict(self, victim: Request) -> None:
+        """Relegate ``victim`` (recompute on resume): drop its pages and fold
+        already-emitted tokens into its prompt so re-prefill rebuilds the
+        exact cache state."""
+        # folding reads the victim's emitted token *values*: settle the
+        # in-flight round first (its one readback, early).
+        self._flush_round()
+        if victim.rid not in self.alloc.owners:
+            return      # the flush just finished it (stop token)
+        prompts = self._prompts
+        self.alloc.evict(victim.rid)
+        self.stats.evictions += 1
+        self._bump(self.stats.evicted_by_class, victim.slo_class)
+        self._event(EventKind.EVICTED, victim.rid, self._now())
+        gen = self._tokens_out.get(victim.rid, [])
+        if victim.generated > 0:
+            # the cache held prompt + gen[:-1]; the newest token stays
+            # pending as the next decode input, so finishing the re-prefill
+            # must NOT emit. _folded guards repeat evictions.
+            folded = self._folded.get(victim.rid, 0)
+            rebuild = np.asarray(gen[folded:victim.generated - 1], np.int32)
+            if len(rebuild):
+                prompts[victim.rid] = np.concatenate(
+                    [prompts[victim.rid], rebuild])
+                victim.prompt_len += len(rebuild)
+            self._folded[victim.rid] = victim.generated - 1
+            victim.recomputed = victim.generated - 1
+            self._resumed.add(victim.rid)
+        victim.prefilled = 0
+        victim.cached_prefix = 0      # re-matched (if at all) at re-admission
+        victim.state = ReqState.WAITING
+        self._length.pop(victim.rid, None)
+        if victim in self._active:
+            self._active.remove(victim)
+        self._queued.append(victim)
+
+    def _grow_or_evict(self, req: Request, new_tokens: int,
+                       protected: set) -> bool:
+        """Grow ``req``'s allocation, evicting lowest-priority owners until
+        it fits (outside the decision first, then the least critical class,
+        then the newest arrival; never a more critical class than ``req``).
+        Returns False if capacity is exhausted even so."""
+        by_rid = {r.rid: r for r in self._active}
+        needy_rank = req.class_rank()
+
+        def rank_of(rid: int) -> int:
+            r = by_rid.get(rid)
+            return r.class_rank() if r is not None else needy_rank
+
+        while not self.alloc.grow(req.rid, new_tokens):
+            vid = self.alloc.pick_victim(
+                req.rid,
+                priority=lambda rid: (rid not in protected, rank_of(rid),
+                                      by_rid[rid].arrival if rid in by_rid else 0.0),
+                eligible=lambda rid: rank_of(rid) >= needy_rank)
+            if vid is None or vid not in by_rid:
+                return False
+            self._evict(by_rid.pop(vid))
+        return True
+
+    # ---- zero-sync plumbing --------------------------------------------------
+    def _readback(self, arr: torch.Tensor) -> np.ndarray:
+        """The single device→host transfer point of the hot path."""
+        self.stats.token_readbacks += 1
+        return arr.cpu().numpy()
+
+    def _to_dev(self, arr: np.ndarray) -> torch.Tensor:
+        """Host→device upload. On the GPU it goes through a pinned buffer
+        with ``non_blocking=True``; PyTorch's caching host allocator records
+        the copy's stream event and does not hand the pinned block out
+        again before the copy has completed."""
+        t = torch.from_numpy(np.array(arr, copy=True))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _flush_round(self) -> None:
+        """Materialize the in-flight round: one token-id readback, then
+        append emitted ids, correct provisional timestamps, emit token
+        events, decide stop-token termination and feed observe()."""
+        fr = self._inflight
+        if fr is None:
+            return
+        self._inflight = None
+        t0 = time.perf_counter()
+        joined = fr.toks[0] if len(fr.toks) == 1 else torch.cat(fr.toks)
+        if self.overlap:
+            vals = self._readback(joined)
+            toks = {idx: int(vals[idx]) for _, idx in fr.emits}
+        else:
+            # legacy profile: one transfer per emitting row (and the whole
+            # payload once more when verify rows ran).
+            toks = {idx: int(self._readback(joined[idx]))
+                    for _, idx in fr.emits}
+            if fr.spec_emits:
+                vals = self._readback(joined)
+        self.stats.sync_s += time.perf_counter() - t0
+        t_done = self._now()
+        by_rid = {r.rid: (r, k, wf, fin) for r, k, wf, fin in fr.stamped}
+        for rid, idx in fr.emits:
+            tok = toks[idx]
+            self._tokens_out.setdefault(rid, []).append(tok)
+            entry = by_rid.get(rid)
+            if entry is None:
+                continue
+            r, k, was_first, was_finish = entry
+            r.token_times[k] = t_done
+            if was_first:
+                r.first_token_time = t_done
+            self._event(EventKind.FIRST_TOKEN if was_first
+                        else EventKind.TOKEN, rid, t_done, token=tok)
+            if was_finish:
+                r.finish_time = t_done
+                self._event(EventKind.FINISHED, rid, t_done, reason="length")
+            elif r.state == ReqState.DECODING and r.hits_stop(tok):
+                # stop-token termination from the deferred readback; a row
+                # already assembled for the next round executes dead.
+                r.state = ReqState.FINISHED
+                r.finish_time = t_done
+                self._retire(r)
+                self._done.append(r)
+                self._bump(self.stats.finished_by_class, r.slo_class)
+                self._event(EventKind.FINISHED, rid, t_done, reason="stop")
+        for rid, base, Lb, n_real, start in fr.spec_emits:
+            # payload span [accepted, out_0 .. out_{Lb-1}]: emit out_0..out_a
+            # (a accepted drafts + the bonus token); rolling the resident
+            # length back makes the next round overwrite the rejected tail.
+            a = min(int(vals[base]), n_real - 1)
+            outs = [int(v) for v in vals[base + 1:base + 2 + a]]
+            r = self._reqs.get(rid)
+            self.stats.spec_rows += 1
+            self.stats.spec_drafts += n_real - 1
+            self._note_spec_accept(a)
+            if r is None or r.state in (ReqState.FINISHED, ReqState.ABORTED):
+                continue        # aborted between dispatch and flush
+            m = 0
+            finished_reason = ""
+            for tok in outs:
+                self._tokens_out.setdefault(rid, []).append(tok)
+                m += 1
+                r.emit_token(t_done)
+                self.stats.decode_tokens += 1
+                self._event(EventKind.TOKEN, rid, t_done, token=tok)
+                if r.state == ReqState.FINISHED:        # max_output reached
+                    finished_reason = "length"
+                    break
+                if r.hits_stop(tok):
+                    r.state = ReqState.FINISHED
+                    finished_reason = "stop"
+                    break
+            self.stats.spec_accepted += a
+            self.stats.spec_emitted += m
+            if rid in self._length:
+                self._length[rid] = start + m
+            if finished_reason:
+                r.finish_time = t_done
+                self._retire(r)
+                self._done.append(r)
+                self._bump(self.stats.finished_by_class, r.slo_class)
+                self._event(EventKind.FINISHED, rid, t_done,
+                            reason=finished_reason)
+        latency = time.perf_counter() - fr.t_dispatch
+        # dispatch->flush intervals are disjoint, so their sum is the wall
+        # time covered by an in-flight round.
+        self.stats.device_busy_s += latency
+        self.sched.observe(fr.executed_batch, latency, kv=self._kv_pressure())
+
+    def _upload_cached(self, kind, arr: np.ndarray) -> torch.Tensor:
+        """Host→device upload with content reuse: block tables are stable
+        across steady decode rounds, so the previous round's device buffer
+        is reused. Keyed per consumer ``kind`` and row group, and by the
+        pool layout tag."""
+        key = (kind, arr.shape, PAGED_KV_LAYOUT)
+        prev = self._dev_cache.get(key)
+        if prev is not None and np.array_equal(prev[0], arr):
+            self.stats.reused_uploads += 1
+            return prev[1]
+        dev = self._to_dev(arr)
+        self._dev_cache[key] = (arr, dev)
+        return dev
+
+    # ---- fused dispatch assembly ---------------------------------------------
+    def _page_slots(self, rid: int, positions: np.ndarray) -> np.ndarray:
+        pt = np.asarray(self.alloc.page_table(rid), np.int64)
+        return pt[positions // self.page_size] * self.page_size \
+            + positions % self.page_size
+
+    def lengths_of(self, req: Request) -> int:
+        return self._length.get(req.rid, 0)
+
+    def _assemble_chunk(self, batch: List[Tuple[Request, int, int]],
+                        prompts: Dict[int, np.ndarray]) -> dict:
+        """Numpy assembly of one fused ragged-prefill dispatch (host work
+        that runs while the previous round executes on the device)."""
+        R = len(batch)
+        Rb = _row_bucket(R)
+        Lb = _bucket(max(n for _, _, n in batch))
+        nb = _pow2(max(self.alloc.blocks_for(s + n) for _, s, n in batch))
+        tokens = np.zeros((Rb, Lb), np.int32)
+        row_pos = np.zeros((Rb,), np.int32)
+        row_lens = np.zeros((Rb,), np.int32)
+        logits_at = np.zeros((Rb,), np.int32)
+        tables = np.zeros((Rb, nb), np.int32)
+        slots = np.full((Rb, Lb), self._trash_slot, np.int64)
+        emit_rows: List[Tuple[int, int]] = []
+        for i, (r, start, n) in enumerate(batch):
+            tokens[i, :n] = prompts[r.rid][start:start + n]
+            row_pos[i] = start
+            row_lens[i] = start + n
+            logits_at[i] = n - 1
+            # only the page-table prefix covering start+n tokens belongs in
+            # the table (a split chunk grows the whole allocation up front).
+            need = self.alloc.blocks_for(start + n)
+            tables[i, :need] = self.alloc.page_table(r.rid)[:need]
+            slots[i, :n] = self._page_slots(r.rid, np.arange(start, start + n))
+            self._length[r.rid] = start + n
+            if start + n >= r.prompt_len and r.rid not in self._resumed:
+                emit_rows.append((r.rid, i))
+        return {"kind": "chunk", "tokens": tokens, "row_pos": row_pos,
+                "row_lens": row_lens, "logits_at": logits_at,
+                "tables": tables, "slots": slots, "emit_rows": emit_rows,
+                "Rb": Rb, "Lb": Lb, "nb": nb}
+
+    def _assemble_prefill(self, entries: List[Tuple[Request, int]],
+                          prompts: Dict[int, np.ndarray]) -> List[dict]:
+        """Split the decision's prefill rows over the chunk-length and row
+        ladders."""
+        asms: List[dict] = []
+        work = [[r, self.lengths_of(r), n] for r, n in entries]
+        while work:
+            step_batch = [(r, s, min(n, CHUNK_BUCKETS[-1])) for r, s, n in work]
+            for i in range(0, len(step_batch), ROW_BUCKETS[-1]):
+                asm = self._assemble_chunk(
+                    step_batch[i:i + ROW_BUCKETS[-1]], prompts)
+                asm["group"] = len(asms)
+                asms.append(asm)
+            nxt = []
+            for (r, s, n), (_, _, step) in zip(work, step_batch):
+                if n - step > 0:
+                    nxt.append([r, s + step, n - step])
+            work = nxt
+        return asms
+
+    def _assemble_decode(self, reqs: Sequence[Request]) -> dict:
+        """Numpy assembly of one fused decode dispatch; the input token ids
+        are filled in after the previous round's flush."""
+        R = len(reqs)
+        Rb = _row_bucket(R)
+        new_lens = [self._length[r.rid] + 1 for r in reqs]
+        pts = [self.alloc.page_table(r.rid) for r in reqs]
+        # full reserved page tables: stable bytes round over round, so the
+        # upload cache hits; pages past ceil(len/ps) are never read.
+        nb = _pow2(max(len(pt) for pt in pts))
+        tokens = np.zeros((Rb, 1), np.int32)
+        lengths = np.zeros((Rb,), np.int32)
+        tables = np.zeros((Rb, nb), np.int32)
+        slots = np.full((Rb,), self._trash_slot, np.int64)
+        for i, (r, pt) in enumerate(zip(reqs, pts)):
+            lengths[i] = new_lens[i]
+            tables[i, :len(pt)] = pt
+            slots[i] = self._page_slots(
+                r.rid, np.asarray([new_lens[i] - 1]))[0]
+            self._length[r.rid] += 1
+        return {"kind": "decode", "rids": [r.rid for r in reqs],
+                "tokens": tokens, "lengths": lengths, "tables": tables,
+                "slots": slots, "Rb": Rb, "nb": nb}
+
+    def _assemble_spec(self, batch: List[Tuple[Request, np.ndarray]]) -> dict:
+        """Numpy assembly of one fused speculative-verify dispatch: each row
+        is [pending token, draft_1..draft_k] at the request's resident
+        offset. Runs after the flush; the resident length advances over the
+        whole row and rolls back to ``start + emitted`` at the next flush."""
+        R = len(batch)
+        Rb = _row_bucket(R)
+        max_n = max(1 + len(d) for _, d in batch)
+        Lb = _pow2(max_n, lo=2)     # verify rows get their own narrow ladder
+        pts = [self.alloc.page_table(r.rid) for r, _ in batch]
+        nb = _pow2(max(len(pt) for pt in pts))
+        tokens = np.zeros((Rb, Lb), np.int32)
+        row_pos = np.zeros((Rb,), np.int32)
+        row_lens = np.zeros((Rb,), np.int32)
+        tables = np.zeros((Rb, nb), np.int32)
+        slots = np.full((Rb, Lb), self._trash_slot, np.int64)
+        rows: List[Tuple[int, int, int]] = []   # (rid, n_real, start)
+        for i, ((r, drafts), pt) in enumerate(zip(batch, pts)):
+            rid = r.rid
+            start = self._length[rid]
+            n = 1 + len(drafts)
+            tokens[i, 0] = self._tokens_out[rid][-1]
+            tokens[i, 1:n] = drafts
+            if n < Lb:
+                tokens[i, n:] = tokens[i, n - 1]   # pad; writes hit trash
+            row_pos[i] = start
+            row_lens[i] = start + n
+            tables[i, :len(pt)] = pt
+            slots[i, :n] = self._page_slots(rid, np.arange(start, start + n))
+            self._length[rid] = start + n
+            rows.append((rid, n, start))
+        return {"kind": "spec", "tokens": tokens, "row_pos": row_pos,
+                "row_lens": row_lens, "tables": tables, "slots": slots,
+                "rows": rows, "Rb": Rb, "Lb": Lb, "nb": nb}
+
+    def _dispatch(self, asm: dict) -> torch.Tensor:
+        """Issue one fused dispatch (asynchronous on the GPU); returns the
+        device token-id vector: [Rb] for decode/chunk, [Rb*(Lb+1)] payload
+        for spec. The sampling nonce advances per dispatch."""
+        nonce = self._sample_nonce
+        self._sample_nonce += 1
+        cfg, dev = self.cfg, self._to_dev
+        slots = dev(asm["slots"].reshape(-1).astype(np.int32))
+        if asm["kind"] == "decode":
+            self._note_shape(("decode", asm["Rb"], asm["nb"]))
+            toks, self.cache = paged_decode_step(
+                cfg, self.params, dev(asm["tokens"]), self.cache,
+                lengths=dev(asm["lengths"]),
+                block_tables=self._upload_cached(
+                    ("decode", asm.get("group", 0)), asm["tables"]),
+                write_slots=slots, sampling=self.sampling, nonce=nonce)
+            self.stats.decode_calls += 1
+        elif asm["kind"] == "spec":
+            self._note_shape(("spec", asm["Rb"], asm["Lb"], asm["nb"]))
+            toks, self.cache = paged_spec_step(
+                cfg, self.params, dev(asm["tokens"]), self.cache,
+                dev(asm["row_pos"]), row_lens=dev(asm["row_lens"]),
+                block_tables=self._upload_cached(
+                    ("spec", asm.get("group", 0)), asm["tables"]),
+                write_slots=slots, sampling=self.sampling, nonce=nonce)
+            self.stats.spec_calls += 1
+        else:
+            self._note_shape(("chunk", asm["Rb"], asm["Lb"], asm["nb"]))
+            toks, self.cache = paged_chunk_step(
+                cfg, self.params, dev(asm["tokens"]), self.cache,
+                dev(asm["row_pos"]), row_lens=dev(asm["row_lens"]),
+                block_tables=self._upload_cached(
+                    ("chunk", asm.get("group", 0)), asm["tables"]),
+                write_slots=slots, logits_at=dev(asm["logits_at"]),
+                sampling=self.sampling, nonce=nonce)
+            self.stats.prefill_calls += 1
+        self._round_calls += 1
+        return toks
+
+    def _note_shape(self, key) -> None:
+        if key not in self._seen_shapes:
+            self._seen_shapes.add(key)
+            self.stats.compiled_shapes += 1
+
+    # =========================================================================
+    # offline compatibility wrapper
+    # =========================================================================
+    def serve(self, requests: Sequence[Request],
+              prompts: Optional[Dict[int, np.ndarray]] = None,
+              max_wall_s: float = 300.0) -> Dict:
+        """Serve a complete request list (arrival times are wall-clock
+        offsets from this call) and block until everything finishes: resets
+        the engine clock, feeds every request through ``add_request`` and
+        drives ``step()``. The engine must be drained."""
+        if self.has_work():
+            raise RuntimeError(
+                "serve() on an engine with live requests (drain or use step())")
+        rng = np.random.default_rng(0)
+        prompts = prompts or {
+            r.rid: rng.integers(0, self.cfg.vocab_size, r.prompt_len).astype(np.int32)
+            for r in requests
+        }
+        self._t0 = time.perf_counter()
+        busy0 = self.stats.device_busy_s    # stats accumulate across serve()s
+        done0 = len(self._done)
+        for r in sorted(requests, key=lambda r: r.arrival):
+            self.add_request(r, prompts[r.rid])
+
+        empty_rounds = 0
+        while self.has_work() and self._now() < max_wall_s:
+            self.step()
+            if self._progress == "executed":
+                empty_rounds = 0
+            elif self._progress == "empty":
+                # every entry was evicted away: yield so re-admission can
+                # progress, but bail if nothing changed state either.
+                empty_rounds += 1
+                if self._last_round_evictions == 0 and empty_rounds >= 8:
+                    break
+                time.sleep(1e-3)
+            elif self._progress == "no-decision":
+                time.sleep(1e-3)
+            else:   # idle: nothing admitted/admissible (in-flight is flushed)
+                if self._pending:
+                    time.sleep(max(self._pending[0][0] - self._now(), 0.0)
+                               + 1e-4)
+                elif self._queued:   # arrived but nothing fits: wedged
+                    break
+
+        # the final flush's events have no step() caller to collect them.
+        self.flush()
+        wall = self._now()
+        self.stats.host_s = max(
+            wall - (self.stats.device_busy_s - busy0), 0.0)
+        return {
+            "finished": self._done[done0:],
+            "unfinished": [r for r in requests if r.state != ReqState.FINISHED],
+            "stats": self.stats,
+            "outputs": dict(self._tokens_out),
+            "wall": wall,
+        }
+
+    # ---- decision execution ----------------------------------------------------
+    def _execute_paged(self, decision) -> List[Tuple]:
+        """Grow allocations (evicting under pressure), assemble the round on
+        the host while the previous round still runs on the device, sync
+        once on the previous round's token ids, then dispatch the decision
+        as fused decode + speculative-verify + ragged prefill batches.
+
+        With ``spec_k > 0`` the round's one readback moves *before*
+        assembly: round N's accepted counts decide round N+1's write
+        positions, and drafting needs the newest token host-visible."""
+        prompts = self._prompts
+        protected = {r.rid for r, _ in decision.alloc}
+        ev0 = self.alloc.evictions
+        spec_on = self.spec_k > 0 and self.drafter is not None
+        if spec_on:
+            self._flush_round()
+        self._round_spec_rids = set()
+
+        def is_live(r):  # an earlier grow may have evicted a later entry
+            return r.rid in self.alloc.owners and r.state not in (
+                ReqState.FINISHED, ReqState.ABORTED)
+
+        pressure = self._spec_pressure() if spec_on else False
+        decode_rows: List[Request] = []
+        spec_rows: List[Tuple[Request, np.ndarray]] = []
+        prefill_rows: List[Tuple[Request, int]] = []
+        for r, n in decision.alloc:
+            if not is_live(r):
+                continue
+            if r.state == ReqState.DECODING:
+                drafts = self._propose_drafts(r, pressure) if spec_on else None
+                if drafts is not None and self._grow_or_evict(
+                        r, self._length[r.rid] + 1 + len(drafts), protected):
+                    spec_rows.append((r, drafts))
+                elif self._grow_or_evict(r, self._length[r.rid] + 1,
+                                         protected):
+                    decode_rows.append(r)
+            else:
+                n_exec = min(n, r.remaining_prefill())
+                if n_exec <= 0:
+                    continue
+                start = self._length.get(r.rid, 0)
+                if not self._grow_or_evict(r, start + n_exec, protected):
+                    continue
+                prefill_rows.append((r, n_exec))
+        decode_rows = [r for r in decode_rows if is_live(r)]
+        spec_rows = [(r, d) for r, d in spec_rows if is_live(r)]
+        prefill_rows = [(r, n) for r, n in prefill_rows if is_live(r)]
+        self._last_round_evictions = self.alloc.evictions - ev0
+        if not decode_rows and not spec_rows and not prefill_rows:
+            return []
+
+        # ---- host-side numpy assembly (device still busy with round N) ------
+        executed: List[Tuple] = []
+        decode_asms: List[dict] = []
+        if decode_rows:
+            ctxs = {r.rid: r.context_len() for r in decode_rows}
+            for i in range(0, len(decode_rows), ROW_BUCKETS[-1]):
+                asm = self._assemble_decode(decode_rows[i:i + ROW_BUCKETS[-1]])
+                asm["group"] = i // ROW_BUCKETS[-1]
+                decode_asms.append(asm)
+            executed += [(r, 1, ctxs[r.rid]) for r in decode_rows]
+        spec_asms: List[dict] = []
+        if spec_rows:
+            self.stats.spec_rounds += 1
+            for i in range(0, len(spec_rows), ROW_BUCKETS[-1]):
+                asm = self._assemble_spec(spec_rows[i:i + ROW_BUCKETS[-1]])
+                asm["group"] = i // ROW_BUCKETS[-1]
+                spec_asms.append(asm)
+            for r, drafts in spec_rows:
+                self._round_spec_rids.add(r.rid)
+                executed.append((r, 1 + len(drafts), r.context_len(),
+                                 len(drafts)))
+        if spec_on:
+            self._feed_spec_signals(
+                sum(len(d) for _, d in spec_rows),
+                len(decode_rows) + len(spec_rows))
+        chunk_asms: List[dict] = []
+        if prefill_rows:
+            ctxs = {r.rid: r.context_len() for r, _ in prefill_rows}
+            chunk_asms = self._assemble_prefill(prefill_rows, prompts)
+            executed += [(r, n, ctxs[r.rid]) for r, n in prefill_rows]
+            for r, n in prefill_rows:
+                self.stats.prefill_tokens += n
+                self._commit(r.rid)   # freeze pages this round fills
+
+        # ---- the round's single sync: round N's token ids -------------------
+        # (a no-op when spec_on already flushed above)
+        self._flush_round()
+
+        # ---- dispatch round N+1 (async) -------------------------------------
+        t_disp = time.perf_counter()
+        toks, emits, spec_emits, off = [], [], [], 0
+        for asm in decode_asms:
+            # decode inputs are round N's outputs, host-visible only now
+            for i, rid in enumerate(asm["rids"]):
+                r = self._reqs.get(rid)
+                if r is None or r.state in (ReqState.FINISHED,
+                                            ReqState.ABORTED):
+                    # finished by the flush above (stop token): the row runs
+                    # dead (KV write to the trash page, no emit).
+                    asm["slots"][i] = self._trash_slot
+                    continue
+                prev = self._tokens_out.get(rid)
+                asm["tokens"][i, 0] = prev[-1] if prev else 0
+                emits.append((rid, off + i))
+                # the write this row makes may complete a page whose content
+                # is host-known now: decode pages freeze too.
+                self._commit(rid)
+            toks.append(self._dispatch(asm))
+            off += asm["Rb"]
+        for asm in spec_asms:
+            toks.append(self._dispatch(asm))
+            W = asm["Lb"] + 1
+            for i, (rid, n_real, start) in enumerate(asm["rows"]):
+                spec_emits.append((rid, off + i * W, asm["Lb"], n_real,
+                                   start))
+                # only the pending token's position is confirmed content
+                self._commit(rid, upto=start + 1)
+            off += asm["Rb"] * W
+        for asm in chunk_asms:
+            toks.append(self._dispatch(asm))
+            emits += [(rid, off + row) for rid, row in asm["emit_rows"]
+                      if rid in self._reqs]
+            off += asm["Rb"]
+        self.stats.dispatch_s += time.perf_counter() - t_disp
+        self._inflight = _InflightRound(toks=toks, emits=emits,
+                                        t_dispatch=t_disp,
+                                        spec_emits=spec_emits)
+        return executed
+
+
+# Back-compat name, as in the reference.
+ServingEngine = EngineCore

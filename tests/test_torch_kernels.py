@@ -1,0 +1,371 @@
+"""PyTorch port: the plain versions of the two paged-attention kernels
+against the JAX oracles, their partial/finalize/combine math, and a torch
+mirror of the CUDA kernels' tile loop (page bounds with floor division,
+multi-page tiles, online-softmax carry, negative shard-local positions)
+against the plain versions. The CUDA kernels themselves run only on the
+GPU (``chip_smoke.py`` holds them against these plain versions there).
+
+Tolerances as in ``tests/test_kernels.py``: fp32 2e-5, bf16 2e-2."""
+import math
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels.paged_attention import ref as JPA  # noqa: E402
+from repro.kernels.paged_prefill_attention import ref as JPPA  # noqa: E402
+from repro_torch.kernels import ref_common as rc  # noqa: E402
+from repro_torch.kernels.paged_attention import kernel as PK  # noqa: E402
+from repro_torch.kernels.paged_attention import ref as TPA  # noqa: E402
+from repro_torch.kernels.paged_prefill_attention import kernel as PPK  # noqa: E402
+from repro_torch.kernels.paged_prefill_attention import ref as TPPA  # noqa: E402
+
+RNG = np.random.default_rng(42)
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _tol(name):
+    return dict(atol=2e-5, rtol=2e-5) if name == "float32" else \
+        dict(atol=2e-2, rtol=2e-2)
+
+
+def _pair(a, name):
+    """The same numpy values as a JAX and a torch array of one dtype."""
+    jd, td = DTYPES[name]
+    return jnp.asarray(a, jd), torch.from_numpy(np.asarray(a, np.float32)).to(td)
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else
+                      jnp.asarray(x, jnp.float32))
+
+
+def _edge_lengths(B, n, ps):
+    base = [n * ps, ps, max(ps - 3, 1), n * ps - ps // 2]
+    return np.asarray([base[i % len(base)] for i in range(B)], np.int32)
+
+
+def _prefill_edges(R, Sq, n, ps):
+    """A chunk ending exactly on a page boundary, a prompt shorter than one
+    page, the deepest chunk, ragged rows and an all-padding row."""
+    pos = np.zeros((R,), np.int32)
+    lens = np.zeros((R,), np.int32)
+    pos[0] = ps - Sq % ps if Sq % ps else 0
+    lens[0] = pos[0] + Sq
+    pos[1], lens[1] = 0, max(ps - 3, 1)
+    pos[2], lens[2] = n * ps - Sq, n * ps
+    for i in range(3, R - 1):
+        pos[i] = int(RNG.integers(0, n * ps - Sq + 1))
+        lens[i] = pos[i] + int(RNG.integers(1, Sq + 1))
+    pos[-1], lens[-1] = 0, 0
+    return pos, lens
+
+
+FUSED_PA_CASES = [
+    # (B, Hkv, G, D, page_size, P_total, pages_per_seq, window, softcap)
+    (4, 4, 1, 32, 16, 16, 4, 0, 0.0),    # MHA
+    (4, 2, 4, 64, 16, 32, 6, 0, 0.0),    # GQA ratio 4
+    (4, 1, 8, 64, 16, 16, 4, 0, 0.0),    # GQA ratio 8, single KV head
+    (4, 2, 2, 64, 32, 16, 4, 48, 0.0),   # sliding window
+    (4, 2, 2, 128, 16, 8, 3, 0, 30.0),   # softcap
+    (4, 2, 2, 64, 16, 16, 4, 23, 30.0),  # window + softcap
+    (3, 2, 3, 128, 16, 24, 9, 0, 0.0),   # llama3.2-3b head shape (G 3, D 128)
+]
+
+FUSED_PPA_CASES = [
+    # (R, Sq, Hkv, G, D, page_size, P_total, pages_per_row, window, cap)
+    (4, 16, 4, 1, 32, 16, 16, 6, 0, 0.0),
+    (4, 32, 2, 4, 64, 16, 32, 8, 0, 0.0),
+    (4, 16, 1, 8, 64, 16, 16, 6, 0, 0.0),
+    (4, 32, 2, 2, 64, 16, 16, 6, 40, 0.0),
+    (4, 16, 2, 2, 128, 16, 8, 4, 0, 30.0),
+    (4, 16, 2, 2, 32, 16, 16, 6, 23, 30.0),
+    (4, 48, 2, 3, 128, 16, 24, 8, 0, 0.0),   # llama3.2-3b heads, 3 q tiles
+]
+
+
+def _decode_inputs(case, name):
+    B, Hkv, G, D, ps, P, n, window, cap = case
+    jq, tq = _pair(RNG.normal(size=(B, Hkv * G, D)), name)
+    jkv, tkv = _pair(RNG.normal(size=(Hkv, P, 2, ps, D)), name)
+    bt = RNG.integers(0, P, (B, n)).astype(np.int32)
+    lens = _edge_lengths(B, n, ps)
+    kw = dict(scale=D ** -0.5, window=window, softcap=cap)
+    return (jq, jkv, jnp.asarray(bt), jnp.asarray(lens)), \
+        (tq, tkv, torch.from_numpy(bt), torch.from_numpy(lens)), kw
+
+
+def _prefill_inputs(case, name):
+    R, Sq, Hkv, G, D, ps, P, n, window, cap = case
+    jq, tq = _pair(RNG.normal(size=(R, Sq, Hkv, G, D)), name)
+    jkv, tkv = _pair(RNG.normal(size=(Hkv, P, 2, ps, D)), name)
+    bt = RNG.integers(0, P, (R, n)).astype(np.int32)
+    bt[-1] = P - 1                          # padding row: the trash page
+    pos, lens = _prefill_edges(R, Sq, n, ps)
+    valid = (pos[:, None] + np.arange(Sq)[None, :]) < lens[:, None]
+    kw = dict(scale=D ** -0.5, window=window, softcap=cap)
+    return (jq, jkv, jnp.asarray(bt), jnp.asarray(pos), jnp.asarray(lens)), \
+        (tq, tkv, torch.from_numpy(bt), torch.from_numpy(pos),
+         torch.from_numpy(lens)), kw, valid
+
+
+# ---------------------------------------------------------------------------
+# plain versions against the JAX oracles
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("case", FUSED_PA_CASES)
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_decode_plain_matches_jax(case, name):
+    j, t, kw = _decode_inputs(case, name)
+    got = TPA.paged_attention_fused_ref(*t, **kw)
+    want = JPA.paged_attention_fused_ref(*j, **kw)
+    assert got.dtype == t[0].dtype and got.shape == t[0].shape
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(name))
+    acc, m, l = TPA.paged_attention_partial_ref(*t, **kw)
+    jacc, jm, jl = JPA.paged_attention_partial_ref(*j, **kw)
+    np.testing.assert_allclose(m.numpy(), np.asarray(jm), **_tol(name))
+    np.testing.assert_allclose(l.numpy(), np.asarray(jl), rtol=2e-5 if
+                               name == "float32" else 2e-2)
+    np.testing.assert_allclose(acc.numpy(), np.asarray(jacc),
+                               **_tol(name) if name == "float32" else
+                               dict(atol=0.1, rtol=2e-2))
+
+
+@pytest.mark.parametrize("case", FUSED_PPA_CASES)
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_prefill_plain_matches_jax(case, name):
+    j, t, kw, valid = _prefill_inputs(case, name)
+    got = TPPA.paged_prefill_attention_fused_ref(*t, **kw)
+    want = JPPA.paged_prefill_attention_fused_ref(*j, **kw)
+    assert got.dtype == t[0].dtype and got.shape == t[0].shape
+    np.testing.assert_allclose(_np(got)[valid], _np(want)[valid], **_tol(name))
+    acc, m, l = TPPA.paged_prefill_attention_partial_ref(*t, **kw)
+    jacc, jm, jl = JPPA.paged_prefill_attention_partial_ref(*j, **kw)
+    np.testing.assert_allclose(m.numpy()[valid], np.asarray(jm)[valid],
+                               **_tol(name))
+    np.testing.assert_allclose(l.numpy()[valid], np.asarray(jl)[valid],
+                               rtol=2e-5 if name == "float32" else 2e-2)
+
+
+@pytest.mark.parametrize("case", FUSED_PA_CASES[:1] + FUSED_PA_CASES[-2:])
+def test_decode_finalize_and_combine(case):
+    """finalize(partial) == full (ulp scale: the full version divides before
+    the P.V product); the combine of two key halves with shard-local
+    lengths == the whole."""
+    _, (q, kv, bt, lens), kw = _decode_inputs(case, "float32")
+    full = TPA.paged_attention_fused_ref(q, kv, bt, lens, **kw)
+    acc, m, l = TPA.paged_attention_partial_ref(q, kv, bt, lens, **kw)
+    np.testing.assert_allclose(rc.finalize_partials(acc, l, q.dtype).numpy(),
+                               full.numpy(), atol=2e-6, rtol=2e-6)
+    h = bt.shape[1] // 2
+    ps = kv.shape[3]
+    parts = [TPA.paged_attention_partial_ref(q, kv, bt[:, :h], lens, **kw),
+             TPA.paged_attention_partial_ref(q, kv, bt[:, h:],
+                                             lens - h * ps, **kw)]
+    if kw["window"] == 0:   # every row has a valid key in the first half
+        np.testing.assert_allclose(rc.combine_partials(parts, q.dtype).numpy(),
+                                   full.numpy(), atol=2e-6, rtol=2e-6)
+
+
+@pytest.mark.parametrize("case", FUSED_PPA_CASES)
+def test_prefill_finalize_and_combine_negative_pos(case):
+    """Partials over the second half of the block table see shard-local
+    (negative) row positions; combined with the first half they give the
+    whole, at every valid query position."""
+    _, (q, kv, bt, pos, lens), kw, valid = _prefill_inputs(case, "float32")
+    full = TPPA.paged_prefill_attention_fused_ref(q, kv, bt, pos, lens, **kw)
+    acc, m, l = TPPA.paged_prefill_attention_partial_ref(q, kv, bt, pos,
+                                                         lens, **kw)
+    np.testing.assert_allclose(
+        rc.finalize_partials(acc, l, q.dtype).numpy()[valid],
+        full.numpy()[valid], atol=2e-6, rtol=2e-6)
+    h = bt.shape[1] // 2
+    off = h * kv.shape[3]
+    p1 = TPPA.paged_prefill_attention_partial_ref(q, kv, bt[:, :h], pos,
+                                                  lens, **kw)
+    p2 = TPPA.paged_prefill_attention_partial_ref(q, kv, bt[:, h:], pos - off,
+                                                  lens - off, **kw)
+    assert (pos - off).min() < 0
+    got = rc.combine_partials([p1, p2], q.dtype).numpy()
+    live = valid & (p1[1].amax(dim=(2, 3)) > rc.NEG_INF / 2).numpy()
+    np.testing.assert_allclose(got[live], full.numpy()[live], atol=2e-5,
+                               rtol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# torch mirror of the CUDA kernels' tile loop
+# ---------------------------------------------------------------------------
+def floordiv(a: int, b: int) -> int:
+    """csrc/paged_common.cuh floordiv, written the C way (truncating '/')."""
+    q = int(a / b)
+    return q - 1 if q * b != a and a < 0 else q
+
+
+def _attend_block(q_rows, q_pos, kv_h, bt_row, length, window, scale, cap,
+                  j_lo, j_hi, tile_pages):
+    """One block of attend_rows: [BR, D] query rows at positions q_pos."""
+    BR, D = q_rows.shape
+    ps = kv_h.shape[2]
+    m = torch.full((BR,), rc.NEG_INF)
+    l = torch.zeros(BR)
+    acc = torch.zeros(BR, D)
+    for j0 in range(j_lo, j_hi, tile_pages):
+        pages = bt_row[j0:min(j0 + tile_pages, j_hi)].long()
+        k = kv_h[pages, 0].reshape(-1, D).float()
+        v = kv_h[pages, 1].reshape(-1, D)
+        s = (q_rows.float() @ k.T) * scale
+        if cap > 0:
+            s = cap * torch.tanh(s / cap)
+        kp = j0 * ps + torch.arange(k.shape[0])
+        ok = (kp[None] <= q_pos[:, None]) & (kp[None] < length)
+        if window > 0:
+            ok &= q_pos[:, None] - kp[None] < window
+        s = torch.where(ok, s, torch.full_like(s, rc.NEG_INF))
+        mx = torch.maximum(m, s.amax(dim=1))
+        p = torch.exp(s - mx[:, None])
+        corr = torch.exp(m - mx)
+        l = l * corr + p.sum(dim=1)
+        acc = acc * corr[:, None] + p.to(v.dtype).float() @ v.float()
+        m = mx
+    return acc, m, l
+
+
+# Tile geometry of the mirror: pages per tile, and query tokens per prefill
+# block. (4, 21) is the launcher's choice at the llama3.2-3b shape (page 16,
+# G 3, D 128); (1, 5) gives one-page tiles and ragged last query tiles.
+GEOMETRIES = [(4, 21), (1, 5)]
+
+
+def mirror_decode(q, kv, bt, lens, *, scale, window, softcap, tp):
+    B, H, D = q.shape
+    Hkv, _, _, ps, _ = kv.shape
+    G = H // Hkv
+    acc = torch.zeros(B, H, D)
+    m = torch.zeros(B, H)
+    l = torch.zeros(B, H)
+    for b in range(B):
+        length = int(lens[b])
+        j_hi = min(floordiv(length + ps - 1, ps), bt.shape[1])
+        j_lo = max(floordiv(length - window, ps), 0) if window > 0 else 0
+        j_lo = min(j_lo, max(j_hi, 0))
+        for h in range(Hkv):
+            rows = slice(h * G, (h + 1) * G)
+            acc[b, rows], m[b, rows], l[b, rows] = _attend_block(
+                q[b, rows], torch.full((G,), length - 1), kv[h], bt[b],
+                length, window, scale, softcap, j_lo, j_hi, tp)
+    return acc, m, l
+
+
+def mirror_prefill(q, kv, bt, pos, lens, *, scale, window, softcap, tp, bq):
+    R, Sq, Hkv, G, D = q.shape
+    ps = kv.shape[3]
+    acc = torch.zeros(R, Sq, Hkv, G, D)
+    m = torch.zeros(R, Sq, Hkv, G)
+    l = torch.zeros(R, Sq, Hkv, G)
+    for r in range(R):
+        p0, length = int(pos[r]), int(lens[r])
+        for qi in range(math.ceil(Sq / bq)):
+            q0 = qi * bq
+            nt = min(bq, Sq - q0)
+            pages_needed = floordiv(length + ps - 1, ps)
+            causal_hi = floordiv(p0 + q0 + nt - 1, ps) + 1
+            j_hi = min(pages_needed, causal_hi, bt.shape[1])
+            j_lo = (max(floordiv(p0 + q0 - window + 1, ps), 0)
+                    if window > 0 else 0)
+            j_lo = min(j_lo, max(j_hi, 0))
+            q_pos = p0 + q0 + torch.arange(nt * G) // G
+            for h in range(Hkv):
+                a, mm, ll = _attend_block(
+                    q[r, q0:q0 + nt, h].reshape(nt * G, D), q_pos, kv[h],
+                    bt[r], length, window, scale, softcap, j_lo, j_hi, tp)
+                acc[r, q0:q0 + nt, h] = a.reshape(nt, G, D)
+                m[r, q0:q0 + nt, h] = mm.reshape(nt, G)
+                l[r, q0:q0 + nt, h] = ll.reshape(nt, G)
+    return acc, m, l
+
+
+def test_floordiv_matches_python():
+    for a in range(-40, 41):
+        for b in (1, 3, 16):
+            assert floordiv(a, b) == a // b
+
+
+@pytest.mark.parametrize("geometry", GEOMETRIES)
+@pytest.mark.parametrize("case", FUSED_PA_CASES)
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_decode_tile_loop_mirror(case, name, geometry):
+    _, (q, kv, bt, lens), kw = _decode_inputs(case, name)
+    acc, m, l = mirror_decode(q, kv, bt, lens, tp=geometry[0], **kw)
+    got = rc.finalize_partials(acc, l, q.dtype)
+    want = TPA.paged_attention_fused_ref(q, kv, bt, lens, **kw)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(name))
+    racc, rm, rl = TPA.paged_attention_partial_ref(q, kv, bt, lens, **kw)
+    np.testing.assert_allclose(m.numpy(), rm.numpy(), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("geometry", GEOMETRIES)
+@pytest.mark.parametrize("case", FUSED_PPA_CASES)
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_prefill_tile_loop_mirror(case, name, geometry):
+    _, (q, kv, bt, pos, lens), kw, valid = _prefill_inputs(case, name)
+    tp, bq = geometry
+    acc, m, l = mirror_prefill(q, kv, bt, pos, lens, tp=tp, bq=bq, **kw)
+    got = rc.finalize_partials(acc, l, q.dtype)
+    want = TPPA.paged_prefill_attention_fused_ref(q, kv, bt, pos, lens, **kw)
+    assert torch.isfinite(got.float()).all()      # padding rows included
+    np.testing.assert_allclose(_np(got)[valid], _np(want)[valid],
+                               **_tol(name))
+
+
+@pytest.mark.parametrize("geometry", GEOMETRIES)
+@pytest.mark.parametrize("case", FUSED_PPA_CASES[:2] + FUSED_PPA_CASES[-1:])
+def test_prefill_tile_loop_mirror_partial_negative_pos(case, geometry):
+    """The second half of the block table at shard-local positions: the
+    mirror's page bounds (floor division of negative positions) must give
+    the plain version's partial state wherever a row sees a key."""
+    _, (q, kv, bt, pos, lens), kw, valid = _prefill_inputs(case, "float32")
+    h = bt.shape[1] // 2
+    off = h * kv.shape[3]
+    args = (q, kv, bt[:, h:].contiguous(), pos - off, lens - off)
+    acc, m, l = mirror_prefill(*args, tp=geometry[0], bq=geometry[1], **kw)
+    racc, rm, rl = TPPA.paged_prefill_attention_partial_ref(*args, **kw)
+    live = (rm > rc.NEG_INF / 2).numpy()
+    assert live.any() and not live.all()
+    np.testing.assert_allclose(m.numpy()[live], rm.numpy()[live], atol=1e-5)
+    np.testing.assert_allclose(l.numpy()[live], rl.numpy()[live], rtol=1e-5)
+    np.testing.assert_allclose(acc.numpy()[live], racc.numpy()[live],
+                               atol=2e-5, rtol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# wrappers on the CPU
+# ---------------------------------------------------------------------------
+def test_cpu_tensors_take_the_plain_version_and_count_nothing():
+    _, (q, kv, bt, lens), kw = _decode_inputs(FUSED_PA_CASES[1], "float32")
+    assert PK.paged_attention_fused.launches == 0
+    assert torch.equal(PK.paged_attention_fused(q, kv, bt, lens, **kw),
+                       TPA.paged_attention_fused_ref(q, kv, bt, lens, **kw))
+    part = PK.paged_attention_fused(q, kv, bt, lens, partial=True, **kw)
+    assert len(part) == 3
+    _, (q, kv, bt, pos, lens), kw, _ = _prefill_inputs(FUSED_PPA_CASES[1],
+                                                       "float32")
+    assert torch.equal(
+        PPK.paged_prefill_attention_fused(q, kv, bt, pos, lens, **kw),
+        TPPA.paged_prefill_attention_fused_ref(q, kv, bt, pos, lens, **kw))
+    assert PK.paged_attention_fused.launches == 0
+    assert PPK.paged_prefill_attention_fused.launches == 0
+
+
+def test_other_devices_raise():
+    q = torch.empty((2, 4, 32), device="meta")
+    kv = torch.empty((2, 4, 2, 16, 32), device="meta")
+    bt = torch.empty((2, 2), dtype=torch.int32, device="meta")
+    ln = torch.empty((2,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        PK.paged_attention_fused(q, kv, bt, ln, scale=1.0)
+    with pytest.raises(ValueError):
+        PPK.paged_prefill_attention_fused(q[:, None].reshape(2, 1, 2, 2, 32),
+                                          kv, bt, ln, ln, scale=1.0)
