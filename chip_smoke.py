@@ -7,11 +7,15 @@ Phases (each raises on failure, and the script then exits non-zero):
 
 1. device: CUDA must be available on a compute-capability 9.0 card; prints
    ``nvidia-smi --query-gpu=name,power.limit``.
-2. build: compiles ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a.
-3. kernel parity: both CUDA kernels against their plain PyTorch versions on
-   the same inputs, at llama3.2-3b shapes (bf16, 24 query heads, 8 kv
-   heads, head_dim 128, page size 16) and a few others (window + softcap,
-   fp32, partial mode with negative shard-local positions). Tolerance, at
+2. build: compiles ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a, one
+   library per kernel, all nvcc processes at once.
+3. kernel parity: the three CUDA kernels against their plain PyTorch
+   versions on the same inputs, at llama3.2-3b shapes (bf16, 24 query
+   heads, 8 kv heads, head_dim 128; page size 16 for the paged kernels; a
+   4096-token slot row, read in place as the slot engine passes it, for the
+   chunked-prefill kernel) and a few others (window + softcap, fp32,
+   partial mode with negative shard-local positions, a chunk that ends past
+   the slot row, ``causal=False`` with per-row lengths). Tolerance, at
    valid query positions, elementwise: fp32 ``|got - want| <= 2e-5 + 2e-5 *
    |want|``; bf16 ``|got - want| <= 2**-7 * |want| + 0.05 * rms(want)``,
    one bf16 rounding step of the element plus a twentieth of the RMS of its
@@ -20,18 +24,26 @@ Phases (each raises on failure, and the script then exits non-zero):
    about a tenth of the RMS). The partial state's m and l are held to
    ``1e-3 + 1e-5 * |m|`` and ``1e-4 * l``. Each case is timed with CUDA
    events beside the plain version and one PyTorch library call used only
-   as a yardstick (``scaled_dot_product_attention`` on the gathered pages),
-   and its bound (bytes at 3.35 TB/s, flops at 989 TFLOP/s bf16 or 67
-   TFLOP/s fp32) is computed from the case's own inputs.
-4. end to end on a small input: the smoke llama3.2-3b engine on the GPU
-   gives the same greedy tokens as on the CPU (plain versions).
-5. full-width serving: llama3.2-3b (28 layers, d_model 3072, random weights
-   from a seed, bf16) through ``InferenceServer(EngineCore(...))`` with a
-   65536-token KV pool, 8 requests, once with ``spec_k=0`` and once with
-   ``spec_k=4``. The kernels' launch counters are set to 0 just before and
-   read just after, and must equal 28 x the dispatches that use them. A
-   third run repeats the first under ``torch.profiler`` and prints the
-   device busy time, idle share and largest device and host entries.
+   as a yardstick (``scaled_dot_product_attention`` on the gathered pages or
+   the slot row, with an explicit mask), and its bound (bytes at 3.35 TB/s,
+   flops at 989 TFLOP/s bf16 or 67 TFLOP/s fp32) is computed from the
+   case's own inputs (the keys each query attends).
+4. end to end on a small input: the smoke llama3.2-3b engine (fp32) on the
+   GPU gives the same greedy tokens as on the CPU (plain versions), in
+   paged and in slot mode, and slot mode gives the paged tokens.
+5. full-width paged serving: llama3.2-3b (28 layers, d_model 3072, random
+   weights from a seed, bf16) through ``InferenceServer(EngineCore(...))``
+   with a 65536-token KV pool, 8 requests, once with ``spec_k=0`` and once
+   with ``spec_k=4``. Every kernel's launch counter is set to 0 just before
+   and read just after, and the paged kernels' counts must equal 28 x the
+   dispatches that use them. A third run repeats the first under
+   ``torch.profiler`` and prints the device busy time, idle share and
+   largest device and host entries.
+6. full-width slot serving: the same model and requests through
+   ``EngineCore(cache_mode="slot")`` with 8 slots of 4096 tokens. The
+   counters are set to 0 just before and read just after; the
+   chunked-prefill kernel must have launched 28 x the chunk dispatches. A
+   second run repeats it under ``torch.profiler``.
 
 The last lines are a ``{"kernels": [...]}`` JSON object, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Per-case numbers go
@@ -40,6 +52,7 @@ to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -318,6 +331,69 @@ def prefill_case(cs, name, pos, lens, Sq, dtype, window=0, softcap=0.0, G=3,
                "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
 
 
+SLOT_LEN = 4096      # the slot row of the full-width slot phase (max_len)
+
+
+def chunked_case(cs, name, Sq, q_offset, lengths, dtype, causal=True,
+                 window=0, softcap=0.0, H=24, Hkv=8, D=128, Sk=SLOT_LEN,
+                 iters=10):
+    """q as the model passes it (a [B, H, Sq, D] view of the kv-major
+    [B, Sq, H, D] projections) over k/v as the slot engine passes them
+    (views of a [B, Sk, Hkv, D] slot cache)."""
+    torch = cs.torch
+    from repro_torch.kernels.chunked_prefill_attention.kernel import (
+        chunked_prefill_attention)
+    from repro_torch.kernels.chunked_prefill_attention.ref import (
+        chunked_prefill_attention_ref)
+    dn = str(dtype).split(".")[-1]
+    B, G = len(lengths), H // Hkv
+    q = cs.randn((B, Sq, H, D), dtype).permute(0, 2, 1, 3)
+    cache = cs.randn((2, B, Sk, Hkv, D), dtype)
+    k, v = cache[0].permute(0, 2, 1, 3), cache[1].permute(0, 2, 1, 3)
+    lens_t = torch.tensor(lengths, dtype=torch.int32, device=DEVICE)
+    kw = dict(scale=D ** -0.5, q_offset=q_offset, causal=causal,
+              window=window, softcap=softcap)
+    got = chunked_prefill_attention(q, k, v, lens_t, **kw)
+    want = chunked_prefill_attention_ref(q, k, v, lens_t, **kw)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"chunked {name}: non-finite output")
+    # the keys each query sees, [B, Sq, Sk]
+    qp = q_offset + torch.arange(Sq, device=DEVICE)[None, :, None]
+    kp = torch.arange(Sk, device=DEVICE)[None, None, :]
+    vis = kp < lens_t[:, None, None]
+    if causal:
+        vis = vis & (kp <= qp)
+    if window > 0:
+        vis = vis & (qp - kp < window)
+    valid = vis.any(-1)[:, None, :, None].expand(B, H, Sq, D)
+    err, share = check(f"chunked {name}", got, want, vec_limit(want, dn),
+                       valid)
+    ms = cuda_ms(torch, lambda: chunked_prefill_attention(q, k, v, lens_t,
+                                                          **kw), iters)
+    plain = cuda_ms(torch, lambda: chunked_prefill_attention_ref(
+        q, k, v, lens_t, **kw), 2, warmup=1)
+    kr = k.repeat_interleave(G, dim=1)
+    vr = v.repeat_interleave(G, dim=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = vis[:, None]
+    lib = round(cuda_ms(torch, lambda: sdpa(
+        q, kr, vr, attn_mask=mask, scale=D ** -0.5), iters), 5)
+    del kr, vr
+    # bytes: q and out once, each row's attended key range once per kv head
+    elt = q.element_size()
+    counts = vis.sum(-1)                                    # [B, Sq]
+    span = [int(x) for x in vis.any(1).sum(-1).tolist()]    # keys per row
+    nbytes = 2 * q.numel() * elt + sum(span) * Hkv * 2 * D * elt + B * 4
+    flops = 4 * D * H * int(counts.sum())
+    b_ms, b_by = bound(nbytes, flops, dn)
+    cs.record({"kernel": "chunked_prefill_attention", "case": name,
+               "dtype": dn, "max_abs_err": err, "limit_share": share,
+               "ms": ms, "plain_ms": plain, "library_ms": lib,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "keys_attended": sum(span)})
+
+
 def kernel_phase(torch):
     import numpy as np
     cs = Cases(torch)
@@ -353,6 +429,19 @@ def kernel_phase(torch):
                  [128, 1125, 389, 0], 128, f32, partial_split=True)
     prefill_case(cs, "R2 Sq4 verify-rows bf16", [1500, 700], [1504, 702], 4,
                  bf)
+    # chunked prefill over one 4096-token slot row: the engine passes
+    # lengths = q_offset + Sq
+    for Sq in (16, 128, 512, 2048):
+        for off in (0, SLOT_LEN - Sq):
+            chunked_case(cs, f"Sq{Sq} off{off} bf16", Sq, off, [off + Sq], bf,
+                         iters=5 if Sq == 2048 else 10)
+    chunked_case(cs, "Sq512 off3800 past row end bf16", 512, 3800,
+                 [3800 + 512], bf)
+    chunked_case(cs, "Sq512 off2000 window1000 softcap30 bf16", 512, 2000,
+                 [2512], bf, window=1000, softcap=30.0)
+    chunked_case(cs, "Sq512 off1000 fp32", 512, 1000, [1512], f32)
+    chunked_case(cs, "B2 Sq128 non-causal lens 3000/1234 bf16", 128, 0,
+                 [3000, 1234], bf, causal=False)
     return cs.rows
 
 
@@ -380,61 +469,100 @@ def smoke_engine_phase(torch):
     prompts = {i: rng.integers(1, cfg.vocab_size, p).astype(np.int32)
                for i, (p, _) in enumerate(spec)}
     outs = {}
-    for dev in (DEVICE, "cpu"):
-        eng = EngineCore(cfg, SlidingServeScheduler(max_budget=64,
-                                                    max_iter_time=5.0),
-                         kv_capacity_tokens=2048, device=dev,
-                         params=to(cpu_params, dev))
-        reqs = [Request(rid=i, arrival=0.0, prompt_len=p, max_output=o,
-                        ttft_slo=900.0, tbt_slo=900.0)
-                for i, (p, o) in enumerate(spec)]
-        out = eng.serve(reqs, {k: v.copy() for k, v in prompts.items()},
-                        max_wall_s=300.0)
-        if out["unfinished"]:
-            raise AssertionError(f"smoke engine on {dev}: unfinished requests")
-        outs[dev] = out["outputs"]
-    if outs[DEVICE] != outs["cpu"]:
-        raise AssertionError(f"smoke engine GPU vs CPU tokens differ: "
-                             f"{outs[DEVICE]} vs {outs['cpu']}")
-    print(f"  smoke engine: GPU tokens == CPU tokens for {len(spec)} requests "
-          f"({sum(len(v) for v in outs[DEVICE].values())} tokens)")
+    for mode in ("paged", "slot"):
+        for dev in (DEVICE, "cpu"):
+            eng = EngineCore(cfg, SlidingServeScheduler(max_budget=64,
+                                                        max_iter_time=5.0),
+                             cache_mode=mode, kv_capacity_tokens=2048,
+                             max_slots=4, max_len=256, device=dev,
+                             params=to(cpu_params, dev))
+            reqs = [Request(rid=i, arrival=0.0, prompt_len=p, max_output=o,
+                            ttft_slo=900.0, tbt_slo=900.0)
+                    for i, (p, o) in enumerate(spec)]
+            out = eng.serve(reqs, {k: v.copy() for k, v in prompts.items()},
+                            max_wall_s=300.0)
+            if out["unfinished"]:
+                raise AssertionError(f"smoke {mode} engine on {dev}: "
+                                     f"unfinished requests")
+            outs[mode, dev] = out["outputs"]
+        if outs[mode, DEVICE] != outs[mode, "cpu"]:
+            raise AssertionError(f"smoke {mode} engine GPU vs CPU tokens "
+                                 f"differ: {outs[mode, DEVICE]} vs "
+                                 f"{outs[mode, 'cpu']}")
+        print(f"  smoke {mode} engine: GPU tokens == CPU tokens for "
+              f"{len(spec)} requests "
+              f"({sum(len(v) for v in outs[mode, DEVICE].values())} tokens)")
+    if outs["slot", DEVICE] != outs["paged", DEVICE]:
+        raise AssertionError(f"smoke engine slot vs paged tokens differ: "
+                             f"{outs['slot', DEVICE]} vs "
+                             f"{outs['paged', DEVICE]}")
+    print("  smoke engine: slot tokens == paged tokens")
 
 
-def serving_phase(torch, pa_kernel, ppa_kernel):
-    """Full-width llama3.2-3b through the streaming server, spec_k 0 and 4.
-    Returns the main path's launch counts."""
+def reset_counts(kernels):
+    for fn in kernels.values():
+        fn.launches = 0
+
+
+def release(torch):
+    """Free what an earlier run left: a handle and its server reference
+    each other, so the engine (and its KV cache) goes only with the cyclic
+    garbage collector. Then start a fresh peak-memory window."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def first_divergence(a, b):
+    """Index of the first token where two streams differ (None if equal)."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def serving_workload(cfg):
+    """The full-width phases' 8 requests: prompts of 128-2048 tokens and
+    16-64 output tokens, all submitted at once."""
     import numpy as np
-    from repro_torch.configs import get_config
-    from repro_torch.core import SlidingServeScheduler
-    from repro_torch.params import init_params
-    from repro_torch.serving.engine import EngineCore
-    from repro_torch.serving.server import InferenceServer
-    cfg = get_config("llama3.2-3b")
-    t0 = time.perf_counter()
-    params = init_params(cfg, seed=0, device=DEVICE)
-    torch.cuda.synchronize()
-    print(f"  init_params {cfg.name}: {time.perf_counter() - t0:.2f}s "
-          f"({sum(p.numel() for p in _leaves(params)) / 1e9:.3f}B params)")
     rng = np.random.default_rng(0)
     prompt_lens = [int(x) for x in rng.integers(128, 2049, 8)]
     outputs = [int(x) for x in rng.integers(16, 65, 8)]
     prompts = [rng.integers(0, cfg.vocab_size, p).astype(np.int32)
                for p in prompt_lens]
+    return prompts, outputs
+
+
+def serving_phase(torch, params, kernels):
+    """Full-width llama3.2-3b through the streaming server over the paged
+    cache, spec_k 0 and 4. Returns the path's launch counts, the records
+    and the spec_k 0 token streams."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import SlidingServeScheduler
+    from repro_torch.serving.engine import EngineCore
+    from repro_torch.serving.server import InferenceServer
+    cfg = get_config("llama3.2-3b")
+    prompts, outputs = serving_workload(cfg)
+    prompt_lens = [len(p) for p in prompts]
     layers = cfg.num_layers
-    pa_kernel.paged_attention_fused.launches = 0
-    ppa_kernel.paged_prefill_attention_fused.launches = 0
+    pa_fn = kernels["paged_attention_fused"]
+    ppa_fn = kernels["paged_prefill_attention_fused"]
+    reset_counts(kernels)
     results = []
+    streams = None
     # the third run repeats the first under torch.profiler, for the
     # host/device breakdown (its wall time includes the tracing cost)
     for spec_k, traced in ((0, False), (4, False), (0, True)):
-        pa0 = pa_kernel.paged_attention_fused.launches
-        ppa0 = ppa_kernel.paged_prefill_attention_fused.launches
+        pa0 = pa_fn.launches
+        ppa0 = ppa_fn.launches
         core = EngineCore(cfg, SlidingServeScheduler(max_budget=512,
                                                      max_iter_time=2.0),
                           kv_capacity_tokens=65536, spec_k=spec_k,
                           params=params, device=DEVICE)
         server = InferenceServer(core)
         torch.cuda.synchronize()
+        release(torch)
         prof = profiler(torch) if traced else contextlib.nullcontext()
         with prof:
             t_start = time.perf_counter()
@@ -460,8 +588,8 @@ def serving_phase(torch, pa_kernel, ppa_kernel):
         if st.max_round_calls > max_calls:
             raise AssertionError(f"spec_k={spec_k}: max_round_calls "
                                  f"{st.max_round_calls} > {max_calls}")
-        pa = pa_kernel.paged_attention_fused.launches - pa0
-        ppa = ppa_kernel.paged_prefill_attention_fused.launches - ppa0
+        pa = pa_fn.launches - pa0
+        ppa = ppa_fn.launches - ppa0
         if pa != layers * st.decode_calls or \
                 ppa != layers * (st.prefill_calls + st.spec_calls):
             raise AssertionError(
@@ -472,10 +600,13 @@ def serving_phase(torch, pa_kernel, ppa_kernel):
             raise AssertionError("spec_k=4: no verify dispatch ran")
         if core.alloc.free_blocks != core.alloc.num_blocks:
             raise AssertionError(f"spec_k={spec_k}: KV pages leaked")
+        if spec_k == 0 and streams is None:
+            streams = toks
         n_out = sum(outputs)
         n_in = sum(prompt_lens)
         ttft = [h.first_token_t - h.request.arrival for h in handles]
-        rec = {"spec_k": spec_k, "requests": len(handles),
+        rec = {"cache_mode": "paged", "spec_k": spec_k,
+               "requests": len(handles),
                "prompt_tokens": n_in, "output_tokens": n_out,
                "wall_s": wall, "output_tok_per_s": n_out / wall,
                "total_tok_per_s": (n_in + n_out) / wall,
@@ -505,24 +636,114 @@ def serving_phase(torch, pa_kernel, ppa_kernel):
               f"{st.iterations} rounds of {rec['round_ms']:.2f} ms, "
               f"ttft mean {rec['ttft_s_mean']:.3f}s; dispatches decode "
               f"{st.decode_calls} chunk {st.prefill_calls} spec "
-              f"{st.spec_calls}; kernel launches decode {pa} prefill {ppa}",
+              f"{st.spec_calls}; kernel launches decode {pa} prefill {ppa}; "
+              f"peak memory {rec['peak_mem_gb']:.2f} GB",
               flush=True)
         if traced:
-            tr = rec["trace"]
-            print(f"  trace: device busy {tr['device_busy_ms']:.1f} ms of "
-                  f"{1e3 * wall:.1f} ms wall (idle share "
-                  f"{tr['device_idle_share']:.3f})")
-            for k in tr["top_device"]:
-                print(f"    device {k['ms']:9.2f} ms {k['count']:6d}x  {k['name']}")
-            for k in tr["top_host"]:
-                print(f"    host   {k['ms']:9.2f} ms {k['count']:6d}x  {k['name']}")
-        del server, core
-        torch.cuda.empty_cache()
-    launches = {
-        "paged_attention_fused": pa_kernel.paged_attention_fused.launches,
-        "paged_prefill_attention_fused":
-            ppa_kernel.paged_prefill_attention_fused.launches}
-    return launches, results
+            print_trace(rec["trace"], wall)
+        del server, core, handles
+    release(torch)
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    return launches, results, streams
+
+
+def slot_serving_phase(torch, params, kernels, paged_streams):
+    """Full-width llama3.2-3b through the streaming server over the slot
+    cache (8 slots of 4096 tokens): every prompt chunk through the
+    chunked-prefill kernel; a second run repeats it under torch.profiler.
+    Returns the first run's launch counts, and the records."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import SlidingServeScheduler
+    from repro_torch.serving.engine import EngineCore
+    from repro_torch.serving.server import InferenceServer
+    cfg = get_config("llama3.2-3b")
+    prompts, outputs = serving_workload(cfg)
+    results, first_launches = [], None
+    for traced in (False, True):
+        core = EngineCore(cfg, SlidingServeScheduler(max_budget=512,
+                                                     max_iter_time=2.0),
+                          cache_mode="slot", max_slots=8, max_len=SLOT_LEN,
+                          params=params, device=DEVICE)
+        server = InferenceServer(core)
+        torch.cuda.synchronize()
+        release(torch)
+        reset_counts(kernels)
+        prof = profiler(torch) if traced else contextlib.nullcontext()
+        with prof:
+            t_start = time.perf_counter()
+            handles = [server.submit(p, max_output=o)
+                       for p, o in zip(prompts, outputs)]
+            server.run(max_wall_s=600.0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_start
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        first_launches = first_launches or launches
+        st = core.stats
+        toks = [h.collected for h in handles]
+        if not all(h.finished and not h.aborted for h in handles):
+            raise AssertionError("slot serving: unfinished requests")
+        if [len(t) for t in toks] != outputs:
+            raise AssertionError(f"slot serving: output lengths "
+                                 f"{[len(t) for t in toks]} != {outputs}")
+        if not all(0 <= x < cfg.vocab_size for t in toks for x in t):
+            raise AssertionError("slot serving: token id out of range")
+        cpa = launches["chunked_prefill_attention"]
+        if cpa <= 0 or cpa != cfg.num_layers * st.prefill_calls:
+            raise AssertionError(f"slot serving: {cpa} chunked-prefill "
+                                 f"launches for {st.prefill_calls} chunk "
+                                 f"dispatches")
+        if sorted(core.free_slots) != list(range(core.max_slots)):
+            raise AssertionError("slot serving: slots leaked")
+        same = sum(a == b for a, b in zip(toks, paged_streams))
+        diverge = [first_divergence(a, b)
+                   for a, b in zip(toks, paged_streams)]
+        n_out, n_in = sum(outputs), sum(len(p) for p in prompts)
+        ttft = [h.first_token_t - h.request.arrival for h in handles]
+        rec = {"cache_mode": "slot", "spec_k": 0, "requests": len(handles),
+               "prompt_tokens": n_in, "output_tokens": n_out, "wall_s": wall,
+               "output_tok_per_s": n_out / wall,
+               "total_tok_per_s": (n_in + n_out) / wall,
+               "iterations": st.iterations,
+               "round_ms": 1e3 * wall / st.iterations,
+               "ttft_s_mean": float(np.mean(ttft)),
+               "ttft_s_max": float(np.max(ttft)),
+               "decode_calls": st.decode_calls,
+               "prefill_calls": st.prefill_calls,
+               "max_round_calls": st.max_round_calls,
+               "token_readbacks": st.token_readbacks,
+               "chunked_kernel_launches": cpa,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "same_tokens_as_paged": same,
+               "first_divergence_from_paged": diverge, "traced": traced}
+        print(f"  serve slot{' traced' if traced else ''}: {len(handles)} "
+              f"requests, {n_in} prompt + {n_out} output tokens in "
+              f"{wall:.3f}s: {rec['output_tok_per_s']:.1f} output tok/s, "
+              f"{rec['total_tok_per_s']:.1f} total tok/s, {st.iterations} "
+              f"rounds of {rec['round_ms']:.2f} ms, ttft mean "
+              f"{rec['ttft_s_mean']:.3f}s max {rec['ttft_s_max']:.3f}s; "
+              f"dispatches decode {st.decode_calls} chunk "
+              f"{st.prefill_calls}; chunked-prefill launches {cpa}; peak "
+              f"memory {rec['peak_mem_gb']:.2f} GB; {same}/{len(handles)} "
+              f"requests with the paged run's tokens (first differing "
+              f"token: {diverge})", flush=True)
+        if traced:
+            rec["trace"] = trace_summary(torch, prof, wall)
+            print_trace(rec["trace"], wall)
+        results.append(rec)
+        del server, core, handles
+        release(torch)
+    return first_launches, results
+
+
+def print_trace(tr, wall):
+    print(f"  trace: device busy {tr['device_busy_ms']:.1f} ms of "
+          f"{1e3 * wall:.1f} ms wall (idle share "
+          f"{tr['device_idle_share']:.3f})")
+    for k in tr["top_device"]:
+        print(f"    device {k['ms']:9.2f} ms {k['count']:6d}x  {k['name']}")
+    for k in tr["top_host"]:
+        print(f"    host   {k['ms']:9.2f} ms {k['count']:6d}x  {k['name']}")
 
 
 def profiler(torch):
@@ -563,6 +784,10 @@ def _leaves(tree):
         yield tree
 
 
+def phase(label, t_all):
+    print(f"{label} (at {time.perf_counter() - t_all:.1f}s)", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -574,44 +799,69 @@ def main() -> int:
         print(f"chip_smoke: needs a compute-capability 9.0 card, got {cap}",
               file=sys.stderr)
         return 1
+    from repro_torch.configs import get_config
     from repro_torch.kernels import build
+    from repro_torch.kernels.chunked_prefill_attention import kernel as cpa_kernel
     from repro_torch.kernels.paged_attention import kernel as pa_kernel
     from repro_torch.kernels.paged_prefill_attention import kernel as ppa_kernel
+    from repro_torch.params import init_params
+    kernels = {"paged_attention_fused": pa_kernel.paged_attention_fused,
+               "paged_prefill_attention_fused":
+                   ppa_kernel.paged_prefill_attention_fused,
+               "chunked_prefill_attention":
+                   cpa_kernel.chunked_prefill_attention}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
 
     dev = device_line()
-    print(f"[1/5] device: {dev}; torch {torch.__version__} cuda "
+    print(f"[1/6] device: {dev}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
     report = build.build()
-    print(f"[2/5] build: {len(report)} libraries in "
+    print(f"[2/6] build: {len(report)} libraries in "
           f"{time.perf_counter() - t0:.2f}s", flush=True)
     for name, (_, log) in report.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    print("[3/5] kernel parity and timing", flush=True)
+    phase("[3/6] kernel parity and timing", t_all)
     rows = kernel_phase(torch)
 
-    print("[4/5] smoke engine, GPU against CPU", flush=True)
+    phase("[4/6] smoke engine, GPU against CPU", t_all)
     smoke_engine_phase(torch)
 
-    print("[5/5] full-width llama3.2-3b serving", flush=True)
-    launches, serving = serving_phase(torch, pa_kernel, ppa_kernel)
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"{name} never launched on the main path")
+    phase("[5/6] full-width llama3.2-3b serving, paged cache", t_all)
+    cfg = get_config("llama3.2-3b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    print(f"  init_params {cfg.name}: {time.perf_counter() - t0:.2f}s "
+          f"({sum(p.numel() for p in _leaves(params)) / 1e9:.3f}B params)")
+    launches, serving, streams = serving_phase(torch, params, kernels)
+    for name in ("paged_attention_fused", "paged_prefill_attention_fused"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the paged path")
+
+    phase("[6/6] full-width llama3.2-3b serving, slot cache", t_all)
+    slot_launches, slot_recs = slot_serving_phase(torch, params, kernels,
+                                                  streams)
+    serving += slot_recs
+    launches["chunked_prefill_attention"] = \
+        slot_launches["chunked_prefill_attention"]
 
     rep = {"paged_attention_fused": ("B8 serving-like ctx bf16",
                                      "src/repro_torch/csrc/paged_attention.cu",
                                      "src/repro/kernels/paged_attention/kernel.py:231"),
            "paged_prefill_attention_fused": (
                "R4 Sq512 bf16", "src/repro_torch/csrc/paged_prefill_attention.cu",
-               "src/repro/kernels/paged_prefill_attention/kernel.py:271")}
+               "src/repro/kernels/paged_prefill_attention/kernel.py:271"),
+           "chunked_prefill_attention": (
+               "Sq512 off3584 bf16",
+               "src/repro_torch/csrc/chunked_prefill_attention.cu",
+               "src/repro/kernels/chunked_prefill_attention/kernel.py:83")}
     kernels = []
     for name, (case, source, replaces) in rep.items():
         row = next(r for r in rows if r["kernel"] == name and r["case"] == case)

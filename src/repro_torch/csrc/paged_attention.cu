@@ -39,11 +39,12 @@ paged_attention_fused_kernel(const T* __restrict__ q,
   const long row0 = ((long)b * Hkv + h) * G;   // first query head of block
   void* o = partial ? (void*)(reinterpret_cast<float*>(out) + row0 * D)
                     : (void*)(reinterpret_cast<T*>(out) + row0 * D);
+  const paged::PagedKV<T> src{kv + (size_t)h * P * 2 * ps * D,
+                              block_tables + (size_t)b * n, ps};
   paged::attend_rows<T>(
-      q + row0 * D, 0, o, partial ? m_out + row0 : nullptr,
-      partial ? l_out + row0 : nullptr, 0,
-      kv + (size_t)h * P * 2 * ps * D, block_tables + (size_t)b * n, ps, D, G,
-      G, length - 1, length, window, scale, softcap, j_lo, j_hi, tile_pages,
+      q + row0 * D, 0, D, o, 0, D, partial ? m_out + row0 : nullptr,
+      partial ? l_out + row0 : nullptr, 0, src, D, G, G, length - 1, length,
+      true, window, scale, softcap, j_lo * ps, j_hi * ps, tile_pages * ps,
       partial != 0);
 }
 

@@ -1,21 +1,24 @@
-// Shared device code of the two fused paged-attention kernels
-// (paged_attention.cu: decode rows; paged_prefill_attention.cu: ragged
-// prefill and speculative-verify rows).
+// Shared device code of the attention kernels (paged_attention.cu: decode
+// rows; paged_prefill_attention.cu: ragged prefill and speculative-verify
+// rows over the fused page pool; chunked_prefill_attention.cu: a query
+// chunk over contiguous K/V rows).
 //
 // One thread block owns BR query rows of one (batch row, kv head): the G
 // grouped query heads of one token for decode, BQ tokens x G heads for
-// prefill (row r = t*G + g, the TPU kernel's layout). It walks the row's
-// block table over the live page range [j_lo, j_hi), TP pages per tile:
-//   1. the K and V planes of the tile's pages -> shared memory (each page's
-//      K plane and V plane are one contiguous 2*ps*D run in the fused pool;
-//      16-byte vector loads),
+// prefill (row r = t*G + g, the TPU kernel's layout). It walks the live key
+// range [key_lo, key_hi), tile_keys keys per tile:
+//   1. the tile's K and V rows -> shared memory through the block's KV
+//      source (PagedKV: whole pages through the block table, each page's K
+//      plane and V plane one contiguous 2*ps*D run in the fused pool;
+//      StridedKV: rows at a fixed stride), 16-byte vector loads,
 //   2. scores s = q.k * scale, then the softcap, then the mask (the
 //      reference's order), masked entries = -1e30 (finite, like the
 //      reference: an all-masked tile gives exp(0) = 1, never NaN),
 //   3. the fp32 online-softmax carry (m, l) of each row, p rounded to V's
 //      dtype before the P.V product,
 //   4. acc[row, d] = acc * corr + p.v, the fp32 accumulator in registers.
-// Finally out = acc / max(l, 1e-30), or the partial state (acc, m, l).
+// Finally out = acc / max(l, 1e-30), or the partial state (acc, m, l). A
+// block whose key range is empty writes zeros.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -98,22 +101,77 @@ __host__ __device__ __forceinline__ size_t smem_bytes(int rows, int keys,
          + (size_t)2 * rows * sizeof(float);       // corr, l
 }
 
-// One block's work. Row r of the block is token t = r / G, head g = r % G:
-// its query sits at q[t * tok_stride + g * D], its output at the same
-// offset of out (m/l at t * ml_stride + g), its query position is
-// q_pos0 + t. kv_head points at this kv head's pages [P, 2, ps, D].
+// KV sources of attend_rows: copy keys [k0, k0 + nk) of one kv head into
+// the K and V tiles in shared memory (rows padded to DP elements).
+
+// The fused page pool; k0 and nk are multiples of ps.
 template <typename T>
+struct PagedKV {
+  const T* kv_head;     // this kv head's pages [P, 2, ps, D]
+  const int* bt_row;    // the row's block table
+  int ps;
+
+  __device__ __forceinline__ void load(T* k_s, T* v_s, int k0, int nk, int D,
+                                       int DP) const {
+    constexpr int VN = 16 / sizeof(T);
+    const int dv = D / VN;
+    const int per_page = 2 * ps * dv;
+    const int p0 = k0 / ps;
+    for (int i = threadIdx.x; i < (nk / ps) * per_page; i += kThreads) {
+      const int pi = i / per_page, rem = i % per_page;
+      const int row = rem / dv, c = rem % dv;   // K rows, then V rows
+      const T* src = kv_head + (size_t)bt_row[p0 + pi] * 2 * ps * D +
+                     (size_t)row * D + c * VN;
+      T* dst = (row < ps ? k_s + (size_t)(pi * ps + row) * DP
+                         : v_s + (size_t)(pi * ps + row - ps) * DP) +
+               c * VN;
+      *reinterpret_cast<uint4*>(dst) =
+          __ldg(reinterpret_cast<const uint4*>(src));
+    }
+  }
+};
+
+// K and V rows at fixed strides (elements between consecutive keys; the
+// last axis is contiguous), e.g. a slot cache row [S, Hkv, D] read in place.
+template <typename T>
+struct StridedKV {
+  const T* k;           // key 0 of this (batch row, kv head)
+  const T* v;
+  long k_stride, v_stride;
+
+  __device__ __forceinline__ void load(T* k_s, T* v_s, int k0, int nk, int D,
+                                       int DP) const {
+    constexpr int VN = 16 / sizeof(T);
+    const int dv = D / VN;
+    for (int i = threadIdx.x; i < 2 * nk * dv; i += kThreads) {
+      const int row = i / dv, c = i % dv;       // K rows, then V rows
+      const bool is_v = row >= nk;
+      const int key = is_v ? row - nk : row;
+      const T* src = (is_v ? v + (long)(k0 + key) * v_stride
+                           : k + (long)(k0 + key) * k_stride) + c * VN;
+      T* dst = (is_v ? v_s : k_s) + (size_t)key * DP + c * VN;
+      *reinterpret_cast<uint4*>(dst) =
+          __ldg(reinterpret_cast<const uint4*>(src));
+    }
+  }
+};
+
+// One block's work. Row r of the block is token t = r / G, head g = r % G:
+// its query sits at q[t * q_tok + g * q_head], its output at
+// out[t * o_tok + g * o_head] (m/l at t * ml_stride + g), its query
+// position is q_pos0 + t. Key kp is visible to query position qp when
+// kp < length, kp <= qp if causal, and qp - kp < window if window > 0.
+template <typename T, typename KV>
 __device__ __forceinline__ void attend_rows(
-    const T* __restrict__ q, long tok_stride, void* __restrict__ out,
-    float* __restrict__ m_out, float* __restrict__ l_out, long ml_stride,
-    const T* __restrict__ kv_head, const int* __restrict__ bt_row,
-    int ps, int D, int G, int BR, int q_pos0, int length, int window,
-    float scale, float softcap, int j_lo, int j_hi, int tile_pages,
-    bool partial) {
+    const T* __restrict__ q, long q_tok, long q_head, void* __restrict__ out,
+    long o_tok, long o_head, float* __restrict__ m_out,
+    float* __restrict__ l_out, long ml_stride, const KV& kv, int D, int G,
+    int BR, int q_pos0, int length, bool causal, int window, float scale,
+    float softcap, int key_lo, int key_hi, int tile_keys, bool partial) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int VN = 16 / sizeof(T);         // elements per 16-byte vector
   const int tid = threadIdx.x;
-  const int KT = tile_pages * ps;
+  const int KT = tile_keys;
   const int DP = padded_dim(D, sizeof(T));
   const int dv = D / VN;
   T* q_s = reinterpret_cast<T*>(smem);
@@ -125,7 +183,7 @@ __device__ __forceinline__ void attend_rows(
 
   for (int i = tid; i < BR * dv; i += kThreads) {
     const int r = i / dv, c = i % dv;
-    const T* src = q + (r / G) * tok_stride + (r % G) * D + c * VN;
+    const T* src = q + (r / G) * q_tok + (r % G) * q_head + c * VN;
     *reinterpret_cast<uint4*>(q_s + r * DP + c * VN) =
         *reinterpret_cast<const uint4*>(src);
   }
@@ -140,30 +198,19 @@ __device__ __forceinline__ void attend_rows(
   for (int i = 0; i < kMaxAcc; ++i) acc[i] = 0.f;
   float m_r = kNegInf, l_r = 0.f;            // softmax carry of row tid
 
-  for (int j0 = j_lo; j0 < j_hi; j0 += tile_pages) {
-    const int np = min(tile_pages, j_hi - j0);
-    const int nk = np * ps;
+  for (int k0 = key_lo; k0 < key_hi; k0 += KT) {
+    const int nk = min(KT, key_hi - k0);
     __syncthreads();   // q_s is loaded; the previous tile is consumed
-    const int per_page = 2 * ps * dv;
-    for (int i = tid; i < np * per_page; i += kThreads) {
-      const int pi = i / per_page, rem = i % per_page;
-      const int row = rem / dv, c = rem % dv;   // K rows, then V rows
-      const T* src = kv_head + (size_t)bt_row[j0 + pi] * 2 * ps * D +
-                     (size_t)row * D + c * VN;
-      T* dst = (row < ps ? k_s + (size_t)(pi * ps + row) * DP
-                         : v_s + (size_t)(pi * ps + row - ps) * DP) +
-               c * VN;
-      *reinterpret_cast<uint4*>(dst) = __ldg(reinterpret_cast<const uint4*>(src));
-    }
+    kv.load(k_s, v_s, k0, nk, D, DP);
     __syncthreads();
 
     for (int i = tid; i < BR * nk; i += kThreads) {
       const int r = i / nk, k = i % nk;
       float s = dot_row(q_s + (size_t)r * DP, k_s + (size_t)k * DP, D) * scale;
       if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-      const int kp = j0 * ps + k;
+      const int kp = k0 + k;
       const int qp = q_pos0 + r / G;
-      bool ok = kp <= qp && kp < length;
+      bool ok = kp < length && (!causal || kp <= qp);
       if (window > 0) ok = ok && (qp - kp < window);
       s_s[(size_t)r * KT + k] = ok ? s : kNegInf;
     }
@@ -214,7 +261,7 @@ __device__ __forceinline__ void attend_rows(
   for (int i = 0; i < kMaxAcc; ++i) {
     if (i >= nacc) break;
     const int r = rg + i * nrg;
-    const long o = (r / G) * tok_stride + (r % G) * D + col;
+    const long o = (r / G) * o_tok + (r % G) * o_head + col;
     if (partial) {
       reinterpret_cast<float*>(out)[o] = acc[i];
     } else {
@@ -241,6 +288,15 @@ inline int tile_pages(int rows, int ps, int D, int elt) {
   int tp = 64 / ps > 1 ? 64 / ps : 1;
   while (tp > 1 && smem_bytes(rows, tp * ps, D, elt) > kSmemLimit) tp /= 2;
   return smem_bytes(rows, tp * ps, D, elt) <= kSmemLimit ? tp : 0;
+}
+
+// Keys per tile over contiguous K/V: 64, fewer if shared memory runs out;
+// 0 if `rows` do not fit a block.
+inline int tile_keys(int rows, int D, int elt) {
+  if (rows < 1 || rows > max_rows(D)) return 0;
+  int kt = 64;
+  while (kt > 1 && smem_bytes(rows, kt, D, elt) > kSmemLimit) kt /= 2;
+  return smem_bytes(rows, kt, D, elt) <= kSmemLimit ? kt : 0;
 }
 
 // Raise the dynamic shared-memory limit of a kernel when a launch needs

@@ -25,8 +25,12 @@
 
 namespace {
 
+// At most 80 registers for bf16 (three blocks of 256 threads fill an SM's
+// 65,536 registers, and three bf16 tiles fit its shared memory): above that
+// only two blocks run per SM, and a 2048-token chunk takes 15% longer on an
+// H100. An fp32 block's tiles fill shared memory alone: no minimum there.
 template <typename T>
-__global__ void __launch_bounds__(paged::kThreads)
+__global__ void __launch_bounds__(paged::kThreads, sizeof(T) == 2 ? 3 : 1)
 paged_prefill_attention_fused_kernel(
     const T* __restrict__ q, const T* __restrict__ kv,
     const int* __restrict__ block_tables, const int* __restrict__ row_pos,
@@ -48,12 +52,14 @@ paged_prefill_attention_fused_kernel(
   const long tok_stride = (long)Hkv * G * D;
   void* o = partial ? (void*)(reinterpret_cast<float*>(out) + tok0 * G * D)
                     : (void*)(reinterpret_cast<T*>(out) + tok0 * G * D);
+  const paged::PagedKV<T> src{kv + (size_t)h * P * 2 * ps * D,
+                              block_tables + (size_t)r * n, ps};
   paged::attend_rows<T>(
-      q + tok0 * G * D, tok_stride, o, partial ? m_out + tok0 * G : nullptr,
-      partial ? l_out + tok0 * G : nullptr, (long)Hkv * G,
-      kv + (size_t)h * P * 2 * ps * D, block_tables + (size_t)r * n, ps, D, G,
-      nt * G, pos + q0, length, window, scale, softcap, j_lo, j_hi,
-      tile_pages, partial != 0);
+      q + tok0 * G * D, tok_stride, D, o, tok_stride, D,
+      partial ? m_out + tok0 * G : nullptr,
+      partial ? l_out + tok0 * G : nullptr, (long)Hkv * G, src, D, G, nt * G,
+      pos + q0, length, true, window, scale, softcap, j_lo * ps, j_hi * ps,
+      tile_pages * ps, partial != 0);
 }
 
 // Query tokens per block: as many as fit the block's rows (t*G + g), at

@@ -7,6 +7,9 @@ model calls (``ops.py``):
 - ``paged_prefill_attention`` — ragged chunked prefill over the same pool,
   with per-(row, q tile) page-range pruning
   (``csrc/paged_prefill_attention.cu``).
-- ``ref_common`` — the plain math both ``ref.py`` wrap.
+- ``chunked_prefill_attention`` — a query chunk at a cache offset over
+  contiguous K/V rows read in place through their strides (the slot
+  engine's chunk attention, ``csrc/chunked_prefill_attention.cu``).
+- ``ref_common`` — the plain math both paged ``ref.py`` wrap.
 - ``build`` — nvcc build and ctypes loading of ``csrc/``.
 """

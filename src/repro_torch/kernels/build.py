@@ -20,11 +20,13 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("paged_attention", "paged_prefill_attention")
+SOURCES = ("paged_attention", "paged_prefill_attention",
+           "chunked_prefill_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # Argument types of each library's launch function, in the order of the C
 # signatures in csrc/. Pointers and the stream are c_void_p: ctypes would
 # otherwise pass a Python int as a 32-bit int.
@@ -41,13 +43,23 @@ SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I, _I,  # R, Sq, Hkv, G, D, P, ps, n
         _F, _I, _F,                  # scale, window, softcap
         _I, _I, _P]),                # partial, is_bf16, stream
+    "chunked_prefill_attention": ("chunked_prefill_attention_launch", [
+        _P, _P, _P, _P, _P,          # q, k, v, lengths, out
+        _L, _L, _L, _L, _L, _L,      # q, k strides (batch, head, position)
+        _L, _L, _L, _L, _L, _L,      # v, out strides
+        _I, _I, _I, _I, _I, _I,      # B, Sq, Sk, Hkv, G, D
+        _I, _I, _I, _F, _F,          # q_offset, causal, window, scale, softcap
+        _I, _P]),                    # is_bf16, stream
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
+NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"   # where nvcc is, off the PATH
+
+
 def nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    path = shutil.which("nvcc") or NVCC_DEFAULT
     if not os.path.exists(path):
         raise RuntimeError("nvcc not found: the CUDA kernels are built with "
                            "the CUDA toolkit's nvcc (PATH or /usr/local/cuda)")

@@ -7,6 +7,7 @@ Requests are submitted through the online API at their arrival times
     python -m repro_torch.launch.serve --arch llama3.2-3b --requests 8
     python -m repro_torch.launch.serve --no-smoke      # full-width model
     python -m repro_torch.launch.serve --device cpu    # smoke config on CPU
+    python -m repro_torch.launch.serve --cache-mode slot   # contiguous rows
 
 Flags follow the reference launcher; ``--serve-http``, ``--replicas`` and
 ``--mesh`` are not ported yet. The model's weights are random, drawn from
@@ -40,8 +41,10 @@ def main(argv=None):
                     choices=sorted(SLO_CLASSES),
                     help="named tenant class (ttft/tbt SLO pair) submitted "
                          "requests run under")
-    ap.add_argument("--cache-mode", default="auto", choices=["auto", "paged"],
-                    help="paged = block-table KV (slot mode is not ported)")
+    ap.add_argument("--cache-mode", default="auto",
+                    choices=["auto", "slot", "paged"],
+                    help="paged = block-table KV (production layout); "
+                         "slot = contiguous rows (recurrent/MLA archs)")
     ap.add_argument("--kv-tokens", type=int, default=4096,
                     help="paged KV capacity in tokens")
     ap.add_argument("--page-size", type=int, default=16)
@@ -69,6 +72,7 @@ def main(argv=None):
         cfg = cfg.smoke()
     sched = SlidingServeScheduler(max_budget=args.max_budget, max_iter_time=2.0)
     core = EngineCore(cfg, sched, cache_mode=args.cache_mode,
+                      max_slots=4, max_len=512,
                       kv_capacity_tokens=args.kv_tokens,
                       page_size=args.page_size,
                       prefix_cache=args.prefix_cache, spec_k=args.spec_k,

@@ -1,8 +1,13 @@
-"""Paged KV helpers (port of ``gather_pages`` and ``write_pages_fused`` of
-the reference ``models/attention.py``)."""
+"""KV-cache helpers of the reference ``models/attention.py``: the paged
+ones (``gather_pages``, ``write_pages_fused``), the slot-cache writes
+(``update_kv_cache``, ``update_kv_cache_ragged``) and ``decode_attention``
+(plain PyTorch, as it is plain jnp in the reference). Writes go **in place**
+where the reference returns a new buffer."""
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels import ref_common as rc
 
 
 def gather_pages(
@@ -39,3 +44,67 @@ def write_pages_fused(
                      v_new.reshape(-1, Hkv, D)]).transpose(0, 1)
     flat.index_copy_(1, idx, upd.to(flat.dtype))
     return kv_pages
+
+
+def update_kv_cache(
+    cache: torch.Tensor,  # [B, S, ...]
+    new: torch.Tensor,    # [B, n, ...]
+    pos: int,             # uniform write offset
+) -> torch.Tensor:
+    """Write ``new`` at positions ``pos .. pos+n-1`` of every row, in place.
+    The start is clamped to ``[0, S - n]`` as ``jax.lax.dynamic_update_slice``
+    clamps it: a bucket-padded chunk that would end past ``S`` lands at
+    ``S - n`` instead, as in the reference. Returns ``cache``."""
+    n, S = new.shape[1], cache.shape[1]
+    start = min(max(int(pos), 0), S - n)
+    cache[:, start:start + n] = new.to(cache.dtype)
+    return cache
+
+
+def update_kv_cache_ragged(
+    cache: torch.Tensor,    # [B, S, ...]
+    new: torch.Tensor,      # [B, n, ...]
+    offsets: torch.Tensor,  # [B] per-row write offsets
+    rows: torch.Tensor = None,  # row indices to write (all when None)
+) -> torch.Tensor:
+    """Per-row write at ``offsets[b]`` (clamped to ``[0, S - n]`` per row,
+    as the reference's per-row ``dynamic_update_slice``), in place, for
+    ``rows`` only: the slot engine's decode step runs every slot but keeps
+    the writes of the rows that are really decoding. Returns ``cache``."""
+    B, n, S = new.shape[0], new.shape[1], cache.shape[1]
+    if rows is None:
+        rows = torch.arange(B, device=cache.device)
+    starts = offsets.to(cache.device).long().clamp(0, S - n)[rows]
+    pos = starts[:, None] + torch.arange(n, device=cache.device)[None, :]
+    cache[rows[:, None], pos] = new[rows].to(cache.dtype)
+    return cache
+
+
+def decode_attention(
+    q: torch.Tensor,        # [B, Hkv, G, Dh]
+    k_cache: torch.Tensor,  # [B, S, Hkv, Dh]
+    v_cache: torch.Tensor,  # [B, S, Hkv, Dv]
+    length,                 # int or [B]: number of valid cache entries
+    *,
+    scale: float,
+    window: int = 0,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """One-token attention read of the cache, in the reference's order:
+    fp32 scores, scale, softcap, mask (``k_pos < length``, and
+    ``k_pos >= length - window``), ``exp(s - max) / max(l, 1e-30)`` rounded
+    to V's dtype, fp32 P.V. Returns [B, Hkv, G, Dv] in q's dtype."""
+    B, Hkv, G, D = q.shape
+    if not torch.is_tensor(length):
+        length = torch.full((B,), int(length), device=q.device)
+    s = rc.decode_scores(q.reshape(B, Hkv * G, D), k_cache.permute(0, 2, 1, 3),
+                         scale=scale, softcap=softcap)     # [B, Hkv, G, S]
+    s = rc.decode_mask(s, length.to(q.device).reshape(-1).expand(B),
+                       window=window,
+                       k_pos=torch.arange(k_cache.shape[1], device=q.device))
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.sum(p, dim=-1, keepdim=True)
+    p = (p / torch.clamp(l, min=1e-30)).to(v_cache.dtype)
+    out = torch.einsum("bhgs,bshd->bhgd", p.float(), v_cache.float())
+    return out.to(q.dtype)

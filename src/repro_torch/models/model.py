@@ -1,16 +1,18 @@
-"""Decoder LM over the paged KV cache (port of the paged path of the
-reference ``models/model.py``).
+"""Decoder LM over the paged KV cache and over the slot cache (port of the
+paged path and of the attention slot path of the reference
+``models/model.py``).
 
 Parameters are nested dicts mirroring the reference pytree: a list of
 *stacks*, each a list over the repeating period's slots whose leaves carry a
 leading ``[reps, ...]`` axis. ``forward`` loops over stacks and repetitions
-in Python where the reference uses ``lax.scan``. The paged cache mirrors the
-same structure, one fused pool ``[reps, Hkv, P, 2, ps, D]`` per slot, and
-the steps write it **in place** (the reference donates it).
+in Python where the reference uses ``lax.scan``. Both caches mirror the same
+structure: one fused pool ``{"kv_pages": [reps, Hkv, P, 2, ps, D]}`` per slot
+(paged), or contiguous rows ``{"k", "v": [reps, B, Smax, Hkv, D]}`` (slot).
+The steps write them **in place** (the reference donates them).
 
-Only what the paged serving path of a pure-attention dense decoder needs is
-ported: ``forward`` raises ``NotImplementedError`` on every other config
-feature instead of computing something else.
+Only what serving a pure-attention dense decoder needs is ported:
+``forward`` raises ``NotImplementedError`` on every other config feature
+instead of computing something else.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ATTN, DENSE, LOCAL_ATTN, ModelConfig
+from repro_torch.kernels.chunked_prefill_attention.ops import (
+    chunked_prefill_attention_op)
 from repro_torch.kernels.paged_attention.ops import paged_attention_auto
 from repro_torch.kernels.paged_prefill_attention.ops import (
     paged_prefill_attention_auto)
@@ -112,6 +116,28 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
     return out
 
 
+# ---- slot cache -------------------------------------------------------------
+def init_cache(cfg: ModelConfig, B: int, max_len: int, dtype=None,
+               device=None) -> list:
+    """Zeroed contiguous KV rows (the reference's ``init_cache`` for
+    attention mixers): one ``{"k", "v": [reps, B, max_len, Hkv, Dh]}`` per
+    period slot of each stack, one row per engine slot."""
+    dtype = dtype or cfg.dtype
+    Hkv, Dh = cfg.num_kv_heads, cfg.resolved_head_dim
+    out = []
+    for period, reps in build_stacks(cfg):
+        slots = []
+        for mixer, _ in period:
+            if mixer not in (ATTN, LOCAL_ATTN):
+                raise NotImplementedError(
+                    f"slot cache of mixer {mixer!r} is not ported")
+            slots.append({n: torch.zeros((reps, B, max_len, Hkv, Dh),
+                                         dtype=dtype, device=device)
+                          for n in ("k", "v")})
+        out.append(slots)
+    return out
+
+
 # =============================================================================
 # blocks
 # =============================================================================
@@ -132,35 +158,80 @@ def _attn_scale(cfg: ModelConfig) -> float:
     return cfg.attn_scale or 1.0 / math.sqrt(cfg.resolved_head_dim)
 
 
-def _positions(mode, pos, lengths, Sq):
-    if mode == "paged_decode":
+def _positions(mode, pos, lengths, Sq, device):
+    if mode == "paged_decode" or (mode == "decode" and torch.is_tensor(lengths)
+                                  and lengths.dim()):
         return (lengths.long() - 1)[:, None]                 # [B, 1]
-    return pos.long()[:, None] + torch.arange(Sq, device=pos.device)[None, :]
+    if torch.is_tensor(pos) and pos.dim():                   # [B] offsets
+        return pos.long()[:, None] + torch.arange(Sq, device=device)[None, :]
+    return (int(pos) + torch.arange(Sq, device=device))[None, :]  # [1, Sq]
 
 
-def attn_block(cfg, p, x, kv_pages, *, mode, pos, lengths, window, paged):
-    """Write the call's K/V into the layer's pool ``kv_pages`` (in place)
+def attn_block(cfg, p, x, state, *, mode, pos, lengths, window, paged=None,
+               rows=None):
+    """Write the call's K/V into the layer's cache ``state`` (in place)
     first, then attend (decode ``lengths`` count the token being written).
+    ``rows`` limits a slot decode's writes to the rows really decoding.
     Returns the block's output."""
     B, Sq, _ = x.shape
     xin = rms_norm(x, p["ln"], cfg.norm_eps)
-    q, k, v = _qkv(cfg, p, xin, _positions(mode, pos, lengths, Sq))
+    q, k, v = _qkv(cfg, p, xin, _positions(mode, pos, lengths, Sq, x.device))
     scale = _attn_scale(cfg)
-    kvp = A.write_pages_fused(kv_pages, k, v, paged.write_slots)
+    cap = cfg.attn_logit_softcap
+    if mode in ("paged_chunk", "paged_decode"):
+        kvp = A.write_pages_fused(state["kv_pages"], k, v, paged.write_slots)
     if mode == "paged_chunk":
         o = paged_prefill_attention_auto(
             q, kvp, paged.block_tables, pos, lengths, scale=scale,
-            window=window, softcap=cfg.attn_logit_softcap)
+            window=window, softcap=cap)
     elif mode == "paged_decode":
         H, Dh = cfg.num_heads, cfg.resolved_head_dim
         o = paged_attention_auto(q[:, 0].reshape(B, H, Dh), kvp,
                                  paged.block_tables, lengths, scale=scale,
-                                 window=window,
-                                 softcap=cfg.attn_logit_softcap)
+                                 window=window, softcap=cap)
+    elif mode == "chunk":
+        A.update_kv_cache(state["k"], k, pos)
+        A.update_kv_cache(state["v"], v, pos)
+        o = _chunk_attend(cfg, q, state["k"], state["v"], pos, lengths,
+                          window)
+    elif mode == "decode":
+        if torch.is_tensor(lengths) and lengths.dim():
+            A.update_kv_cache_ragged(state["k"], k, lengths - 1, rows)
+            A.update_kv_cache_ragged(state["v"], v, lengths - 1, rows)
+        else:
+            A.update_kv_cache(state["k"], k, pos)
+            A.update_kv_cache(state["v"], v, pos)
+        o = A.decode_attention(q[:, 0], state["k"], state["v"], lengths,
+                               scale=scale, window=window, softcap=cap)
     else:
         raise ValueError(mode)
     o = o.reshape(B, Sq, cfg.num_heads * cfg.resolved_head_dim)
     return o @ p["wo"]
+
+
+def _chunk_attend(cfg, q, k_all, v_all, pos, lengths, window):
+    """A chunk of queries q [B, Sq, Hkv, G, D] at cache offset ``pos`` over
+    the whole slot cache k_all/v_all [B, Smax, Hkv, D], through the
+    chunked-prefill attention kernel: causal at ``q_offset = pos``, the
+    window, and a per-row length mask ``lengths`` [B] where given (else
+    ``pos + Sq``, which the causal mask already implies). The cache is
+    passed as permuted views, read in place. Returns [B, Sq, Hkv, G, D]."""
+    if torch.is_tensor(pos) and pos.dim():
+        raise NotImplementedError(
+            "_chunk_attend over ragged per-row offsets is not ported (the "
+            "slot engine runs one request per chunk dispatch)")
+    B, Sq, Hkv, G, D = q.shape
+    pos = int(pos)
+    if not (torch.is_tensor(lengths) and lengths.dim()):
+        lengths = torch.full((B,), pos + Sq, dtype=torch.int32,
+                             device=q.device)
+    o = chunked_prefill_attention_op(
+        q.reshape(B, Sq, Hkv * G, D).permute(0, 2, 1, 3),
+        k_all.permute(0, 2, 1, 3), v_all.permute(0, 2, 1, 3),
+        lengths.to(device=q.device, dtype=torch.int32), scale=_attn_scale(cfg),
+        q_offset=pos, causal=True, window=window,
+        softcap=cfg.attn_logit_softcap)
+    return o.permute(0, 2, 1, 3).reshape(B, Sq, Hkv, G, D)
 
 
 def _ffn_apply(cfg, slot, x):
@@ -176,8 +247,9 @@ def _rep(tree, r: int):
 
 
 def forward(cfg: ModelConfig, params, tokens, *, cache, mode: str, pos=None,
-            lengths=None, paged: PagedView):
-    """Paged forward (``mode`` "paged_chunk" or "paged_decode"). Returns
+            lengths=None, paged: Optional[PagedView] = None, rows=None):
+    """Forward over the paged cache (``mode`` "paged_chunk" or
+    "paged_decode") or the slot cache ("chunk" or "decode"). Returns
     (final-normed hidden [B, S, d], cache updated in place)."""
     check_supported(cfg)
     x = params["embed"][tokens.long()]
@@ -187,9 +259,9 @@ def forward(cfg: ModelConfig, params, tokens, *, cache, mode: str, pos=None,
                 slot = _rep(params["stacks"][i][j], r)
                 window = cfg.sliding_window if mixer == LOCAL_ATTN else 0
                 x = x + attn_block(cfg, slot["attn"], x,
-                                   cache[i][j]["kv_pages"][r], mode=mode,
-                                   pos=pos, lengths=lengths, window=window,
-                                   paged=paged)
+                                   _rep(cache[i][j], r), mode=mode, pos=pos,
+                                   lengths=lengths, window=window,
+                                   paged=paged, rows=rows)
                 x = x + _ffn_apply(cfg, slot, x)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), cache
 
@@ -292,3 +364,29 @@ def paged_spec_step(cfg: ModelConfig, params, tokens, cache, row_pos, *,
     accepted = torch.cumprod(matches.to(torch.int32), dim=1).sum(dim=1)
     payload = torch.cat([accepted[:, None].to(torch.int32), out], dim=1)
     return payload.reshape(-1).to(torch.int32), cache
+
+
+def decode_step(cfg: ModelConfig, params, tokens, cache, pos, *,
+                lengths=None, write_rows=None):
+    """One decode step over the slot cache. ``tokens`` [B, 1]; ``pos`` a
+    lockstep offset, or ``lengths`` [B] each row's length *including* the
+    token being written. ``write_rows`` limits the cache writes to those
+    rows (the slot engine's decoding rows; every row when None). Returns
+    (logits [B, V], cache)."""
+    if lengths is None:
+        lengths = pos + 1
+    x, cache = forward(cfg, params, tokens, cache=cache, mode="decode",
+                       pos=pos, lengths=lengths, rows=write_rows)
+    return _head(cfg, params, x[:, -1]), cache
+
+
+def chunk_prefill_step(cfg: ModelConfig, params, tokens, cache, pos, *,
+                       lengths=None, logits_at=-1):
+    """Chunked-prefill step over the slot cache at offset ``pos`` (an
+    integer): ``tokens`` [B, Sq] are written at ``pos .. pos+Sq-1`` and
+    attend causally. ``logits_at`` is the chunk position whose logits to
+    return (a bucket-padded chunk points at its last real token). Returns
+    (logits [B, V], cache)."""
+    x, cache = forward(cfg, params, tokens, cache=cache, mode="chunk",
+                       pos=pos, lengths=lengths)
+    return _head(cfg, params, x[:, logits_at]), cache

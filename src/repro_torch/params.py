@@ -8,9 +8,11 @@
   full-width model gets its weights on the card; the numbers differ from
   JAX's for the same seed.
 * ``from_jax_numpy(cfg, tree)`` carries the reference's ``init_params``
-  pytree (or a paged cache from ``init_paged_cache``), given as numpy
-  arrays, across unchanged, so the tests can feed both frameworks the same
-  weights. Stacks keep their ``[reps, ...]`` leading axis.
+  pytree (or a cache: paged from ``init_paged_cache``, or slot from
+  ``init_cache``, possibly already written), given as numpy arrays, across
+  unchanged, so the tests can feed both frameworks the same weights and
+  start both from the same cache. Stacks keep their ``[reps, ...]``
+  leading axis.
 """
 from __future__ import annotations
 
@@ -51,7 +53,7 @@ def _leaves(tree):
 def from_jax_numpy(cfg: ModelConfig, tree, device="cpu"):
     """Nested dicts/lists of numpy arrays -> the same structure of tensors
     on ``device`` (dtypes kept; bf16 arrays included). For a parameter tree
-    (a dict with ``"stacks"``) or a paged cache (a list of stacks), every
+    (a dict with ``"stacks"``) or a cache (a list of stacks), every
     stacked leaf must carry ``cfg``'s repetition count as its leading axis."""
     out = _convert(tree, device)
     stacks = out.get("stacks") if isinstance(out, dict) else out

@@ -1,6 +1,8 @@
-"""Paged serving engine: SlidingServe driving the PyTorch model on the GPU.
+"""Serving engine: SlidingServe driving the PyTorch model on the GPU.
 
-Port of the paged mode of the reference ``serving/engine.py``. KV lives in
+Port of the reference ``serving/engine.py``, in two cache modes.
+
+* **paged** (pure-attention decoders; the default). KV lives in
 physical pages handed out by :class:`BlockAllocator`, the single admission
 and preemption authority (admit on free blocks, grow per emitted token,
 evict-and-recompute the lowest-priority owner when growth fails). A
@@ -19,8 +21,20 @@ scheduling and numpy assembly are done. Block-table uploads are cached by
 content. ``overlap=False`` syncs every round at once with one transfer per
 row, for A/B profiling.
 
-Not ported yet: slot mode for archs whose state is not paged (they raise),
-and the mesh.
+* **slot** (``cache_mode="slot"``; the reference's mode for the archs whose
+  state the paged cache cannot hold). Each admitted request owns one row of
+  a contiguous ``max_slots x max_len`` KV cache. Every prompt chunk is one
+  dispatch at its slot's offset, through the chunked-prefill attention
+  kernel over the slot's row, read in place; chunk lengths are bucketed by
+  ``CHUNK_BUCKETS`` and padded by repeating the last real token. One decode
+  dispatch runs every slot and writes K/V only for the rows that are really
+  decoding. Greedy argmax is taken on the device and read back once per
+  dispatch that emits; rounds are synchronous. ``spec_k`` and the prefix
+  cache are off in this mode, as in the reference.
+
+Not ported yet: the recurrent, MLA and encoder-decoder archs that slot mode
+exists for (``check_supported`` raises before anything is allocated), and
+the mesh.
 """
 from __future__ import annotations
 
@@ -37,6 +51,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.scheduler import KVPressure, SchedulerBase
 from repro_torch.models.model import (PAGED_KV_LAYOUT, Sampling,
+                                      check_supported, chunk_prefill_step,
+                                      decode_step, init_cache,
                                       init_paged_cache, paged_chunk_step,
                                       paged_decode_step, paged_spec_step,
                                       supports_paged_cache)
@@ -108,7 +124,7 @@ class EngineEvent:
 @dataclasses.dataclass
 class EngineStats:
     iterations: int = 0
-    prefill_calls: int = 0        # fused chunk dispatches
+    prefill_calls: int = 0        # fused chunk dispatches (paged) / per-req (slot)
     decode_calls: int = 0
     compiled_shapes: int = 0      # distinct dispatch shapes seen
     evictions: int = 0
@@ -160,18 +176,20 @@ class _InflightRound:
 
 
 class EngineCore:
-    """Continuous-batching engine core over the paged KV cache, driven one
-    scheduler round at a time: ``add_request(req, prompt)`` → ``step()``
-    (repeat while ``has_work()``) → per-round ``EngineEvent`` lists;
-    ``abort(rid)`` cancels a request and releases its pages at once;
+    """Continuous-batching engine core, driven one scheduler round at a
+    time: ``add_request(req, prompt)`` → ``step()`` (repeat while
+    ``has_work()``) → per-round ``EngineEvent`` lists; ``abort(rid)``
+    cancels a request and releases its pages or slot at once;
     ``serve(requests)`` is the offline wrapper over the same loop.
 
     ``params``: the model's parameters (``repro_torch.params``); drawn from
     ``seed`` on ``device`` when omitted. ``device``: the GPU by default;
-    raises when there is none. ``cache_mode`` must resolve to ``"paged"``.
-    ``prefix_cache`` reuses frozen full pages across requests sharing a
-    prefix; greedy tokens are the same with it on or off. ``spec_k > 0``
-    turns decode rows into speculative verify rows (n-gram drafter).
+    raises when there is none. ``cache_mode``: ``"paged"``, ``"slot"`` or
+    ``"auto"`` (paged where the arch allows it); slot mode holds
+    ``max_slots`` rows of ``max_len`` tokens. ``prefix_cache`` reuses frozen
+    full pages across requests sharing a prefix; greedy tokens are the same
+    with it on or off. ``spec_k > 0`` turns decode rows into speculative
+    verify rows (n-gram drafter). Both are paged-mode only.
     """
 
     def __init__(self, cfg: ModelConfig, scheduler: SchedulerBase, *,
@@ -186,12 +204,15 @@ class EngineCore:
                  temperature: float = 0.0, top_k: int = 0,
                  sample_seed: int = 0, seed: int = 0,
                  params=None, device=None):
+        check_supported(cfg)     # before any weight or cache is allocated
         if cache_mode == "auto":
             cache_mode = "paged" if supports_paged_cache(cfg) else "slot"
-        if cache_mode != "paged" or not supports_paged_cache(cfg):
+        if cache_mode not in ("paged", "slot"):
+            raise ValueError(f"unknown cache_mode {cache_mode!r}")
+        if cache_mode == "paged" and not supports_paged_cache(cfg):
             raise ValueError(
-                f"{cfg.name}: the PyTorch engine serves the paged cache of "
-                f"pure-attention decoders only (slot mode is not ported)")
+                f"{cfg.name}: paged KV requires pure-attention mixers; "
+                f"use cache_mode='slot'")
         self.cache_mode = cache_mode
         self.cfg = cfg
         self.sched = scheduler
@@ -223,7 +244,8 @@ class EngineCore:
         self._inflight: Optional[_InflightRound] = None
 
         # ---- speculative decoding + sampling policy --------------------------
-        self.spec_k = int(spec_k)
+        # (paged mode only; slot mode ignores spec_k, as the reference does)
+        self.spec_k = int(spec_k) if cache_mode == "paged" else 0
         self.drafter = drafter or (NGramDrafter() if self.spec_k else None)
         self.spec_class_caps = dict(spec_class_caps or {})
         self.sampling = (Sampling(temperature=temperature, top_k=top_k,
@@ -235,7 +257,7 @@ class EngineCore:
         self._spec_acc_m2 = 0.0         # EMA of its square (for the std)
         self._spec_draft_ema = 0.0      # EMA of drafts per decode-eligible row
 
-        self.prefix_cache = bool(prefix_cache)
+        self.prefix_cache = bool(prefix_cache) and cache_mode == "paged"
         # dependency-aware admission defer (in-flight burst sharing): when K
         # concurrent requests share an uncommitted prefix, followers wait for
         # the leader to commit the shared pages instead of prefilling it K
@@ -244,6 +266,11 @@ class EngineCore:
         self._defer_rounds: Dict[int, int] = {}   # rid -> rounds deferred
         self._defer_cap = 512                     # livelock safety valve
 
+        self._length: Dict[int, int] = {}     # tokens resident per rid
+        self._folded: Dict[int, int] = {}     # gen tokens folded on evict
+        if cache_mode == "slot":
+            self._init_slot_mode(max_slots, max_len)
+            return
         capacity = kv_capacity_tokens or max_slots * max_len
         self.alloc = BlockAllocator(capacity, page_size)
         self.page_size = page_size
@@ -253,15 +280,15 @@ class EngineCore:
         self.cache = init_paged_cache(cfg, self.alloc.num_blocks + 1,
                                       page_size, device=self.device)
         self._trash_slot = self.alloc.num_blocks * page_size
-        self._length: Dict[int, int] = {}     # tokens resident per rid
-        self._folded: Dict[int, int] = {}     # gen tokens folded on evict
         self._dev_cache: Dict[Tuple, Tuple[np.ndarray, torch.Tensor]] = {}
 
     def shard_info(self) -> Dict:
         """KV-pool accounting in the reference's record shape (one device:
         the pool is not partitioned)."""
-        info = {"mesh": None, "kv_partition": "none", "kv_shards": 1,
-                "kv_heads_per_shard": self.cfg.num_kv_heads}
+        info = {"mesh": None, "kv_partition": "none", "kv_shards": 1}
+        if self.cache_mode != "paged":
+            return info
+        info["kv_heads_per_shard"] = self.cfg.num_kv_heads
         info.update(self.alloc.shard_stats(1))
         return info
 
@@ -400,10 +427,13 @@ class EngineCore:
 
     def _retire(self, r: Request) -> None:
         """Release a request's execution resources (idempotent)."""
-        if r.rid in self.alloc.owners:
-            self.alloc.free(r.rid)
-        self._length.pop(r.rid, None)
-        self._folded.pop(r.rid, None)
+        if self.cache_mode == "paged":
+            if r.rid in self.alloc.owners:
+                self.alloc.free(r.rid)
+            self._length.pop(r.rid, None)
+            self._folded.pop(r.rid, None)
+        else:
+            self._release_slot(r)
         self._resumed.discard(r.rid)
         self._defer_rounds.pop(r.rid, None)
         if r in self._active:
@@ -461,48 +491,56 @@ class EngineCore:
 
     def _admit(self) -> None:
         """Move due arrivals into the admission queue, then admit while the
-        free pool lasts (full prompt + decode reserve), latency-critical SLO
-        classes first, FIFO within a class."""
+        free pool (or a free slot) lasts, latency-critical SLO classes
+        first, FIFO within a class. Paged admission reserves the full prompt
+        + decode reserve."""
+        paged = self.cache_mode == "paged"
         while self._pending and self._pending[0][0] <= self._now():
             _, _, r = heapq.heappop(self._pending)
             self._queued.append(r)
             self._event(EventKind.QUEUED, r.rid, r.arrival)
-        if self._queued and self.alloc.free_blocks > 0:
+        exhausted = (self.alloc.free_blocks == 0 if paged
+                     else not self.free_slots)
+        if self._queued and not exhausted:
             if len(self._queued) > 1:
                 self._queued = collections.deque(
                     sorted(self._queued, key=lambda r: r.class_rank()))
             failures = 0
             for _ in range(len(self._queued)):
                 r = self._queued.popleft()
-                if self._defer_for_leader(r):
+                if paged and self._defer_for_leader(r):
                     self._queued.append(r)
                     failures += 1
                     continue
-                # admission reserves the full prompt + decode headroom; with
-                # the prefix cache, frozen pages matching the prompt are
-                # reused (capped at prompt_len - 1 so one prompt token is
-                # always computed for the first token's logits).
-                ok = self.alloc.admit(
-                    r.rid, r.remaining_prefill() + self.decode_reserve,
-                    token_ids=(self._prompts[r.rid]
-                               if self.prefix_cache else None),
-                    match_limit=r.prompt_len - 1)
+                if paged:
+                    # admission reserves the full prompt + decode headroom;
+                    # with the prefix cache, frozen pages matching the
+                    # prompt are reused (capped at prompt_len - 1 so one
+                    # prompt token is always computed for the first token).
+                    ok = self.alloc.admit(
+                        r.rid, r.remaining_prefill() + self.decode_reserve,
+                        token_ids=(self._prompts[r.rid]
+                                   if self.prefix_cache else None),
+                        match_limit=r.prompt_len - 1)
+                else:
+                    ok = self._assign_slot(r) is not None
                 if ok:
                     self._active.append(r)
                     self._defer_rounds.pop(r.rid, None)
-                    matched = self.alloc.cached_tokens(r.rid)
-                    self._length[r.rid] = matched
-                    if matched:
-                        # prefill resumes after the frozen prefix
-                        r.prefilled = matched
-                        r.cached_prefix = matched
-                    self.stats.cache_hit_tokens += matched
-                    self.stats.prompt_tokens += r.prompt_len
+                    if paged:
+                        matched = self.alloc.cached_tokens(r.rid)
+                        self._length[r.rid] = matched
+                        if matched:
+                            # prefill resumes after the frozen prefix
+                            r.prefilled = matched
+                            r.cached_prefix = matched
+                        self.stats.cache_hit_tokens += matched
+                        self.stats.prompt_tokens += r.prompt_len
                     self._event(EventKind.ADMITTED, r.rid, self._now())
                 else:
                     self._queued.append(r)
                     failures += 1
-                if self.alloc.free_blocks == 0:
+                if paged and self.alloc.free_blocks == 0:
                     # pool just drained: rotate the failures back to the
                     # front so FIFO order survives the early exit.
                     self._queued.rotate(failures)
@@ -515,6 +553,7 @@ class EngineCore:
         *previous* round's deferred readback. Returns the events that
         settled during this call; an idle step flushes any in-flight round
         so the final tokens always surface."""
+        paged = self.cache_mode == "paged"
         self._admit()
         if not self._active:
             self._flush_round()         # device is idle anyway
@@ -525,15 +564,18 @@ class EngineCore:
         prefilling = [r for r in self._active
                       if r.state == ReqState.PREFILLING]
         decoding = [r for r in self._active if r.state == ReqState.DECODING]
-        decision = self.sched.schedule(self._now(), waiting, prefilling,
-                                       decoding, kv=self._kv_pressure())
+        decision = self.sched.schedule(
+            self._now(), waiting, prefilling, decoding,
+            kv=self._kv_pressure() if paged else None)
         if decision is None:
             self._flush_round()
             self._progress = "no-decision"
             return self._drain_events()
 
         self._round_calls = 0
-        executed = self._execute_paged(decision)
+        it0 = time.perf_counter()
+        executed = (self._execute_paged(decision) if paged
+                    else self._execute_slot(decision))
         if not executed:
             # every entry was evicted away: the driver should yield so
             # re-admission can make progress.
@@ -541,6 +583,7 @@ class EngineCore:
             self._progress = "empty"
             return self._drain_events()
         self._progress = "executed"
+        latency = time.perf_counter() - it0
         t_now = self._now()
         self.stats.iterations += 1
         self.stats.max_round_calls = max(self.stats.max_round_calls,
@@ -573,14 +616,31 @@ class EngineCore:
                     else:
                         r.emit_token(t_now)
                         emitted = True
-            if emitted:
+            if emitted and paged:
                 # the token value is on the device; events settle at flush.
                 stamped.append((r, len(r.token_times) - 1, was_first,
                                 r.state == ReqState.FINISHED))
+            elif emitted:
+                # slot mode reads back per dispatch: the id is known now.
+                tok = self._tokens_out[r.rid][-1]
+                reason = "length"
+                if r.state != ReqState.FINISHED and r.hits_stop(tok):
+                    r.state = ReqState.FINISHED
+                    r.finish_time = t_now
+                    reason = "stop"
+                self._event(EventKind.FIRST_TOKEN if was_first
+                            else EventKind.TOKEN, r.rid, t_now, token=tok)
+                if r.state == ReqState.FINISHED:
+                    self._event(EventKind.FINISHED, r.rid, t_now,
+                                reason=reason)
             if r.state == ReqState.FINISHED:
                 self._retire(r)
                 self._done.append(r)
                 self._bump(self.stats.finished_by_class, r.slo_class)
+        if not paged:
+            # close the loop on what actually ran (post split/clamp)
+            self.sched.observe(executed_batch, latency, kv=None)
+            return self._drain_events()
         # readback + observe happen at the next round's flush; the executed
         # batch is recorded on the in-flight round.
         if self._inflight is not None:
@@ -590,6 +650,110 @@ class EngineCore:
         if not self.overlap:
             self._flush_round()
         return self._drain_events()
+
+    # =========================================================================
+    # slot mode: one contiguous KV row per request
+    # =========================================================================
+    def _init_slot_mode(self, max_slots: int, max_len: int) -> None:
+        self.cache = init_cache(self.cfg, max_slots, max_len,
+                                device=self.device)
+        self.lengths = np.zeros((max_slots,), np.int32)   # cached tokens/slot
+        self.slot_of: Dict[int, int] = {}
+        self.free_slots = list(range(max_slots))
+
+    def _assign_slot(self, req: Request) -> Optional[int]:
+        if req.rid in self.slot_of:
+            return self.slot_of[req.rid]
+        if not self.free_slots:
+            return None
+        s = self.free_slots.pop()
+        self.slot_of[req.rid] = s
+        self.lengths[s] = 0
+        return s
+
+    def _release_slot(self, req: Request) -> None:
+        s = self.slot_of.pop(req.rid, None)
+        if s is not None:
+            self.free_slots.append(s)
+
+    def _slot_row(self, slot: int) -> list:
+        """The cache tree cut to one slot's row: views, so the chunk step
+        writes the row in place and nothing is copied."""
+        return [[{n: leaf[:, slot:slot + 1] for n, leaf in c.items()}
+                 for c in stack] for stack in self.cache]
+
+    def _run_prefill_chunk(self, req: Request, n: int,
+                           prompt_tokens: np.ndarray) -> int:
+        """Execute up to ``n`` prompt tokens, one dispatch per chunk at the
+        slot's offset; returns tokens actually run. Allocations above the
+        top bucket are split across dispatches (never silently truncated —
+        the caller advances by the returned count)."""
+        slot = self.slot_of[req.rid]
+        total = min(n, req.prompt_len - int(self.lengths[slot]))
+        row = self._slot_row(slot)
+        done = 0
+        ids = None
+        while done < total:
+            start = int(self.lengths[slot])
+            step = min(total - done, CHUNK_BUCKETS[-1])
+            blen = _bucket(step)
+            chunk = np.zeros((1, blen), np.int32)
+            real = prompt_tokens[start:start + step]
+            chunk[0, :step] = real
+            # bucket padding repeats the last real token; attention is
+            # causal, so the real tokens never see it.
+            if step < blen and step > 0:
+                chunk[0, step:] = real[-1]
+            self._note_shape(("slot_chunk", blen))
+            logits, _ = chunk_prefill_step(self.cfg, self.params,
+                                           self._to_dev(chunk), row, start,
+                                           logits_at=step - 1)
+            ids = torch.argmax(logits, dim=-1)
+            self.lengths[slot] = start + step
+            self.stats.prefill_calls += 1
+            self._round_calls += 1
+            done += step
+        if int(self.lengths[slot]) >= req.prompt_len and done > 0:
+            tok = int(self._readback(ids)[0])
+            self._tokens_out.setdefault(req.rid, []).append(tok)
+        return done
+
+    def _run_decode_slot(self, reqs: Sequence[Request]) -> None:
+        """One decode dispatch over every slot; only the rows of ``reqs``
+        write K/V and emit (the reference runs every row too and keeps the
+        decoding rows' cache)."""
+        tokens = np.zeros((self.max_slots, 1), np.int32)
+        slots = np.asarray([self.slot_of[r.rid] for r in reqs], np.int64)
+        for r, slot in zip(reqs, slots):
+            prev = self._tokens_out.get(r.rid, [0])
+            tokens[slot, 0] = prev[-1] if prev else 0
+        rows = self._to_dev(slots)
+        lengths_p1 = self.lengths + 1   # every row writes to its empty spot
+        logits, _ = decode_step(self.cfg, self.params, self._to_dev(tokens),
+                                self.cache, 0,
+                                lengths=self._to_dev(lengths_p1),
+                                write_rows=rows)
+        ids = self._readback(torch.argmax(logits[rows], dim=-1))
+        for r, slot, tok in zip(reqs, slots, ids):
+            self.lengths[slot] += 1
+            self._tokens_out.setdefault(r.rid, []).append(int(tok))
+        self.stats.decode_calls += 1
+        self._round_calls += 1
+
+    def _execute_slot(self, decision) -> List[Tuple[Request, int, int]]:
+        executed = []
+        decode_reqs = [r for r, n in decision.alloc
+                       if r.state == ReqState.DECODING]
+        if decode_reqs:
+            self._run_decode_slot(decode_reqs)
+            executed += [(r, 1, r.context_len()) for r in decode_reqs]
+        for r, n in decision.alloc:
+            if r.state != ReqState.DECODING:
+                ctx = r.context_len()
+                n_exec = self._run_prefill_chunk(r, n, self._prompts[r.rid])
+                if n_exec > 0:
+                    executed.append((r, n_exec, ctx))
+        return executed
 
     # =========================================================================
     # allocator-backed growth / eviction
@@ -641,7 +805,8 @@ class EngineCore:
                 "prompt_tokens": st.prompt_tokens,
                 "hit_rate": st.cache_hit_tokens / max(st.prompt_tokens, 1),
                 "prefill_tokens_computed": st.prefill_tokens}
-        info.update(self.alloc.cache_stats())
+        if self.cache_mode == "paged":
+            info.update(self.alloc.cache_stats())
         return info
 
     # ---- speculative decoding plumbing --------------------------------------

@@ -4,7 +4,8 @@ prefix-cache and speculation counters), and the reference engine's
 invariants within the port: one readback per round, at most two dispatches
 per round, the same tokens with the prefix cache on and off and with
 ``spec_k`` 0 and 4, eviction under a small KV pool, abort returning pages,
-streaming through ``InferenceServer``, and no silent CPU fallback."""
+streaming through ``InferenceServer``, and no silent CPU fallback. The
+slot mode has its own file, ``tests/test_torch_slot.py``."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -182,7 +183,18 @@ def test_default_device_is_the_gpu(monkeypatch):
         EngineCore(cfg, SlidingServeScheduler(max_budget=64))
 
 
-def test_unpaged_arch_raises():
-    with pytest.raises(ValueError):
-        EngineCore(get_config("xlstm-125m").smoke(),
-                   SlidingServeScheduler(max_budget=64), device="cpu")
+def test_unpaged_arch_raises(monkeypatch):
+    """xlstm-125m's mixers are not ported: the engine raises in every cache
+    mode before any weight or cache is allocated."""
+    import repro_torch.serving.engine as TE
+
+    def allocated(*args, **kwargs):
+        raise AssertionError("allocated before the config check")
+    monkeypatch.setattr(TE, "init_params", allocated)
+    monkeypatch.setattr(TE, "init_cache", allocated)
+    monkeypatch.setattr(TE, "init_paged_cache", allocated)
+    for mode in ("auto", "slot"):
+        with pytest.raises(NotImplementedError, match="mixer"):
+            EngineCore(get_config("xlstm-125m").smoke(),
+                       SlidingServeScheduler(max_budget=64),
+                       cache_mode=mode, device="cpu")

@@ -1,5 +1,7 @@
-"""PyTorch port: it imports neither JAX nor the JAX package, and its
-verbatim copies of the reference's pure-Python modules have not drifted."""
+"""PyTorch port: neither it nor ``chip_smoke.py`` imports JAX or the JAX
+package, and its verbatim copies of the reference's pure-Python modules
+have not drifted."""
+import ast
 import json
 import os
 import pathlib
@@ -52,6 +54,7 @@ def test_port_imports_no_jax_and_no_reference_module():
     for required in ("repro_torch.serving.engine", "repro_torch.models.model",
                      "repro_torch.kernels.paged_attention.kernel",
                      "repro_torch.kernels.paged_prefill_attention.kernel",
+                     "repro_torch.kernels.chunked_prefill_attention.kernel",
                      "repro_torch.launch.serve", "repro_torch.params"):
         assert required in mods
 
@@ -63,6 +66,45 @@ def test_no_source_mentions_jax_imports():
             assert not s.startswith(("import jax", "from jax", "import repro.",
                                      "from repro.", "from repro import")), \
                 f"{path}: {line}"
+
+
+def _imported_modules(path: pathlib.Path) -> list:
+    """Every module an ``import`` or ``from ... import`` statement of the
+    file names, wherever the statement sits (inside functions too)."""
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                names.append("." * node.level + (node.module or ""))
+            elif node.module:
+                names.append(node.module)
+    return names
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro") or name.startswith(".")
+
+
+def test_chip_smoke_imports_no_jax_and_no_reference_module():
+    names = _imported_modules(ROOT / "chip_smoke.py")
+    assert any(n.startswith("repro_torch") for n in names)
+    assert [n for n in names if _forbidden(n)] == []
+
+
+@pytest.mark.parametrize("source,bad", [
+    ("import jax.numpy as jnp", True),
+    ("def f():\n    from repro.models import model", True),
+    ("from repro import configs", True),
+    ("from . import x", True),
+    ("import repro_torch.kernels.build", False),
+    ("from repro_torch.models import model", False)])
+def test_import_scan_finds_forbidden_imports(tmp_path, source, bad):
+    f = tmp_path / "script.py"
+    f.write_text(source + "\n")
+    assert any(_forbidden(n) for n in _imported_modules(f)) == bad
 
 
 @pytest.mark.parametrize("rel", VERBATIM)

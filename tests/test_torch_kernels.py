@@ -1,9 +1,11 @@
-"""PyTorch port: the plain versions of the two paged-attention kernels
-against the JAX oracles, their partial/finalize/combine math, and a torch
-mirror of the CUDA kernels' tile loop (page bounds with floor division,
-multi-page tiles, online-softmax carry, negative shard-local positions)
-against the plain versions. The CUDA kernels themselves run only on the
-GPU (``chip_smoke.py`` holds them against these plain versions there).
+"""PyTorch port: the plain versions of the two paged-attention kernels and
+of the chunked-prefill attention kernel against the JAX oracles, the paged
+partial/finalize/combine math, and a torch mirror of the CUDA kernels' tile
+loop (page bounds with floor division, multi-page tiles, online-softmax
+carry, negative shard-local positions; for the chunked kernel the [lo, hi)
+key range, ragged q tiles, empty rows and strided operands) against the
+plain versions. The CUDA kernels themselves run only on the GPU
+(``chip_smoke.py`` holds them against these plain versions there).
 
 Tolerances as in ``tests/test_kernels.py``: fp32 2e-5, bf16 2e-2."""
 import math
@@ -15,9 +17,13 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.kernels.chunked_prefill_attention import ref as JCPA  # noqa: E402
 from repro.kernels.paged_attention import ref as JPA  # noqa: E402
 from repro.kernels.paged_prefill_attention import ref as JPPA  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import ref_common as rc  # noqa: E402
+from repro_torch.kernels.chunked_prefill_attention import kernel as CK  # noqa: E402
+from repro_torch.kernels.chunked_prefill_attention import ref as TCPA  # noqa: E402
 from repro_torch.kernels.paged_attention import kernel as PK  # noqa: E402
 from repro_torch.kernels.paged_attention import ref as TPA  # noqa: E402
 from repro_torch.kernels.paged_prefill_attention import kernel as PPK  # noqa: E402
@@ -205,8 +211,9 @@ def floordiv(a: int, b: int) -> int:
 
 
 def _attend_block(q_rows, q_pos, kv_h, bt_row, length, window, scale, cap,
-                  j_lo, j_hi, tile_pages):
-    """One block of attend_rows: [BR, D] query rows at positions q_pos."""
+                  j_lo, j_hi, tile_pages, causal=True):
+    """One block of attend_rows: [BR, D] query rows at positions q_pos
+    over pages [j_lo, j_hi) of kv_h [P, 2, ps, D] through bt_row."""
     BR, D = q_rows.shape
     ps = kv_h.shape[2]
     m = torch.full((BR,), rc.NEG_INF)
@@ -220,9 +227,11 @@ def _attend_block(q_rows, q_pos, kv_h, bt_row, length, window, scale, cap,
         if cap > 0:
             s = cap * torch.tanh(s / cap)
         kp = j0 * ps + torch.arange(k.shape[0])
-        ok = (kp[None] <= q_pos[:, None]) & (kp[None] < length)
+        ok = kp[None] < length
+        if causal:
+            ok = ok & (kp[None] <= q_pos[:, None])
         if window > 0:
-            ok &= q_pos[:, None] - kp[None] < window
+            ok = ok & (q_pos[:, None] - kp[None] < window)
         s = torch.where(ok, s, torch.full_like(s, rc.NEG_INF))
         mx = torch.maximum(m, s.amax(dim=1))
         p = torch.exp(s - mx[:, None])
@@ -369,3 +378,223 @@ def test_other_devices_raise():
     with pytest.raises(ValueError):
         PPK.paged_prefill_attention_fused(q[:, None].reshape(2, 1, 2, 2, 32),
                                           kv, bt, ln, ln, scale=1.0)
+
+
+# ---------------------------------------------------------------------------
+# chunked-prefill attention (slot mode's chunk attention)
+# ---------------------------------------------------------------------------
+CPA_CASES = [   # the CPA_CASES of tests/test_kernels.py (block sizes dropped)
+    # (B, H, Hkv, Sq, Sk, D, q_offset, causal, window, softcap)
+    (1, 2, 2, 64, 64, 32, 0, True, 0, 0.0),
+    (2, 4, 2, 128, 256, 64, 64, True, 0, 0.0),
+    (2, 8, 2, 64, 512, 64, 448, True, 0, 0.0),   # deep prefix chunk
+    (1, 4, 4, 128, 128, 64, 0, True, 96, 0.0),    # sliding window
+    (1, 4, 4, 128, 128, 64, 0, True, 0, 50.0),    # softcap (gemma2)
+    (2, 2, 1, 64, 128, 128, 0, False, 0, 0.0),    # cross/encoder
+]
+
+# Beyond the reference's cases: the slot path's head shape (G 3, D 128) at
+# an offset that ends past the valid length, windows with and without
+# causality, and a row with no key (length 0).
+CPA_EXTRA = [
+    (2, 6, 2, 40, 96, 128, 30, True, 0, 0.0),
+    (2, 6, 2, 24, 96, 64, 50, True, 20, 30.0),
+    (2, 4, 2, 24, 64, 32, 10, False, 12, 0.0),
+]
+
+
+def _cpa_inputs(case, name, lengths=None):
+    B, H, Hkv, Sq, Sk, D, q_off, causal, window, cap = case
+    jq, tq = _pair(RNG.normal(size=(B, H, Sq, D)), name)
+    jk, tk = _pair(RNG.normal(size=(B, Hkv, Sk, D)), name)
+    jv, tv = _pair(RNG.normal(size=(B, Hkv, Sk, D)), name)
+    if lengths is None:
+        lengths = RNG.integers(max(q_off + Sq, 1), Sk + 1, (B,))
+    lengths = np.asarray(lengths, np.int32)
+    kw = dict(scale=D ** -0.5, q_offset=q_off, causal=causal, window=window,
+              softcap=cap)
+    return (jq, jk, jv, jnp.asarray(lengths)), \
+        (tq, tk, tv, torch.from_numpy(lengths)), kw
+
+
+@pytest.mark.parametrize("case", CPA_CASES)
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_chunked_plain_matches_jax(case, name):
+    j, t, kw = _cpa_inputs(case, name)
+    got = TCPA.chunked_prefill_attention_ref(*t, **kw)
+    want = JCPA.chunked_prefill_attention_ref(*j, **kw)
+    assert got.dtype == t[0].dtype and got.shape == t[0].shape
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(name))
+
+
+def _cpa_strided(q, k, v):
+    """The same values as views in the slot path's layouts: q a permuted
+    [B, Sq, H, D] tensor, k/v permuted [B, Sk, Hkv, D] rows of a larger
+    cache (every other row)."""
+    B, H, Sq, D = q.shape
+    qv = q.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+
+    def rows(x):
+        big = torch.zeros((2 * B,) + x.permute(0, 2, 1, 3).shape[1:],
+                          dtype=x.dtype)
+        big[::2] = x.permute(0, 2, 1, 3)
+        return big[::2].permute(0, 2, 1, 3)
+    return qv, rows(k), rows(v)
+
+
+@pytest.mark.parametrize("case", CPA_CASES[:3] + CPA_EXTRA)
+def test_chunked_plain_takes_strided_views(case):
+    _, (q, k, v, lens), kw = _cpa_inputs(case, "float32")
+    qv, kv_, vv = _cpa_strided(q, k, v)
+    assert not qv.is_contiguous() and not kv_.is_contiguous()
+    np.testing.assert_allclose(
+        TCPA.chunked_prefill_attention_ref(qv, kv_, vv, lens, **kw).numpy(),
+        TCPA.chunked_prefill_attention_ref(q, k, v, lens, **kw).numpy(),
+        atol=1e-6, rtol=1e-6)
+
+
+def mirror_chunked(q, k, v, lens, *, scale, q_offset, causal, window,
+                   softcap, tile_keys, bq):
+    """csrc/chunked_prefill_attention.cu in torch: one block per (batch
+    row, kv head, q tile of bq tokens), rows t*G + g, keys [lo, hi). The
+    contiguous rows are one-key pages in order, so the same block loop as
+    the paged kernels' runs them."""
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = H // Hkv
+    out = torch.zeros(B, H, Sq, D)
+    for b in range(B):
+        length = int(lens[b])
+        for qi in range(math.ceil(Sq / bq)):
+            q0 = qi * bq
+            nt = min(bq, Sq - q0)
+            hi = min(length, Sk)
+            if causal:
+                hi = min(hi, q_offset + q0 + nt)
+            lo = max(q_offset + q0 - window + 1, 0) if window > 0 else 0
+            lo = min(lo, max(hi, 0))
+            q_pos = q_offset + q0 + torch.arange(nt * G) // G
+            for h in range(Hkv):
+                rows = q[b, h * G:(h + 1) * G, q0:q0 + nt]       # [G, nt, D]
+                kv_h = torch.stack([k[b, h], v[b, h]], dim=1)[:, :, None]
+                acc, _, l = _attend_block(
+                    rows.transpose(0, 1).reshape(nt * G, D), q_pos, kv_h,
+                    torch.arange(Sk), length, window, scale, softcap, lo, hi,
+                    tile_keys, causal=causal)
+                o = rc.finalize_partials(acc, l, torch.float32)
+                out[b, h * G:(h + 1) * G, q0:q0 + nt] = \
+                    o.reshape(nt, G, D).transpose(0, 1)
+    return out.to(q.dtype)
+
+
+def _cpa_valid(case, lens):
+    """Query positions that see at least one key."""
+    B, H, Hkv, Sq, Sk, D, q_off, causal, window, cap = case
+    qp = q_off + np.arange(Sq)[None, :, None]
+    kp = np.arange(Sk)[None, None, :]
+    ok = kp < np.asarray(lens)[:, None, None]
+    if causal:
+        ok = ok & (kp <= qp)
+    if window > 0:
+        ok = ok & (qp - kp < window)
+    return np.broadcast_to(ok.any(-1)[:, None, :, None], (B, H, Sq, D))
+
+
+# (keys per tile, query tokens per block): the launcher's choice at the
+# llama3.2-3b shape (G 3, D 128), and small tiles with ragged q tiles.
+CPA_GEOMETRIES = [(64, 21), (16, 5)]
+
+
+@pytest.mark.parametrize("geometry", CPA_GEOMETRIES)
+@pytest.mark.parametrize("case", CPA_CASES + CPA_EXTRA)
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_chunked_tile_loop_mirror(case, name, geometry):
+    _, (q, k, v, lens), kw = _cpa_inputs(case, name)
+    lens[-1] = max(int(lens[-1]) - 7, 1)      # ragged valid length
+    got = mirror_chunked(*_cpa_strided(q, k, v), lens, tile_keys=geometry[0],
+                         bq=geometry[1], **kw)
+    want = TCPA.chunked_prefill_attention_ref(q, k, v, lens, **kw)
+    valid = _cpa_valid(case, lens.numpy())
+    assert torch.isfinite(got.float()).all()
+    np.testing.assert_allclose(_np(got)[valid], _np(want)[valid],
+                               **_tol(name))
+
+
+def test_chunked_tile_loop_mirror_empty_rows_write_zeros():
+    """A row of length 0 has an empty key range: the kernel writes 0 (the
+    plain version's fully masked softmax is a mean of V instead; callers
+    discard such rows)."""
+    case = CPA_EXTRA[0]
+    _, (q, k, v, _), kw = _cpa_inputs(case, "float32")
+    lens = torch.tensor([0, 70], dtype=torch.int32)
+    got = mirror_chunked(q, k, v, lens, tile_keys=64, bq=21, **kw)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    want = TCPA.chunked_prefill_attention_ref(q, k, v, lens, **kw)
+    valid = _cpa_valid(case, lens.numpy())
+    assert valid[1].any() and not valid[0].any()
+    np.testing.assert_allclose(got.numpy()[valid], want.numpy()[valid],
+                               atol=2e-5, rtol=2e-5)
+
+
+def test_chunked_cpu_tensors_take_the_plain_version_and_count_nothing():
+    _, (q, k, v, lens), kw = _cpa_inputs(CPA_CASES[1], "float32")
+    assert torch.equal(CK.chunked_prefill_attention(q, k, v, lens, **kw),
+                       TCPA.chunked_prefill_attention_ref(q, k, v, lens, **kw))
+    assert CK.chunked_prefill_attention.launches == 0
+
+
+class _OnCuda:
+    """A CPU tensor that reports device 'cuda': stands in for a CUDA
+    tensor on a machine without one."""
+
+    device = torch.device("cuda")
+
+    def __init__(self, t):
+        self._t = t
+
+    def __getattr__(self, name):
+        return getattr(self._t, name)
+
+
+def _cuda_operands():
+    _, (q, k, v, lens), kw = _cpa_inputs(CPA_EXTRA[0], "float32")
+    return [_OnCuda(x) for x in (q, k, v, lens)], kw
+
+
+def test_chunked_cuda_tensor_without_library_raises(monkeypatch, tmp_path):
+    """No nvcc: the build raises, and the wrapper raises with it."""
+    monkeypatch.setattr(build, "_loaded", {})
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "NVCC_DEFAULT", str(tmp_path / "no-nvcc"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    ops, kw = _cuda_operands()
+    with pytest.raises(RuntimeError, match="nvcc"):
+        CK.chunked_prefill_attention(*ops, **kw)
+    assert CK.chunked_prefill_attention.launches == 0
+
+
+def test_chunked_cuda_tensor_without_card_raises(monkeypatch):
+    """A library but no card: allocating the output on the GPU raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: this checks the case without one")
+    monkeypatch.setattr(build, "library", lambda name: object())
+    ops, kw = _cuda_operands()
+    with pytest.raises((AssertionError, RuntimeError)):
+        CK.chunked_prefill_attention(*ops, **kw)
+    assert CK.chunked_prefill_attention.launches == 0
+
+
+def test_chunked_wrapper_checks_operands():
+    q = torch.empty((2, 6, 8, 128), device="meta")
+    k = torch.empty((2, 2, 32, 128), device="meta")
+    ln = torch.empty((2,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        CK.chunked_prefill_attention(q, k, k, ln, scale=1.0)
+    ops, kw = _cuda_operands()
+    q, k, v, lens = ops
+    with pytest.raises(ValueError, match="last axis"):
+        CK.chunked_prefill_attention(
+            _OnCuda(q._t.transpose(2, 3).contiguous().transpose(2, 3)), k, v,
+            lens, **kw)
+    with pytest.raises(ValueError, match="int32"):
+        CK.chunked_prefill_attention(q, k, v, _OnCuda(lens._t.long()), **kw)
