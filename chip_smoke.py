@@ -3,34 +3,43 @@
 
     python3 chip_smoke.py
 
-Phases (each raises on failure, and the script then exits non-zero):
+Phases (each raises on failure, and the script then exits non-zero; each
+prints its seconds):
 
 1. device: CUDA must be available on a compute-capability 9.0 card; prints
    ``nvidia-smi --query-gpu=name,power.limit``.
 2. build: compiles ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a, one
-   library per kernel, all nvcc processes at once.
-3. kernel parity: the three CUDA kernels against their plain PyTorch
-   versions on the same inputs, at llama3.2-3b shapes (bf16, 24 query
-   heads, 8 kv heads, head_dim 128; page size 16 for the paged kernels; a
-   4096-token slot row, read in place as the slot engine passes it, for the
-   chunked-prefill kernel) and a few others (window + softcap, fp32,
-   partial mode with negative shard-local positions, a chunk that ends past
-   the slot row, ``causal=False`` with per-row lengths). Tolerance, at
-   valid query positions, elementwise: fp32 ``|got - want| <= 2e-5 + 2e-5 *
-   |want|``; bf16 ``|got - want| <= 2**-7 * |want| + 0.05 * rms(want)``,
-   one bf16 rounding step of the element plus a twentieth of the RMS of its
-   head's D-vector, so the limit follows bf16 rounding, not the size of the
+   library per kernel (four), all nvcc processes at once.
+3. kernel parity: the four CUDA kernels against their plain PyTorch
+   versions on the same inputs. The attention kernels at llama3.2-3b
+   shapes (bf16, 24 query heads, 8 kv heads, head_dim 128; page size 16 for
+   the paged kernels; a 4096-token slot row, read in place as the slot
+   engine passes it, for the chunked-prefill kernel) and a few others
+   (window + softcap, fp32, partial mode with negative shard-local
+   positions, a chunk that ends past the slot row, ``causal=False`` with
+   per-row lengths). The mLSTM chunkwise kernel at xlstm-125m shapes (4
+   heads, head_dim 384, bf16): fresh state at S 2048 and S 1000 (a ragged
+   last chunk), a carried state at S 37, the decode of 8 of 10 state rows,
+   fp32, and the smoke config's head_dim 32. Tolerance, at valid query
+   positions, elementwise: fp32 ``|got - want| <= 2e-5 + 2e-5 * |want|``;
+   bf16 ``|got - want| <= 2**-7 * |want| + 0.05 * rms(want)``, one bf16
+   rounding step of the element plus a twentieth of the RMS of its head's
+   D-vector, so the limit follows bf16 rounding, not the size of the
    output (a kernel that skips one 64-key tile at a 4K context is off by
    about a tenth of the RMS). The partial state's m and l are held to
-   ``1e-3 + 1e-5 * |m|`` and ``1e-4 * l``. Each case is timed with CUDA
-   events beside the plain version and one PyTorch library call used only
-   as a yardstick (``scaled_dot_product_attention`` on the gathered pages or
-   the slot row, with an explicit mask), and its bound (bytes at 3.35 TB/s,
-   flops at 989 TFLOP/s bf16 or 67 TFLOP/s fp32) is computed from the
-   case's own inputs (the keys each query attends).
+   ``1e-3 + 1e-5 * |m|`` and ``1e-4 * l``; the mLSTM's new C and n to
+   ``1e-5 + 1e-4 * |ref|`` and its m to ``1e-3 + 1e-5 * |m|``. Each case is
+   timed with CUDA events beside the plain version and, for attention, one
+   PyTorch library call used only as a yardstick
+   (``scaled_dot_product_attention`` on the gathered pages or the slot
+   row, with an explicit mask; no single PyTorch call computes the mLSTM),
+   and its bound (bytes at 3.35 TB/s, flops at 989 TFLOP/s bf16 or 67
+   TFLOP/s fp32) is computed from the case's own inputs (the keys each
+   query attends; the mLSTM's chunks).
 4. end to end on a small input: the smoke llama3.2-3b engine (fp32) on the
    GPU gives the same greedy tokens as on the CPU (plain versions), in
-   paged and in slot mode, and slot mode gives the paged tokens.
+   paged and in slot mode, and slot mode gives the paged tokens; the smoke
+   xlstm-125m slot engine gives the CPU's tokens on the GPU.
 5. full-width paged serving: llama3.2-3b (28 layers, d_model 3072, random
    weights from a seed, bf16) through ``InferenceServer(EngineCore(...))``
    with a 65536-token KV pool, 8 requests, once with ``spec_k=0`` and once
@@ -44,6 +53,13 @@ Phases (each raises on failure, and the script then exits non-zero):
    counters are set to 0 just before and read just after; the
    chunked-prefill kernel must have launched 28 x the chunk dispatches. A
    second run repeats it under ``torch.profiler``.
+7. full-width xlstm-125m slot serving: 12 layers (6 mLSTM, 6 sLSTM),
+   d_model 768, 4 heads, random weights from a seed, bf16, the same
+   requests over 8 slots; the mLSTM chunkwise kernel must have launched
+   6 x (chunk + decode dispatches). A second run repeats it under
+   ``torch.profiler``.
+
+The traces are summarised in one pass over the profiler's raw events.
 
 The last lines are a ``{"kernels": [...]}`` JSON object, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Per-case numbers go
@@ -394,6 +410,103 @@ def chunked_case(cs, name, Sq, q_offset, lengths, dtype, causal=True,
                "keys_attended": sum(span)})
 
 
+MLSTM_H, MLSTM_D = 4, 384     # xlstm-125m: 4 heads of 1536 / 4
+
+
+def state_limits(want_c, want_n, want_m):
+    """Limits of the mLSTM state: C and n 1e-5 + 1e-4*|ref|, m 1e-3 +
+    1e-5*|m|."""
+    return (1e-5 + 1e-4 * want_c.abs(), 1e-5 + 1e-4 * want_n.abs(),
+            1e-3 + 1e-5 * want_m.abs())
+
+
+def mlstm_case(cs, name, B, S, dtype, carried, H=MLSTM_H, D=MLSTM_D,
+               rows=None, iters=10):
+    """q, k, v as mlstm_mix passes them ([B, S, H, D] views of the
+    projections), log_i a strided view of the gate projection, from a
+    fresh state (C 0, n 0, m -1e30) or the state a random prefix leaves;
+    ``rows`` maps batch rows to the rows of a larger state, as a slot
+    decode does."""
+    torch = cs.torch
+    from repro_torch.kernels.mlstm_chunkwise.kernel import mlstm_chunkwise
+    from repro_torch.kernels.mlstm_chunkwise.ref import (
+        CHUNK, NEG_INF, mlstm_chunkwise_ref)
+    dn = str(dtype).split(".")[-1]
+    q = cs.randn((B, S, H * D), dtype).view(B, S, H, D)
+    k = (cs.randn((B, S, H * D), dtype) / math.sqrt(D)).view(B, S, H, D)
+    v = cs.randn((B, S, H * D), dtype).view(B, S, H, D)
+    gates = cs.randn((B, S, 2 * H), torch.float32)
+    log_i = gates[..., :H]
+    log_f = torch.nn.functional.logsigmoid(gates[..., H:] + 4.0)
+    Bs = B if rows is None else max(rows) + 1
+    C = torch.zeros((Bs, H, D, D), device=DEVICE)
+    n = torch.zeros((Bs, H, D), device=DEVICE)
+    m = torch.full((Bs, H), NEG_INF, device=DEVICE)
+    if carried:      # the state a 100-token prefix leaves, as in serving
+        W = 100
+        g = cs.randn((Bs, W, 2 * H), torch.float32)
+        _, n, m = mlstm_chunkwise_ref(
+            cs.randn((Bs, W, H, D), dtype),
+            cs.randn((Bs, W, H, D), dtype) / math.sqrt(D),
+            cs.randn((Bs, W, H, D), dtype), g[..., :H],
+            torch.nn.functional.logsigmoid(g[..., H:] + 4.0), C, n, m)
+    rows_t = None if rows is None else torch.tensor(rows, device=DEVICE)
+    args = (q, k, v, log_i, log_f)
+    C_got, C_want = C.clone(), C.clone()
+    got = mlstm_chunkwise(*args, C_got, n, m, rows=rows_t)
+    want = mlstm_chunkwise_ref(*args, C_want, n, m, rows=rows_t)
+    torch.cuda.synchronize()
+    err, share = check(f"mlstm {name}", got[0], want[0],
+                       vec_limit(want[0], dn))
+    idx = list(range(B)) if rows is None else rows
+    c_lim, n_lim, m_lim = state_limits(C_want[idx], want[1], want[2])
+    _, c_share = check(f"mlstm {name}: C", C_got[idx], C_want[idx], c_lim)
+    check(f"mlstm {name}: n", got[1], want[1], n_lim)
+    check(f"mlstm {name}: m", got[2], want[2], m_lim)
+    others = [r for r in range(Bs) if r not in idx]
+    if not torch.equal(C_got[others], C[others]):
+        raise AssertionError(f"mlstm {name}: state rows outside the batch "
+                             f"changed")
+    ms = cuda_ms(torch, lambda: mlstm_chunkwise(*args, C_got, n, m,
+                                                rows=rows_t), iters)
+    plain = cuda_ms(torch, lambda: mlstm_chunkwise_ref(
+        *args, C_want, n, m, rows=rows_t), 2, warmup=1)
+    # bytes: q, k, v, the gates and h once, the batch's C rows read and
+    # written, n and m read and the new ones written; flops: per (row,
+    # head) and chunk of L tokens, 4*L*D*(L + D) (q.k and s.v over the
+    # chunk, q.C and the k v^T update)
+    elt = q.element_size()
+    nbytes = (4 * B * S * H * D * elt + 2 * B * S * H * 4
+              + 2 * B * H * (D * D + D + 1) * 4)
+    flops = 0
+    for t0 in range(0, S, CHUNK):
+        L = min(CHUNK, S - t0)
+        flops += 4 * L * D * (L + D)
+    flops *= B * H
+    b_ms, b_by = bound(nbytes, flops, dn)
+    cs.record({"kernel": "mlstm_chunkwise", "case": name, "dtype": dn,
+               "max_abs_err": err, "limit_share": share,
+               "C_limit_share": c_share, "ms": ms, "plain_ms": plain,
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
+
+
+def mlstm_cases(cs):
+    """#7 at the xlstm-125m shapes (H 4, D 384): the engine's fresh first
+    chunks (S 2048; S 1000, whose last 64-token chunk is ragged), a chunk
+    from a carried state (S 37), the decode of 8 of 10 slots (S 1, state
+    rows permuted; the other two must not change), fp32, and the smoke
+    config's D 32."""
+    torch = cs.torch
+    bf, f32 = torch.bfloat16, torch.float32
+    mlstm_case(cs, "B1 S2048 fresh bf16", 1, 2048, bf, False, iters=5)
+    mlstm_case(cs, "B1 S1000 fresh bf16", 1, 1000, bf, False, iters=5)
+    mlstm_case(cs, "B1 S37 carried bf16", 1, 37, bf, True)
+    mlstm_case(cs, "B8 S1 decode carried bf16", 8, 1, bf, True,
+               rows=[3, 0, 7, 1, 6, 2, 9, 4], iters=20)
+    mlstm_case(cs, "B1 S512 carried fp32", 1, 512, f32, True)
+    mlstm_case(cs, "B4 S100 carried fp32 D32", 4, 100, f32, True, D=32)
+
+
 def kernel_phase(torch):
     import numpy as np
     cs = Cases(torch)
@@ -442,19 +555,21 @@ def kernel_phase(torch):
     chunked_case(cs, "Sq512 off1000 fp32", 512, 1000, [1512], f32)
     chunked_case(cs, "B2 Sq128 non-causal lens 3000/1234 bf16", 128, 0,
                  [3000, 1234], bf, causal=False)
+    mlstm_cases(cs)
     return cs.rows
 
 
-def smoke_engine_phase(torch):
-    """The smoke engine on the GPU (CUDA kernels, fp32) and on the CPU
-    (plain versions) on the same weights: same greedy tokens."""
+def smoke_engine_phase(torch, arch="llama3.2-3b", modes=("paged", "slot")):
+    """The smoke engine of ``arch`` on the GPU (CUDA kernels, fp32) and on
+    the CPU (plain versions) on the same weights: same greedy tokens, in
+    each cache mode of ``modes``; with both, slot gives paged's tokens."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import SlidingServeScheduler
     from repro_torch.params import init_params
     from repro_torch.serving.engine import EngineCore
     from repro_torch.serving.request import Request
-    cfg = get_config("llama3.2-3b").smoke()
+    cfg = get_config(arch).smoke()
     cpu_params = init_params(cfg, seed=0, device="cpu")
 
     def to(tree, dev):
@@ -469,7 +584,7 @@ def smoke_engine_phase(torch):
     prompts = {i: rng.integers(1, cfg.vocab_size, p).astype(np.int32)
                for i, (p, _) in enumerate(spec)}
     outs = {}
-    for mode in ("paged", "slot"):
+    for mode in modes:
         for dev in (DEVICE, "cpu"):
             eng = EngineCore(cfg, SlidingServeScheduler(max_budget=64,
                                                         max_iter_time=5.0),
@@ -489,14 +604,15 @@ def smoke_engine_phase(torch):
             raise AssertionError(f"smoke {mode} engine GPU vs CPU tokens "
                                  f"differ: {outs[mode, DEVICE]} vs "
                                  f"{outs[mode, 'cpu']}")
-        print(f"  smoke {mode} engine: GPU tokens == CPU tokens for "
+        print(f"  smoke {arch} {mode} engine: GPU tokens == CPU tokens for "
               f"{len(spec)} requests "
               f"({sum(len(v) for v in outs[mode, DEVICE].values())} tokens)")
-    if outs["slot", DEVICE] != outs["paged", DEVICE]:
+    if len(modes) > 1 and outs["slot", DEVICE] != outs["paged", DEVICE]:
         raise AssertionError(f"smoke engine slot vs paged tokens differ: "
                              f"{outs['slot', DEVICE]} vs "
                              f"{outs['paged', DEVICE]}")
-    print("  smoke engine: slot tokens == paged tokens")
+    if len(modes) > 1:
+        print("  smoke engine: slot tokens == paged tokens")
 
 
 def reset_counts(kernels):
@@ -647,17 +763,21 @@ def serving_phase(torch, params, kernels):
     return launches, results, streams
 
 
-def slot_serving_phase(torch, params, kernels, paged_streams):
-    """Full-width llama3.2-3b through the streaming server over the slot
-    cache (8 slots of 4096 tokens): every prompt chunk through the
-    chunked-prefill kernel; a second run repeats it under torch.profiler.
-    Returns the first run's launch counts, and the records."""
+def slot_serving_phase(torch, arch, params, kernels, expected,
+                       paged_streams=None):
+    """Full-width ``arch`` through the streaming server over the slot cache
+    (8 slots of 4096 tokens); a second run repeats it under torch.profiler.
+    ``expected`` maps a kernel's name to its launches as a function of the
+    engine's stats (a per-layer kernel: layers x the dispatches it serves);
+    the counters are set to 0 just before a run and read just after. With
+    ``paged_streams``, counts the requests whose tokens equal the paged
+    run's. Returns the first run's launch counts, and the records."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import SlidingServeScheduler
     from repro_torch.serving.engine import EngineCore
     from repro_torch.serving.server import InferenceServer
-    cfg = get_config("llama3.2-3b")
+    cfg = get_config(arch)
     prompts, outputs = serving_workload(cfg)
     results, first_launches = [], None
     for traced in (False, True):
@@ -682,25 +802,25 @@ def slot_serving_phase(torch, params, kernels, paged_streams):
         st = core.stats
         toks = [h.collected for h in handles]
         if not all(h.finished and not h.aborted for h in handles):
-            raise AssertionError("slot serving: unfinished requests")
+            raise AssertionError(f"{arch} slot serving: unfinished requests")
         if [len(t) for t in toks] != outputs:
-            raise AssertionError(f"slot serving: output lengths "
+            raise AssertionError(f"{arch} slot serving: output lengths "
                                  f"{[len(t) for t in toks]} != {outputs}")
         if not all(0 <= x < cfg.vocab_size for t in toks for x in t):
-            raise AssertionError("slot serving: token id out of range")
-        cpa = launches["chunked_prefill_attention"]
-        if cpa <= 0 or cpa != cfg.num_layers * st.prefill_calls:
-            raise AssertionError(f"slot serving: {cpa} chunked-prefill "
-                                 f"launches for {st.prefill_calls} chunk "
-                                 f"dispatches")
+            raise AssertionError(f"{arch} slot serving: token id out of "
+                                 f"range")
+        for name, want in expected.items():
+            if launches[name] <= 0 or launches[name] != want(st):
+                raise AssertionError(
+                    f"{arch} slot serving: {launches[name]} {name} "
+                    f"launches, expected {want(st)} (dispatches: chunk "
+                    f"{st.prefill_calls}, decode {st.decode_calls})")
         if sorted(core.free_slots) != list(range(core.max_slots)):
-            raise AssertionError("slot serving: slots leaked")
-        same = sum(a == b for a, b in zip(toks, paged_streams))
-        diverge = [first_divergence(a, b)
-                   for a, b in zip(toks, paged_streams)]
+            raise AssertionError(f"{arch} slot serving: slots leaked")
         n_out, n_in = sum(outputs), sum(len(p) for p in prompts)
         ttft = [h.first_token_t - h.request.arrival for h in handles]
-        rec = {"cache_mode": "slot", "spec_k": 0, "requests": len(handles),
+        rec = {"arch": arch, "cache_mode": "slot", "spec_k": 0,
+               "requests": len(handles),
                "prompt_tokens": n_in, "output_tokens": n_out, "wall_s": wall,
                "output_tok_per_s": n_out / wall,
                "total_tok_per_s": (n_in + n_out) / wall,
@@ -712,21 +832,27 @@ def slot_serving_phase(torch, params, kernels, paged_streams):
                "prefill_calls": st.prefill_calls,
                "max_round_calls": st.max_round_calls,
                "token_readbacks": st.token_readbacks,
-               "chunked_kernel_launches": cpa,
+               "kernel_launches": {n: launches[n] for n in expected},
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-               "same_tokens_as_paged": same,
-               "first_divergence_from_paged": diverge, "traced": traced}
-        print(f"  serve slot{' traced' if traced else ''}: {len(handles)} "
-              f"requests, {n_in} prompt + {n_out} output tokens in "
-              f"{wall:.3f}s: {rec['output_tok_per_s']:.1f} output tok/s, "
-              f"{rec['total_tok_per_s']:.1f} total tok/s, {st.iterations} "
-              f"rounds of {rec['round_ms']:.2f} ms, ttft mean "
-              f"{rec['ttft_s_mean']:.3f}s max {rec['ttft_s_max']:.3f}s; "
+               "traced": traced}
+        same = ""
+        if paged_streams is not None:
+            n_same = sum(a == b for a, b in zip(toks, paged_streams))
+            diverge = [first_divergence(a, b)
+                       for a, b in zip(toks, paged_streams)]
+            rec.update(same_tokens_as_paged=n_same,
+                       first_divergence_from_paged=diverge)
+            same = (f"; {n_same}/{len(handles)} requests with the paged "
+                    f"run's tokens (first differing token: {diverge})")
+        print(f"  serve {arch} slot{' traced' if traced else ''}: "
+              f"{len(handles)} requests, {n_in} prompt + {n_out} output "
+              f"tokens in {wall:.3f}s: {rec['output_tok_per_s']:.1f} output "
+              f"tok/s, {rec['total_tok_per_s']:.1f} total tok/s, "
+              f"{st.iterations} rounds of {rec['round_ms']:.2f} ms, ttft "
+              f"mean {rec['ttft_s_mean']:.3f}s max {rec['ttft_s_max']:.3f}s; "
               f"dispatches decode {st.decode_calls} chunk "
-              f"{st.prefill_calls}; chunked-prefill launches {cpa}; peak "
-              f"memory {rec['peak_mem_gb']:.2f} GB; {same}/{len(handles)} "
-              f"requests with the paged run's tokens (first differing "
-              f"token: {diverge})", flush=True)
+              f"{st.prefill_calls}; launches {rec['kernel_launches']}; peak "
+              f"memory {rec['peak_mem_gb']:.2f} GB{same}", flush=True)
         if traced:
             rec["trace"] = trace_summary(torch, prof, wall)
             print_trace(rec["trace"], wall)
@@ -739,7 +865,8 @@ def slot_serving_phase(torch, params, kernels, paged_streams):
 def print_trace(tr, wall):
     print(f"  trace: device busy {tr['device_busy_ms']:.1f} ms of "
           f"{1e3 * wall:.1f} ms wall (idle share "
-          f"{tr['device_idle_share']:.3f})")
+          f"{tr['device_idle_share']:.3f}); {tr['events']} events summarised "
+          f"in {tr['summary_s']:.2f}s")
     for k in tr["top_device"]:
         print(f"    device {k['ms']:9.2f} ms {k['count']:6d}x  {k['name']}")
     for k in tr["top_host"]:
@@ -755,22 +882,54 @@ def profiler(torch):
 
 
 def trace_summary(torch, prof, wall_s, top=8):
-    """Device busy time (sum of kernel time on the one stream), the idle
-    share of the wall time, and the largest device and host entries."""
+    """Device busy time (the sum of the kernels' and copies' time on the
+    one stream), the idle share of the wall time, and the largest device
+    entries and host entries by self time (an op's time less that of the
+    ops it called on its thread). One pass over the profiler's raw events:
+    ``key_averages()`` first builds an event object and a call tree for
+    every event, which took most of the script's time when it summarised
+    two traces that way."""
     from torch.autograd import DeviceType
-    rows = prof.key_averages()
-    dev = [e for e in rows if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
-    host = [e for e in rows if e.device_type == DeviceType.CPU]
+    t0 = time.perf_counter()
+    events = prof.profiler.kineto_results.events()
+    dev = {}                         # name -> [count, ns]
+    threads = {}                     # host thread -> [(start, end, name)]
+    for e in events:
+        kind = e.device_type()
+        if kind == DeviceType.CUDA:
+            acc = dev.setdefault(e.name(), [0, 0])
+            acc[0] += 1
+            acc[1] += e.duration_ns()
+        elif kind == DeviceType.CPU:
+            threads.setdefault(e.start_thread_id(), []).append(
+                (e.start_ns(), e.end_ns(), e.name()))
+    host = {}
 
-    def entries(evts, attr):
-        evts = sorted(evts, key=lambda e: -getattr(e, attr))[:top]
-        return [{"name": e.key[:90], "count": e.count,
-                 "ms": getattr(e, attr) / 1e3} for e in evts]
+    def close(frame):
+        acc = host.setdefault(frame[1], [0, 0])
+        acc[0] += 1
+        acc[1] += frame[3] - frame[2]
+    for evs in threads.values():
+        evs.sort(key=lambda x: (x[0], -x[1]))
+        stack = []                   # [end, name, children's ns, own ns]
+        for start, end, name in evs:
+            while stack and stack[-1][0] <= start:
+                close(stack.pop())
+            if stack:
+                stack[-1][2] += end - start
+            stack.append([end, name, 0, end - start])
+        while stack:
+            close(stack.pop())
+    busy_ms = sum(ns for _, ns in dev.values()) / 1e6
+
+    def entries(table):
+        rows = sorted(table.items(), key=lambda kv: -kv[1][1])[:top]
+        return [{"name": name[:90], "count": n, "ms": ns / 1e6}
+                for name, (n, ns) in rows]
     return {"device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1.0 - busy_ms / (1e3 * wall_s)),
-            "top_device": entries(dev, "self_device_time_total"),
-            "top_host": entries(host, "self_cpu_time_total")}
+            "top_device": entries(dev), "top_host": entries(host),
+            "events": len(events), "summary_s": time.perf_counter() - t0}
 
 
 def _leaves(tree):
@@ -784,8 +943,41 @@ def _leaves(tree):
         yield tree
 
 
-def phase(label, t_all):
-    print(f"{label} (at {time.perf_counter() - t_all:.1f}s)", flush=True)
+class Phases:
+    """Prints each phase's start and, when the next one starts, its
+    seconds."""
+
+    def __init__(self, count):
+        self.count = count
+        self.t_all = time.perf_counter()
+        self.seconds = {}
+        self._open = None
+
+    def start(self, label):
+        self.stop()
+        n = len(self.seconds) + 1
+        print(f"[{n}/{self.count}] {label} (at "
+              f"{time.perf_counter() - self.t_all:.1f}s)", flush=True)
+        self._open = (label, time.perf_counter())
+
+    def stop(self):
+        if self._open:
+            label, t0 = self._open
+            self.seconds[label] = time.perf_counter() - t0
+            print(f"  phase took {self.seconds[label]:.1f}s", flush=True)
+            self._open = None
+
+
+def load_params(torch, arch):
+    from repro_torch.configs import get_config
+    from repro_torch.params import init_params
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    print(f"  init_params {cfg.name}: {time.perf_counter() - t0:.2f}s "
+          f"({sum(p.numel() for p in _leaves(params)) / 1e9:.3f}B params)")
+    return cfg, params
 
 
 def main() -> int:
@@ -799,58 +991,75 @@ def main() -> int:
         print(f"chip_smoke: needs a compute-capability 9.0 card, got {cap}",
               file=sys.stderr)
         return 1
-    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MLSTM
     from repro_torch.kernels import build
     from repro_torch.kernels.chunked_prefill_attention import kernel as cpa_kernel
+    from repro_torch.kernels.mlstm_chunkwise import kernel as ml_kernel
     from repro_torch.kernels.paged_attention import kernel as pa_kernel
     from repro_torch.kernels.paged_prefill_attention import kernel as ppa_kernel
-    from repro_torch.params import init_params
+    from repro_torch.models.model import build_stacks
     kernels = {"paged_attention_fused": pa_kernel.paged_attention_fused,
                "paged_prefill_attention_fused":
                    ppa_kernel.paged_prefill_attention_fused,
                "chunked_prefill_attention":
-                   cpa_kernel.chunked_prefill_attention}
+                   cpa_kernel.chunked_prefill_attention,
+               "mlstm_chunkwise": ml_kernel.mlstm_chunkwise}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t_all = time.perf_counter()
+    ph = Phases(7)
 
+    ph.start("device")
     dev = device_line()
-    print(f"[1/6] device: {dev}; torch {torch.__version__} cuda "
-          f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}", flush=True)
+    print(f"  {dev}; torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
 
+    ph.start("build")
     t0 = time.perf_counter()
     report = build.build()
-    print(f"[2/6] build: {len(report)} libraries in "
-          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    print(f"  {len(report)} libraries in {time.perf_counter() - t0:.2f}s",
+          flush=True)
     for name, (_, log) in report.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    phase("[3/6] kernel parity and timing", t_all)
+    ph.start("kernel parity and timing")
     rows = kernel_phase(torch)
 
-    phase("[4/6] smoke engine, GPU against CPU", t_all)
+    ph.start("smoke engines, GPU against CPU")
     smoke_engine_phase(torch)
+    smoke_engine_phase(torch, "xlstm-125m", modes=("slot",))
 
-    phase("[5/6] full-width llama3.2-3b serving, paged cache", t_all)
-    cfg = get_config("llama3.2-3b")
-    t0 = time.perf_counter()
-    params = init_params(cfg, seed=0, device=DEVICE)
-    torch.cuda.synchronize()
-    print(f"  init_params {cfg.name}: {time.perf_counter() - t0:.2f}s "
-          f"({sum(p.numel() for p in _leaves(params)) / 1e9:.3f}B params)")
+    ph.start("full-width llama3.2-3b serving, paged cache")
+    cfg, params = load_params(torch, "llama3.2-3b")
     launches, serving, streams = serving_phase(torch, params, kernels)
     for name in ("paged_attention_fused", "paged_prefill_attention_fused"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the paged path")
 
-    phase("[6/6] full-width llama3.2-3b serving, slot cache", t_all)
-    slot_launches, slot_recs = slot_serving_phase(torch, params, kernels,
-                                                  streams)
+    ph.start("full-width llama3.2-3b serving, slot cache")
+    layers = cfg.num_layers
+    slot_launches, slot_recs = slot_serving_phase(
+        torch, "llama3.2-3b", params, kernels,
+        {"chunked_prefill_attention": lambda st: layers * st.prefill_calls},
+        paged_streams=streams)
     serving += slot_recs
     launches["chunked_prefill_attention"] = \
         slot_launches["chunked_prefill_attention"]
+    del params
+    release(torch)
+
+    ph.start("full-width xlstm-125m serving, slot cache")
+    xcfg, xparams = load_params(torch, "xlstm-125m")
+    mlstm_layers = sum(reps * [m for m, _ in period].count(MLSTM)
+                       for period, reps in build_stacks(xcfg))
+    x_launches, x_recs = slot_serving_phase(
+        torch, "xlstm-125m", xparams, kernels,
+        {"mlstm_chunkwise":
+             lambda st: mlstm_layers * (st.prefill_calls + st.decode_calls)})
+    serving += x_recs
+    launches["mlstm_chunkwise"] = x_launches["mlstm_chunkwise"]
+    ph.stop()
 
     rep = {"paged_attention_fused": ("B8 serving-like ctx bf16",
                                      "src/repro_torch/csrc/paged_attention.cu",
@@ -861,7 +1070,10 @@ def main() -> int:
            "chunked_prefill_attention": (
                "Sq512 off3584 bf16",
                "src/repro_torch/csrc/chunked_prefill_attention.cu",
-               "src/repro/kernels/chunked_prefill_attention/kernel.py:83")}
+               "src/repro/kernels/chunked_prefill_attention/kernel.py:83"),
+           "mlstm_chunkwise": (
+               "B1 S2048 fresh bf16", "src/repro_torch/csrc/mlstm_chunkwise.cu",
+               "src/repro/kernels/mlstm_chunkwise/kernel.py:88")}
     kernels = []
     for name, (case, source, replaces) in rep.items():
         row = next(r for r in rows if r["kernel"] == name and r["case"] == case)
@@ -876,11 +1088,14 @@ def main() -> int:
                         "library_ms": row["library_ms"], "shape": case})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
+    total = time.perf_counter() - ph.t_all
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": dev, "torch": torch.__version__, "cases": rows,
          "serving": serving, "kernels": kernels,
-         "seconds": time.perf_counter() - t_all}, indent=1))
-    print(f"done in {time.perf_counter() - t_all:.1f}s")
+         "phase_seconds": ph.seconds, "seconds": total}, indent=1))
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                        for k, v in ph.seconds.items()))
+    print(f"done in {total:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(device_line())
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,9 @@ model calls (``ops.py``):
 - ``chunked_prefill_attention`` — a query chunk at a cache offset over
   contiguous K/V rows read in place through their strides (the slot
   engine's chunk attention, ``csrc/chunked_prefill_attention.cu``).
+- ``mlstm_chunkwise`` — the xLSTM mLSTM recurrence over a chunk of any
+  length from the carried state ``(C, n, m)``, which it reads and writes
+  (every mLSTM call of the slot engine, ``csrc/mlstm_chunkwise.cu``).
 - ``ref_common`` — the plain math both paged ``ref.py`` wrap.
 - ``build`` — nvcc build and ctypes loading of ``csrc/``.
 """

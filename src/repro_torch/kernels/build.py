@@ -21,7 +21,7 @@ from typing import Dict, Iterable, Tuple
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("paged_attention", "paged_prefill_attention",
-           "chunked_prefill_attention")
+           "chunked_prefill_attention", "mlstm_chunkwise")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -49,6 +49,16 @@ SIGNATURES = {
         _L, _L, _L, _L, _L, _L,      # v, out strides
         _I, _I, _I, _I, _I, _I,      # B, Sq, Sk, Hkv, G, D
         _I, _I, _I, _F, _F,          # q_offset, causal, window, scale, softcap
+        _I, _P]),                    # is_bf16, stream
+    "mlstm_chunkwise": ("mlstm_chunkwise_launch", [
+        _P, _P, _P, _P, _P,          # q, k, v, log_i, log_f
+        _L, _L, _L, _L, _L, _L,      # q, k strides (batch, token, head)
+        _L, _L, _L,                  # v strides
+        _L, _L, _L, _L, _L, _L,      # log_i, log_f strides
+        _P, _P, _P, _P,              # C (in place), n, m, rows (or null)
+        _L, _L, _L,                  # C, n, m batch strides
+        _P, _P, _P,                  # h, n_out, m_out
+        _I, _I, _I, _I,              # B, S, H, D
         _I, _P]),                    # is_bf16, stream
 }
 

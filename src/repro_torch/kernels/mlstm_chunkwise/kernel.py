@@ -1,0 +1,104 @@
+"""Wrapper of the CUDA mLSTM chunkwise kernel (``csrc/mlstm_chunkwise.cu``),
+the port of the TPU kernel ``mlstm_chunkwise`` of the reference package,
+with the carried state in and out. It is the recurrence core of every
+``mlstm_mix`` call (``models/ssm.py``): the slot engine's prompt chunks and
+its decode steps.
+
+A tensor on the CPU goes to the plain PyTorch version (``ref.py``); a CUDA
+tensor goes to the kernel, or the wrapper raises. q, k and v are read in
+place through their strides (unit last stride). ``C`` is updated in place
+at the state rows; the new ``n`` and ``m`` come back in fresh tensors,
+because every value tile of a head reads the old ones. Launches are
+counted in ``mlstm_chunkwise.launches``. The launch geometry (value-tile
+width, shared memory) is chosen by the C launcher.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.mlstm_chunkwise.ref import mlstm_chunkwise_ref
+
+DTYPES = (torch.bfloat16, torch.float32)
+MAX_D = 1024
+
+
+def _check(q, k, v, log_i, log_f, C, n, m, rows) -> None:
+    B, S, H, D = q.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k and v must share a shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k and v must share a dtype in {DTYPES}, got "
+                        f"{q.dtype}, {k.dtype} and {v.dtype}")
+    if S < 1:
+        raise ValueError("the chunk must hold at least one token")
+    if D % 32 or D > MAX_D:
+        raise ValueError(f"head_dim {D} must be a multiple of 32 up to "
+                         f"{MAX_D}")
+    for name, t in (("log_i", log_i), ("log_f", log_f)):
+        if t.shape != (B, S, H) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be fp32 [{B}, {S}, {H}], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    Bs = C.shape[0]
+    if C.shape != (Bs, H, D, D) or n.shape != (Bs, H, D) \
+            or m.shape != (Bs, H):
+        raise ValueError(f"state must be C [Bs, {H}, {D}, {D}], n [Bs, {H}, "
+                         f"{D}], m [Bs, {H}]; got {tuple(C.shape)}, "
+                         f"{tuple(n.shape)}, {tuple(m.shape)}")
+    if any(t.dtype != torch.float32 for t in (C, n, m)):
+        raise TypeError("the state (C, n, m) must be fp32")
+    if C.stride()[1:] != (D * D, D, 1) or n.stride()[1:] != (D, 1) \
+            or m.stride(1) != 1:
+        raise ValueError("each state row of C, n and m must be contiguous")
+    if rows is None:
+        if Bs != B:
+            raise ValueError(f"{Bs} state rows for {B} batch rows")
+    elif rows.shape != (B,) or rows.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"rows must be an integer [{B}] tensor")
+    for name, t in (("q", q), ("k", k), ("v", v), ("log_i", log_i),
+                    ("log_f", log_f), ("C", C), ("n", n), ("m", m),
+                    ("rows", rows)):
+        if t is None:
+            continue
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if name in ("q", "k", "v") and t.stride(3) != 1:
+            raise ValueError(f"{name} needs a contiguous last axis")
+
+
+def mlstm_chunkwise(q, k, v, log_i, log_f, C, n, m, *, rows=None):
+    """mLSTM over a chunk q/k/v [B, S, H, D] (k already divided by sqrt(D))
+    with log gates [B, S, H] fp32, from the fp32 state C [Bs, H, D, D],
+    n [Bs, H, D], m [Bs, H] at state rows ``rows`` [B] (``0..B-1`` when
+    None; distinct). Updates ``C`` in place at those rows and returns
+    (h [B, S, H, D] in q's dtype, n_new [B, H, D], m_new [B, H])."""
+    if q.device.type == "cpu":
+        return mlstm_chunkwise_ref(q, k, v, log_i, log_f, C, n, m, rows=rows)
+    if q.device.type != "cuda":
+        raise ValueError(f"no mlstm_chunkwise kernel for {q.device}")
+    _check(q, k, v, log_i, log_f, C, n, m, rows)
+    B, S, H, D = q.shape
+    lib = build.library("mlstm_chunkwise")
+    h = torch.empty((B, S, H, D), device=q.device, dtype=q.dtype)
+    n_out = torch.empty((B, H, D), device=q.device, dtype=torch.float32)
+    m_out = torch.empty((B, H), device=q.device, dtype=torch.float32)
+    rows32 = None if rows is None else rows.to(torch.int32).contiguous()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.mlstm_chunkwise_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), log_i.data_ptr(),
+            log_f.data_ptr(), *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *log_i.stride(), *log_f.stride(),
+            C.data_ptr(), n.data_ptr(), m.data_ptr(),
+            None if rows32 is None else rows32.data_ptr(),
+            C.stride(0), n.stride(0), m.stride(0), h.data_ptr(),
+            n_out.data_ptr(), m_out.data_ptr(), B, S, H, D,
+            int(q.dtype == torch.bfloat16), stream)
+    build.check("mlstm_chunkwise", code)
+    mlstm_chunkwise.launches += 1
+    return h, n_out, m_out
+
+
+mlstm_chunkwise.launches = 0

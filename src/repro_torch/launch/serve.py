@@ -8,6 +8,7 @@ Requests are submitted through the online API at their arrival times
     python -m repro_torch.launch.serve --no-smoke      # full-width model
     python -m repro_torch.launch.serve --device cpu    # smoke config on CPU
     python -m repro_torch.launch.serve --cache-mode slot   # contiguous rows
+    python -m repro_torch.launch.serve --arch xlstm-125m   # slot (auto)
 
 Flags follow the reference launcher; ``--serve-http``, ``--replicas`` and
 ``--mesh`` are not ported yet. The model's weights are random, drawn from

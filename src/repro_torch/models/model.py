@@ -1,18 +1,21 @@
 """Decoder LM over the paged KV cache and over the slot cache (port of the
-paged path and of the attention slot path of the reference
-``models/model.py``).
+paged path and of the slot path of the reference ``models/model.py``).
 
 Parameters are nested dicts mirroring the reference pytree: a list of
 *stacks*, each a list over the repeating period's slots whose leaves carry a
 leading ``[reps, ...]`` axis. ``forward`` loops over stacks and repetitions
 in Python where the reference uses ``lax.scan``. Both caches mirror the same
 structure: one fused pool ``{"kv_pages": [reps, Hkv, P, 2, ps, D]}`` per slot
-(paged), or contiguous rows ``{"k", "v": [reps, B, Smax, Hkv, D]}`` (slot).
-The steps write them **in place** (the reference donates them).
+(paged), or per slot (slot cache) contiguous rows ``{"k", "v": [reps, B,
+Smax, Hkv, D]}`` for attention and the recurrent state ``{"mlstm": {"C",
+"n", "m", "conv"}}`` / ``{"slstm": {"c", "n", "h", "m"}}`` with leaves
+``[reps, B, ...]`` for the xLSTM mixers. The steps write them **in place**
+(the reference donates them).
 
-Only what serving a pure-attention dense decoder needs is ported:
-``forward`` raises ``NotImplementedError`` on every other config feature
-instead of computing something else.
+Ported: attention mixers (ATTN, LOCAL_ATTN) on both caches, mLSTM and
+sLSTM mixers on the slot cache, dense or no FFN. ``forward`` raises
+``NotImplementedError`` on every other config feature instead of computing
+something else.
 """
 from __future__ import annotations
 
@@ -22,13 +25,15 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.configs.base import ATTN, DENSE, LOCAL_ATTN, ModelConfig
+from repro_torch.configs.base import (ATTN, DENSE, LOCAL_ATTN, MLSTM, NONE,
+                                      SLSTM, ModelConfig)
 from repro_torch.kernels.chunked_prefill_attention.ops import (
     chunked_prefill_attention_op)
 from repro_torch.kernels.paged_attention.ops import paged_attention_auto
 from repro_torch.kernels.paged_prefill_attention.ops import (
     paged_prefill_attention_auto)
 from repro_torch.models import attention as A
+from repro_torch.models import ssm as S
 from repro_torch.models.layers import apply_rope, mlp, rms_norm, softcap
 
 
@@ -55,9 +60,9 @@ def unsupported_features(cfg: ModelConfig) -> list:
     found = []
     for period, _ in build_stacks(cfg):
         for mixer, ffn in period:
-            if mixer not in (ATTN, LOCAL_ATTN):
+            if mixer not in (ATTN, LOCAL_ATTN, MLSTM, SLSTM):
                 found.append(f"mixer {mixer!r}")
-            if ffn != DENSE:
+            if ffn not in (DENSE, NONE):
                 found.append(f"ffn {ffn!r}")
     for name in ("qk_norm", "post_norm", "embed_scale", "enc_dec"):
         if getattr(cfg, name):
@@ -117,25 +122,33 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
 
 
 # ---- slot cache -------------------------------------------------------------
+def _slot_cache(cfg: ModelConfig, mixer: str, reps: int, B: int,
+                max_len: int, dtype, device) -> dict:
+    d, H = cfg.d_model, cfg.num_heads
+    if mixer in (ATTN, LOCAL_ATTN):
+        Hkv, Dh = cfg.num_kv_heads, cfg.resolved_head_dim
+        return {n: torch.zeros((reps, B, max_len, Hkv, Dh), dtype=dtype,
+                               device=device) for n in ("k", "v")}
+    if mixer == MLSTM:
+        state = S.init_mlstm_state(B, d, H, dtype, device)
+    elif mixer == SLSTM:
+        state = S.init_slstm_state(B, d, H, device=device)
+    else:
+        raise NotImplementedError(f"slot cache of mixer {mixer!r} is not "
+                                  f"ported")
+    return {mixer: {n: t.expand(reps, *t.shape).clone()
+                    for n, t in state.items()}}
+
+
 def init_cache(cfg: ModelConfig, B: int, max_len: int, dtype=None,
                device=None) -> list:
-    """Zeroed contiguous KV rows (the reference's ``init_cache`` for
-    attention mixers): one ``{"k", "v": [reps, B, max_len, Hkv, Dh]}`` per
-    period slot of each stack, one row per engine slot."""
+    """The reference's ``init_cache``: per period slot of each stack, zeroed
+    contiguous KV rows ``{"k", "v": [reps, B, max_len, Hkv, Dh]}`` for an
+    attention mixer, or the fresh recurrent state (``m = -1e30`` for the
+    mLSTM) for an xLSTM mixer; one row per engine slot."""
     dtype = dtype or cfg.dtype
-    Hkv, Dh = cfg.num_kv_heads, cfg.resolved_head_dim
-    out = []
-    for period, reps in build_stacks(cfg):
-        slots = []
-        for mixer, _ in period:
-            if mixer not in (ATTN, LOCAL_ATTN):
-                raise NotImplementedError(
-                    f"slot cache of mixer {mixer!r} is not ported")
-            slots.append({n: torch.zeros((reps, B, max_len, Hkv, Dh),
-                                         dtype=dtype, device=device)
-                          for n in ("k", "v")})
-        out.append(slots)
-    return out
+    return [[_slot_cache(cfg, mixer, reps, B, max_len, dtype, device)
+             for mixer, _ in period] for period, reps in build_stacks(cfg)]
 
 
 # =============================================================================
@@ -234,6 +247,23 @@ def _chunk_attend(cfg, q, k_all, v_all, pos, lengths, window):
     return o.permute(0, 2, 1, 3).reshape(B, Sq, Hkv, G, D)
 
 
+def _recurrent_block(cfg, mixer, p, x, state, *, mode, rows=None):
+    """An mLSTM or sLSTM block on the slot cache: the mixer of the normed
+    input from the layer's state, which it updates in place. With ``rows``
+    (a slot decode) only those batch rows run and change their state; the
+    block adds nothing to the other rows. Returns the block's output."""
+    if mode not in ("chunk", "decode"):
+        raise ValueError(f"mixer {mixer!r} runs on the slot cache only, "
+                         f"not in mode {mode!r}")
+    mix = S.mlstm_mix if mixer == MLSTM else S.slstm_mix
+    xin = rms_norm(x, p["ln"], cfg.norm_eps)
+    if rows is None:
+        return mix(p, xin, state[mixer], cfg.num_heads)[0]
+    y, _ = mix(p, xin.index_select(0, rows), state[mixer], cfg.num_heads,
+               rows=rows)
+    return torch.zeros_like(x).index_copy_(0, rows, y)
+
+
 def _ffn_apply(cfg, slot, x):
     return mlp(slot["ffn"], rms_norm(x, slot["ffn"]["ln"], cfg.norm_eps),
                cfg.activation)
@@ -249,7 +279,8 @@ def _rep(tree, r: int):
 def forward(cfg: ModelConfig, params, tokens, *, cache, mode: str, pos=None,
             lengths=None, paged: Optional[PagedView] = None, rows=None):
     """Forward over the paged cache (``mode`` "paged_chunk" or
-    "paged_decode") or the slot cache ("chunk" or "decode"). Returns
+    "paged_decode") or the slot cache ("chunk" or "decode"). ``rows``
+    limits a slot decode's cache and state writes to those rows. Returns
     (final-normed hidden [B, S, d], cache updated in place)."""
     check_supported(cfg)
     x = params["embed"][tokens.long()]
@@ -257,12 +288,17 @@ def forward(cfg: ModelConfig, params, tokens, *, cache, mode: str, pos=None,
         for r in range(reps):
             for j, (mixer, _) in enumerate(period):
                 slot = _rep(params["stacks"][i][j], r)
-                window = cfg.sliding_window if mixer == LOCAL_ATTN else 0
-                x = x + attn_block(cfg, slot["attn"], x,
-                                   _rep(cache[i][j], r), mode=mode, pos=pos,
-                                   lengths=lengths, window=window,
-                                   paged=paged, rows=rows)
-                x = x + _ffn_apply(cfg, slot, x)
+                state = _rep(cache[i][j], r)
+                if mixer in (MLSTM, SLSTM):
+                    x = x + _recurrent_block(cfg, mixer, slot[mixer], x,
+                                             state, mode=mode, rows=rows)
+                else:
+                    window = cfg.sliding_window if mixer == LOCAL_ATTN else 0
+                    x = x + attn_block(cfg, slot["attn"], x, state,
+                                       mode=mode, pos=pos, lengths=lengths,
+                                       window=window, paged=paged, rows=rows)
+                if "ffn" in slot:          # xLSTM blocks have no FFN
+                    x = x + _ffn_apply(cfg, slot, x)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), cache
 
 
@@ -371,8 +407,10 @@ def decode_step(cfg: ModelConfig, params, tokens, cache, pos, *,
     """One decode step over the slot cache. ``tokens`` [B, 1]; ``pos`` a
     lockstep offset, or ``lengths`` [B] each row's length *including* the
     token being written. ``write_rows`` limits the cache writes to those
-    rows (the slot engine's decoding rows; every row when None). Returns
-    (logits [B, V], cache)."""
+    rows (the slot engine's decoding rows; every row when None): the KV of
+    the other rows and their recurrent state stay bit-identical, and a
+    recurrent block runs only the written rows. Returns (logits [B, V],
+    cache)."""
     if lengths is None:
         lengths = pos + 1
     x, cache = forward(cfg, params, tokens, cache=cache, mode="decode",

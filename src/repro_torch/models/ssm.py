@@ -1,0 +1,223 @@
+"""Recurrent sequence mixers of xLSTM: mLSTM and sLSTM (port of the xLSTM
+half of the reference ``models/ssm.py``; the Mamba half is not ported yet).
+
+* mLSTM (matrix memory): the projections, the causal depthwise conv, the
+  gates and the group norm in PyTorch, the recurrence through the mLSTM
+  chunkwise kernel (``kernels/mlstm_chunkwise``), which reads the carried
+  state ``(C, n, m)`` and writes the new one. The reference's
+  ``mlstm_mix`` computes the same function as a stabilized quadratic form
+  over tile pairs plus the carried-state term.
+* sLSTM (scalar memory with recurrent gate feedback): inherently
+  sequential, with no TPU kernel; a PyTorch loop over time, the input
+  gates projected once per chunk and one ``h @ R`` per step.
+
+Both mixers take the state of the rows they run and update it **in place**
+(the reference returns a new state): pass ``rows`` to run a subset of a
+larger state's batch rows (the slot engine's decoding rows); the other
+rows stay bit-identical. ``state=None`` starts from a fresh state.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.mlstm_chunkwise.ops import mlstm_chunkwise_op
+from repro_torch.models.layers import dense_init
+
+NEG_INF = -1e30
+CONV_K = 4          # the mLSTM's causal conv width (init_mlstm's conv_w)
+
+
+def _mamba_conv_full(x, w, b, init_state: Optional[torch.Tensor]):
+    """Causal depthwise conv over [B, S, d]; returns (silu(y + b), new conv
+    state = the last K-1 inputs). ``init_state`` is the last K-1 inputs of
+    the previous chunk [B, K-1, d], or None at sequence start."""
+    B, S, d = x.shape
+    K = w.shape[0]
+    if init_state is None:
+        init_state = torch.zeros((B, K - 1, d), dtype=x.dtype, device=x.device)
+    xp = torch.cat([init_state.to(x.dtype), x], dim=1)           # [B,S+K-1,d]
+    y = xp[:, 0:S] * w[0]
+    for i in range(1, K):
+        y = y + xp[:, i:i + S] * w[i]
+    return F.silu(y + b), xp[:, S:S + K - 1]
+
+
+def _group_norm_heads(x, scale, H: int, eps: float = 1e-6):
+    """Per-head group norm of [B, S, di] (di = H*Dh), fp32 inside."""
+    B, S, di = x.shape
+    xh = x.reshape(B, S, H, di // H).float()
+    mu = xh.mean(dim=-1, keepdim=True)
+    var = xh.var(dim=-1, keepdim=True, unbiased=False)
+    xh = (xh - mu) * torch.rsqrt(var + eps)
+    out = xh.reshape(B, S, di) * (1.0 + scale.float())
+    return out.to(x.dtype)
+
+
+def _gather(t, rows):
+    return t if rows is None else t.index_select(0, rows)
+
+
+def _put(dst, rows, src):
+    """Write ``src`` into the state leaf ``dst`` (at ``rows``), in place."""
+    if rows is None:
+        dst.copy_(src)
+    else:
+        dst.index_copy_(0, rows, src.to(dst.dtype))
+
+
+# =============================================================================
+# mLSTM
+# =============================================================================
+def init_mlstm(gen: torch.Generator, reps: int, d_model: int, num_heads: int,
+               dtype, device) -> dict:
+    """mLSTM block params with a leading ``[reps]`` axis, in the reference's
+    distributions (inner dim di = 2*d_model)."""
+    di = 2 * d_model
+
+    def dense(fan_in, fan_out):
+        return dense_init(gen, (reps, fan_in, fan_out), fan_in, dtype, device)
+
+    bias = torch.cat([torch.zeros(num_heads),
+                      torch.linspace(3.0, 6.0, num_heads)]).float()
+    return {
+        "up_proj": dense(d_model, 2 * di),
+        "conv_w": (torch.randn((reps, CONV_K, di), generator=gen,
+                               device=device) * 0.1).to(dtype),
+        "conv_b": torch.zeros((reps, di), dtype=dtype, device=device),
+        "wq": dense(di, di),
+        "wk": dense(di, di),
+        "wv": dense(di, di),
+        "w_gates": dense(di, 2 * num_heads),
+        "gate_bias": bias.to(device).expand(reps, -1).clone(),
+        "gn_scale": torch.zeros((reps, di), dtype=dtype, device=device),
+        "down_proj": dense(di, d_model),
+    }
+
+
+def init_mlstm_state(B: int, d_model: int, num_heads: int, dtype,
+                     device=None) -> dict:
+    di = 2 * d_model
+    Dh = di // num_heads
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"C": torch.zeros((B, num_heads, Dh, Dh), **f32),
+            "n": torch.zeros((B, num_heads, Dh), **f32),
+            "m": torch.full((B, num_heads), NEG_INF, **f32),
+            "conv": torch.zeros((B, CONV_K - 1, di), dtype=dtype,
+                                device=device)}
+
+
+def mlstm_mix(params, x, state: Optional[dict], num_heads: int, *,
+              rows: Optional[torch.Tensor] = None):
+    """mLSTM over a chunk x [B, S, d_model] from the carried state.
+
+    state = {"C": [Bs,H,Dh,Dh] f32, "n": [Bs,H,Dh] f32, "m": [Bs,H] f32,
+    "conv": [Bs, 3, di]}, or None for a fresh one; batch row b runs on
+    state row ``rows[b]`` (b when None). The state is updated in place.
+    Returns (out [B, S, d_model], state)."""
+    B, S, d_model = x.shape
+    H = num_heads
+    di = 2 * d_model
+    Dh = di // H
+    if state is None:
+        state = init_mlstm_state(B, d_model, H, x.dtype, x.device)
+
+    xz = x @ params["up_proj"]
+    xm, z = torch.chunk(xz, 2, dim=-1)
+    xc, new_conv = _mamba_conv_full(xm, params["conv_w"], params["conv_b"],
+                                    _gather(state["conv"], rows))
+    q = (xc @ params["wq"]).reshape(B, S, H, Dh)
+    k = (xc @ params["wk"]).reshape(B, S, H, Dh) / math.sqrt(Dh)
+    v = (xm @ params["wv"]).reshape(B, S, H, Dh)
+    gates = (xm @ params["w_gates"]).float() + params["gate_bias"]
+    log_i = gates[..., :H]                                       # [B,S,H]
+    log_f = F.logsigmoid(gates[..., H:])
+    h, n_new, m_new = mlstm_chunkwise_op(q, k, v, log_i, log_f, state["C"],
+                                         state["n"], state["m"], rows=rows)
+    _put(state["n"], rows, n_new)
+    _put(state["m"], rows, m_new)
+    _put(state["conv"], rows, new_conv)
+
+    h = _group_norm_heads(h.reshape(B, S, di).to(x.dtype), params["gn_scale"],
+                          H)
+    return (h * F.silu(z)) @ params["down_proj"], state
+
+
+def mlstm_decode(params, x, state: dict, num_heads: int, *, rows=None):
+    """Single-token mLSTM step. x: [B, 1, d_model]."""
+    return mlstm_mix(params, x, state, num_heads, rows=rows)
+
+
+# =============================================================================
+# sLSTM
+# =============================================================================
+def init_slstm(gen: torch.Generator, reps: int, d_model: int, num_heads: int,
+               dtype, device) -> dict:
+    """sLSTM block params with a leading ``[reps]`` axis, in the reference's
+    distributions."""
+    Dh = d_model // num_heads
+    ff = ((4 * d_model // 3) + 63) // 64 * 64
+
+    def dense(fan_in, fan_out):
+        return dense_init(gen, (reps, fan_in, fan_out), fan_in, dtype, device)
+
+    bias = torch.cat([torch.zeros(2 * d_model), torch.ones(d_model) * 2.0,
+                      torch.zeros(d_model)]).float()
+    return {
+        "w_gates": dense(d_model, 4 * d_model),                 # z, i, f, o
+        "r_gates": (torch.randn((reps, num_heads, Dh, 4 * Dh), generator=gen,
+                                device=device) / math.sqrt(Dh)).to(dtype),
+        "gate_bias": bias.to(device).expand(reps, -1).clone(),
+        "gn_scale": torch.zeros((reps, d_model), dtype=dtype, device=device),
+        "up_proj": dense(d_model, 2 * ff),
+        "down_proj": dense(ff, d_model),
+    }
+
+
+def init_slstm_state(B: int, d_model: int, num_heads: int, dtype=None,
+                     device=None) -> dict:
+    Dh = d_model // num_heads
+    return {name: torch.zeros((B, num_heads, Dh), dtype=torch.float32,
+                              device=device) for name in ("c", "n", "h", "m")}
+
+
+def slstm_mix(params, x, state: Optional[dict], num_heads: int, *,
+              rows: Optional[torch.Tensor] = None):
+    """sLSTM over x [B, S, d]: a loop over time (recurrent gate feedback).
+    state = {"c", "n", "h", "m": [Bs, H, Dh] f32} or None; batch row b runs
+    on state row ``rows[b]`` (b when None). The state is updated in place.
+    Returns (out [B, S, d], state)."""
+    B, S, d = x.shape
+    H = num_heads
+    Dh = d // H
+    if state is None:
+        state = init_slstm_state(B, d, H, device=x.device)
+    gx = (x @ params["w_gates"]).float() + params["gate_bias"]   # [B,S,4d]
+    gx = gx.reshape(B, S, 4, H, Dh)
+    c, n, h, m = (_gather(state[k], rows) for k in ("c", "n", "h", "m"))
+    R = params["r_gates"].float()                                # [H,Dh,4Dh]
+    ys = []
+    for t in range(S):
+        gr = torch.bmm(h.transpose(0, 1), R).transpose(0, 1)     # [B,H,4Dh]
+        g = gx[:, t] + gr.reshape(B, H, 4, Dh).transpose(1, 2)   # [B,4,H,Dh]
+        z_t = torch.tanh(g[:, 0])
+        i_t = g[:, 1]
+        f_t = F.logsigmoid(g[:, 2])
+        o_t = torch.sigmoid(g[:, 3])
+        m_new = torch.maximum(f_t + m, i_t)
+        i_p = torch.exp(i_t - m_new)
+        f_p = torch.exp(f_t + m - m_new)
+        c = f_p * c + i_p * z_t
+        n = f_p * n + i_p
+        h = o_t * (c / torch.clamp(n, min=1e-6))
+        m = m_new
+        ys.append(h)
+    for name, val in (("c", c), ("n", n), ("h", h), ("m", m)):
+        _put(state[name], rows, val)
+    y = torch.stack(ys, dim=1).reshape(B, S, d).to(x.dtype)
+    y = _group_norm_heads(y, params["gn_scale"], H)
+    a, b = torch.chunk(y @ params["up_proj"], 2, dim=-1)
+    return (F.gelu(a, approximate="tanh") * b) @ params["down_proj"], state

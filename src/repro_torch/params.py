@@ -19,7 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import DENSE, MLSTM, SLSTM, ModelConfig
+from repro_torch.models import ssm as S
 from repro_torch.models.layers import dense_init, embed_init
 from repro_torch.models.model import build_stacks, check_supported
 
@@ -73,7 +74,8 @@ def from_jax_numpy(cfg: ModelConfig, tree, device="cpu"):
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
     """Random parameters in the reference's structure and distributions,
-    for the configs the port computes (pure attention + dense MLP)."""
+    for the configs the port computes (attention, mLSTM or sLSTM mixers;
+    dense MLP or no FFN)."""
     check_supported(cfg)
     device = torch.device(device)
     gen = torch.Generator(device=device)
@@ -89,18 +91,30 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
 
     params = {"embed": embed_init(gen, cfg.vocab_size, d, dt, device),
               "final_norm": zeros(d), "stacks": []}
+
+    def slot(mixer, ffn, reps):
+        if mixer == MLSTM:
+            out = {"mlstm": {"ln": zeros(reps, d), **S.init_mlstm(
+                gen, reps, d, H, dt, device)}}
+        elif mixer == SLSTM:
+            out = {"slstm": {"ln": zeros(reps, d), **S.init_slstm(
+                gen, reps, d, H, dt, device)}}
+        else:
+            out = {"attn": {"ln": zeros(reps, d),
+                            "wq": dense(reps, d, H * Dh),
+                            "wk": dense(reps, d, Hkv * Dh),
+                            "wv": dense(reps, d, Hkv * Dh),
+                            "wo": dense(reps, H * Dh, d)}}
+        if ffn == DENSE:
+            out["ffn"] = {"ln": zeros(reps, d),
+                          "wi_gate": dense(reps, d, cfg.d_ff),
+                          "wi_up": dense(reps, d, cfg.d_ff),
+                          "wo": dense(reps, cfg.d_ff, d)}
+        return out
+
     for period, reps in build_stacks(cfg):
-        params["stacks"].append([{
-            "attn": {"ln": zeros(reps, d),
-                     "wq": dense(reps, d, H * Dh),
-                     "wk": dense(reps, d, Hkv * Dh),
-                     "wv": dense(reps, d, Hkv * Dh),
-                     "wo": dense(reps, H * Dh, d)},
-            "ffn": {"ln": zeros(reps, d),
-                    "wi_gate": dense(reps, d, cfg.d_ff),
-                    "wi_up": dense(reps, d, cfg.d_ff),
-                    "wo": dense(reps, cfg.d_ff, d)},
-        } for _ in period])
+        params["stacks"].append([slot(mixer, ffn, reps)
+                                 for mixer, ffn in period])
     if not cfg.tie_embeddings:
         params["lm_head"] = dense(1, d, cfg.vocab_size)[0]
     return params

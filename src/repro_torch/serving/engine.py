@@ -23,18 +23,24 @@ row, for A/B profiling.
 
 * **slot** (``cache_mode="slot"``; the reference's mode for the archs whose
   state the paged cache cannot hold). Each admitted request owns one row of
-  a contiguous ``max_slots x max_len`` KV cache. Every prompt chunk is one
-  dispatch at its slot's offset, through the chunked-prefill attention
-  kernel over the slot's row, read in place; chunk lengths are bucketed by
-  ``CHUNK_BUCKETS`` and padded by repeating the last real token. One decode
-  dispatch runs every slot and writes K/V only for the rows that are really
-  decoding. Greedy argmax is taken on the device and read back once per
+  a contiguous ``max_slots x max_len`` KV cache, or of the recurrent state
+  for the xLSTM mixers. Every prompt chunk is one dispatch at its slot's
+  offset on views of the slot's row, updated in place: attention through
+  the chunked-prefill attention kernel, the mLSTM through the mLSTM
+  chunkwise kernel. Chunk lengths are bucketed by ``CHUNK_BUCKETS`` and
+  padded by repeating the last real token, except for recurrent archs,
+  whose chunks have their exact lengths (padding tokens would advance the
+  state). One decode dispatch runs every slot and writes K/V only for the
+  rows that are really decoding; recurrent blocks run and update only
+  those rows. Greedy argmax is taken on the device and read back once per
   dispatch that emits; rounds are synchronous. ``spec_k`` and the prefix
-  cache are off in this mode, as in the reference.
+  cache are off in this mode, as in the reference. As in the reference, a
+  slot's recurrent state is not reset when a new request takes the slot:
+  the request starts from the previous owner's final state.
 
-Not ported yet: the recurrent, MLA and encoder-decoder archs that slot mode
-exists for (``check_supported`` raises before anything is allocated), and
-the mesh.
+Not ported yet: the Mamba, MLA and encoder-decoder archs that slot mode
+also exists for (``check_supported`` raises before anything is allocated),
+and the mesh.
 """
 from __future__ import annotations
 
@@ -48,7 +54,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MAMBA, MLSTM, SLSTM, ModelConfig
 from repro_torch.core.scheduler import KVPressure, SchedulerBase
 from repro_torch.models.model import (PAGED_KV_LAYOUT, Sampling,
                                       check_supported, chunk_prefill_step,
@@ -677,10 +683,14 @@ class EngineCore:
             self.free_slots.append(s)
 
     def _slot_row(self, slot: int) -> list:
-        """The cache tree cut to one slot's row: views, so the chunk step
-        writes the row in place and nothing is copied."""
-        return [[{n: leaf[:, slot:slot + 1] for n, leaf in c.items()}
-                 for c in stack] for stack in self.cache]
+        """The cache tree cut to one slot's row (KV rows and recurrent
+        state leaves): views, so the chunk step writes the row in place and
+        nothing is copied."""
+        def row(tree):
+            if isinstance(tree, dict):
+                return {n: row(v) for n, v in tree.items()}
+            return tree[:, slot:slot + 1]
+        return [[row(c) for c in stack] for stack in self.cache]
 
     def _run_prefill_chunk(self, req: Request, n: int,
                            prompt_tokens: np.ndarray) -> int:
@@ -691,12 +701,16 @@ class EngineCore:
         slot = self.slot_of[req.rid]
         total = min(n, req.prompt_len - int(self.lengths[slot]))
         row = self._slot_row(slot)
+        recurrent = any(k in (MAMBA, MLSTM, SLSTM)
+                        for k in self.cfg.layer_pattern)
         done = 0
         ids = None
         while done < total:
             start = int(self.lengths[slot])
             step = min(total - done, CHUNK_BUCKETS[-1])
-            blen = _bucket(step)
+            # recurrent state advances per token, so padding tokens would
+            # pollute it: recurrent archs run exact-length chunks
+            blen = step if recurrent else _bucket(step)
             chunk = np.zeros((1, blen), np.int32)
             real = prompt_tokens[start:start + step]
             chunk[0, :step] = real
@@ -720,8 +734,8 @@ class EngineCore:
 
     def _run_decode_slot(self, reqs: Sequence[Request]) -> None:
         """One decode dispatch over every slot; only the rows of ``reqs``
-        write K/V and emit (the reference runs every row too and keeps the
-        decoding rows' cache)."""
+        write K/V, advance their recurrent state and emit (the reference
+        runs every row too and keeps the decoding rows' cache)."""
         tokens = np.zeros((self.max_slots, 1), np.int32)
         slots = np.asarray([self.slot_of[r.rid] for r in reqs], np.int64)
         for r, slot in zip(reqs, slots):

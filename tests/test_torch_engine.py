@@ -184,8 +184,9 @@ def test_default_device_is_the_gpu(monkeypatch):
 
 
 def test_unpaged_arch_raises(monkeypatch):
-    """xlstm-125m's mixers are not ported: the engine raises in every cache
-    mode before any weight or cache is allocated."""
+    """jamba's Mamba mixers are not ported (xlstm-125m's mLSTM and sLSTM
+    are): the engine raises in every cache mode before any weight or cache
+    is allocated."""
     import repro_torch.serving.engine as TE
 
     def allocated(*args, **kwargs):
@@ -195,6 +196,6 @@ def test_unpaged_arch_raises(monkeypatch):
     monkeypatch.setattr(TE, "init_paged_cache", allocated)
     for mode in ("auto", "slot"):
         with pytest.raises(NotImplementedError, match="mixer"):
-            EngineCore(get_config("xlstm-125m").smoke(),
+            EngineCore(get_config("jamba-1.5-large-398b").smoke(),
                        SlidingServeScheduler(max_budget=64),
                        cache_mode=mode, device="cpu")

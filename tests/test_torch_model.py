@@ -244,9 +244,21 @@ def test_params_structure_and_cache_conversion(setup):
 
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-1.7b", "qwen2-moe-a2.7b",
-                                  "xlstm-125m"])
+                                  "xlstm-125m", "jamba-1.5-large-398b"])
 def test_unported_features_raise(arch):
+    """What the port does not compute raises instead of computing something
+    else: the listed features on every path, and for xlstm-125m (whose
+    mLSTM and sLSTM mixers run on the slot cache) the paged cache."""
     cfg = get_config(arch).smoke()
+    if arch == "xlstm-125m":
+        assert TM.unsupported_features(cfg) == []
+        with pytest.raises(ValueError):
+            TM.init_paged_cache(cfg, 4, 16)
+        with pytest.raises(ValueError):
+            TM.forward(cfg, TP.init_params(cfg, device="cpu"),
+                       torch.zeros((1, 1), dtype=torch.int32),
+                       cache=TM.init_cache(cfg, 1, 8), mode="paged_decode")
+        return
     assert TM.unsupported_features(cfg)
     with pytest.raises(NotImplementedError):
         TP.init_params(cfg, device="cpu")

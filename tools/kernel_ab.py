@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the attention kernels of one checkout on the card, so that two
+"""Time the CUDA kernels of one checkout on the card, so that two
 checkouts can be compared in one chip call, in turns:
 
     python3 tools/kernel_ab.py OLD && python3 tools/kernel_ab.py . \
@@ -8,10 +8,11 @@ checkouts can be compared in one chip call, in turns:
 ``OLD`` is another checkout (for example ``git archive`` of the parent
 commit unpacked into ``build/``). Each run imports that checkout's
 ``chip_smoke.py`` (which puts its ``src/`` first on the path), builds its
-kernels and times a fixed set of its decode and prefill parity cases, and
-its chunked-prefill cases where it has that kernel (CUDA events; inputs
-from fixed seeds, the same in both checkouts). Prints
-one JSON line ``{"root": ..., "rows": [...]}``.
+kernels and times a fixed set of its decode and prefill parity cases, its
+chunked-prefill cases and its mLSTM chunkwise cases (the parity phase's
+xlstm-125m shapes) where it has those kernels (CUDA events; inputs from
+fixed seeds, the same in both checkouts). Prints one JSON line
+``{"root": ..., "rows": [...]}``.
 """
 from __future__ import annotations
 
@@ -53,6 +54,8 @@ def main(root: str) -> int:
         for Sq, off in ((16, 4080), (512, 0), (512, 3584), (2048, 2048)):
             cs.chunked_case(cases, f"Sq{Sq} off{off} bf16", Sq, off,
                             [off + Sq], bf, iters=5 if Sq == 2048 else 10)
+    if hasattr(cs, "mlstm_cases"):       # checkouts with the mLSTM kernel
+        cs.mlstm_cases(cases)
     rows = [{k: r[k] for k in ("kernel", "case", "ms", "limit_share")}
             for r in cases.rows]
     print(json.dumps({"root": root, "device": cs.device_line(),
