@@ -9,37 +9,46 @@ prints its seconds):
 1. device: CUDA must be available on a compute-capability 9.0 card; prints
    ``nvidia-smi --query-gpu=name,power.limit``.
 2. build: compiles ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a, one
-   library per kernel (four), all nvcc processes at once.
-3. kernel parity: the four CUDA kernels against their plain PyTorch
+   library per source (five), all nvcc processes at once, and prints each
+   kernel's registers.
+3. kernel parity: the seven CUDA kernels against their plain PyTorch
    versions on the same inputs. The attention kernels at llama3.2-3b
    shapes (bf16, 24 query heads, 8 kv heads, head_dim 128; page size 16 for
    the paged kernels; a 4096-token slot row, read in place as the slot
    engine passes it, for the chunked-prefill kernel) and a few others
    (window + softcap, fp32, partial mode with negative shard-local
    positions, a chunk that ends past the slot row, ``causal=False`` with
-   per-row lengths). The mLSTM chunkwise kernel at xlstm-125m shapes (4
-   heads, head_dim 384, bf16): fresh state at S 2048 and S 1000 (a ragged
-   last chunk), a carried state at S 37, the decode of 8 of 10 state rows,
-   fp32, and the smoke config's head_dim 32. Tolerance, at valid query
-   positions, elementwise: fp32 ``|got - want| <= 2e-5 + 2e-5 * |want|``;
-   bf16 ``|got - want| <= 2**-7 * |want| + 0.05 * rms(want)``, one bf16
-   rounding step of the element plus a twentieth of the RMS of its head's
-   D-vector, so the limit follows bf16 rounding, not the size of the
-   output (a kernel that skips one 64-key tile at a 4K context is off by
-   about a tenth of the RMS). The partial state's m and l are held to
-   ``1e-3 + 1e-5 * |m|`` and ``1e-4 * l``; the mLSTM's new C and n to
-   ``1e-5 + 1e-4 * |ref|`` and its m to ``1e-3 + 1e-5 * |m|``. Each case is
-   timed with CUDA events beside the plain version and, for attention, one
-   PyTorch library call used only as a yardstick
-   (``scaled_dot_product_attention`` on the gathered pages or the slot
-   row, with an explicit mask; no single PyTorch call computes the mLSTM),
-   and its bound (bytes at 3.35 TB/s, flops at 989 TFLOP/s bf16 or 67
-   TFLOP/s fp32) is computed from the case's own inputs (the keys each
-   query attends; the mLSTM's chunks).
+   per-row lengths); the chunked-prefill kernel also at jamba's attention
+   shapes (64 query heads over 8 kv heads). The split-pool decode and
+   prefill kernels at llama3.2-3b shapes, each also against the fused
+   kernel on the same keys (whether the two are bit-identical is printed).
+   The mLSTM chunkwise kernel at xlstm-125m shapes (4 heads, head_dim 384,
+   bf16): fresh state at S 2048 and S 1000 (a ragged last chunk), a carried
+   state at S 37, the decode of 8 of 10 state rows, fp32, and the smoke
+   config's head_dim 32. The Mamba selective scan at jamba's shapes
+   (d_inner 16384, d_state 16, bf16) in the same six cases, the last at
+   the smoke config's d_inner 128. Tolerance, at valid query positions,
+   elementwise: fp32 ``|got - want| <= 2e-5 + 2e-5 * |want|``; bf16
+   ``|got - want| <= 2**-7 * |want| + 0.05 * rms(want)``, one bf16 rounding
+   step of the element plus a twentieth of the RMS of its head's D-vector
+   (the token's d_inner vector for the scan), so the limit follows bf16
+   rounding, not the size of the output (a kernel that skips one 64-key
+   tile at a 4K context is off by about a tenth of the RMS). The partial
+   state's m and l are held to ``1e-3 + 1e-5 * |m|`` and ``1e-4 * l``; the
+   mLSTM's new C and n and the scan's new h to ``1e-5 + 1e-4 * |ref|`` and
+   the mLSTM's m to ``1e-3 + 1e-5 * |m|``. Each case is timed with CUDA
+   events beside the plain version and, for attention, one PyTorch library
+   call used only as a yardstick (``scaled_dot_product_attention`` on the
+   gathered pages or the slot row, with an explicit mask; no single
+   PyTorch call computes the mLSTM or the selective scan), and its bound
+   (bytes at 3.35 TB/s, flops at 989 TFLOP/s bf16 or 67 TFLOP/s fp32; the
+   scan's fp32 arithmetic at 67) is computed from the case's own inputs
+   (the keys each query attends; the mLSTM's chunks).
 4. end to end on a small input: the smoke llama3.2-3b engine (fp32) on the
    GPU gives the same greedy tokens as on the CPU (plain versions), in
-   paged and in slot mode, and slot mode gives the paged tokens; the smoke
-   xlstm-125m slot engine gives the CPU's tokens on the GPU.
+   paged and in slot mode, and slot mode gives the paged tokens; so do the
+   smoke xlstm-125m and jamba slot engines, and the smoke qwen2-moe-a2.7b
+   engine (MoE FFN) in both modes.
 5. full-width paged serving: llama3.2-3b (28 layers, d_model 3072, random
    weights from a seed, bf16) through ``InferenceServer(EngineCore(...))``
    with a 65536-token KV pool, 8 requests, once with ``spec_k=0`` and once
@@ -58,6 +67,13 @@ prints its seconds):
    requests over 8 slots; the mLSTM chunkwise kernel must have launched
    6 x (chunk + decode dispatches). A second run repeats it under
    ``torch.profiler``.
+8. full-width jamba-1.5-large-398b slot serving, cut in depth to one
+   8-layer period (``jamba_cut``: every published width, 7 Mamba layers
+   and one attention layer, the last FFN MoE; 18.06 B parameters), random
+   weights from a seed, bf16, the same requests over 8 slots; the selective
+   scan must have launched 7 x (chunk + decode dispatches) and the
+   chunked-prefill kernel 1 x the chunk dispatches. A second run repeats
+   it under ``torch.profiler``.
 
 The traces are summarised in one pass over the profiler's raw events.
 
@@ -196,6 +212,31 @@ def bound(nbytes, flops, dtype_name):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
+def decode_yardsticks(cs, q, kv, bt, lens_t, need, G, D, window, softcap,
+                      iters):
+    """A decode case's library time (``scaled_dot_product_attention`` on
+    the gathered pages, without window or softcap; else None) and its
+    bound: q and out once, each row's live pages once per kv head."""
+    torch = cs.torch
+    lib = None
+    if window == 0 and softcap == 0.0:
+        k, v = gathered(torch, kv, bt, G)
+        mask = (torch.arange(k.shape[2], device=DEVICE)[None, :]
+                < lens_t[:, None])[:, None, None, :]
+        qs = q[:, :, None, :]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = round(cuda_ms(torch, lambda: sdpa(qs, k, v, attn_mask=mask,
+                                                scale=D ** -0.5), iters), 5)
+        del k, v
+    B, H, _ = q.shape
+    Hkv = H // G
+    elt = q.element_size()
+    nbytes = (2 * q.numel() * elt + sum(need) * PAGE * Hkv * 2 * D * elt
+              + bt.numel() * 4 + B * 4)
+    flops = 4 * D * H * int(lens_t.long().sum())
+    return (lib, *bound(nbytes, flops, str(q.dtype).split(".")[-1]))
+
+
 def decode_case(cs, name, B, lens, dtype, window=0, softcap=0.0, G=3, Hkv=8,
                 D=128, iters=20):
     torch = cs.torch
@@ -237,31 +278,57 @@ def decode_case(cs, name, B, lens, dtype, window=0, softcap=0.0, G=3, Hkv=8,
                  iters)
     plain = cuda_ms(torch, lambda: paged_attention_fused_ref(
         q, kv, bt, lens_t, **kw), 3, warmup=1)
-    lib = None
-    if window == 0 and softcap == 0.0:
-        k, v = gathered(torch, kv, bt, G)
-        mask = (torch.arange(k.shape[2], device=DEVICE)[None, :]
-                < lens_t[:, None])[:, None, None, :]
-        qs = q[:, :, None, :]
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib = round(cuda_ms(torch, lambda: sdpa(qs, k, v, attn_mask=mask,
-                                                scale=D ** -0.5), iters), 5)
-        del k, v
-    elt = q.element_size()
-    keys = sum(need)
-    nbytes = (2 * q.numel() * elt + keys * PAGE * Hkv * 2 * D * elt
-              + bt.numel() * 4 + B * 4)
-    flops = 4 * D * Hkv * G * sum(int(x) for x in lens)
-    b_ms, b_by = bound(nbytes, flops, dn)
+    lib, b_ms, b_by = decode_yardsticks(cs, q, kv, bt, lens_t, need, G, D,
+                                        window, softcap, iters)
     cs.record({"kernel": "paged_attention_fused", "case": name, "dtype": dn,
                "max_abs_err": err, "limit_share": share, "ms": ms, "plain_ms": plain,
                "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
 
 
+def prefill_yardsticks(cs, q, kv, bt, pos, lens, G, D, window, softcap,
+                       iters):
+    """A prefill case's library time (``scaled_dot_product_attention`` on
+    the gathered pages with an explicit mask, without window or softcap;
+    else None) and its bound: q and out once, each row's live pages once
+    per kv head; flops of the (query, key) pairs the masks leave."""
+    torch = cs.torch
+    import numpy as np
+    R, Sq, Hkv = q.shape[:3]
+    n = bt.shape[1]
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=DEVICE)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+    lib = None
+    if window == 0 and softcap == 0.0:
+        k, v = gathered(torch, kv, bt, G)
+        kpos = torch.arange(k.shape[2], device=DEVICE)
+        qpos = pos_t[:, None] + torch.arange(Sq, device=DEVICE)[None]
+        mask = ((kpos[None, None] <= qpos[:, :, None])
+                & (kpos[None, None] < lens_t[:, None, None]))[:, None]
+        qs = q.reshape(R, Sq, Hkv * G, D).transpose(1, 2)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = round(cuda_ms(torch, lambda: sdpa(qs, k, v, attn_mask=mask,
+                                                scale=D ** -0.5), iters), 5)
+        del k, v
+    elt = q.element_size()
+    pn, ln = np.asarray(pos), np.asarray(lens)
+    pages = [min(math.ceil(l_ / PAGE), math.ceil((p_ + Sq) / PAGE), n)
+             for p_, l_ in zip(pn, ln) if l_ > 0]
+    nbytes = (2 * q.numel() * elt + sum(pages) * PAGE * Hkv * 2 * D * elt
+              + bt.numel() * 4 + 2 * R * 4)
+    pairs = 0
+    for p_, l_ in zip(pn, ln):
+        qp = p_ + np.arange(Sq)
+        qp = qp[qp < l_]
+        hi = np.minimum(qp + 1, l_)
+        lo = np.maximum(qp - window + 1, 0) if window > 0 else 0
+        pairs += int(np.maximum(hi - lo, 0).sum())
+    flops = 4 * D * Hkv * G * pairs
+    return (lib, *bound(nbytes, flops, str(q.dtype).split(".")[-1]))
+
+
 def prefill_case(cs, name, pos, lens, Sq, dtype, window=0, softcap=0.0, G=3,
                  Hkv=8, D=128, iters=10, partial_split=False):
     torch = cs.torch
-    import numpy as np
     from repro_torch.kernels.paged_prefill_attention.kernel import (
         paged_prefill_attention_fused)
     from repro_torch.kernels.paged_prefill_attention.ref import (
@@ -313,38 +380,112 @@ def prefill_case(cs, name, pos, lens, Sq, dtype, window=0, softcap=0.0, G=3,
         q, kv, bt, pos_t, lens_t, **kw), iters)
     plain = cuda_ms(torch, lambda: paged_prefill_attention_fused_ref(
         q, kv, bt, pos_t, lens_t, **kw), 2, warmup=1)
-    lib = None
-    if window == 0 and softcap == 0.0:
-        k, v = gathered(torch, kv, bt, G)
-        kpos = torch.arange(k.shape[2], device=DEVICE)
-        qpos = pos_t[:, None] + torch.arange(Sq, device=DEVICE)[None]
-        mask = ((kpos[None, None] <= qpos[:, :, None])
-                & (kpos[None, None] < lens_t[:, None, None]))[:, None]
-        qs = q.reshape(R, Sq, Hkv * G, D).transpose(1, 2)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib = round(cuda_ms(torch, lambda: sdpa(qs, k, v, attn_mask=mask,
-                                                scale=D ** -0.5), iters), 5)
-        del k, v
-    # bytes: q and out once, each row's live pages once per kv head
-    elt = q.element_size()
-    pn, ln = np.asarray(pos), np.asarray(lens)
-    pages = [min(math.ceil(l_ / PAGE), math.ceil((p_ + Sq) / PAGE), n)
-             for p_, l_ in zip(pn, ln) if l_ > 0]
-    nbytes = (2 * q.numel() * elt + sum(pages) * PAGE * Hkv * 2 * D * elt
-              + bt.numel() * 4 + 2 * R * 4)
-    pairs = 0
-    for p_, l_ in zip(pn, ln):
-        qp = p_ + np.arange(Sq)
-        qp = qp[qp < l_]
-        hi = np.minimum(qp + 1, l_)
-        lo = np.maximum(qp - window + 1, 0) if window > 0 else 0
-        pairs += int(np.maximum(hi - lo, 0).sum())
-    flops = 4 * D * Hkv * G * pairs
-    b_ms, b_by = bound(nbytes, flops, dn)
+    lib, b_ms, b_by = prefill_yardsticks(cs, q, kv, bt, pos, lens, G, D,
+                                         window, softcap, iters)
     cs.record({"kernel": "paged_prefill_attention_fused", "case": name,
                "dtype": dn, "max_abs_err": err, "limit_share": share,
                "ms": ms, "plain_ms": plain,
                "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
+
+
+def split_pools(kv):
+    """The fused pool's K and V planes as two contiguous [Hkv, P, ps, D]
+    pools, holding the same keys."""
+    from repro_torch.kernels import ref_common as rc
+    k, v = rc.split_fused(kv)
+    return k.contiguous(), v.contiguous()
+
+
+def split_decode_case(cs, name, B, lens, dtype, window=0, softcap=0.0, G=3,
+                      Hkv=8, D=128, iters=20):
+    """#3: decode over split K and V pools, against its plain version and
+    against the fused kernel on the same keys (the pool split in two)."""
+    torch = cs.torch
+    from repro_torch.kernels.paged_attention.kernel import (
+        paged_attention, paged_attention_fused)
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    dn = str(dtype).split(".")[-1]
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+    n = 1 << max(math.ceil(max(lens) / PAGE) - 1, 0).bit_length()
+    kv, bt, need = cs.pool_and_tables(lens, n, Hkv, D, dtype)
+    kp, vp = split_pools(kv)
+    q = cs.randn((B, Hkv * G, D), dtype)
+    kw = dict(scale=D ** -0.5, window=window, softcap=softcap)
+    got = paged_attention(q, kp, vp, bt, lens_t, **kw)
+    want = paged_attention_ref(q, kp, vp, bt, lens_t, **kw)
+    fused = paged_attention_fused(q, kv, bt, lens_t, **kw)
+    torch.cuda.synchronize()
+    err, share = check(f"split decode {name}", got, want, vec_limit(want, dn))
+    ms = cuda_ms(torch, lambda: paged_attention(q, kp, vp, bt, lens_t, **kw),
+                 iters)
+    plain = cuda_ms(torch, lambda: paged_attention_ref(
+        q, kp, vp, bt, lens_t, **kw), 3, warmup=1)
+    lib, b_ms, b_by = decode_yardsticks(cs, q, kv, bt, lens_t, need, G, D,
+                                        window, softcap, iters)
+    cs.record({"kernel": "paged_attention", "case": name, "dtype": dn,
+               "max_abs_err": err, "limit_share": share, "ms": ms,
+               "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+               "bound_by": b_by, "same_as_fused": bool(torch.equal(got, fused))})
+    print(f"    bit-identical to the fused kernel: {cs.rows[-1]['same_as_fused']}")
+
+
+def split_prefill_case(cs, name, pos, lens, Sq, dtype, window=0, softcap=0.0,
+                       G=3, Hkv=8, D=128, iters=10):
+    """#4: prefill over split K and V pools (any Sq), against its plain
+    version and against the fused kernel on the same keys."""
+    torch = cs.torch
+    from repro_torch.kernels.paged_prefill_attention.kernel import (
+        paged_prefill_attention, paged_prefill_attention_fused)
+    from repro_torch.kernels.paged_prefill_attention.ref import (
+        paged_prefill_attention_ref)
+    dn = str(dtype).split(".")[-1]
+    R = len(pos)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=DEVICE)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+    n = 1 << max(math.ceil(max(lens) / PAGE) - 1, 0).bit_length()
+    kv, bt, _ = cs.pool_and_tables(lens, n, Hkv, D, dtype)
+    kp, vp = split_pools(kv)
+    q = cs.randn((R, Sq, Hkv, G, D), dtype)
+    valid = ((pos_t[:, None] + torch.arange(Sq, device=DEVICE)[None])
+             < lens_t[:, None])
+    kw = dict(scale=D ** -0.5, window=window, softcap=softcap)
+    args = (q, kp, vp, bt, pos_t, lens_t)
+    got = paged_prefill_attention(*args, **kw)
+    want = paged_prefill_attention_ref(*args, **kw)
+    fused = paged_prefill_attention_fused(q, kv, bt, pos_t, lens_t, **kw)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"split prefill {name}: non-finite output")
+    err, share = check(f"split prefill {name}", got, want, vec_limit(want, dn),
+                       valid)
+    ms = cuda_ms(torch, lambda: paged_prefill_attention(*args, **kw), iters)
+    plain = cuda_ms(torch, lambda: paged_prefill_attention_ref(*args, **kw), 2,
+                    warmup=1)
+    lib, b_ms, b_by = prefill_yardsticks(cs, q, kv, bt, pos, lens, G, D,
+                                         window, softcap, iters)
+    cs.record({"kernel": "paged_prefill_attention", "case": name, "dtype": dn,
+               "max_abs_err": err, "limit_share": share, "ms": ms,
+               "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+               "bound_by": b_by, "same_as_fused": bool(torch.equal(got, fused))})
+    print(f"    bit-identical to the fused kernel: {cs.rows[-1]['same_as_fused']}")
+
+
+def split_cases(cs, main_lens):
+    """#3/#4 at the llama3.2-3b shapes: the serving-like decode batch and the
+    R4 Sq512 prefill in bf16, window + softcap in fp32, and a chunk length
+    the TPU kernel's q tiling would refuse (Sq 100)."""
+    torch = cs.torch
+    bf, f32 = torch.bfloat16, torch.float32
+    split_decode_case(cs, "B8 serving-like ctx bf16", 8, main_lens, bf)
+    split_decode_case(cs, "B8 window1000 softcap30 fp32", 8,
+                      [4096, PAGE, PAGE - 3, 4096 - PAGE // 2, 2500, 900,
+                       1700, 3333], f32, window=1000, softcap=30.0)
+    split_prefill_case(cs, "R4 Sq512 bf16", [0, 1000, 1029, 0],
+                       [512, 1509, 1541, 0], 512, bf)
+    split_prefill_case(cs, "R4 Sq128 window300 softcap30 fp32",
+                       [0, 500, 900, 0], [128, 620, 1028, 0], 128, f32,
+                       window=300, softcap=30.0)
+    split_prefill_case(cs, "R2 Sq100 bf16", [37, 700], [137, 790], 100, bf)
 
 
 SLOT_LEN = 4096      # the slot row of the full-width slot phase (max_len)
@@ -507,6 +648,87 @@ def mlstm_cases(cs):
     mlstm_case(cs, "B4 S100 carried fp32 D32", 4, 100, f32, True, D=32)
 
 
+MAMBA_D, MAMBA_N = 16384, 16   # jamba: d_inner 2 x 8192, d_state 16
+
+
+def mamba_case(cs, name, B, S, dtype, carried, d=MAMBA_D, n=MAMBA_N,
+               rows=None, iters=10):
+    """x a column view of the in_proj output, as mamba_mix passes it; dt
+    (softplus'd) fp32 in init_mamba's range [0.001, 0.1]; Bc and Cc column
+    views of a fp32 x_proj output; A the S4D-real -(1..n) and D 1, as
+    init_mamba draws them. From a zero state, or from the state a
+    100-token prefix leaves (as in serving); ``rows`` maps batch rows to
+    the rows of a larger state, as a slot decode does (the other rows must
+    not change)."""
+    torch = cs.torch
+    from repro_torch.kernels.mamba_scan.kernel import mamba_scan
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+    dn = str(dtype).split(".")[-1]
+    Bs = B if rows is None else max(rows) + 1
+
+    def inputs(Bn, Sn):
+        x = cs.randn((Bn, Sn, 2 * d), dtype)[..., :d]
+        u = torch.rand((Bn, Sn, d), generator=cs.gen, device=DEVICE)
+        dt = torch.exp(u * (math.log(0.1) - math.log(0.001))
+                       + math.log(0.001))
+        dbc = cs.randn((Bn, Sn, 32 + 2 * n), torch.float32)
+        return x, dt, dbc[..., 32:32 + n], dbc[..., 32 + n:]
+
+    A = -torch.arange(1, n + 1, dtype=torch.float32,
+                      device=DEVICE).expand(d, n).contiguous()
+    Dp = torch.ones((d,), device=DEVICE)
+    h = torch.zeros((Bs, d, n), device=DEVICE)
+    if carried:
+        mamba_scan_ref(*inputs(Bs, 100), A, Dp, h)
+    rows_t = None if rows is None else torch.tensor(rows, device=DEVICE)
+    args = inputs(B, S)
+    h_got, h_want = h.clone(), h.clone()
+    got = mamba_scan(*args, A, Dp, h_got, rows=rows_t)
+    want = mamba_scan_ref(*args, A, Dp, h_want, rows=rows_t)
+    torch.cuda.synchronize()
+    err, share = check(f"mamba {name}", got, want, vec_limit(want, dn))
+    idx = list(range(B)) if rows is None else rows
+    _, h_share = check(f"mamba {name}: h", h_got[idx], h_want[idx],
+                       1e-5 + 1e-4 * h_want[idx].abs())
+    others = [r for r in range(Bs) if r not in idx]
+    if not torch.equal(h_got[others], h[others]):
+        raise AssertionError(f"mamba {name}: state rows outside the batch "
+                             f"changed")
+    ms = cuda_ms(torch, lambda: mamba_scan(*args, A, Dp, h_got, rows=rows_t),
+                 iters)
+    plain = cuda_ms(torch, lambda: mamba_scan_ref(*args, A, Dp, h_want,
+                                                  rows=rows_t), 2, warmup=1)
+    # bytes: x, dt, Bc, Cc and y once, A and D, the batch's h rows read and
+    # written; flops per (token, channel): 7 per state (dt*A, exp, da*h,
+    # dtx*B, the add, h*C as multiply-add) + 3 (dt*x, D*x and its add), in
+    # fp32 outside the tensor cores whatever x's dtype
+    elt = got.element_size()
+    nbytes = (B * S * d * (2 * elt + 4) + 2 * B * S * n * 4 + d * (n + 1) * 4
+              + 2 * B * d * n * 4)
+    b_ms, b_by = bound(nbytes, B * S * d * (7 * n + 3), "float32")
+    cs.record({"kernel": "mamba_scan", "case": name, "dtype": dn,
+               "max_abs_err": err, "limit_share": share,
+               "h_limit_share": h_share, "ms": ms, "plain_ms": plain,
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
+
+
+def mamba_cases(cs):
+    """#6 at jamba's shapes (d_inner 16384, d_state 16): the engine's fresh
+    first chunks (S 2048; S 1000, whose last 32-step tile is ragged), a
+    chunk from a carried state (S 37), the decode of 8 of 10 state rows
+    (S 1, rows permuted; the other two must not change), fp32, and the smoke
+    config's d_inner 128."""
+    torch = cs.torch
+    bf, f32 = torch.bfloat16, torch.float32
+    mamba_case(cs, "B1 S2048 fresh bf16", 1, 2048, bf, False, iters=5)
+    mamba_case(cs, "B1 S1000 fresh bf16", 1, 1000, bf, False, iters=5)
+    mamba_case(cs, "B1 S37 carried bf16", 1, 37, bf, True)
+    mamba_case(cs, "B8 S1 decode carried bf16", 8, 1, bf, True,
+               rows=[3, 0, 7, 1, 6, 2, 9, 4], iters=20)
+    mamba_case(cs, "B1 S512 carried fp32", 1, 512, f32, True)
+    mamba_case(cs, "B4 S100 carried fp32 d128", 4, 100, f32, True, d=128)
+
+
 def kernel_phase(torch):
     import numpy as np
     cs = Cases(torch)
@@ -555,7 +777,14 @@ def kernel_phase(torch):
     chunked_case(cs, "Sq512 off1000 fp32", 512, 1000, [1512], f32)
     chunked_case(cs, "B2 Sq128 non-causal lens 3000/1234 bf16", 128, 0,
                  [3000, 1234], bf, causal=False)
+    # jamba's attention layer: 64 query heads over 8 kv heads (G 8), no RoPE
+    # (the kernel does not see it); exact-length chunks
+    for Sq, off in ((512, 0), (512, 3584), (37, 100)):
+        chunked_case(cs, f"jamba H64 Sq{Sq} off{off} bf16", Sq, off,
+                     [off + Sq], bf, H=64)
     mlstm_cases(cs)
+    split_cases(cs, main)
+    mamba_cases(cs)
     return cs.rows
 
 
@@ -763,9 +992,9 @@ def serving_phase(torch, params, kernels):
     return launches, results, streams
 
 
-def slot_serving_phase(torch, arch, params, kernels, expected,
+def slot_serving_phase(torch, cfg, params, kernels, expected,
                        paged_streams=None):
-    """Full-width ``arch`` through the streaming server over the slot cache
+    """Full-width ``cfg`` through the streaming server over the slot cache
     (8 slots of 4096 tokens); a second run repeats it under torch.profiler.
     ``expected`` maps a kernel's name to its launches as a function of the
     engine's stats (a per-layer kernel: layers x the dispatches it serves);
@@ -773,11 +1002,10 @@ def slot_serving_phase(torch, arch, params, kernels, expected,
     ``paged_streams``, counts the requests whose tokens equal the paged
     run's. Returns the first run's launch counts, and the records."""
     import numpy as np
-    from repro_torch.configs import get_config
     from repro_torch.core import SlidingServeScheduler
     from repro_torch.serving.engine import EngineCore
     from repro_torch.serving.server import InferenceServer
-    cfg = get_config(arch)
+    arch = cfg.name
     prompts, outputs = serving_workload(cfg)
     results, first_launches = [], None
     for traced in (False, True):
@@ -968,16 +1196,45 @@ class Phases:
             self._open = None
 
 
-def load_params(torch, arch):
-    from repro_torch.configs import get_config
+def load_params(torch, cfg):
     from repro_torch.params import init_params
-    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=DEVICE)
     torch.cuda.synchronize()
     print(f"  init_params {cfg.name}: {time.perf_counter() - t0:.2f}s "
-          f"({sum(p.numel() for p in _leaves(params)) / 1e9:.3f}B params)")
-    return cfg, params
+          f"({sum(p.numel() for p in _leaves(params)) / 1e9:.3f}B params, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated)")
+    return params
+
+
+def jamba_cut():
+    """jamba-1.5-large-398b at every published width (d_model 8192, 64 q /
+    8 kv heads of 128, d_ff 24576, Mamba d_inner 16384 / d_state 16 / d_conv
+    4 / dt_rank 512, 16 experts top-2 of width 24576, vocab 65536, untied
+    head, no RoPE), cut in depth to one 8-layer period: the mixer pattern
+    unchanged (7 Mamba, attention at position 3), the FFN dense in layers
+    0-6 and MoE in layer 7. One period as published holds four MoE layers
+    of 19.3 GB each in bf16, which with the rest (90.5 GB) exceeds one
+    80 GB card; the cut holds 18.06 B parameters (36.1 GB)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import DENSE, MOE
+    return dataclasses.replace(get_config("jamba-1.5-large-398b"),
+                               num_layers=8,
+                               ffn_pattern=(DENSE,) * 7 + (MOE,))
+
+
+JAMBA_REDUCED = [
+    "num_layers 72 -> 8 (one period of the pattern, mixers unchanged)",
+    "MoE layers 36 -> 1 (layer 7; layers 0-6 dense, which jamba's even "
+    "layers are)",
+]
+
+
+def count_mixers(cfg, kind):
+    from repro_torch.models.model import build_stacks
+    return sum(reps * [m for m, _ in period].count(kind)
+               for period, reps in build_stacks(cfg))
 
 
 def main() -> int:
@@ -991,22 +1248,26 @@ def main() -> int:
         print(f"chip_smoke: needs a compute-capability 9.0 card, got {cap}",
               file=sys.stderr)
         return 1
-    from repro_torch.configs.base import MLSTM
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ATTN, MAMBA, MLSTM
     from repro_torch.kernels import build
     from repro_torch.kernels.chunked_prefill_attention import kernel as cpa_kernel
+    from repro_torch.kernels.mamba_scan import kernel as ms_kernel
     from repro_torch.kernels.mlstm_chunkwise import kernel as ml_kernel
     from repro_torch.kernels.paged_attention import kernel as pa_kernel
     from repro_torch.kernels.paged_prefill_attention import kernel as ppa_kernel
-    from repro_torch.models.model import build_stacks
     kernels = {"paged_attention_fused": pa_kernel.paged_attention_fused,
                "paged_prefill_attention_fused":
                    ppa_kernel.paged_prefill_attention_fused,
+               "paged_attention": pa_kernel.paged_attention,
+               "paged_prefill_attention": ppa_kernel.paged_prefill_attention,
                "chunked_prefill_attention":
                    cpa_kernel.chunked_prefill_attention,
-               "mlstm_chunkwise": ml_kernel.mlstm_chunkwise}
+               "mlstm_chunkwise": ml_kernel.mlstm_chunkwise,
+               "mamba_scan": ms_kernel.mamba_scan}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ph = Phases(7)
+    ph = Phases(8)
 
     ph.start("device")
     dev = device_line()
@@ -1020,45 +1281,81 @@ def main() -> int:
           flush=True)
     for name, (_, log) in report.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Function" in line:
                 print(f"  {name}: {line.strip()}")
 
     ph.start("kernel parity and timing")
+    reset_counts(kernels)
     rows = kernel_phase(torch)
+    parity_launches = {name: fn.launches for name, fn in kernels.items()}
 
     ph.start("smoke engines, GPU against CPU")
     smoke_engine_phase(torch)
     smoke_engine_phase(torch, "xlstm-125m", modes=("slot",))
+    smoke_engine_phase(torch, "jamba-1.5-large-398b", modes=("slot",))
+    smoke_engine_phase(torch, "qwen2-moe-a2.7b")
 
     ph.start("full-width llama3.2-3b serving, paged cache")
-    cfg, params = load_params(torch, "llama3.2-3b")
+    cfg = get_config("llama3.2-3b")
+    params = load_params(torch, cfg)
     launches, serving, streams = serving_phase(torch, params, kernels)
     for name in ("paged_attention_fused", "paged_prefill_attention_fused"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the paged path")
+    by_path = {name: {"llama3.2-3b paged": launches[name]}
+               for name in ("paged_attention_fused",
+                            "paged_prefill_attention_fused")}
 
     ph.start("full-width llama3.2-3b serving, slot cache")
     layers = cfg.num_layers
     slot_launches, slot_recs = slot_serving_phase(
-        torch, "llama3.2-3b", params, kernels,
+        torch, cfg, params, kernels,
         {"chunked_prefill_attention": lambda st: layers * st.prefill_calls},
         paged_streams=streams)
     serving += slot_recs
     launches["chunked_prefill_attention"] = \
         slot_launches["chunked_prefill_attention"]
+    by_path["chunked_prefill_attention"] = {
+        "llama3.2-3b slot": slot_launches["chunked_prefill_attention"]}
     del params
     release(torch)
 
     ph.start("full-width xlstm-125m serving, slot cache")
-    xcfg, xparams = load_params(torch, "xlstm-125m")
-    mlstm_layers = sum(reps * [m for m, _ in period].count(MLSTM)
-                       for period, reps in build_stacks(xcfg))
+    xcfg = get_config("xlstm-125m")
+    xparams = load_params(torch, xcfg)
+    mlstm_layers = count_mixers(xcfg, MLSTM)
     x_launches, x_recs = slot_serving_phase(
-        torch, "xlstm-125m", xparams, kernels,
+        torch, xcfg, xparams, kernels,
         {"mlstm_chunkwise":
              lambda st: mlstm_layers * (st.prefill_calls + st.decode_calls)})
     serving += x_recs
     launches["mlstm_chunkwise"] = x_launches["mlstm_chunkwise"]
+    by_path["mlstm_chunkwise"] = {"xlstm-125m slot":
+                                  x_launches["mlstm_chunkwise"]}
+    del xparams
+    release(torch)
+
+    ph.start("full-width jamba-1.5-large-398b (8-layer cut) serving, slot "
+             "cache")
+    jcfg = jamba_cut()
+    jparams = load_params(torch, jcfg)
+    mamba_layers = count_mixers(jcfg, MAMBA)
+    attn_layers = count_mixers(jcfg, ATTN)
+    j_launches, j_recs = slot_serving_phase(
+        torch, jcfg, jparams, kernels,
+        {"mamba_scan":
+             lambda st: mamba_layers * (st.prefill_calls + st.decode_calls),
+         "chunked_prefill_attention":
+             lambda st: attn_layers * st.prefill_calls})
+    for rec in j_recs:
+        rec["reduced"] = JAMBA_REDUCED
+    serving += j_recs
+    launches["mamba_scan"] = j_launches["mamba_scan"]
+    by_path["mamba_scan"] = {"jamba slot": j_launches["mamba_scan"]}
+    by_path["chunked_prefill_attention"]["jamba slot"] = \
+        j_launches["chunked_prefill_attention"]
+    del jparams
+    release(torch)
     ph.stop()
 
     rep = {"paged_attention_fused": ("B8 serving-like ctx bf16",
@@ -1067,25 +1364,39 @@ def main() -> int:
            "paged_prefill_attention_fused": (
                "R4 Sq512 bf16", "src/repro_torch/csrc/paged_prefill_attention.cu",
                "src/repro/kernels/paged_prefill_attention/kernel.py:271"),
+           "paged_attention": ("B8 serving-like ctx bf16",
+                               "src/repro_torch/csrc/paged_attention.cu",
+                               "src/repro/kernels/paged_attention/kernel.py:95"),
+           "paged_prefill_attention": (
+               "R4 Sq512 bf16", "src/repro_torch/csrc/paged_prefill_attention.cu",
+               "src/repro/kernels/paged_prefill_attention/kernel.py:113"),
            "chunked_prefill_attention": (
                "Sq512 off3584 bf16",
                "src/repro_torch/csrc/chunked_prefill_attention.cu",
                "src/repro/kernels/chunked_prefill_attention/kernel.py:83"),
            "mlstm_chunkwise": (
                "B1 S2048 fresh bf16", "src/repro_torch/csrc/mlstm_chunkwise.cu",
-               "src/repro/kernels/mlstm_chunkwise/kernel.py:88")}
+               "src/repro/kernels/mlstm_chunkwise/kernel.py:88"),
+           "mamba_scan": (
+               "B1 S2048 fresh bf16", "src/repro_torch/csrc/mamba_scan.cu",
+               "src/repro/kernels/mamba_scan/kernel.py:56")}
     kernels = []
     for name, (case, source, replaces) in rep.items():
         row = next(r for r in rows if r["kernel"] == name and r["case"] == case)
         err = max(r["max_abs_err"] for r in rows
                   if r["kernel"] == name and r["dtype"] == "bfloat16")
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": err, "ms": row["ms"],
-                        "plain_ms": row["plain_ms"],
-                        "bound_ms": row["bound_ms"],
-                        "bound_by": row["bound_by"],
-                        "library_ms": row["library_ms"], "shape": case})
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches.get(name, 0),
+                 "max_abs_err": err, "ms": row["ms"],
+                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                 "bound_by": row["bound_by"],
+                 "library_ms": row["library_ms"], "shape": case,
+                 "launches_by_path": by_path.get(name, {}),
+                 "parity_launches": parity_launches[name]}
+        if name in ("paged_attention", "paged_prefill_attention"):
+            entry["note"] = ("serves no path, here or in the reference: "
+                             "launched only by the parity phase")
+        kernels.append(entry)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     total = time.perf_counter() - ph.t_all

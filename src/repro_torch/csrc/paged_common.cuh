@@ -1,7 +1,7 @@
 // Shared device code of the attention kernels (paged_attention.cu: decode
 // rows; paged_prefill_attention.cu: ragged prefill and speculative-verify
-// rows over the fused page pool; chunked_prefill_attention.cu: a query
-// chunk over contiguous K/V rows).
+// rows, each over the fused page pool or over split K and V pools;
+// chunked_prefill_attention.cu: a query chunk over contiguous K/V rows).
 //
 // One thread block owns BR query rows of one (batch row, kv head): the G
 // grouped query heads of one token for decode, BQ tokens x G heads for
@@ -10,7 +10,8 @@
 //   1. the tile's K and V rows -> shared memory through the block's KV
 //      source (PagedKV: whole pages through the block table, each page's K
 //      plane and V plane one contiguous 2*ps*D run in the fused pool;
-//      StridedKV: rows at a fixed stride), 16-byte vector loads,
+//      SplitPagedKV: the same pages in two pools; StridedKV: rows at a
+//      fixed stride), 16-byte vector loads,
 //   2. scores s = q.k * scale, then the softcap, then the mask (the
 //      reference's order), masked entries = -1e30 (finite, like the
 //      reference: an all-masked tile gives exp(0) = 1, never NaN),
@@ -125,6 +126,37 @@ struct PagedKV {
       T* dst = (row < ps ? k_s + (size_t)(pi * ps + row) * DP
                          : v_s + (size_t)(pi * ps + row - ps) * DP) +
                c * VN;
+      *reinterpret_cast<uint4*>(dst) =
+          __ldg(reinterpret_cast<const uint4*>(src));
+    }
+  }
+};
+
+// Split K and V pools, each [P, ps, D] for this kv head; k0 and nk are
+// multiples of ps. A page's K rows and its V rows are each one contiguous
+// ps*D run.
+template <typename T>
+struct SplitPagedKV {
+  const T* k_head;      // this kv head's K pages [P, ps, D]
+  const T* v_head;      // and its V pages
+  const int* bt_row;    // the row's block table
+  int ps;
+
+  __device__ __forceinline__ void load(T* k_s, T* v_s, int k0, int nk, int D,
+                                       int DP) const {
+    constexpr int VN = 16 / sizeof(T);
+    const int dv = D / VN;
+    const int per_page = 2 * ps * dv;
+    const int p0 = k0 / ps;
+    for (int i = threadIdx.x; i < (nk / ps) * per_page; i += kThreads) {
+      const int pi = i / per_page, rem = i % per_page;
+      const int row = rem / dv, c = rem % dv;   // K rows, then V rows
+      const bool is_v = row >= ps;
+      const int key = is_v ? row - ps : row;
+      const size_t page = (size_t)bt_row[p0 + pi] * ps * D;
+      const T* src = (is_v ? v_head : k_head) + page + (size_t)key * D +
+                     c * VN;
+      T* dst = (is_v ? v_s : k_s) + (size_t)(pi * ps + key) * DP + c * VN;
       *reinterpret_cast<uint4*>(dst) =
           __ldg(reinterpret_cast<const uint4*>(src));
     }

@@ -6,7 +6,10 @@
 // row r is a chunk of Sq queries at cache offset row_pos[r] with post-chunk
 // length lengths[r], attending over its pages through the block table with
 // causal, length and window masks and an optional softcap, fp32 online
-// softmax; partial != 0 returns the un-normalized state (acc, m, l).
+// softmax; partial != 0 returns the un-normalized state (acc, m, l). A
+// split-pool variant (paged_prefill_attention_split_launch) replaces the
+// TPU kernel paged_prefill_attention, the same function over separate K
+// and V pools.
 //
 // Bound on the H100: operations at the engine's chunk sizes. A q tile of
 // BQ tokens x G heads re-reads each live page, so a chunk of Sq tokens does
@@ -62,6 +65,40 @@ paged_prefill_attention_fused_kernel(
       tile_pages * ps, partial != 0);
 }
 
+// The same prefill over split K and V pools, each [Hkv, P, ps, D]
+// (replaces the TPU kernel paged_prefill_attention, kernel.py _kernel,
+// which needs Sq % block_q == 0; here any Sq): the fused kernel's page
+// pruning and tile loop through a SplitPagedKV source, no partial mode. A
+// separate kernel, so that the fused one's code stays as it was.
+template <typename T>
+__global__ void __launch_bounds__(paged::kThreads, sizeof(T) == 2 ? 3 : 1)
+paged_prefill_attention_split_kernel(
+    const T* __restrict__ q, const T* __restrict__ k_pages,
+    const T* __restrict__ v_pages, const int* __restrict__ block_tables,
+    const int* __restrict__ row_pos, const int* __restrict__ lengths,
+    T* __restrict__ out, int Sq, int Hkv, int G, int D, int P, int ps, int n,
+    float scale, int window, float softcap, int block_q, int tile_pages) {
+  const int r = blockIdx.x, h = blockIdx.y, qi = blockIdx.z;
+  const int q0 = qi * block_q;
+  const int nt = min(block_q, Sq - q0);        // tokens in this q tile
+  const int pos = row_pos[r], length = lengths[r];
+  const int pages_needed = paged::floordiv(length + ps - 1, ps);
+  const int causal_hi = paged::floordiv(pos + q0 + nt - 1, ps) + 1;
+  const int j_hi = min(min(pages_needed, causal_hi), n);
+  int j_lo =
+      window > 0 ? max(paged::floordiv(pos + q0 - window + 1, ps), 0) : 0;
+  j_lo = min(j_lo, max(j_hi, 0));
+  const long tok0 = ((long)r * Sq + q0) * Hkv + h;   // (row, token q0, head h)
+  const long tok_stride = (long)Hkv * G * D;
+  const size_t head = (size_t)h * P * ps * D;
+  const paged::SplitPagedKV<T> src{k_pages + head, v_pages + head,
+                                   block_tables + (size_t)r * n, ps};
+  paged::attend_rows<T>(
+      q + tok0 * G * D, tok_stride, D, out + tok0 * G * D, tok_stride, D,
+      nullptr, nullptr, 0, src, D, G, nt * G, pos + q0, length, true, window,
+      scale, softcap, j_lo * ps, j_hi * ps, tile_pages * ps, false);
+}
+
 // Query tokens per block: as many as fit the block's rows (t*G + g), at
 // most kMaxBlockQ.
 constexpr int kMaxBlockQ = 64;
@@ -89,6 +126,31 @@ int launch(const void* q, const void* kv, const int* bt, const int* row_pos,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_split(const void* q, const void* k_pages, const void* v_pages,
+                 const int* bt, const int* row_pos, const int* lengths,
+                 void* out, int R, int Sq, int Hkv, int G, int D, int P,
+                 int ps, int n, float scale, int window, float softcap,
+                 cudaStream_t stream) {
+  const int block_q = std::max(1, std::min(kMaxBlockQ, paged::max_rows(D) / G));
+  const int tile_pages = paged::tile_pages(block_q * G, ps, D, sizeof(T));
+  if (tile_pages == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      paged::smem_bytes(block_q * G, tile_pages * ps, D, sizeof(T));
+  cudaError_t err =
+      paged::reserve_smem(paged_prefill_attention_split_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nq = (Sq + block_q - 1) / block_q;
+  if (R == 0 || Hkv == 0 || nq == 0) return 0;
+  paged_prefill_attention_split_kernel<T>
+      <<<dim3(R, Hkv, nq), paged::kThreads, smem, stream>>>(
+          reinterpret_cast<const T*>(q), reinterpret_cast<const T*>(k_pages),
+          reinterpret_cast<const T*>(v_pages), bt, row_pos, lengths,
+          reinterpret_cast<T*>(out), Sq, Hkv, G, D, P, ps, n, scale, window,
+          softcap, block_q, tile_pages);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -110,6 +172,23 @@ int paged_prefill_attention_fused_launch(
   return launch<float>(q, kv, block_tables, row_pos, lengths, out, m_out,
                        l_out, R, Sq, Hkv, G, D, P, ps, n, scale, window,
                        softcap, partial, s);
+}
+
+// The split-pool prefill: k_pages and v_pages [Hkv, P, ps, D], no partial
+// mode; otherwise as paged_prefill_attention_fused_launch.
+int paged_prefill_attention_split_launch(
+    const void* q, const void* k_pages, const void* v_pages,
+    const int* block_tables, const int* row_pos, const int* lengths,
+    void* out, int R, int Sq, int Hkv, int G, int D, int P, int ps, int n,
+    float scale, int window, float softcap, int is_bf16, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_split<__nv_bfloat16>(q, k_pages, v_pages, block_tables,
+                                       row_pos, lengths, out, R, Sq, Hkv, G,
+                                       D, P, ps, n, scale, window, softcap, s);
+  return launch_split<float>(q, k_pages, v_pages, block_tables, row_pos,
+                             lengths, out, R, Sq, Hkv, G, D, P, ps, n, scale,
+                             window, softcap, s);
 }
 
 const char* paged_prefill_attention_error_string(int code) {

@@ -21,36 +21,51 @@ from typing import Dict, Iterable, Tuple
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("paged_attention", "paged_prefill_attention",
-           "chunked_prefill_attention", "mlstm_chunkwise")
+           "chunked_prefill_attention", "mlstm_chunkwise", "mamba_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
-# Argument types of each library's launch function, in the order of the C
+# Argument types of each library's launch functions, in the order of the C
 # signatures in csrc/. Pointers and the stream are c_void_p: ctypes would
 # otherwise pass a Python int as a 32-bit int.
 SIGNATURES = {
-    "paged_attention": ("paged_attention_fused_launch", [
-        _P, _P, _P, _P,              # q, kv_pages, block_tables, lengths
-        _P, _P, _P,                  # out, m_out, l_out
-        _I, _I, _I, _I, _I, _I, _I,  # B, Hkv, G, D, P, ps, n
-        _F, _I, _F,                  # scale, window, softcap
-        _I, _I, _P]),                # partial, is_bf16, stream
-    "paged_prefill_attention": ("paged_prefill_attention_fused_launch", [
-        _P, _P, _P, _P, _P,          # q, kv_pages, block_tables, row_pos, lengths
-        _P, _P, _P,                  # out, m_out, l_out
-        _I, _I, _I, _I, _I, _I, _I, _I,  # R, Sq, Hkv, G, D, P, ps, n
-        _F, _I, _F,                  # scale, window, softcap
-        _I, _I, _P]),                # partial, is_bf16, stream
-    "chunked_prefill_attention": ("chunked_prefill_attention_launch", [
+    "paged_attention": {
+        "paged_attention_fused_launch": [
+            _P, _P, _P, _P,              # q, kv_pages, block_tables, lengths
+            _P, _P, _P,                  # out, m_out, l_out
+            _I, _I, _I, _I, _I, _I, _I,  # B, Hkv, G, D, P, ps, n
+            _F, _I, _F,                  # scale, window, softcap
+            _I, _I, _P],                 # partial, is_bf16, stream
+        "paged_attention_split_launch": [
+            _P, _P, _P, _P, _P,          # q, k_pages, v_pages, bt, lengths
+            _P,                          # out
+            _I, _I, _I, _I, _I, _I, _I,  # B, Hkv, G, D, P, ps, n
+            _F, _I, _F,                  # scale, window, softcap
+            _I, _P]},                    # is_bf16, stream
+    "paged_prefill_attention": {
+        "paged_prefill_attention_fused_launch": [
+            _P, _P, _P, _P, _P,          # q, kv_pages, bt, row_pos, lengths
+            _P, _P, _P,                  # out, m_out, l_out
+            _I, _I, _I, _I, _I, _I, _I, _I,  # R, Sq, Hkv, G, D, P, ps, n
+            _F, _I, _F,                  # scale, window, softcap
+            _I, _I, _P],                 # partial, is_bf16, stream
+        "paged_prefill_attention_split_launch": [
+            _P, _P, _P, _P, _P, _P,      # q, k_pages, v_pages, bt, row_pos,
+                                         # lengths
+            _P,                          # out
+            _I, _I, _I, _I, _I, _I, _I, _I,  # R, Sq, Hkv, G, D, P, ps, n
+            _F, _I, _F,                  # scale, window, softcap
+            _I, _P]},                    # is_bf16, stream
+    "chunked_prefill_attention": {"chunked_prefill_attention_launch": [
         _P, _P, _P, _P, _P,          # q, k, v, lengths, out
         _L, _L, _L, _L, _L, _L,      # q, k strides (batch, head, position)
         _L, _L, _L, _L, _L, _L,      # v, out strides
         _I, _I, _I, _I, _I, _I,      # B, Sq, Sk, Hkv, G, D
         _I, _I, _I, _F, _F,          # q_offset, causal, window, scale, softcap
-        _I, _P]),                    # is_bf16, stream
-    "mlstm_chunkwise": ("mlstm_chunkwise_launch", [
+        _I, _P]},                    # is_bf16, stream
+    "mlstm_chunkwise": {"mlstm_chunkwise_launch": [
         _P, _P, _P, _P, _P,          # q, k, v, log_i, log_f
         _L, _L, _L, _L, _L, _L,      # q, k strides (batch, token, head)
         _L, _L, _L,                  # v strides
@@ -59,7 +74,17 @@ SIGNATURES = {
         _L, _L, _L,                  # C, n, m batch strides
         _P, _P, _P,                  # h, n_out, m_out
         _I, _I, _I, _I,              # B, S, H, D
-        _I, _P]),                    # is_bf16, stream
+        _I, _P]},                    # is_bf16, stream
+    "mamba_scan": {"mamba_scan_launch": [
+        _P, _L, _L,                  # x and its strides (batch, token)
+        _P, _L, _L,                  # dt
+        _P, _L, _L,                  # Bc
+        _P, _L, _L,                  # Cc
+        _P, _P,                      # A, D
+        _P, _L, _P,                  # h (in place), its batch stride, rows
+        _P,                          # y
+        _I, _I, _I, _I,              # B, S, d, n
+        _I, _P]},                    # is_bf16, stream
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -116,15 +141,15 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[float, str]]:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``name`` (built first if needed), with the
-    argument and return types of its launch function declared."""
+    argument and return types of its launch functions declared."""
     lib = _loaded.get(name)
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(_target(name)))
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p

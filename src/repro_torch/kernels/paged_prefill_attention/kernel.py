@@ -1,11 +1,12 @@
-"""Wrapper of the CUDA paged-prefill kernel
-(``csrc/paged_prefill_attention.cu``), the port of the TPU kernel
-``paged_prefill_attention_fused`` of the reference package. It serves the
-engine's ragged prefill rows and its speculative-verify rows.
+"""Wrappers of the CUDA paged-prefill kernels
+(``csrc/paged_prefill_attention.cu``), the ports of the TPU kernels
+``paged_prefill_attention_fused`` (the fused pool; it serves the engine's
+ragged prefill rows and its speculative-verify rows) and
+``paged_prefill_attention`` (split K and V pools, no partial mode).
 
 A tensor on the CPU goes to the plain PyTorch version (``ref.py``); a CUDA
 tensor goes to the kernel, or the wrapper raises. Launches are counted in
-``paged_prefill_attention_fused.launches``.
+``<wrapper>.launches``.
 """
 from __future__ import annotations
 
@@ -14,7 +15,18 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention.kernel import check_operands
 from repro_torch.kernels.paged_prefill_attention.ref import (
-    paged_prefill_attention_fused_ref, paged_prefill_attention_partial_ref)
+    paged_prefill_attention_fused_ref, paged_prefill_attention_partial_ref,
+    paged_prefill_attention_ref)
+
+
+def _prefill_dims(q, Hkv, block_tables, row_pos, lengths):
+    R, Sq, qHkv, G, D = q.shape
+    if qHkv != Hkv:
+        raise ValueError(f"q has {qHkv} kv heads, the pool {Hkv}")
+    if (block_tables.shape[0] != R or row_pos.shape != (R,)
+            or lengths.shape != (R,)):
+        raise ValueError("block_tables must be [R, n], row_pos and lengths [R]")
+    return R, Sq, G, D, block_tables.shape[1]
 
 
 def paged_prefill_attention_fused(q, kv_pages, block_tables, row_pos,
@@ -32,16 +44,10 @@ def paged_prefill_attention_fused(q, kv_pages, block_tables, row_pos,
                   window=window, softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"no paged_prefill_attention kernel for {q.device}")
-    R, Sq, Hkv, G, D = q.shape
-    _, P, _, ps, _ = kv_pages.shape
-    if kv_pages.shape[0] != Hkv:
-        raise ValueError(f"q has {Hkv} kv heads, kv_pages {kv_pages.shape[0]}")
-    check_operands(q, kv_pages, {"block_tables": block_tables,
-                                 "row_pos": row_pos, "lengths": lengths})
-    n = block_tables.shape[1]
-    if (block_tables.shape[0] != R or row_pos.shape != (R,)
-            or lengths.shape != (R,)):
-        raise ValueError("block_tables must be [R, n], row_pos and lengths [R]")
+    check_operands(q, (kv_pages,), {"block_tables": block_tables,
+                                    "row_pos": row_pos, "lengths": lengths})
+    Hkv, P, _, ps, _ = kv_pages.shape
+    R, Sq, G, D, n = _prefill_dims(q, Hkv, block_tables, row_pos, lengths)
     out = torch.empty(q.shape, device=q.device,
                       dtype=torch.float32 if partial else q.dtype)
     m = l = None
@@ -65,3 +71,38 @@ def paged_prefill_attention_fused(q, kv_pages, block_tables, row_pos,
 
 
 paged_prefill_attention_fused.launches = 0
+
+
+def paged_prefill_attention(q, k_pages, v_pages, block_tables, row_pos,
+                            lengths, *, scale, window=0, softcap=0.0):
+    """Ragged chunked prefill over split pools: q [R, Sq, Hkv, G, D] (any
+    Sq) at cache offsets row_pos [R] int32 with post-chunk lengths [R]
+    int32, over k_pages and v_pages [Hkv, P, ps, D] through block_tables
+    [R, n] int32. Returns [R, Sq, Hkv, G, D] in q's dtype."""
+    if q.device.type == "cpu":
+        return paged_prefill_attention_ref(q, k_pages, v_pages, block_tables,
+                                           row_pos, lengths, scale=scale,
+                                           window=window, softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"no paged_prefill_attention kernel for {q.device}")
+    check_operands(q, (k_pages, v_pages),
+                   {"block_tables": block_tables, "row_pos": row_pos,
+                    "lengths": lengths})
+    Hkv, P, ps, _ = k_pages.shape
+    R, Sq, G, D, n = _prefill_dims(q, Hkv, block_tables, row_pos, lengths)
+    out = torch.empty(q.shape, device=q.device, dtype=q.dtype)
+    lib = build.library("paged_prefill_attention")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.paged_prefill_attention_split_launch(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), row_pos.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), R, Sq, Hkv, G, D, P, ps, n, float(scale),
+            int(window), float(softcap), int(q.dtype == torch.bfloat16),
+            stream)
+    build.check("paged_prefill_attention", code)
+    paged_prefill_attention.launches += 1
+    return out
+
+
+paged_prefill_attention.launches = 0

@@ -9,6 +9,12 @@ Requests are submitted through the online API at their arrival times
     python -m repro_torch.launch.serve --device cpu    # smoke config on CPU
     python -m repro_torch.launch.serve --cache-mode slot   # contiguous rows
     python -m repro_torch.launch.serve --arch xlstm-125m   # slot (auto)
+    python -m repro_torch.launch.serve --arch jamba-1.5-large-398b --device cpu
+    python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --device cpu
+
+jamba (Mamba + attention + MoE) serves in slot mode (auto picks it); at
+full width its 398 B parameters do not fit one card, so ``--no-smoke``
+serves it only where the memory holds it.
 
 Flags follow the reference launcher; ``--serve-http``, ``--replicas`` and
 ``--mesh`` are not ported yet. The model's weights are random, drawn from

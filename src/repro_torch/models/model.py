@@ -7,15 +7,15 @@ leading ``[reps, ...]`` axis. ``forward`` loops over stacks and repetitions
 in Python where the reference uses ``lax.scan``. Both caches mirror the same
 structure: one fused pool ``{"kv_pages": [reps, Hkv, P, 2, ps, D]}`` per slot
 (paged), or per slot (slot cache) contiguous rows ``{"k", "v": [reps, B,
-Smax, Hkv, D]}`` for attention and the recurrent state ``{"mlstm": {"C",
-"n", "m", "conv"}}`` / ``{"slstm": {"c", "n", "h", "m"}}`` with leaves
-``[reps, B, ...]`` for the xLSTM mixers. The steps write them **in place**
-(the reference donates them).
+Smax, Hkv, D]}`` for attention and the recurrent state ``{"mamba":
+{"conv", "ssm"}}`` / ``{"mlstm": {"C", "n", "m", "conv"}}`` / ``{"slstm":
+{"c", "n", "h", "m"}}`` with leaves ``[reps, B, ...]`` for the recurrent
+mixers. The steps write them **in place** (the reference donates them).
 
-Ported: attention mixers (ATTN, LOCAL_ATTN) on both caches, mLSTM and
-sLSTM mixers on the slot cache, dense or no FFN. ``forward`` raises
-``NotImplementedError`` on every other config feature instead of computing
-something else.
+Ported: attention mixers (ATTN, LOCAL_ATTN) on both caches, Mamba, mLSTM
+and sLSTM mixers on the slot cache, dense, MoE (single device) or no FFN.
+``forward`` raises ``NotImplementedError`` on every other config feature
+instead of computing something else.
 """
 from __future__ import annotations
 
@@ -25,14 +25,15 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.configs.base import (ATTN, DENSE, LOCAL_ATTN, MLSTM, NONE,
-                                      SLSTM, ModelConfig)
+from repro_torch.configs.base import (ATTN, DENSE, LOCAL_ATTN, MAMBA, MLSTM,
+                                      MOE, NONE, SLSTM, ModelConfig)
 from repro_torch.kernels.chunked_prefill_attention.ops import (
     chunked_prefill_attention_op)
 from repro_torch.kernels.paged_attention.ops import paged_attention_auto
 from repro_torch.kernels.paged_prefill_attention.ops import (
     paged_prefill_attention_auto)
 from repro_torch.models import attention as A
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import apply_rope, mlp, rms_norm, softcap
 
@@ -60,9 +61,9 @@ def unsupported_features(cfg: ModelConfig) -> list:
     found = []
     for period, _ in build_stacks(cfg):
         for mixer, ffn in period:
-            if mixer not in (ATTN, LOCAL_ATTN, MLSTM, SLSTM):
+            if mixer not in (ATTN, LOCAL_ATTN, MAMBA, MLSTM, SLSTM):
                 found.append(f"mixer {mixer!r}")
-            if ffn not in (DENSE, NONE):
+            if ffn not in (DENSE, MOE, NONE):
                 found.append(f"ffn {ffn!r}")
     for name in ("qk_norm", "post_norm", "embed_scale", "enc_dec"):
         if getattr(cfg, name):
@@ -78,6 +79,10 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the PyTorch port does not compute "
             f"{', '.join(missing)} yet")
+
+
+def _moe_pad(cfg: ModelConfig) -> int:
+    return M.pad_experts(cfg.num_experts, 16)
 
 
 # ---- paged cache -------------------------------------------------------------
@@ -129,7 +134,11 @@ def _slot_cache(cfg: ModelConfig, mixer: str, reps: int, B: int,
         Hkv, Dh = cfg.num_kv_heads, cfg.resolved_head_dim
         return {n: torch.zeros((reps, B, max_len, Hkv, Dh), dtype=dtype,
                                device=device) for n in ("k", "v")}
-    if mixer == MLSTM:
+    if mixer == MAMBA:
+        state = S.init_mamba_state(B, cfg.mamba_expand * d,
+                                   cfg.mamba_d_state, cfg.mamba_d_conv,
+                                   dtype, device)
+    elif mixer == MLSTM:
         state = S.init_mlstm_state(B, d, H, dtype, device)
     elif mixer == SLSTM:
         state = S.init_slstm_state(B, d, H, device=device)
@@ -145,7 +154,7 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, dtype=None,
     """The reference's ``init_cache``: per period slot of each stack, zeroed
     contiguous KV rows ``{"k", "v": [reps, B, max_len, Hkv, Dh]}`` for an
     attention mixer, or the fresh recurrent state (``m = -1e30`` for the
-    mLSTM) for an xLSTM mixer; one row per engine slot."""
+    mLSTM) for a Mamba or xLSTM mixer; one row per engine slot."""
     dtype = dtype or cfg.dtype
     return [[_slot_cache(cfg, mixer, reps, B, max_len, dtype, device)
              for mixer, _ in period] for period, reps in build_stacks(cfg)]
@@ -247,24 +256,41 @@ def _chunk_attend(cfg, q, k_all, v_all, pos, lengths, window):
     return o.permute(0, 2, 1, 3).reshape(B, Sq, Hkv, G, D)
 
 
+RECURRENT = (MAMBA, MLSTM, SLSTM)
+
+
 def _recurrent_block(cfg, mixer, p, x, state, *, mode, rows=None):
-    """An mLSTM or sLSTM block on the slot cache: the mixer of the normed
-    input from the layer's state, which it updates in place. With ``rows``
-    (a slot decode) only those batch rows run and change their state; the
-    block adds nothing to the other rows. Returns the block's output."""
+    """A Mamba, mLSTM or sLSTM block on the slot cache: the mixer of the
+    normed input from the layer's state, which it updates in place. With
+    ``rows`` (a slot decode) only those batch rows run and change their
+    state; the block adds nothing to the other rows. Returns the block's
+    output."""
     if mode not in ("chunk", "decode"):
         raise ValueError(f"mixer {mixer!r} runs on the slot cache only, "
                          f"not in mode {mode!r}")
-    mix = S.mlstm_mix if mixer == MLSTM else S.slstm_mix
     xin = rms_norm(x, p["ln"], cfg.norm_eps)
+    if rows is not None:
+        xin = xin.index_select(0, rows)
+    if mixer == MAMBA:
+        y, _ = S.mamba_mix(p, xin, state[mixer], rows=rows)
+    else:
+        mix = S.mlstm_mix if mixer == MLSTM else S.slstm_mix
+        y, _ = mix(p, xin, state[mixer], cfg.num_heads, rows=rows)
     if rows is None:
-        return mix(p, xin, state[mixer], cfg.num_heads)[0]
-    y, _ = mix(p, xin.index_select(0, rows), state[mixer], cfg.num_heads,
-               rows=rows)
+        return y
     return torch.zeros_like(x).index_copy_(0, rows, y)
 
 
 def _ffn_apply(cfg, slot, x):
+    """The slot's channel mixer: the dense MLP or the MoE block (its aux
+    loss is a training term, dropped here), on the normed input."""
+    if "moe" in slot:
+        p = slot["moe"]
+        return M.moe_ffn(p, rms_norm(x, p["ln"], cfg.norm_eps),
+                         num_real=cfg.num_experts,
+                         top_k=cfg.num_experts_per_tok,
+                         activation=cfg.activation,
+                         aux_free=cfg.router_aux_free)[0]
     return mlp(slot["ffn"], rms_norm(x, slot["ffn"]["ln"], cfg.norm_eps),
                cfg.activation)
 
@@ -289,7 +315,7 @@ def forward(cfg: ModelConfig, params, tokens, *, cache, mode: str, pos=None,
             for j, (mixer, _) in enumerate(period):
                 slot = _rep(params["stacks"][i][j], r)
                 state = _rep(cache[i][j], r)
-                if mixer in (MLSTM, SLSTM):
+                if mixer in RECURRENT:
                     x = x + _recurrent_block(cfg, mixer, slot[mixer], x,
                                              state, mode=mode, rows=rows)
                 else:
@@ -297,7 +323,7 @@ def forward(cfg: ModelConfig, params, tokens, *, cache, mode: str, pos=None,
                     x = x + attn_block(cfg, slot["attn"], x, state,
                                        mode=mode, pos=pos, lengths=lengths,
                                        window=window, paged=paged, rows=rows)
-                if "ffn" in slot:          # xLSTM blocks have no FFN
+                if "ffn" in slot or "moe" in slot:   # xLSTM blocks have none
                     x = x + _ffn_apply(cfg, slot, x)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), cache
 

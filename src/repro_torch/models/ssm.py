@@ -1,6 +1,11 @@
-"""Recurrent sequence mixers of xLSTM: mLSTM and sLSTM (port of the xLSTM
-half of the reference ``models/ssm.py``; the Mamba half is not ported yet).
+"""Recurrent sequence mixers: Mamba-1 selective SSM, xLSTM mLSTM and sLSTM
+(port of the reference ``models/ssm.py``).
 
+* Mamba (selective SSM): the projections, the causal depthwise conv and
+  the softplus of dt in PyTorch, the recurrence through the selective-scan
+  kernel (``kernels/mamba_scan``), which reads the carried ``ssm`` state
+  and writes the new one. The reference's ``mamba_mix`` computes the same
+  recurrence with ``lax.scan``.
 * mLSTM (matrix memory): the projections, the causal depthwise conv, the
   gates and the group norm in PyTorch, the recurrence through the mLSTM
   chunkwise kernel (``kernels/mlstm_chunkwise``), which reads the carried
@@ -11,9 +16,9 @@ half of the reference ``models/ssm.py``; the Mamba half is not ported yet).
   sequential, with no TPU kernel; a PyTorch loop over time, the input
   gates projected once per chunk and one ``h @ R`` per step.
 
-Both mixers take the state of the rows they run and update it **in place**
-(the reference returns a new state): pass ``rows`` to run a subset of a
-larger state's batch rows (the slot engine's decoding rows); the other
+Every mixer takes the state of the rows it runs and updates it **in
+place** (the reference returns a new state): pass ``rows`` to run a subset
+of a larger state's batch rows (the slot engine's decoding rows); the other
 rows stay bit-identical. ``state=None`` starts from a fresh state.
 """
 from __future__ import annotations
@@ -24,6 +29,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.mamba_scan.ops import mamba_scan_op
 from repro_torch.kernels.mlstm_chunkwise.ops import mlstm_chunkwise_op
 from repro_torch.models.layers import dense_init
 
@@ -67,6 +73,78 @@ def _put(dst, rows, src):
         dst.copy_(src)
     else:
         dst.index_copy_(0, rows, src.to(dst.dtype))
+
+
+# =============================================================================
+# Mamba-1 selective SSM
+# =============================================================================
+def init_mamba(gen: torch.Generator, reps: int, d_model: int, d_inner: int,
+               d_state: int, d_conv: int, dtype, device) -> dict:
+    """Mamba block params with a leading ``[reps]`` axis, in the reference's
+    distributions: S4D-real ``A_log``, ``dt_bias`` the inverse softplus of
+    a log-uniform dt in [0.001, 0.1]; ``A_log``, ``dt_bias`` and ``D`` are
+    fp32."""
+    dt_rank = max(1, math.ceil(d_model / 16))
+
+    def dense(fan_in, fan_out):
+        return dense_init(gen, (reps, fan_in, fan_out), fan_in, dtype, device)
+
+    f32 = dict(dtype=torch.float32, device=device)
+    A = torch.arange(1, d_state + 1, **f32).expand(reps, d_inner, d_state)
+    dt = torch.exp(torch.rand((reps, d_inner), generator=gen, **f32)
+                   * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
+    return {
+        "in_proj": dense(d_model, 2 * d_inner),
+        "conv_w": (torch.randn((reps, d_conv, d_inner), generator=gen,
+                               **f32) * 0.1).to(dtype),
+        "conv_b": torch.zeros((reps, d_inner), dtype=dtype, device=device),
+        "x_proj": dense(d_inner, dt_rank + 2 * d_state),
+        "dt_proj": dense(dt_rank, d_inner),
+        "dt_bias": dt + torch.log(-torch.expm1(-dt)),
+        "A_log": torch.log(A),
+        "D": torch.ones((reps, d_inner), **f32),
+        "out_proj": dense(d_inner, d_model),
+    }
+
+
+def init_mamba_state(B: int, d_inner: int, d_state: int, d_conv: int, dtype,
+                     device=None) -> dict:
+    return {"conv": torch.zeros((B, d_conv - 1, d_inner), dtype=dtype,
+                                device=device),
+            "ssm": torch.zeros((B, d_inner, d_state), dtype=torch.float32,
+                               device=device)}
+
+
+def mamba_mix(params, x, state: Optional[dict], *,
+              rows: Optional[torch.Tensor] = None):
+    """Mamba over a chunk x [B, S, d_model] from the carried state.
+
+    state = {"conv": [Bs, K-1, d_inner], "ssm": [Bs, d_inner, d_state]
+    f32}, or None for a fresh one; batch row b runs on state row
+    ``rows[b]`` (b when None). The state is updated in place. Returns
+    (out [B, S, d_model], state)."""
+    B, S, _ = x.shape
+    d_inner = params["in_proj"].shape[-1] // 2
+    d_state = params["A_log"].shape[-1]
+    dt_rank = params["dt_proj"].shape[0]
+    if state is None:
+        state = init_mamba_state(B, d_inner, d_state,
+                                 params["conv_w"].shape[0], x.dtype, x.device)
+
+    xz = x @ params["in_proj"]
+    xm, z = torch.chunk(xz, 2, dim=-1)
+    xm, new_conv = _mamba_conv_full(xm, params["conv_w"], params["conv_b"],
+                                    _gather(state["conv"], rows))
+    dbc = xm @ params["x_proj"]
+    Bm = dbc[..., dt_rank:dt_rank + d_state].float()             # [B,S,n]
+    Cm = dbc[..., dt_rank + d_state:].float()
+    # jax.nn.softplus is logaddexp(v, 0); F.softplus turns linear above 20
+    v = (dbc[..., :dt_rank] @ params["dt_proj"]).float() + params["dt_bias"]
+    dt = torch.logaddexp(v, v.new_zeros(()))                      # [B,S,d]
+    y = mamba_scan_op(xm, dt, Bm, Cm, -torch.exp(params["A_log"]),
+                      params["D"], state["ssm"], rows=rows)
+    _put(state["conv"], rows, new_conv)
+    return (y * F.silu(z)) @ params["out_proj"], state
 
 
 # =============================================================================

@@ -4,25 +4,30 @@
   (``models/layers.py`` ``dense_init``/``embed_init`` and ``init_params`` in
   ``models/model.py``) with a ``torch.Generator``, directly on the device:
   normal * 1/sqrt(fan_in) for dense weights, normal * 0.02 for the
-  embedding, zeros for norm weights (applied as ``1 + w``). This is how the
-  full-width model gets its weights on the card; the numbers differ from
-  JAX's for the same seed.
+  embedding, zeros for norm weights (applied as ``1 + w``); the fp32
+  leaves of the reference (Mamba's ``A_log``, ``dt_bias`` and ``D``, the
+  MoE router) stay fp32. Large weights are drawn one matrix at a time (each
+  expert of an MoE layer too), so the fp32 scratch stays one matrix. This
+  is how the full-width model gets its weights on the card; the numbers
+  differ from JAX's for the same seed.
 * ``from_jax_numpy(cfg, tree)`` carries the reference's ``init_params``
   pytree (or a cache: paged from ``init_paged_cache``, or slot from
-  ``init_cache``, possibly already written), given as numpy arrays, across
-  unchanged, so the tests can feed both frameworks the same weights and
-  start both from the same cache. Stacks keep their ``[reps, ...]``
-  leading axis.
+  ``init_cache`` with its KV rows and recurrent state, possibly already
+  written), given as numpy arrays, across unchanged (dtypes kept), so the
+  tests can feed both frameworks the same weights and start both from the
+  same cache. Stacks keep their ``[reps, ...]`` leading axis.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import DENSE, MLSTM, SLSTM, ModelConfig
+from repro_torch.configs.base import (DENSE, MAMBA, MLSTM, MOE, SLSTM,
+                                      ModelConfig)
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import dense_init, embed_init
-from repro_torch.models.model import build_stacks, check_supported
+from repro_torch.models.model import _moe_pad, build_stacks, check_supported
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -74,8 +79,8 @@ def from_jax_numpy(cfg: ModelConfig, tree, device="cpu"):
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
     """Random parameters in the reference's structure and distributions,
-    for the configs the port computes (attention, mLSTM or sLSTM mixers;
-    dense MLP or no FFN)."""
+    for the configs the port computes (attention, Mamba, mLSTM or sLSTM
+    mixers; dense MLP, MoE or no FFN)."""
     check_supported(cfg)
     device = torch.device(device)
     gen = torch.Generator(device=device)
@@ -93,7 +98,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
               "final_norm": zeros(d), "stacks": []}
 
     def slot(mixer, ffn, reps):
-        if mixer == MLSTM:
+        if mixer == MAMBA:
+            out = {"mamba": {"ln": zeros(reps, d), **S.init_mamba(
+                gen, reps, d, cfg.mamba_expand * d, cfg.mamba_d_state,
+                cfg.mamba_d_conv, dt, device)}}
+        elif mixer == MLSTM:
             out = {"mlstm": {"ln": zeros(reps, d), **S.init_mlstm(
                 gen, reps, d, H, dt, device)}}
         elif mixer == SLSTM:
@@ -110,6 +119,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
                           "wi_gate": dense(reps, d, cfg.d_ff),
                           "wi_up": dense(reps, d, cfg.d_ff),
                           "wo": dense(reps, cfg.d_ff, d)}
+        elif ffn == MOE:
+            out["moe"] = {"ln": zeros(reps, d), **M.init_moe(
+                gen, reps, d, cfg.moe_d_ff, cfg.num_experts, _moe_pad(cfg),
+                cfg.shared_expert_d_ff, dt, device,
+                aux_free=cfg.router_aux_free)}
         return out
 
     for period, reps in build_stacks(cfg):

@@ -23,11 +23,12 @@ row, for A/B profiling.
 
 * **slot** (``cache_mode="slot"``; the reference's mode for the archs whose
   state the paged cache cannot hold). Each admitted request owns one row of
-  a contiguous ``max_slots x max_len`` KV cache, or of the recurrent state
-  for the xLSTM mixers. Every prompt chunk is one dispatch at its slot's
-  offset on views of the slot's row, updated in place: attention through
-  the chunked-prefill attention kernel, the mLSTM through the mLSTM
-  chunkwise kernel. Chunk lengths are bucketed by ``CHUNK_BUCKETS`` and
+  a contiguous ``max_slots x max_len`` KV cache and of the recurrent state
+  of the Mamba and xLSTM mixers (a hybrid such as jamba holds both in one
+  tree). Every prompt chunk is one dispatch at its slot's offset on views
+  of the slot's row, updated in place: attention through the
+  chunked-prefill attention kernel, Mamba through the selective-scan
+  kernel, the mLSTM through the mLSTM chunkwise kernel. Chunk lengths are bucketed by ``CHUNK_BUCKETS`` and
   padded by repeating the last real token, except for recurrent archs,
   whose chunks have their exact lengths (padding tokens would advance the
   state). One decode dispatch runs every slot and writes K/V only for the
@@ -38,9 +39,9 @@ row, for A/B profiling.
   slot's recurrent state is not reset when a new request takes the slot:
   the request starts from the previous owner's final state.
 
-Not ported yet: the Mamba, MLA and encoder-decoder archs that slot mode
-also exists for (``check_supported`` raises before anything is allocated),
-and the mesh.
+Not ported yet: the MLA and encoder-decoder archs that slot mode also
+exists for (``check_supported`` raises before anything is allocated), and
+the mesh.
 """
 from __future__ import annotations
 
@@ -54,9 +55,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import MAMBA, MLSTM, SLSTM, ModelConfig
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.scheduler import KVPressure, SchedulerBase
-from repro_torch.models.model import (PAGED_KV_LAYOUT, Sampling,
+from repro_torch.models.model import (PAGED_KV_LAYOUT, RECURRENT, Sampling,
                                       check_supported, chunk_prefill_step,
                                       decode_step, init_cache,
                                       init_paged_cache, paged_chunk_step,
@@ -701,8 +702,7 @@ class EngineCore:
         slot = self.slot_of[req.rid]
         total = min(n, req.prompt_len - int(self.lengths[slot]))
         row = self._slot_row(slot)
-        recurrent = any(k in (MAMBA, MLSTM, SLSTM)
-                        for k in self.cfg.layer_pattern)
+        recurrent = any(k in RECURRENT for k in self.cfg.layer_pattern)
         done = 0
         ids = None
         while done < total:

@@ -184,9 +184,11 @@ def test_default_device_is_the_gpu(monkeypatch):
 
 
 def test_unpaged_arch_raises(monkeypatch):
-    """jamba's Mamba mixers are not ported (xlstm-125m's mLSTM and sLSTM
-    are): the engine raises in every cache mode before any weight or cache
-    is allocated."""
+    """jamba's Mamba mixers run on the slot cache only: the engine raises
+    ValueError for the paged cache, and an arch with a feature the port
+    does not compute (gemma2-2b's post-norm and softcaps) raises
+    NotImplementedError in every cache mode, both before any weight or
+    cache is allocated. In auto mode jamba gets the slot cache."""
     import repro_torch.serving.engine as TE
 
     def allocated(*args, **kwargs):
@@ -194,8 +196,16 @@ def test_unpaged_arch_raises(monkeypatch):
     monkeypatch.setattr(TE, "init_params", allocated)
     monkeypatch.setattr(TE, "init_cache", allocated)
     monkeypatch.setattr(TE, "init_paged_cache", allocated)
-    for mode in ("auto", "slot"):
-        with pytest.raises(NotImplementedError, match="mixer"):
-            EngineCore(get_config("jamba-1.5-large-398b").smoke(),
+    jamba = get_config("jamba-1.5-large-398b").smoke()
+    with pytest.raises(ValueError, match="paged KV"):
+        EngineCore(jamba, SlidingServeScheduler(max_budget=64),
+                   cache_mode="paged", device="cpu")
+    for mode in ("auto", "slot", "paged"):
+        with pytest.raises(NotImplementedError, match="post_norm"):
+            EngineCore(get_config("gemma2-2b").smoke(),
                        SlidingServeScheduler(max_budget=64),
                        cache_mode=mode, device="cpu")
+    monkeypatch.undo()
+    eng = EngineCore(jamba, SlidingServeScheduler(max_budget=64),
+                     cache_mode="auto", max_slots=2, max_len=32, device="cpu")
+    assert eng.cache_mode == "slot"

@@ -55,6 +55,8 @@ def test_port_imports_no_jax_and_no_reference_module():
                      "repro_torch.kernels.paged_attention.kernel",
                      "repro_torch.kernels.paged_prefill_attention.kernel",
                      "repro_torch.kernels.chunked_prefill_attention.kernel",
+                     "repro_torch.kernels.mamba_scan.kernel",
+                     "repro_torch.models.moe",
                      "repro_torch.launch.serve", "repro_torch.params"):
         assert required in mods
 

@@ -1,10 +1,11 @@
-"""PyTorch port: the plain versions of the two paged-attention kernels and
-of the chunked-prefill attention kernel against the JAX oracles, the paged
+"""PyTorch port: the plain versions of the two paged-attention kernels (over
+the fused pool and over split K and V pools) and of the chunked-prefill
+attention kernel against the JAX oracles, the paged
 partial/finalize/combine math, and a torch mirror of the CUDA kernels' tile
 loop (page bounds with floor division, multi-page tiles, online-softmax
 carry, negative shard-local positions; for the chunked kernel the [lo, hi)
-key range, ragged q tiles, empty rows and strided operands) against the
-plain versions. The CUDA kernels themselves run only on the GPU
+key range, ragged q tiles, empty rows and strided operands) and of their
+page loads from either pool layout against the plain versions. The CUDA kernels themselves run only on the GPU
 (``chip_smoke.py`` holds them against these plain versions there).
 
 Tolerances as in ``tests/test_kernels.py``: fp32 2e-5, bf16 2e-2."""
@@ -598,3 +599,130 @@ def test_chunked_wrapper_checks_operands():
             lens, **kw)
     with pytest.raises(ValueError, match="int32"):
         CK.chunked_prefill_attention(q, k, v, _OnCuda(lens._t.long()), **kw)
+
+
+# ---------------------------------------------------------------------------
+# split K and V pools (the TPU kernels paged_attention and
+# paged_prefill_attention)
+# ---------------------------------------------------------------------------
+def _split(kv):
+    """A fused pool's two planes as contiguous split pools: the same keys."""
+    k, v = rc.split_fused(kv)
+    return k.contiguous(), v.contiguous()
+
+
+# GQA 4, window + softcap, and the llama3.2-3b head shape of each list
+SPLIT_PA_CASES = [FUSED_PA_CASES[i] for i in (1, 5, 6)]
+SPLIT_PPA_CASES = [FUSED_PPA_CASES[i] for i in (1, 5, 6)]
+
+
+@pytest.mark.parametrize("case", SPLIT_PA_CASES)
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_split_decode_plain_matches_jax_and_fused(case, name):
+    (jq, jkv, jbt, jlens), (q, kv, bt, lens), kw = _decode_inputs(case, name)
+    k, v = _split(kv)
+    got = TPA.paged_attention_ref(q, k, v, bt, lens, **kw)
+    want = JPA.paged_attention_ref(jq, jkv[:, :, 0], jkv[:, :, 1], jbt, jlens,
+                                   **kw)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(name))
+    assert torch.equal(got, TPA.paged_attention_fused_ref(q, kv, bt, lens,
+                                                          **kw))
+    assert torch.equal(PK.paged_attention(q, k, v, bt, lens, **kw), got)
+
+
+@pytest.mark.parametrize("case", SPLIT_PPA_CASES)
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_split_prefill_plain_matches_jax_and_fused(case, name):
+    (jq, jkv, jbt, jpos, jlens), (q, kv, bt, pos, lens), kw, valid = \
+        _prefill_inputs(case, name)
+    k, v = _split(kv)
+    got = TPPA.paged_prefill_attention_ref(q, k, v, bt, pos, lens, **kw)
+    want = JPPA.paged_prefill_attention_ref(jq, jkv[:, :, 0], jkv[:, :, 1],
+                                            jbt, jpos, jlens, **kw)
+    np.testing.assert_allclose(_np(got)[valid], _np(want)[valid], **_tol(name))
+    assert torch.equal(got, TPPA.paged_prefill_attention_fused_ref(
+        q, kv, bt, pos, lens, **kw))
+    assert torch.equal(PPK.paged_prefill_attention(q, k, v, bt, pos, lens,
+                                                   **kw), got)
+
+
+def test_split_wrappers_count_nothing_on_cpu_and_take_any_sq():
+    """A chunk of 5 queries (the TPU kernel needs Sq % block_q == 0)."""
+    case = (4, 5, 2, 3, 32, 16, 8, 3, 0, 0.0)
+    _, (q, kv, bt, pos, lens), kw, _ = _prefill_inputs(case, "float32")
+    k, v = _split(kv)
+    out = PPK.paged_prefill_attention(q, k, v, bt, pos, lens, **kw)
+    assert out.shape == q.shape
+    assert PK.paged_attention.launches == 0
+    assert PPK.paged_prefill_attention.launches == 0
+
+
+def test_split_operand_checks():
+    q = torch.zeros((2, 6, 32))
+    k = torch.zeros((2, 4, 16, 32))
+    with pytest.raises(ValueError, match="k_pages and v_pages"):
+        PK.check_operands(q, (k, torch.zeros((2, 4, 16, 16))), {})
+    with pytest.raises(TypeError, match="share a dtype"):
+        PK.check_operands(q, (k, k.to(torch.bfloat16)), {})
+    with pytest.raises(ValueError, match="v_pages must be contiguous"):
+        PK.check_operands(q, (k, k.transpose(1, 2).contiguous()
+                              .transpose(1, 2)), {})
+    with pytest.raises(ValueError, match="kv_pages must be"):
+        PK.check_operands(q, (k,), {})
+    PK.check_operands(q, (k, k.clone()), {})
+
+
+def _load_mirror(pools, bt_row, k0, nk, ps, D, elt):
+    """PagedKV::load (one fused pool) or SplitPagedKV::load (two pools) of
+    csrc/paged_common.cuh written out: the index arithmetic of every
+    16-byte vector of the tile, over the kv head's flat pool(s)."""
+    VN = 16 // elt
+    dv = D // VN
+    per_page = 2 * ps * dv
+    p0 = k0 // ps
+    k_s = torch.full((nk, D), float("nan"))
+    v_s = torch.full((nk, D), float("nan"))
+    for i in range((nk // ps) * per_page):
+        pi, rem = divmod(i, per_page)
+        row, c = divmod(rem, dv)
+        page = int(bt_row[p0 + pi])
+        if len(pools) == 1:
+            src = pools[0][page * 2 * ps * D + row * D + c * VN:][:VN]
+            is_v, key = row >= ps, row % ps
+        else:
+            is_v = row >= ps
+            key = row - ps if is_v else row
+            src = pools[1 if is_v else 0][page * ps * D + key * D
+                                          + c * VN:][:VN]
+        (v_s if is_v else k_s)[pi * ps + key, c * VN:(c + 1) * VN] = src
+    return k_s, v_s
+
+
+@pytest.mark.parametrize("elt", [2, 4])
+@pytest.mark.parametrize("split", [False, True])
+def test_kv_source_load_mirror(split, elt):
+    """Tiles of two pages at k0 = 32 through a permuted block table: every
+    element of the K and V tiles comes from the right key of the right
+    page, from either pool layout."""
+    P, ps, D = 6, 16, 32
+    kv = torch.randn(P, 2, ps, D)
+    bt = torch.tensor([5, 2, 0, 3, 1], dtype=torch.int32)
+    pools = ((kv[:, 0].reshape(-1), kv[:, 1].reshape(-1)) if split
+             else (kv.reshape(-1),))
+    k_s, v_s = _load_mirror(pools, bt, 32, 2 * ps, ps, D, elt)
+    assert torch.equal(k_s, kv[bt[2:4].long(), 0].reshape(-1, D))
+    assert torch.equal(v_s, kv[bt[2:4].long(), 1].reshape(-1, D))
+
+
+def test_signatures_match_the_c_launchers():
+    """Every launch function build.SIGNATURES declares exists in its csrc
+    source with as many parameters as it declares argument types (a
+    missing ctypes argument would shift every later one)."""
+    import re
+    for lib, fns in build.SIGNATURES.items():
+        src = (build.CSRC / f"{lib}.cu").read_text()
+        for fn, argtypes in fns.items():
+            m = re.search(r"\bint " + fn + r"\(([^)]*)\)", src)
+            assert m, fn
+            assert len(m.group(1).split(",")) == len(argtypes), fn
+    assert set(build.SIGNATURES) == set(build.SOURCES)

@@ -247,10 +247,12 @@ def test_params_structure_and_cache_conversion(setup):
                                   "xlstm-125m", "jamba-1.5-large-398b"])
 def test_unported_features_raise(arch):
     """What the port does not compute raises instead of computing something
-    else: the listed features on every path, and for xlstm-125m (whose
-    mLSTM and sLSTM mixers run on the slot cache) the paged cache."""
+    else: the listed features of gemma2-2b and qwen3-1.7b on every path;
+    for xlstm-125m and jamba (recurrent mixers, which run on the slot
+    cache) the paged cache and the paged forward; qwen2-moe-a2.7b (the MoE
+    FFN) is computed on the paged path."""
     cfg = get_config(arch).smoke()
-    if arch == "xlstm-125m":
+    if arch in ("xlstm-125m", "jamba-1.5-large-398b"):
         assert TM.unsupported_features(cfg) == []
         with pytest.raises(ValueError):
             TM.init_paged_cache(cfg, 4, 16)
@@ -258,6 +260,17 @@ def test_unported_features_raise(arch):
             TM.forward(cfg, TP.init_params(cfg, device="cpu"),
                        torch.zeros((1, 1), dtype=torch.int32),
                        cache=TM.init_cache(cfg, 1, 8), mode="paged_decode")
+        return
+    if arch == "qwen2-moe-a2.7b":
+        assert TM.unsupported_features(cfg) == []
+        ids, _ = TM.paged_decode_step(
+            cfg, TP.init_params(cfg, device="cpu"),
+            torch.ones((1, 1), dtype=torch.int32),
+            TM.init_paged_cache(cfg, 2, 16),
+            lengths=torch.tensor([1], dtype=torch.int32),
+            block_tables=torch.zeros((1, 1), dtype=torch.int32),
+            write_slots=torch.zeros((1,), dtype=torch.int32))
+        assert ids.shape == (1,) and 0 <= int(ids[0]) < cfg.vocab_size
         return
     assert TM.unsupported_features(cfg)
     with pytest.raises(NotImplementedError):

@@ -9,10 +9,11 @@ checkouts can be compared in one chip call, in turns:
 commit unpacked into ``build/``). Each run imports that checkout's
 ``chip_smoke.py`` (which puts its ``src/`` first on the path), builds its
 kernels and times a fixed set of its decode and prefill parity cases, its
-chunked-prefill cases and its mLSTM chunkwise cases (the parity phase's
-xlstm-125m shapes) where it has those kernels (CUDA events; inputs from
-fixed seeds, the same in both checkouts). Prints one JSON line
-``{"root": ..., "rows": [...]}``.
+chunked-prefill cases, its mLSTM chunkwise cases (the parity phase's
+xlstm-125m shapes), its split-pool decode and prefill cases and its Mamba
+selective-scan cases (jamba's shapes) where it has those kernels (CUDA
+events; inputs from fixed seeds, the same in both checkouts). Prints one
+JSON line ``{"root": ..., "rows": [...]}``.
 """
 from __future__ import annotations
 
@@ -56,6 +57,10 @@ def main(root: str) -> int:
                             [off + Sq], bf, iters=5 if Sq == 2048 else 10)
     if hasattr(cs, "mlstm_cases"):       # checkouts with the mLSTM kernel
         cs.mlstm_cases(cases)
+    if hasattr(cs, "split_cases"):       # checkouts with the split kernels
+        cs.split_cases(cases, main_lens)
+    if hasattr(cs, "mamba_cases"):       # checkouts with the Mamba scan
+        cs.mamba_cases(cases)
     rows = [{k: r[k] for k in ("kernel", "case", "ms", "limit_share")}
             for r in cases.rows]
     print(json.dumps({"root": root, "device": cs.device_line(),
