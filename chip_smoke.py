@@ -10,7 +10,12 @@ prints its seconds):
    ``nvidia-smi --query-gpu=name,power.limit``.
 2. build: compiles ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a, one
    library per source (five), all nvcc processes at once, and prints each
-   kernel's registers.
+   kernel's registers and spills (ptxas), and the registers, spills,
+   dynamic shared memory and resident blocks per SM of the bf16
+   tensor-core prefill kernels at head_dim 64, 128 and 256 (the runtime's
+   report) with their rows and key tile (the library's); the wrappers'
+   bf16 check must refuse more query heads per kv head than rows, and a
+   head_dim without a kernel.
 3. kernel parity: the seven CUDA kernels against their plain PyTorch
    versions on the same inputs. The attention kernels at llama3.2-3b
    shapes (bf16, 24 query heads, 8 kv heads, head_dim 128; page size 16 for
@@ -19,9 +24,16 @@ prints its seconds):
    (window + softcap, fp32, partial mode with negative shard-local
    positions, a chunk that ends past the slot row, ``causal=False`` with
    per-row lengths); the chunked-prefill kernel also at jamba's attention
-   shapes (64 query heads over 8 kv heads). The split-pool decode and
+   shapes (64 query heads over 8 kv heads), the paged prefill kernel at
+   G 8, and both at gemma2-2b's (8 query heads over 4 kv heads, head_dim
+   256, window 4096, softcap 50). bf16 prefill runs on the tensor cores;
+   each chunked case whose plan splits the keys (split-K) prints its split
+   count and is also checked and timed with one split, and three more
+   short deep chunks are split-K cases. The split-pool decode and
    prefill kernels at llama3.2-3b shapes, each also against the fused
-   kernel on the same keys (whether the two are bit-identical is printed).
+   kernel on the same keys (whether the two are bit-identical is printed;
+   in bf16 the prefill pair no longer is, the fused one being on the
+   tensor cores).
    The mLSTM chunkwise kernel at xlstm-125m shapes (4 heads, head_dim 384,
    bf16): fresh state at S 2048 and S 1000 (a ragged last chunk), a carried
    state at S 37, the decode of 8 of 10 state rows, fp32, and the smoke
@@ -60,8 +72,10 @@ prints its seconds):
 6. full-width slot serving: the same model and requests through
    ``EngineCore(cache_mode="slot")`` with 8 slots of 4096 tokens. The
    counters are set to 0 just before and read just after; the
-   chunked-prefill kernel must have launched 28 x the chunk dispatches. A
-   second run repeats it under ``torch.profiler``.
+   chunked-prefill kernel must have launched 28 x the chunk dispatches;
+   the launches of its split-K combine kernel (one for each wrapper call
+   whose plan splits the keys) are printed. A second run repeats it under
+   ``torch.profiler``.
 7. full-width xlstm-125m slot serving: 12 layers (6 mLSTM, 6 sLSTM),
    d_model 768, 4 heads, random weights from a seed, bf16, the same
    requests over 8 slots; the mLSTM chunkwise kernel must have launched
@@ -75,7 +89,9 @@ prints its seconds):
    chunked-prefill kernel 1 x the chunk dispatches. A second run repeats
    it under ``torch.profiler``.
 
-The traces are summarised in one pass over the profiler's raw events.
+The traces are summarised in one pass over the profiler's raw events;
+each also lists the device time and count of every port kernel in it (the
+combine included).
 
 The last lines are a ``{"kernels": [...]}`` JSON object, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Per-case numbers go
@@ -120,6 +136,24 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int) -> float:
+    """Device time per call of ``fn``: the durations of the device events
+    (kernels, copies) that ``iters`` calls leave in a ``torch.profiler``
+    trace, summed and divided by ``iters``. Unlike ``cuda_ms`` it leaves out
+    the host's path and the device's idle time between the calls, so a
+    kernel under about 0.1 ms is seen apart from its wrapper."""
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    with profiler(torch) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ns = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA)
+    return ns / iters / 1e6
 
 
 def vec_limit(want, dtype_name):
@@ -491,15 +525,33 @@ def split_cases(cs, main_lens):
 SLOT_LEN = 4096      # the slot row of the full-width slot phase (max_len)
 
 
+@contextlib.contextmanager
+def fixed_split(CK, n):
+    """The chunked wrapper launches n key splits inside this block (the
+    launcher still cuts n to the chunk's key tiles // 2): its plan,
+    ``CK.split_plan``, is replaced for the duration."""
+    plan = CK.split_plan
+    CK.split_plan = lambda *args: n
+    try:
+        yield
+    finally:
+        CK.split_plan = plan
+
+
 def chunked_case(cs, name, Sq, q_offset, lengths, dtype, causal=True,
                  window=0, softcap=0.0, H=24, Hkv=8, D=128, Sk=SLOT_LEN,
-                 iters=10):
+                 iters=10, other_splits=None):
     """q as the model passes it (a [B, H, Sq, D] view of the kv-major
     [B, Sq, H, D] projections) over k/v as the slot engine passes them
-    (views of a [B, Sk, Hkv, D] slot cache)."""
+    (views of a [B, Sk, Hkv, D] slot cache). A bf16 case whose plan splits
+    the keys is also checked and timed with one split, and one that the
+    plan keeps whole with ``other_splits`` splits when given
+    (``fixed_split``); each timing with CUDA events around the wrapper
+    calls (``ms``) and as device time (``device_ms``)."""
     torch = cs.torch
+    from repro_torch.kernels.chunked_prefill_attention import kernel as CK
     from repro_torch.kernels.chunked_prefill_attention.kernel import (
-        chunked_prefill_attention)
+        chunked_prefill_attention, planned_splits)
     from repro_torch.kernels.chunked_prefill_attention.ref import (
         chunked_prefill_attention_ref)
     dn = str(dtype).split(".")[-1]
@@ -510,6 +562,8 @@ def chunked_case(cs, name, Sq, q_offset, lengths, dtype, causal=True,
     lens_t = torch.tensor(lengths, dtype=torch.int32, device=DEVICE)
     kw = dict(scale=D ** -0.5, q_offset=q_offset, causal=causal,
               window=window, softcap=softcap)
+    splits = planned_splits(q, k, q_offset=q_offset, causal=causal,
+                            window=window)
     got = chunked_prefill_attention(q, k, v, lens_t, **kw)
     want = chunked_prefill_attention_ref(q, k, v, lens_t, **kw)
     torch.cuda.synchronize()
@@ -526,8 +580,19 @@ def chunked_case(cs, name, Sq, q_offset, lengths, dtype, causal=True,
     valid = vis.any(-1)[:, None, :, None].expand(B, H, Sq, D)
     err, share = check(f"chunked {name}", got, want, vec_limit(want, dn),
                        valid)
-    ms = cuda_ms(torch, lambda: chunked_prefill_attention(q, k, v, lens_t,
-                                                          **kw), iters)
+    def run():
+        return chunked_prefill_attention(q, k, v, lens_t, **kw)
+    ms = cuda_ms(torch, run, iters)
+    dev = device_ms(torch, run, iters)
+    other = {}
+    n_other = 1 if splits > 1 else other_splits
+    if n_other:
+        with fixed_split(CK, n_other):
+            check(f"chunked {name}: {n_other} splits", run(), want,
+                  vec_limit(want, dn), valid)
+            other = {"splits_other": n_other,
+                     "ms_other": cuda_ms(torch, run, iters),
+                     "device_ms_other": device_ms(torch, run, iters)}
     plain = cuda_ms(torch, lambda: chunked_prefill_attention_ref(
         q, k, v, lens_t, **kw), 2, warmup=1)
     kr = k.repeat_interleave(G, dim=1)
@@ -548,7 +613,29 @@ def chunked_case(cs, name, Sq, q_offset, lengths, dtype, causal=True,
                "dtype": dn, "max_abs_err": err, "limit_share": share,
                "ms": ms, "plain_ms": plain, "library_ms": lib,
                "bound_ms": b_ms, "bound_by": b_by,
-               "keys_attended": sum(span)})
+               "keys_attended": sum(span), "splits": splits,
+               "device_ms": dev, **other})
+    if other:
+        print(f"    {splits} key splits: {ms:.4f} ms, device {dev:.4f} ms; "
+              f"{n_other} splits: {other['ms_other']:.4f} ms, device "
+              f"{other['device_ms_other']:.4f} ms")
+
+
+# #5 cases whose plan splits the keys (short chunks at deep offsets, few
+# q tiles), beside the parity phase's Sq16 off4080 and Sq128 off3968:
+# (name, Sq, q_offset, lengths, H, window, softcap)
+SPLIT_K_CASES = [
+    ("B1 Sq37 off2500 window1000 bf16", 37, 2500, [2537], 24, 1000, 0.0),
+    ("jamba H64 Sq16 off4000 bf16", 16, 4000, [4016], 64, 0, 0.0),
+    ("B2 Sq64 off3000 lens 3064/2000 bf16", 64, 3000, [3064, 2000], 24, 0,
+     30.0),
+]
+
+
+def split_k_cases(cs):
+    for name, Sq, off, lens, H, window, cap in SPLIT_K_CASES:
+        chunked_case(cs, name, Sq, off, lens, cs.torch.bfloat16, H=H,
+                     window=window, softcap=cap)
 
 
 MLSTM_H, MLSTM_D = 4, 384     # xlstm-125m: 4 heads of 1536 / 4
@@ -764,12 +851,26 @@ def kernel_phase(torch):
                  [128, 1125, 389, 0], 128, f32, partial_split=True)
     prefill_case(cs, "R2 Sq4 verify-rows bf16", [1500, 700], [1504, 702], 4,
                  bf)
+    # G 8 (jamba's heads) and gemma2-2b's (8 heads over 4 kv heads, D 256,
+    # window 4096, softcap 50) on the bf16 tensor-core path
+    prefill_case(cs, "R4 Sq512 G8 bf16", [0, 1000, 1029, 0],
+                 [512, 1509, 1541, 0], 512, bf, G=8)
+    prefill_case(cs, "gemma2-2b R2 Sq512 D256 window4096 softcap50 bf16",
+                 [4000, 100], [4512, 612], 512, bf, window=4096,
+                 softcap=50.0, G=2, Hkv=4, D=256, partial_split=True)
     # chunked prefill over one 4096-token slot row: the engine passes
     # lengths = q_offset + Sq
     for Sq in (16, 128, 512, 2048):
         for off in (0, SLOT_LEN - Sq):
             chunked_case(cs, f"Sq{Sq} off{off} bf16", Sq, off, [off + Sq], bf,
-                         iters=5 if Sq == 2048 else 10)
+                         iters=5 if Sq == 2048 else 10,
+                         other_splits=3 if (Sq, off) == (512, 0) else None)
+    # llama's 512-token chunks around split_plan's SPLIT_FROM_TILES (16,
+    # 24 and 32 key tiles of 32 keys, 104 blocks), each also at the other
+    # choice: the data that the threshold rests on
+    for off in (256, 512):
+        chunked_case(cs, f"Sq512 off{off} bf16", 512, off, [off + 512], bf,
+                     other_splits=3)
     chunked_case(cs, "Sq512 off3800 past row end bf16", 512, 3800,
                  [3800 + 512], bf)
     chunked_case(cs, "Sq512 off2000 window1000 softcap30 bf16", 512, 2000,
@@ -782,6 +883,10 @@ def kernel_phase(torch):
     for Sq, off in ((512, 0), (512, 3584), (37, 100)):
         chunked_case(cs, f"jamba H64 Sq{Sq} off{off} bf16", Sq, off,
                      [off + Sq], bf, H=64)
+    chunked_case(cs, "gemma2-2b H8 Sq512 off4000 window4096 softcap50 bf16",
+                 512, 4000, [4512], bf, window=4096, softcap=50.0, H=8,
+                 Hkv=4, D=256, Sk=8192)
+    split_k_cases(cs)
     mlstm_cases(cs)
     split_cases(cs, main)
     mamba_cases(cs)
@@ -847,6 +952,13 @@ def smoke_engine_phase(torch, arch="llama3.2-3b", modes=("paged", "slot")):
 def reset_counts(kernels):
     for fn in kernels.values():
         fn.launches = 0
+        if hasattr(fn, "combine_launches"):     # #5's split-K combine
+            fn.combine_launches = 0
+
+
+def combine_count(kernels):
+    """Launches of #5's split-K combine kernel since the last reset."""
+    return kernels["chunked_prefill_attention"].combine_launches
 
 
 def release(torch):
@@ -971,7 +1083,7 @@ def serving_phase(torch, params, kernels):
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                "traced": traced}
         if traced:
-            rec["trace"] = trace_summary(torch, prof, wall)
+            rec["trace"] = trace_summary(torch, prof, wall, names=kernels)
         results.append(rec)
         print(f"  serve spec_k={spec_k}{' traced' if traced else ''}: "
               f"{len(handles)} requests, "
@@ -1026,6 +1138,7 @@ def slot_serving_phase(torch, cfg, params, kernels, expected,
             torch.cuda.synchronize()
             wall = time.perf_counter() - t_start
         launches = {name: fn.launches for name, fn in kernels.items()}
+        launches["chunked_prefill_attention_combine"] = combine_count(kernels)
         first_launches = first_launches or launches
         st = core.stats
         toks = [h.collected for h in handles]
@@ -1061,6 +1174,8 @@ def slot_serving_phase(torch, cfg, params, kernels, expected,
                "max_round_calls": st.max_round_calls,
                "token_readbacks": st.token_readbacks,
                "kernel_launches": {n: launches[n] for n in expected},
+               "combine_launches":
+                   launches["chunked_prefill_attention_combine"],
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                "traced": traced}
         same = ""
@@ -1079,10 +1194,11 @@ def slot_serving_phase(torch, cfg, params, kernels, expected,
               f"{st.iterations} rounds of {rec['round_ms']:.2f} ms, ttft "
               f"mean {rec['ttft_s_mean']:.3f}s max {rec['ttft_s_max']:.3f}s; "
               f"dispatches decode {st.decode_calls} chunk "
-              f"{st.prefill_calls}; launches {rec['kernel_launches']}; peak "
+              f"{st.prefill_calls}; launches {rec['kernel_launches']} (#5's "
+              f"split-K combine {rec['combine_launches']}); peak "
               f"memory {rec['peak_mem_gb']:.2f} GB{same}", flush=True)
         if traced:
-            rec["trace"] = trace_summary(torch, prof, wall)
+            rec["trace"] = trace_summary(torch, prof, wall, names=kernels)
             print_trace(rec["trace"], wall)
         results.append(rec)
         del server, core, handles
@@ -1099,6 +1215,8 @@ def print_trace(tr, wall):
         print(f"    device {k['ms']:9.2f} ms {k['count']:6d}x  {k['name']}")
     for k in tr["top_host"]:
         print(f"    host   {k['ms']:9.2f} ms {k['count']:6d}x  {k['name']}")
+    for k in tr.get("port_kernels", []):
+        print(f"    port   {k['ms']:9.2f} ms {k['count']:6d}x  {k['name']}")
 
 
 def profiler(torch):
@@ -1109,11 +1227,14 @@ def profiler(torch):
     return profile(activities=acts)
 
 
-def trace_summary(torch, prof, wall_s, top=8):
+def trace_summary(torch, prof, wall_s, top=8, names=()):
     """Device busy time (the sum of the kernels' and copies' time on the
-    one stream), the idle share of the wall time, and the largest device
+    one stream), the idle share of the wall time, the largest device
     entries and host entries by self time (an op's time less that of the
-    ops it called on its thread). One pass over the profiler's raw events:
+    ops it called on its thread), and every device entry whose name holds
+    one of ``names`` (the port's kernels, #5's split-K combine included,
+    whether or not they are among the largest). One pass over the
+    profiler's raw events:
     ``key_averages()`` first builds an event object and a call tree for
     every event, which took most of the script's time when it summarised
     two traces that way."""
@@ -1154,9 +1275,11 @@ def trace_summary(torch, prof, wall_s, top=8):
         rows = sorted(table.items(), key=lambda kv: -kv[1][1])[:top]
         return [{"name": name[:90], "count": n, "ms": ns / 1e6}
                 for name, (n, ns) in rows]
+    port = {n: v for n, v in dev.items() if any(k in n for k in names)}
     return {"device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1.0 - busy_ms / (1e3 * wall_s)),
             "top_device": entries(dev), "top_host": entries(host),
+            "port_kernels": entries(port),
             "events": len(events), "summary_s": time.perf_counter() - t0}
 
 
@@ -1283,11 +1406,26 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Function" in line:
                 print(f"  {name}: {line.strip()}")
+    for name in ("paged_prefill_attention", "chunked_prefill_attention"):
+        for D in (64, 128, 256):
+            attrs = build.mma_attributes(name, D)
+            print(f"  {name} bf16 tensor-core kernel, D {D}: {attrs}",
+                  flush=True)
+            # the wrappers' checks read the block's rows from the library
+            build.check_mma_geometry(name, attrs["rows"], D)
+            for G, Dx in ((attrs["rows"] + 1, D), (1, D + 32)):
+                try:
+                    build.check_mma_geometry(name, G, Dx)
+                except ValueError:
+                    continue
+                raise AssertionError(f"{name}: G {G} at head_dim {Dx} was "
+                                     f"taken by the bf16 check")
 
     ph.start("kernel parity and timing")
     reset_counts(kernels)
     rows = kernel_phase(torch)
     parity_launches = {name: fn.launches for name, fn in kernels.items()}
+    parity_combines = combine_count(kernels)
 
     ph.start("smoke engines, GPU against CPU")
     smoke_engine_phase(torch)
@@ -1317,6 +1455,8 @@ def main() -> int:
         slot_launches["chunked_prefill_attention"]
     by_path["chunked_prefill_attention"] = {
         "llama3.2-3b slot": slot_launches["chunked_prefill_attention"]}
+    combines = {"llama3.2-3b slot":
+                slot_launches["chunked_prefill_attention_combine"]}
     del params
     release(torch)
 
@@ -1354,6 +1494,7 @@ def main() -> int:
     by_path["mamba_scan"] = {"jamba slot": j_launches["mamba_scan"]}
     by_path["chunked_prefill_attention"]["jamba slot"] = \
         j_launches["chunked_prefill_attention"]
+    combines["jamba slot"] = j_launches["chunked_prefill_attention_combine"]
     del jparams
     release(torch)
     ph.stop()
@@ -1393,6 +1534,12 @@ def main() -> int:
                  "library_ms": row["library_ms"], "shape": case,
                  "launches_by_path": by_path.get(name, {}),
                  "parity_launches": parity_launches[name]}
+        if name == "chunked_prefill_attention":
+            # the split-K combine kernel of the same source, launched by the
+            # same wrapper call when the plan splits the keys
+            entry.update(combine_launches=sum(combines.values()),
+                         combine_launches_by_path=combines,
+                         combine_parity_launches=parity_combines)
         if name in ("paged_attention", "paged_prefill_attention"):
             entry["note"] = ("serves no path, here or in the reference: "
                              "launched only by the parity phase")

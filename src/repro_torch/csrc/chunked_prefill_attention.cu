@@ -14,19 +14,34 @@
 // BQ tokens x G heads reads each live key once, so a chunk of Sq tokens
 // does about 4*Sq*G*D flops per key against 4*D bytes of K and V (bf16):
 // Sq*G flops per byte, above the 295 where HBM stops being the limit for
-// Sq >= 128. This first kernel does the products with scalar fp32 FMA on
-// shared-memory tiles (the tile loop of paged_common.cuh), so it runs far
-// below the tensor-core peak; what its design does about the bound is
-// prune: each (batch row, kv head, q tile) loops only over the keys
-// [lo, hi) that some query of the tile can see, lo from the window start
-// of the tile's first query and hi = min(lengths[b], last query + 1, Sk),
-// so a chunk at offset pos of a 4096-token slot row reads pos + Sq keys,
-// not 4096. A tile whose range is empty writes zeros. Every operand is
-// addressed through the strides the wrapper passes (unit last stride), so
-// the slot cache [B, Smax, Hkv, D] and the kv-major q [B, Sq, Hkv, G, D]
-// are read without a copy.
+// Sq >= 128. So bf16 (the serving dtype) runs on the tensor cores: the tile
+// loop of attend_mma.cuh (mma.sync bf16 products, a cp.async ring of K/V
+// tiles, 128 query rows t*G + g a block, D 64, 128 or 256). fp32 keeps
+// the scalar fp32 FMA loop of paged_common.cuh on purpose: its limit
+// (2e-5 + 2e-5|ref|) rules out bf16 and TF32 operands. Both prune: each
+// (batch row, kv head, q tile) loops only over the keys [lo, hi) that some
+// query of the tile can see, lo from the window start of the tile's first
+// query and hi = min(lengths[b], last query + 1, Sk), so a chunk at offset
+// pos of a 4096-token slot row reads pos + Sq keys, not 4096. A tile whose
+// range is empty writes zeros.
+//
+// Split-K (bf16): a short chunk at a deep offset gives few q tiles (8
+// blocks for 16 tokens of llama3.2-3b, on 132 SMs), each walking thousands
+// of keys in series. With n_split > 1 the key range any query of the chunk
+// can see, [key_base, key_end) in key tiles, is cut into n_split runs of
+// whole tiles; block (b, h, q tile, split) walks its run's part of [lo, hi)
+// and writes the fp32 partial state (acc, m, l) into the caller's scratch,
+// and a second kernel merges the splits as combine_partials does (m* = max
+// m_i, l = sum l_i e^(m_i - m*), out = sum acc_i e^(m_i - m*) / max(l,
+// 1e-30)). An empty run contributes (0, -1e30, 0). The wrapper chooses
+// n_split (kernel.py split_plan).
+//
+// Every operand is addressed through the strides the wrapper passes (unit
+// last stride), so the slot cache [B, Smax, Hkv, D] and the kv-major q
+// [B, Sq, Hkv, G, D] are read without a copy.
 #include <algorithm>
 
+#include "attend_mma.cuh"
 #include "paged_common.cuh"
 
 namespace {
@@ -35,6 +50,8 @@ struct Strides {          // elements per step of (batch row, head, position)
   long b, h, s;
 };
 
+// The scalar loop; launched for fp32 only (bf16 takes the tensor-core
+// kernel below).
 template <typename T>
 __global__ void __launch_bounds__(paged::kThreads)
 chunked_prefill_attention_kernel(
@@ -59,6 +76,96 @@ chunked_prefill_attention_kernel(
       out + b * os.b + qh0 * os.h + q0 * os.s, os.s, os.h, nullptr, nullptr,
       0, src, D, G, nt * G, q_offset + q0, length, causal != 0, window,
       scale, softcap, lo, hi, tile_keys, false);
+}
+
+// The bf16 chunk attention on the tensor cores: one block of 4 warps, 32
+// query rows each (16 at D = 256), per (batch row, kv head, tile of rows /
+// G tokens, key split), through attend_mma.cuh. Two row blocks a warp use
+// each K and V fragment twice: on an H100 this shape walked jamba's long
+// G 8 chunks faster than eight warps of one row block; the short chunks
+// that it walks more slowly are split.
+// Split sp of n_split covers key tiles [sp*key_tiles / n_split,
+// (sp+1)*key_tiles / n_split) from key_base; with n_split > 1 the block
+// writes its partial state to part_acc [n_split, B, Sq, H, D] and part_m,
+// part_l [n_split, B, Sq, H], else out directly.
+template <int D>
+using ChunkGeo = mma::Geometry<D, 4, 2>;
+
+template <int D>
+__global__ void __launch_bounds__(ChunkGeo<D>::kThreads,
+                                  ChunkGeo<D>::kMinBlocks)
+chunked_prefill_attention_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ part_acc,
+    float* __restrict__ part_m, float* __restrict__ part_l, Strides qs,
+    Strides ks, Strides vs, Strides os, int B, int Sq, int Sk, int G,
+    int q_offset, int causal, int window, float scale, float softcap,
+    int block_q, int n_split, int key_base, int key_tiles) {
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int qi = blockIdx.z / n_split, sp = blockIdx.z % n_split;
+  const int q0 = qi * block_q;
+  const int nt = min(block_q, Sq - q0);        // tokens in this q tile
+  const int length = lengths[b];
+  int hi = min(length, Sk);
+  if (causal) hi = min(hi, q_offset + q0 + nt);
+  int lo = window > 0 ? max(q_offset + q0 - window + 1, 0) : 0;
+  constexpr int KT = ChunkGeo<D>::KT;
+  if (n_split > 1) {
+    lo = max(lo, key_base + (int)((long)sp * key_tiles / n_split) * KT);
+    hi = min(hi, key_base + (int)((long)(sp + 1) * key_tiles / n_split) * KT);
+  }
+  lo = min(lo, max(hi, 0));
+  const long qh0 = (long)h * G;                // first query head of block
+  const int H = gridDim.y * G;
+  const mma::StridedRows src{k + b * ks.b + h * ks.h, v + b * vs.b + h * vs.h,
+                             ks.s, vs.s};
+  const __nv_bfloat16* qb = q + b * qs.b + qh0 * qs.h + q0 * qs.s;
+  if (n_split > 1) {
+    const long row0 = ((long)sp * B + b) * Sq + q0;   // (split, b, token q0)
+    mma::attend_rows<ChunkGeo<D>>(
+        qb, qs.s, qs.h, part_acc + (row0 * H + qh0) * D, (long)H * D, D,
+        part_m + row0 * H + qh0, part_l + row0 * H + qh0, H, src, G, nt * G,
+        q_offset + q0, length, causal != 0, window, scale, softcap, lo, hi,
+        true);
+  } else {
+    mma::attend_rows<ChunkGeo<D>>(
+        qb, qs.s, qs.h, out + b * os.b + qh0 * os.h + q0 * os.s, os.s, os.h,
+        nullptr, nullptr, 0, src, G, nt * G, q_offset + q0, length,
+        causal != 0, window, scale, softcap, lo, hi, false);
+  }
+}
+
+// Merge of the key splits: one thread per 4 elements of an output row
+// (b, t, h), in the order of combine_partials.
+__global__ void __launch_bounds__(256) chunked_prefill_attention_combine(
+    const float* __restrict__ part_acc, const float* __restrict__ part_m,
+    const float* __restrict__ part_l, __nv_bfloat16* __restrict__ out,
+    Strides os, int B, int Sq, int H, int D, int n_split) {
+  const long rows = (long)B * Sq * H;
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rows * (D / 4)) return;
+  const long row = i / (D / 4);                // (b * Sq + t) * H + h
+  const int c = (int)(i % (D / 4)) * 4;
+  const int h = (int)(row % H), t = (int)(row / H % Sq), b = (int)(row / H / Sq);
+  float m = mma::kNegInf;
+  for (int s = 0; s < n_split; ++s) m = fmaxf(m, part_m[s * rows + row]);
+  float l = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < n_split; ++s) {
+    const float e = expf(part_m[s * rows + row] - m);
+    l += part_l[s * rows + row] * e;
+    const float4 a =
+        *reinterpret_cast<const float4*>(part_acc + (s * rows + row) * D + c);
+    acc.x += a.x * e;
+    acc.y += a.y * e;
+    acc.z += a.z * e;
+    acc.w += a.w * e;
+  }
+  const float d = fmaxf(l, 1e-30f);
+  __nv_bfloat16* dst = out + b * os.b + h * os.h + t * os.s + c;
+  *reinterpret_cast<uint32_t*>(dst) = mma::pack_bf16(acc.x / d, acc.y / d);
+  *reinterpret_cast<uint32_t*>(dst + 2) = mma::pack_bf16(acc.z / d, acc.w / d);
 }
 
 // Query tokens per block: as many as fit the block's rows (t*G + g), at
@@ -89,31 +196,156 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
   return (int)cudaGetLastError();
 }
 
+using MmaKernel = decltype(&chunked_prefill_attention_mma_kernel<128>);
+
+// The tensor-core kernel at head dim D and its block shape.
+struct MmaLaunch {
+  MmaKernel kernel;   // null for a D it is not instantiated for
+  int rows, threads, key_tile;
+  size_t smem;
+};
+
+template <int D>
+MmaLaunch mma_launch() {
+  using Geo = ChunkGeo<D>;
+  return {chunked_prefill_attention_mma_kernel<D>, Geo::kRows, Geo::kThreads,
+          Geo::KT, Geo::kSmem};
+}
+
+// The launch shape at head dim D (a null kernel for a D outside {64, 128,
+// 256}).
+MmaLaunch mma_launch(int D) {
+  return D == 64    ? mma_launch<64>()
+         : D == 128 ? mma_launch<128>()
+         : D == 256 ? mma_launch<256>()
+                    : MmaLaunch{nullptr, 0, 0, 0, 0};
+}
+
+// The launch shape at head dim D, its shared memory reserved; err is
+// cudaErrorInvalidValue for a D outside {64, 128, 256}.
+MmaLaunch mma_launch(int D, cudaError_t* err) {
+  const MmaLaunch m = mma_launch(D);
+  *err = m.kernel ? paged::reserve_smem(m.kernel, m.smem)
+                  : cudaErrorInvalidValue;
+  return m;
+}
+
+// The grid of a tensor-core launch: q tiles of rows / G tokens, and the key
+// tiles, counted from the tile-aligned window start key_base, that some
+// query of the chunk can see (the range the splits cut). The wrapper reads
+// q_tiles and key_tiles through chunked_prefill_attention_mma_plan to
+// choose the splits.
+struct Plan {
+  int block_q, q_tiles, key_base, key_tiles;
+};
+
+Plan plan(const MmaLaunch& m, int Sq, int Sk, int G, int q_offset,
+          int causal, int window) {
+  const int KT = m.key_tile;
+  const int block_q = m.rows / G;
+  const int key_end = causal ? std::min(Sk, q_offset + Sq) : Sk;
+  const int key_base =
+      (window > 0 ? std::max(q_offset - window + 1, 0) : 0) / KT * KT;
+  const int key_tiles =
+      key_end > key_base ? (key_end - key_base + KT - 1) / KT : 0;
+  return {block_q, (Sq + block_q - 1) / block_q, key_base, key_tiles};
+}
+
+// The tensor-core launch: rows / G tokens a block, n_split key splits (cut
+// to at most key_tiles / 2, so a split has two tiles or more) and, when
+// there is more than one, the combine; cudaErrorInvalidValue for more query
+// heads per kv head than rows, a D outside {64, 128, 256}, or splits
+// without scratch.
+int launch_mma(const void* q, const void* k, const void* v,
+               const int* lengths, void* out, float* part_acc, float* part_m,
+               float* part_l, Strides qs, Strides ks, Strides vs, Strides os,
+               int B, int Sq, int Sk, int Hkv, int G, int D, int q_offset,
+               int causal, int window, float scale, float softcap,
+               int n_split, cudaStream_t stream) {
+  cudaError_t err;
+  const MmaLaunch m = mma_launch(D, &err);
+  if (err != cudaSuccess) return (int)err;
+  if (G < 1 || G > m.rows) return (int)cudaErrorInvalidValue;
+  const Plan p = plan(m, Sq, Sk, G, q_offset, causal, window);
+  if (B == 0 || Hkv == 0 || p.q_tiles == 0) return 0;
+  n_split = std::max(1, std::min(n_split, p.key_tiles / 2));
+  if (n_split > 1 && !(part_acc && part_m && part_l))
+    return (int)cudaErrorInvalidValue;
+  __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(out);
+  m.kernel<<<dim3(B, Hkv, p.q_tiles * n_split), m.threads, m.smem, stream>>>(
+      reinterpret_cast<const __nv_bfloat16*>(q),
+      reinterpret_cast<const __nv_bfloat16*>(k),
+      reinterpret_cast<const __nv_bfloat16*>(v), lengths, o, part_acc,
+      part_m, part_l, qs, ks, vs, os, B, Sq, Sk, G, q_offset, causal, window,
+      scale, softcap, p.block_q, n_split, p.key_base, p.key_tiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return (int)err;
+  const long threads = (long)B * Sq * Hkv * G * (D / 4);
+  chunked_prefill_attention_combine<<<(unsigned)((threads + 255) / 256), 256,
+                                      0, stream>>>(
+      part_acc, part_m, part_l, o, os, B, Sq, Hkv * G, D, n_split);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Strides are in elements, (batch row, head, position) for each operand;
-// the head-dim stride is 1. Returns cudaGetLastError() after the launch (0
-// on success), or cudaErrorInvalidValue when G query heads per kv head do
-// not fit a block at this D. Allocates nothing and does not synchronise:
-// out is allocated by the caller, the launch goes on `stream`.
+// the head-dim stride is 1. part_acc [n_split, B, Sq, H, D], part_m and
+// part_l [n_split, B, Sq, H] (fp32) are the split-K scratch of a bf16 launch
+// with n_split > 1 (null otherwise; fp32 ignores n_split). Returns
+// cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue when G query heads per kv head do not fit a block at
+// this D (bf16: D in {64, 128, 256} and G at most the block's rows).
+// Allocates nothing and does not synchronise: out and the scratch are
+// allocated by the caller, the launches go on `stream`.
 int chunked_prefill_attention_launch(
     const void* q, const void* k, const void* v, const int* lengths,
-    void* out, long long qsb, long long qsh, long long qss, long long ksb,
-    long long ksh, long long kss, long long vsb, long long vsh,
-    long long vss, long long osb, long long osh, long long oss, int B,
-    int Sq, int Sk, int Hkv, int G, int D, int q_offset, int causal,
-    int window, float scale, float softcap, int is_bf16, void* stream) {
+    void* out, float* part_acc, float* part_m, float* part_l, long long qsb,
+    long long qsh, long long qss, long long ksb, long long ksh,
+    long long kss, long long vsb, long long vsh, long long vss,
+    long long osb, long long osh, long long oss, int B, int Sq, int Sk,
+    int Hkv, int G, int D, int q_offset, int causal, int window, float scale,
+    float softcap, int n_split, int is_bf16, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};
   if (is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, lengths, out, qs, ks, vs, os, B,
-                                 Sq, Sk, Hkv, G, D, q_offset, causal, window,
-                                 scale, softcap, s);
+    return launch_mma(q, k, v, lengths, out, part_acc, part_m, part_l, qs, ks,
+                      vs, os, B, Sq, Sk, Hkv, G, D, q_offset, causal, window,
+                      scale, softcap, n_split, s);
   return launch<float>(q, k, v, lengths, out, qs, ks, vs, os, B, Sq, Sk, Hkv,
                        G, D, q_offset, causal, window, scale, softcap, s);
+}
+
+// info[0] = q tiles and info[1] = key tiles of a bf16 launch of Sq queries
+// at q_offset over Sk keys (the grid a split covers, and the key range the
+// splits cut), as chunked_prefill_attention_launch computes them; the
+// wrapper chooses the number of splits from these. cudaErrorInvalidValue
+// when the tensor-core kernel does not take G and D. Makes no CUDA call.
+int chunked_prefill_attention_mma_plan(int Sq, int Sk, int G, int D,
+                                       int q_offset, int causal, int window,
+                                       int* info) {
+  const MmaLaunch m = mma_launch(D);
+  if (!m.kernel || G < 1 || G > m.rows) return (int)cudaErrorInvalidValue;
+  const Plan p = plan(m, Sq, Sk, G, q_offset, causal, window);
+  info[0] = p.q_tiles;
+  info[1] = p.key_tiles;
+  return 0;
+}
+
+// info[0..5] = registers, spill bytes, dynamic shared memory, resident
+// blocks per SM, query rows a block and keys a tile of the bf16 tensor-core
+// kernel at head dim D; cudaErrorInvalidValue for a D outside {64, 128,
+// 256}.
+int chunked_prefill_attention_mma_attributes(int D, int* info) {
+  cudaError_t err;
+  const MmaLaunch m = mma_launch(D, &err);
+  if (err != cudaSuccess) return (int)err;
+  info[4] = m.rows;
+  info[5] = m.key_tile;
+  return mma::attributes(m.kernel, m.threads, m.smem, info);
 }
 
 const char* chunked_prefill_attention_error_string(int code) {

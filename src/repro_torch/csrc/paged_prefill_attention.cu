@@ -15,25 +15,29 @@
 // BQ tokens x G heads re-reads each live page, so a chunk of Sq tokens does
 // about 4*Sq*G*D flops per key against 4*D bytes of K and V per key (bf16):
 // Sq*G flops per byte, well above the 295 where HBM stops being the limit
-// for Sq >= 128. This first kernel does the products with scalar fp32 FMA
-// on shared-memory tiles, so it runs far below the tensor-core peak; what
-// its design does about the bound is prune: each (row, kv head, q tile)
-// loops only over pages [j_lo, j_hi) that some query of the tile can see
-// (causal frontier, window, length), with floor division so that negative
-// shard-local positions in partial mode stay exact. Query rows are
-// t*G + g, as in the TPU kernel, so a page is read once for all G heads.
+// for Sq >= 128. So bf16 (the serving dtype) runs on the tensor cores: the
+// tile loop of attend_mma.cuh (mma.sync bf16 products, a cp.async ring of
+// K/V tiles of 64 keys, 128 query rows t*G + g a block, D 64, 128 or
+// 256). fp32 keeps the scalar fp32 FMA loop of paged_common.cuh
+// on purpose: its limit (2e-5 + 2e-5|ref|) rules out bf16 and TF32
+// operands. Both prune: each (row, kv head, q tile) loops only over pages
+// [j_lo, j_hi) that some query of the tile can see (causal frontier,
+// window, length), with floor division so that negative shard-local
+// positions in partial mode stay exact. Query rows are t*G + g, as in the
+// TPU kernel, so a page is read once for all G heads. The split-pool
+// variant keeps the scalar loop in both dtypes.
 #include <algorithm>
 
+#include "attend_mma.cuh"
 #include "paged_common.cuh"
 
 namespace {
 
-// At most 80 registers for bf16 (three blocks of 256 threads fill an SM's
-// 65,536 registers, and three bf16 tiles fit its shared memory): above that
-// only two blocks run per SM, and a 2048-token chunk takes 15% longer on an
-// H100. An fp32 block's tiles fill shared memory alone: no minimum there.
+// The scalar loop; launched for fp32 only (bf16 takes the tensor-core
+// kernel below). An fp32 block's tiles fill shared memory alone: no
+// minimum of resident blocks.
 template <typename T>
-__global__ void __launch_bounds__(paged::kThreads, sizeof(T) == 2 ? 3 : 1)
+__global__ void __launch_bounds__(paged::kThreads, 1)
 paged_prefill_attention_fused_kernel(
     const T* __restrict__ q, const T* __restrict__ kv,
     const int* __restrict__ block_tables, const int* __restrict__ row_pos,
@@ -99,6 +103,51 @@ paged_prefill_attention_split_kernel(
       scale, softcap, j_lo * ps, j_hi * ps, tile_pages * ps, false);
 }
 
+// The bf16 prefill on the tensor cores: the same rows, page pruning and
+// outputs as the scalar kernel above, one block of 8 warps, 16 query rows
+// each, per (row, kv head, tile of 128 / G tokens), through
+// attend_mma.cuh. Eight warps of one row block, not four of two: a
+// verify-row chunk (R2 Sq4) gives 16 blocks, each walking its whole
+// context in series, and on an H100 eight short warps a block walked it
+// faster, while the two shapes were close on long chunks.
+template <int D>
+using PagedGeo = mma::Geometry<D, 8, 1>;
+
+template <int D>
+__global__ void __launch_bounds__(PagedGeo<D>::kThreads,
+                                  PagedGeo<D>::kMinBlocks)
+paged_prefill_attention_fused_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kv,
+    const int* __restrict__ block_tables, const int* __restrict__ row_pos,
+    const int* __restrict__ lengths, void* __restrict__ out,
+    float* __restrict__ m_out, float* __restrict__ l_out, int Sq, int Hkv,
+    int G, int P, int ps, int n, float scale, int window, float softcap,
+    int partial, int block_q) {
+  const int r = blockIdx.x, h = blockIdx.y, qi = blockIdx.z;
+  const int q0 = qi * block_q;
+  const int nt = min(block_q, Sq - q0);        // tokens in this q tile
+  const int pos = row_pos[r], length = lengths[r];
+  const int pages_needed = paged::floordiv(length + ps - 1, ps);
+  const int causal_hi = paged::floordiv(pos + q0 + nt - 1, ps) + 1;
+  const int j_hi = min(min(pages_needed, causal_hi), n);
+  int j_lo =
+      window > 0 ? max(paged::floordiv(pos + q0 - window + 1, ps), 0) : 0;
+  j_lo = min(j_lo, max(j_hi, 0));
+  const long tok0 = ((long)r * Sq + q0) * Hkv + h;   // (row, token q0, head h)
+  const long tok_stride = (long)Hkv * G * D;
+  void* o = partial ? (void*)(reinterpret_cast<float*>(out) + tok0 * G * D)
+                    : (void*)(reinterpret_cast<__nv_bfloat16*>(out) +
+                              tok0 * G * D);
+  const mma::PagedRows src{kv + (size_t)h * P * 2 * ps * D,
+                           block_tables + (size_t)r * n, ps, D};
+  mma::attend_rows<PagedGeo<D>>(
+      q + tok0 * G * D, tok_stride, D, o, tok_stride, D,
+      partial ? m_out + tok0 * G : nullptr,
+      partial ? l_out + tok0 * G : nullptr, (long)Hkv * G, src, G, nt * G,
+      pos + q0, length, true, window, scale, softcap, j_lo * ps, j_hi * ps,
+      partial != 0);
+}
+
 // Query tokens per block: as many as fit the block's rows (t*G + g), at
 // most kMaxBlockQ.
 constexpr int kMaxBlockQ = 64;
@@ -123,6 +172,56 @@ int launch(const void* q, const void* kv, const int* bt, const int* row_pos,
           reinterpret_cast<const T*>(q), reinterpret_cast<const T*>(kv), bt,
           row_pos, lengths, out, m_out, l_out, Sq, Hkv, G, D, P, ps, n, scale,
           window, softcap, partial, block_q, tile_pages);
+  return (int)cudaGetLastError();
+}
+
+using MmaKernel = decltype(&paged_prefill_attention_fused_mma_kernel<128>);
+
+// The tensor-core kernel at head dim D and its block shape.
+struct MmaLaunch {
+  MmaKernel kernel;   // null for a D it is not instantiated for
+  int rows, threads, key_tile;
+  size_t smem;
+};
+
+template <int D>
+MmaLaunch mma_launch() {
+  using Geo = PagedGeo<D>;
+  return {paged_prefill_attention_fused_mma_kernel<D>, Geo::kRows,
+          Geo::kThreads, Geo::KT, Geo::kSmem};
+}
+
+// The launch shape at head dim D, its shared memory reserved; err is
+// cudaErrorInvalidValue for a D outside {64, 128, 256}.
+MmaLaunch mma_launch(int D, cudaError_t* err) {
+  MmaLaunch m = D == 64    ? mma_launch<64>()
+                : D == 128 ? mma_launch<128>()
+                : D == 256 ? mma_launch<256>()
+                           : MmaLaunch{nullptr, 0, 0, 0, 0};
+  *err = m.kernel ? paged::reserve_smem(m.kernel, m.smem)
+                  : cudaErrorInvalidValue;
+  return m;
+}
+
+// The tensor-core launch: rows / G tokens a block; cudaErrorInvalidValue
+// for more query heads per kv head than rows, or D outside {64, 128, 256}.
+int launch_mma(const void* q, const void* kv, const int* bt,
+               const int* row_pos, const int* lengths, void* out,
+               float* m_out, float* l_out, int R, int Sq, int Hkv, int G,
+               int D, int P, int ps, int n, float scale, int window,
+               float softcap, int partial, cudaStream_t stream) {
+  cudaError_t err;
+  const MmaLaunch m = mma_launch(D, &err);
+  if (err != cudaSuccess) return (int)err;
+  if (G < 1 || G > m.rows) return (int)cudaErrorInvalidValue;
+  const int block_q = m.rows / G;
+  const int nq = (Sq + block_q - 1) / block_q;
+  if (R == 0 || Hkv == 0 || nq == 0) return 0;
+  m.kernel<<<dim3(R, Hkv, nq), m.threads, m.smem, stream>>>(
+      reinterpret_cast<const __nv_bfloat16*>(q),
+      reinterpret_cast<const __nv_bfloat16*>(kv), bt, row_pos, lengths, out,
+      m_out, l_out, Sq, Hkv, G, P, ps, n, scale, window, softcap, partial,
+      block_q);
   return (int)cudaGetLastError();
 }
 
@@ -157,8 +256,9 @@ extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue when G query heads per kv head do not fit a block at
-// this D. Allocates nothing and does not synchronise: out (and m_out, l_out
-// when partial) are allocated by the caller, the launch goes on `stream`.
+// this D (bf16: D in {64, 128, 256} and G at most the block's rows).
+// Allocates nothing and does not synchronise: out (and m_out, l_out when
+// partial) are allocated by the caller, the launch goes on `stream`.
 int paged_prefill_attention_fused_launch(
     const void* q, const void* kv, const int* block_tables, const int* row_pos,
     const int* lengths, void* out, float* m_out, float* l_out, int R, int Sq,
@@ -166,9 +266,9 @@ int paged_prefill_attention_fused_launch(
     float softcap, int partial, int is_bf16, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(q, kv, block_tables, row_pos, lengths, out,
-                                 m_out, l_out, R, Sq, Hkv, G, D, P, ps, n,
-                                 scale, window, softcap, partial, s);
+    return launch_mma(q, kv, block_tables, row_pos, lengths, out, m_out,
+                      l_out, R, Sq, Hkv, G, D, P, ps, n, scale, window,
+                      softcap, partial, s);
   return launch<float>(q, kv, block_tables, row_pos, lengths, out, m_out,
                        l_out, R, Sq, Hkv, G, D, P, ps, n, scale, window,
                        softcap, partial, s);
@@ -189,6 +289,20 @@ int paged_prefill_attention_split_launch(
   return launch_split<float>(q, k_pages, v_pages, block_tables, row_pos,
                              lengths, out, R, Sq, Hkv, G, D, P, ps, n, scale,
                              window, softcap, s);
+}
+
+// info[0..5] = registers, spill bytes, dynamic shared memory, resident
+// blocks per SM, query rows a block and keys a tile of the bf16 tensor-core
+// kernel at head dim D; cudaErrorInvalidValue for a D outside {64, 128,
+// 256}. The wrapper reads the block's rows here (a block takes at most
+// that many query heads per kv head).
+int paged_prefill_attention_mma_attributes(int D, int* info) {
+  cudaError_t err;
+  const MmaLaunch m = mma_launch(D, &err);
+  if (err != cudaSuccess) return (int)err;
+  info[4] = m.rows;
+  info[5] = m.key_tile;
+  return mma::attributes(m.kernel, m.threads, m.smem, info);
 }
 
 const char* paged_prefill_attention_error_string(int code) {

@@ -10,6 +10,7 @@ nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -51,6 +52,7 @@ SIGNATURES = {
             _I, _I, _I, _I, _I, _I, _I, _I,  # R, Sq, Hkv, G, D, P, ps, n
             _F, _I, _F,                  # scale, window, softcap
             _I, _I, _P],                 # partial, is_bf16, stream
+        "paged_prefill_attention_mma_attributes": [_I, _P],   # D, info[6]
         "paged_prefill_attention_split_launch": [
             _P, _P, _P, _P, _P, _P,      # q, k_pages, v_pages, bt, row_pos,
                                          # lengths
@@ -58,13 +60,20 @@ SIGNATURES = {
             _I, _I, _I, _I, _I, _I, _I, _I,  # R, Sq, Hkv, G, D, P, ps, n
             _F, _I, _F,                  # scale, window, softcap
             _I, _P]},                    # is_bf16, stream
-    "chunked_prefill_attention": {"chunked_prefill_attention_launch": [
-        _P, _P, _P, _P, _P,          # q, k, v, lengths, out
-        _L, _L, _L, _L, _L, _L,      # q, k strides (batch, head, position)
-        _L, _L, _L, _L, _L, _L,      # v, out strides
-        _I, _I, _I, _I, _I, _I,      # B, Sq, Sk, Hkv, G, D
-        _I, _I, _I, _F, _F,          # q_offset, causal, window, scale, softcap
-        _I, _P]},                    # is_bf16, stream
+    "chunked_prefill_attention": {
+        "chunked_prefill_attention_launch": [
+            _P, _P, _P, _P, _P,          # q, k, v, lengths, out
+            _P, _P, _P,                  # split scratch: acc, m, l (or null)
+            _L, _L, _L, _L, _L, _L,      # q, k strides (batch, head, position)
+            _L, _L, _L, _L, _L, _L,      # v, out strides
+            _I, _I, _I, _I, _I, _I,      # B, Sq, Sk, Hkv, G, D
+            _I, _I, _I, _F, _F,          # q_offset, causal, window, scale,
+                                         # softcap
+            _I, _I, _P],                 # n_split, is_bf16, stream
+        "chunked_prefill_attention_mma_plan": [
+            _I, _I, _I, _I,              # Sq, Sk, G, D
+            _I, _I, _I, _P],             # q_offset, causal, window, info[2]
+        "chunked_prefill_attention_mma_attributes": [_I, _P]},  # D, info[6]
     "mlstm_chunkwise": {"mlstm_chunkwise_launch": [
         _P, _P, _P, _P, _P,          # q, k, v, log_i, log_f
         _L, _L, _L, _L, _L, _L,      # q, k strides (batch, token, head)
@@ -155,6 +164,38 @@ def library(name: str) -> ctypes.CDLL:
         err.restype = ctypes.c_char_p
         _loaded[name] = lib
     return lib
+
+
+MMA_ATTRIBUTES = ("registers", "spill_bytes", "smem_bytes", "blocks_per_sm",
+                  "rows", "key_tile")
+INVALID_VALUE = 1            # cudaErrorInvalidValue
+
+
+@functools.lru_cache(maxsize=None)
+def mma_attributes(name: str, D: int) -> Dict[str, int]:
+    """Registers, spill bytes, dynamic shared memory, resident blocks per
+    SM, query rows a block and keys a tile of library ``name``'s bf16
+    tensor-core kernel at head dim ``D``, as the library and the CUDA
+    runtime report them (needs a card). The block's shape is the library's
+    own (``mma::Geometry`` in ``csrc/attend_mma.cuh``): nothing in Python
+    repeats it. Raises ValueError for a D that has no tensor-core kernel."""
+    info = (ctypes.c_int * len(MMA_ATTRIBUTES))()
+    code = getattr(library(name), f"{name}_mma_attributes")(D, info)
+    if code == INVALID_VALUE:
+        raise ValueError(f"{name}: no bf16 tensor-core kernel at head_dim "
+                         f"{D}")
+    check(name, code)
+    return dict(zip(MMA_ATTRIBUTES, info))
+
+
+def check_mma_geometry(name: str, G: int, D: int) -> None:
+    """Raise ValueError for a bf16 launch of library ``name`` that its
+    tensor-core kernel does not take: a head dim it is not instantiated for,
+    or more query heads per kv head than a block has rows."""
+    rows = mma_attributes(name, D)["rows"]
+    if G > rows:
+        raise ValueError(f"{name}: bf16 takes at most {rows} query heads per "
+                         f"kv head at head_dim {D}, got {G}")
 
 
 def check(name: str, code: int) -> None:

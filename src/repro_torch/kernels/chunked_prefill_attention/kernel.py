@@ -9,8 +9,19 @@ strided view whose last axis is contiguous: the kernel reads q, k and v in
 place through their strides. Launches are counted in
 ``chunked_prefill_attention.launches``. The launch geometry (query tokens
 per block, keys per tile, shared memory) is chosen by the C launcher.
+
+In bf16 the kernel runs on the tensor cores (head_dim 64, 128 or 256) and
+may split the key range (split-K): ``split_plan`` chooses the number of
+splits from the grid and the card's SM count, the wrapper allocates the
+fp32 partial state of the splits as scratch, and a second kernel,
+``chunked_prefill_attention_combine``, merges them; its launches are
+counted in ``chunked_prefill_attention.combine_launches``. fp32 keeps the
+scalar loop and never splits.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -18,6 +29,59 @@ from repro_torch.kernels import build
 from repro_torch.kernels.chunked_prefill_attention.ref import (
     chunked_prefill_attention_ref)
 from repro_torch.kernels.paged_attention.kernel import DTYPES
+
+KERNEL = "chunked_prefill_attention"
+
+# Key tiles a split walks, at least. Two would do for correctness (the
+# launcher cuts to key_tiles // 2); on an H100 a chunk whose keys fill only
+# a few tiles (Sq128 at offset 0, 4 tiles) ran slower split than whole.
+MIN_SPLIT_TILES = 4
+# Key tiles a chunk must see before it is split at all. A split call costs
+# the host more (the scratch, the combine's launch), which a short key walk
+# does not earn back on a host-bound path such as llama3.2-3b's slot
+# serving, where Sq512 at offset 0 (16 tiles of 32 keys, 104 blocks) is the
+# first chunk of every long prompt. On an H100 (chip_smoke.py) that chunk
+# took 0.085 ms a call whole against 0.100 ms in three splits, although
+# its device time was 0.050 against 0.042 ms; at offset 3584 (128 tiles,
+# the same grid) the split won both ways (0.277 against 0.353 ms a call).
+SPLIT_FROM_TILES = 32
+
+
+def split_plan(B, Hkv, q_tiles, key_tiles, sms) -> int:
+    """Key splits of a bf16 launch of B x Hkv x q_tiles blocks whose chunk
+    sees key_tiles key tiles: 1 when the grid already gives every SM a
+    block or the chunk sees fewer than SPLIT_FROM_TILES tiles, else enough
+    splits for about two blocks per SM (two blocks of the tensor-core
+    kernel fit an SM), at most key_tiles // MIN_SPLIT_TILES (the launcher
+    cuts split s at tile s * key_tiles // n, so every split walks that many
+    tiles or more and none is empty by construction). On an H100 a grid of
+    more blocks than SMs ran slower split, and one of a few dozen blocks
+    over a deep key range far faster (``chip_smoke.py`` times each split
+    case with one split too)."""
+    blocks = B * Hkv * q_tiles
+    if blocks <= 0 or blocks >= sms or key_tiles < SPLIT_FROM_TILES:
+        return 1
+    return max(1, min(-(-2 * sms // blocks), key_tiles // MIN_SPLIT_TILES))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def planned_splits(q, k, *, q_offset=0, causal=True, window=0) -> int:
+    """The key splits the wrapper launches for these operands: 1 for fp32,
+    else ``split_plan`` at q's card, from the q tiles and key tiles that the
+    library computes for the launch (``chunked_prefill_attention_mma_plan``:
+    the block's shape and the split range are the library's own)."""
+    if q.dtype != torch.bfloat16:
+        return 1
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    info = (ctypes.c_int * 2)()
+    build.check(KERNEL, build.library(KERNEL).chunked_prefill_attention_mma_plan(
+        Sq, Sk, H // Hkv, D, int(q_offset), int(causal), int(window), info))
+    return split_plan(B, Hkv, info[0], info[1], _sm_count(q.device))
 
 
 def _check(q, k, v, lengths) -> None:
@@ -34,6 +98,8 @@ def _check(q, k, v, lengths) -> None:
                         f"{q.dtype}, {k.dtype} and {v.dtype}")
     if D % 16 or not 16 <= D <= 256:
         raise ValueError(f"head_dim {D} must be a multiple of 16 up to 256")
+    if q.dtype == torch.bfloat16:
+        build.check_mma_geometry(KERNEL, H // k.shape[1], D)
     if lengths.shape != (B,) or lengths.dtype != torch.int32 \
             or not lengths.is_contiguous():
         raise ValueError("lengths must be a contiguous int32 [B] tensor")
@@ -68,17 +134,29 @@ def chunked_prefill_attention(q, k, v, lengths, *, scale, q_offset=0,
     lib = build.library("chunked_prefill_attention")
     out = torch.empty((B, Sq, H, D), device=q.device,
                       dtype=q.dtype).permute(0, 2, 1, 3)
+    n_split = planned_splits(q, k, q_offset=q_offset, causal=causal,
+                             window=window)
+    ptrs = [None, None, None]
+    if n_split > 1:   # fp32 partial state of the splits, one allocation:
+        rows = n_split * B * Sq * H            # acc [rows, D], then m, l
+        part = torch.empty(rows * (D + 2), device=q.device,
+                           dtype=torch.float32)
+        ptrs = [part.data_ptr() + 4 * rows * x for x in (0, D, D + 1)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.chunked_prefill_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), *q.stride()[:3], *k.stride()[:3],
+            out.data_ptr(), *ptrs,
+            *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], *out.stride()[:3], B, Sq, Sk, Hkv, H // Hkv, D,
             int(q_offset), int(causal), int(window), float(scale),
-            float(softcap), int(q.dtype == torch.bfloat16), stream)
+            float(softcap), n_split, int(q.dtype == torch.bfloat16), stream)
     build.check("chunked_prefill_attention", code)
     chunked_prefill_attention.launches += 1
+    if n_split > 1:
+        chunked_prefill_attention.combine_launches += 1
     return out
 
 
 chunked_prefill_attention.launches = 0
+chunked_prefill_attention.combine_launches = 0

@@ -6,7 +6,9 @@ ragged prefill rows and its speculative-verify rows) and
 
 A tensor on the CPU goes to the plain PyTorch version (``ref.py``); a CUDA
 tensor goes to the kernel, or the wrapper raises. Launches are counted in
-``<wrapper>.launches``.
+``<wrapper>.launches``. In bf16 the fused-pool kernel runs on the tensor
+cores and takes head_dim 64, 128 or 256 (``build.check_mma_geometry`` asks
+the library); fp32 and the split-pool kernel keep the scalar loop.
 """
 from __future__ import annotations
 
@@ -48,6 +50,8 @@ def paged_prefill_attention_fused(q, kv_pages, block_tables, row_pos,
                                     "row_pos": row_pos, "lengths": lengths})
     Hkv, P, _, ps, _ = kv_pages.shape
     R, Sq, G, D, n = _prefill_dims(q, Hkv, block_tables, row_pos, lengths)
+    if q.dtype == torch.bfloat16:
+        build.check_mma_geometry("paged_prefill_attention", G, D)
     out = torch.empty(q.shape, device=q.device,
                       dtype=torch.float32 if partial else q.dtype)
     m = l = None

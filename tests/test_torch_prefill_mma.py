@@ -1,0 +1,491 @@
+"""PyTorch port: a torch mirror of the bf16 tensor-core block of the two
+prefill attention kernels (``csrc/attend_mma.cuh``, used by
+``csrc/paged_prefill_attention.cu`` and ``csrc/chunked_prefill_attention.cu``)
+against the plain versions, and the split-K plan of the chunked kernel.
+
+The mirror keeps each kernel's geometry (``SHAPES``, which
+``test_mirror_shapes_follow_the_sources`` ties to the sources; on the card
+the libraries report the same rows and key tiles through
+``build.mma_attributes``): query rows ``t*G +
+g`` a block (128; 64 for the chunked kernel at D 256), padding rows zero
+and never written, key tiles (the paged kernel's 64 keys, 4 pages of 16;
+32 keys at D 256 and in the chunked kernel) with keys at or past the
+block's range zero-filled and masked, scores in fp32, the fp32 online softmax with ``l`` summed from
+the unrounded ``p``, ``p`` rounded to the operand dtype before P.V, and for
+the chunked kernel the key splits of ``split_plan`` written as partial
+states and merged as the combine kernel merges them. The CUDA kernels
+themselves run only on the GPU (``chip_smoke.py`` holds them against the
+same plain versions there).
+
+Tolerances as in ``tests/test_torch_kernels.py``: fp32 2e-5, bf16 2e-2."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import ref_common as rc  # noqa: E402
+from repro_torch.kernels.chunked_prefill_attention import kernel as CK  # noqa: E402
+from repro_torch.kernels.chunked_prefill_attention import ref as TCPA  # noqa: E402
+from repro_torch.kernels.paged_prefill_attention import ref as TPPA  # noqa: E402
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+PAGED, CHUNKED = "paged_prefill_attention", "chunked_prefill_attention"
+
+# (warps, m16 row blocks a warp) of each kernel's mma::Geometry<D, W, MW>
+# (csrc/paged_prefill_attention.cu PagedGeo, csrc/chunked_prefill_attention.cu
+# ChunkGeo), and the head dims both instantiate.
+WARPS = {PAGED: (8, 1), CHUNKED: (4, 2)}
+MMA_HEAD_DIMS = (64, 128, 256)
+
+
+def shape(kernel, D):
+    """(query rows a block, keys a tile) of ``kernel`` at head dim D, by
+    the rules of attend_mma.cuh's Geometry: one row block a warp above D
+    128, rows = 16 * MW * W, 32-key tiles above D 128 or with two row
+    blocks a warp, else 64."""
+    W, MW = WARPS[kernel]
+    MW = 1 if D > 128 else MW
+    return 16 * MW * W, 32 if D > 128 or MW > 1 else 64
+
+
+def chunk_key_tiles(Sq, Sk, q_offset, causal, window, D):
+    """The chunked launcher's plan (``plan`` in the .cu): the key tiles some
+    query of the chunk can see, counted from the tile-aligned window
+    start; the splits cut this range."""
+    KT = shape(CHUNKED, D)[1]
+    end = min(Sk, q_offset + Sq) if causal else Sk
+    base = (max(q_offset - window + 1, 0) if window > 0 else 0) // KT * KT
+    return max(-(-(end - base) // KT), 0)
+
+
+def q_tiles(Sq, G, D=128):
+    """The chunked launcher's q tiles: rows // G tokens a block."""
+    return -(-Sq // (shape(CHUNKED, D)[0] // G))
+
+
+def _cases(cases, d_at):
+    """(case, dtype name) pairs: fp32 for every case, bf16 for those at a
+    head dim the tensor-core kernels are instantiated for (the CUDA
+    wrappers raise for the others)."""
+    return [(c, n) for c in cases for n in DTYPES
+            if n == "float32" or c[d_at] in MMA_HEAD_DIMS]
+
+# The cases of tests/test_torch_kernels.py (FUSED_PPA_CASES; CPA_CASES +
+# CPA_EXTRA): G 1, 2, 3, 4, 8, windows, softcap, padding rows, causal=False.
+FUSED_PPA_CASES = [
+    # (R, Sq, Hkv, G, D, page_size, P_total, pages_per_row, window, cap)
+    (4, 16, 4, 1, 32, 16, 16, 6, 0, 0.0),
+    (4, 32, 2, 4, 64, 16, 32, 8, 0, 0.0),
+    (4, 16, 1, 8, 64, 16, 16, 6, 0, 0.0),
+    (4, 32, 2, 2, 64, 16, 16, 6, 40, 0.0),
+    (4, 16, 2, 2, 128, 16, 8, 4, 0, 30.0),
+    (4, 16, 2, 2, 32, 16, 16, 6, 23, 30.0),
+    (4, 48, 2, 3, 128, 16, 24, 8, 0, 0.0),   # llama3.2-3b heads, 3 q tiles
+]
+
+CPA_CASES = [
+    # (B, H, Hkv, Sq, Sk, D, q_offset, causal, window, softcap)
+    (1, 2, 2, 64, 64, 32, 0, True, 0, 0.0),
+    (2, 4, 2, 128, 256, 64, 64, True, 0, 0.0),
+    (2, 8, 2, 64, 512, 64, 448, True, 0, 0.0),   # deep prefix chunk
+    (1, 4, 4, 128, 128, 64, 0, True, 96, 0.0),    # sliding window
+    (1, 4, 4, 128, 128, 64, 0, True, 0, 50.0),    # softcap (gemma2)
+    (2, 2, 1, 64, 128, 128, 0, False, 0, 0.0),    # cross/encoder
+    (2, 6, 2, 40, 96, 128, 30, True, 0, 0.0),
+    (2, 6, 2, 24, 96, 64, 50, True, 20, 30.0),
+    (2, 4, 2, 24, 64, 32, 10, False, 12, 0.0),
+]
+
+# Chunks whose visible keys span four or more tiles, so that split-K cuts
+# them: short and deep, a window with softcap, and causal=False.
+SPLIT_CASES = [
+    (1, 6, 2, 16, 512, 64, 480, True, 0, 0.0),
+    (2, 6, 2, 24, 512, 128, 400, True, 300, 30.0),
+    (2, 4, 2, 24, 384, 64, 10, False, 0, 0.0),
+]
+
+
+def _tol(name):
+    return dict(atol=2e-5, rtol=2e-5) if name == "float32" else \
+        dict(atol=2e-2, rtol=2e-2)
+
+
+def _t(a, dtype):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# the block
+# ---------------------------------------------------------------------------
+def mma_block(kernel, q_rows, q_pos0, G, key_rows, length, lo, hi, *,
+              causal, window, scale, softcap):
+    """One block of attend_mma.cuh in ``kernel``'s shape: q_rows [BR, D]
+    (BR <= the block's rows, row r = t*G + g at position q_pos0 + r // G)
+    over keys [lo, hi); ``key_rows(kp)`` gives the K and V rows of key
+    positions kp. Returns the block's partial state (acc [BR, D], m [BR],
+    l [BR]) in fp32; the padding rows past BR are dropped, as the kernel
+    never writes them."""
+    BR, D = q_rows.shape
+    ROWS, KT = shape(kernel, D)
+    assert BR <= ROWS
+    q = torch.zeros(ROWS, D, dtype=q_rows.dtype)
+    q[:BR] = q_rows
+    qp = q_pos0 + torch.arange(ROWS) // G
+    m = torch.full((ROWS,), rc.NEG_INF)
+    l = torch.zeros(ROWS)
+    acc = torch.zeros(ROWS, D)
+    lim = min(hi, length)
+    for k0 in range(lo, hi, KT):
+        kp = k0 + torch.arange(KT)
+        live = kp < hi
+        k = torch.zeros(KT, D, dtype=q_rows.dtype)
+        v = torch.zeros(KT, D, dtype=q_rows.dtype)
+        k[live], v[live] = key_rows(kp[live])       # the rest zero-filled
+        s = (q.float() @ k.float().T) * scale
+        if softcap > 0:
+            s = softcap * torch.tanh(s / softcap)
+        ok = (kp < lim)[None].expand(ROWS, KT)
+        if causal:
+            ok = ok & (kp[None] <= qp[:, None])
+        if window > 0:
+            ok = ok & (qp[:, None] - kp[None] < window)
+        s = torch.where(ok, s, torch.full_like(s, rc.NEG_INF))
+        mx = torch.maximum(m, s.amax(dim=1))
+        corr = torch.exp(m - mx)
+        p = torch.exp(s - mx[:, None])
+        l = l * corr + p.sum(dim=1)
+        acc = acc * corr[:, None] + p.to(v.dtype).float() @ v.float()
+        m = mx
+    return acc[:BR], m[:BR], l[:BR]
+
+
+def finalize(acc, l):
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+# ---------------------------------------------------------------------------
+# paged_prefill_attention_fused (bf16 on the tensor cores)
+# ---------------------------------------------------------------------------
+def floordiv(a: int, b: int) -> int:
+    """csrc/paged_common.cuh floordiv, written the C way (truncating '/')."""
+    q = int(a / b)
+    return q - 1 if q * b != a and a < 0 else q
+
+
+def mirror_paged_prefill(q, kv, bt, pos, lens, *, scale, window, softcap):
+    """The grid of paged_prefill_attention_fused_mma_kernel: one block per
+    (row, kv head, tile of rows // G tokens) over pages [j_lo, j_hi), keys
+    fetched page by page through the block table. Returns the partial
+    state (acc, m, l) of every query row."""
+    R, Sq, Hkv, G, D = q.shape
+    ps = kv.shape[3]
+    bq = shape(PAGED, D)[0] // G
+    acc = torch.zeros(R, Sq, Hkv, G, D)
+    m = torch.zeros(R, Sq, Hkv, G)
+    l = torch.zeros(R, Sq, Hkv, G)
+    for r in range(R):
+        p0, length = int(pos[r]), int(lens[r])
+        for q0 in range(0, Sq, bq):
+            nt = min(bq, Sq - q0)
+            pages_needed = floordiv(length + ps - 1, ps)
+            causal_hi = floordiv(p0 + q0 + nt - 1, ps) + 1
+            j_hi = min(pages_needed, causal_hi, bt.shape[1])
+            j_lo = (max(floordiv(p0 + q0 - window + 1, ps), 0)
+                    if window > 0 else 0)
+            j_lo = min(j_lo, max(j_hi, 0))
+            for h in range(Hkv):
+                def key_rows(kp, h=h, r=r):
+                    page = bt[r, (kp // ps)].long()
+                    return kv[h, page, 0, kp % ps], kv[h, page, 1, kp % ps]
+                a, mm, ll = mma_block(
+                    PAGED, q[r, q0:q0 + nt, h].reshape(nt * G, D), p0 + q0, G,
+                    key_rows, length, j_lo * ps, j_hi * ps, causal=True,
+                    window=window, scale=scale, softcap=softcap)
+                acc[r, q0:q0 + nt, h] = a.reshape(nt, G, D)
+                m[r, q0:q0 + nt, h] = mm.reshape(nt, G)
+                l[r, q0:q0 + nt, h] = ll.reshape(nt, G)
+    return acc, m, l
+
+
+def _prefill_inputs(case, name, seed):
+    rng = np.random.default_rng(seed)
+    R, Sq, Hkv, G, D, ps, P, n, window, cap = case
+    dt = DTYPES[name]
+    q = _t(rng.normal(size=(R, Sq, Hkv, G, D)), dt)
+    kv = _t(rng.normal(size=(Hkv, P, 2, ps, D)), dt)
+    bt = torch.from_numpy(rng.integers(0, P, (R, n)).astype(np.int32))
+    bt[-1] = P - 1                          # padding row: the trash page
+    pos = np.zeros((R,), np.int32)
+    lens = np.zeros((R,), np.int32)
+    pos[0] = ps - Sq % ps if Sq % ps else 0   # a chunk ending on a page edge
+    lens[0] = pos[0] + Sq
+    pos[1], lens[1] = 0, max(ps - 3, 1)       # shorter than one page
+    pos[2], lens[2] = n * ps - Sq, n * ps     # the deepest chunk
+    pos[-1], lens[-1] = 0, 0                  # an all-padding row
+    valid = (pos[:, None] + np.arange(Sq)[None, :]) < lens[:, None]
+    kw = dict(scale=D ** -0.5, window=window, softcap=cap)
+    return (q, kv, bt, torch.from_numpy(pos), torch.from_numpy(lens)), kw, \
+        valid
+
+
+@pytest.mark.parametrize("case,name", _cases(FUSED_PPA_CASES, 4))
+def test_paged_prefill_mma_block_mirror(case, name):
+    args, kw, valid = _prefill_inputs(case, name, 11)
+    acc, m, l = mirror_paged_prefill(*args, **kw)
+    got = finalize(acc, l).to(args[0].dtype)
+    want = TPPA.paged_prefill_attention_fused_ref(*args, **kw)
+    assert torch.isfinite(got.float()).all()      # padding rows included
+    np.testing.assert_allclose(got.float().numpy()[valid],
+                               want.float().numpy()[valid], **_tol(name))
+
+
+@pytest.mark.parametrize(
+    "case,name", _cases(FUSED_PPA_CASES[:2] + FUSED_PPA_CASES[-1:], 4))
+def test_paged_prefill_mma_mirror_partial_negative_pos(case, name):
+    """The second half of the block table at shard-local (negative)
+    positions: the block's partial state (m, l from the unrounded p) equals
+    the plain version's wherever a row sees a key, and combined with the
+    first half it gives the whole."""
+    (q, kv, bt, pos, lens), kw, valid = _prefill_inputs(case, name, 12)
+    h = bt.shape[1] // 2
+    off = h * kv.shape[3]
+    args = (q, kv, bt[:, h:].contiguous(), pos - off, lens - off)
+    acc, m, l = mirror_paged_prefill(*args, **kw)
+    racc, rm, rl = TPPA.paged_prefill_attention_partial_ref(*args, **kw)
+    live = (rm > rc.NEG_INF / 2).numpy()
+    assert live.any() and not live.all() and int((pos - off).min()) < 0
+    np.testing.assert_allclose(m.numpy()[live], rm.numpy()[live],
+                               atol=1e-3, rtol=1e-5)
+    np.testing.assert_allclose(l.numpy()[live], rl.numpy()[live], rtol=1e-4)
+    tol = _tol(name) if name == "float32" else dict(atol=0.1, rtol=2e-2)
+    np.testing.assert_allclose(acc.numpy()[live], racc.numpy()[live], **tol)
+    first = mirror_paged_prefill(q, kv, bt[:, :h].contiguous(), pos, lens,
+                                 **kw)
+    got = rc.combine_partials([first, (acc, m, l)], q.dtype)
+    want = TPPA.paged_prefill_attention_fused_ref(q, kv, bt, pos, lens, **kw)
+    np.testing.assert_allclose(got.float().numpy()[valid],
+                               want.float().numpy()[valid], **_tol(name))
+
+
+# ---------------------------------------------------------------------------
+# chunked_prefill_attention (bf16 on the tensor cores, split-K)
+# ---------------------------------------------------------------------------
+def split_bounds(Sq, Sk, q_offset, causal, window, D, n_split):
+    """Key range [lo_s, hi_s) of each split, as the kernel cuts it: split
+    s covers tiles [s*T // n, (s+1)*T // n) from the tile-aligned window
+    start, T = chunk_key_tiles."""
+    KT = shape(CHUNKED, D)[1]
+    base = (max(q_offset - window + 1, 0) if window > 0 else 0) // KT * KT
+    T = chunk_key_tiles(Sq, Sk, q_offset, causal, window, D)
+    return [(base + s * T // n_split * KT, base + (s + 1) * T // n_split * KT)
+            for s in range(n_split)]
+
+
+def combine_splits(parts):
+    """chunked_prefill_attention_combine: m* = max m_i, l = sum l_i
+    e^(m_i - m*), out = sum acc_i e^(m_i - m*) / max(l, 1e-30)."""
+    m = torch.stack([p[1] for p in parts]).amax(dim=0)
+    acc = sum(a * torch.exp(mi - m)[..., None] for a, mi, _ in parts)
+    l = sum(li * torch.exp(mi - m) for _, mi, li in parts)
+    return finalize(acc, l)
+
+
+def mirror_chunked(q, k, v, lens, *, scale, q_offset, causal, window,
+                   softcap, n_split):
+    """The grid of chunked_prefill_attention_mma_kernel: one block per
+    (batch row, kv head, tile of rows // G tokens, key split) over its part
+    of the tile's keys [lo, hi); with n_split > 1 each block's partial
+    state goes to scratch and the splits are combined."""
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = H // Hkv
+    bq = shape(CHUNKED, D)[0] // G
+    bounds = split_bounds(Sq, Sk, q_offset, causal, window, D, n_split)
+    parts = [(torch.zeros(B, H, Sq, D), torch.zeros(B, H, Sq),
+              torch.zeros(B, H, Sq)) for _ in bounds]
+    for b in range(B):
+        length = int(lens[b])
+        for q0 in range(0, Sq, bq):
+            nt = min(bq, Sq - q0)
+            for (s_lo, s_hi), (acc, m, l) in zip(bounds, parts):
+                hi = min(length, Sk)
+                if causal:
+                    hi = min(hi, q_offset + q0 + nt)
+                lo = max(q_offset + q0 - window + 1, 0) if window > 0 else 0
+                if n_split > 1:
+                    lo, hi = max(lo, s_lo), min(hi, s_hi)
+                lo = min(lo, max(hi, 0))
+                for h in range(Hkv):
+                    heads = slice(h * G, (h + 1) * G)
+                    rows = q[b, heads, q0:q0 + nt].transpose(0, 1)
+                    a, mm, ll = mma_block(
+                        CHUNKED, rows.reshape(nt * G, D), q_offset + q0, G,
+                        lambda kp, h=h, b=b: (k[b, h, kp], v[b, h, kp]),
+                        length, lo, hi, causal=causal, window=window,
+                        scale=scale, softcap=softcap)
+                    acc[b, heads, q0:q0 + nt] = \
+                        a.reshape(nt, G, D).transpose(0, 1)
+                    m[b, heads, q0:q0 + nt] = mm.reshape(nt, G).T
+                    l[b, heads, q0:q0 + nt] = ll.reshape(nt, G).T
+    if n_split == 1:
+        return finalize(parts[0][0], parts[0][2]).to(q.dtype)
+    return combine_splits(parts).to(q.dtype)
+
+
+def _cpa_inputs(case, name, seed):
+    rng = np.random.default_rng(seed)
+    B, H, Hkv, Sq, Sk, D, q_off, causal, window, cap = case
+    dt = DTYPES[name]
+    q = _t(rng.normal(size=(B, H, Sq, D)), dt)
+    k = _t(rng.normal(size=(B, Hkv, Sk, D)), dt)
+    v = _t(rng.normal(size=(B, Hkv, Sk, D)), dt)
+    lens = rng.integers(max(q_off + Sq, 1), Sk + 1, (B,)).astype(np.int32)
+    lens[-1] = max(int(lens[-1]) - 7, 1)      # ragged valid length
+    kw = dict(scale=D ** -0.5, q_offset=q_off, causal=causal, window=window,
+              softcap=cap)
+    return (q, k, v, torch.from_numpy(lens)), kw
+
+
+def _cpa_valid(case, lens):
+    """Query positions that see at least one key."""
+    B, H, Hkv, Sq, Sk, D, q_off, causal, window, cap = case
+    qp = q_off + np.arange(Sq)[None, :, None]
+    kp = np.arange(Sk)[None, None, :]
+    ok = kp < np.asarray(lens)[:, None, None]
+    if causal:
+        ok = ok & (kp <= qp)
+    if window > 0:
+        ok = ok & (qp - kp < window)
+    return np.broadcast_to(ok.any(-1)[:, None, :, None], (B, H, Sq, D))
+
+
+def _most_splits(case):
+    B, H, Hkv, Sq, Sk, D, q_off, causal, window, cap = case
+    return max(chunk_key_tiles(Sq, Sk, q_off, causal, window, D) // 2, 1)
+
+
+@pytest.mark.parametrize("splits", ["one", "most"])
+@pytest.mark.parametrize("case,name", _cases(CPA_CASES + SPLIT_CASES, 5))
+def test_chunked_mma_block_mirror(case, name, splits):
+    """Without split-K, and with the most splits split_plan may give (two
+    key tiles each), on the kernel's block and split geometry."""
+    (q, k, v, lens), kw = _cpa_inputs(case, name, 21)
+    n_split = 1 if splits == "one" else _most_splits(case)
+    assert case not in SPLIT_CASES or splits == "one" or n_split > 1
+    got = mirror_chunked(q, k, v, lens, n_split=n_split, **kw)
+    want = TCPA.chunked_prefill_attention_ref(q, k, v, lens, **kw)
+    valid = _cpa_valid(case, lens.numpy())
+    assert torch.isfinite(got.float()).all()
+    np.testing.assert_allclose(got.float().numpy()[valid],
+                               want.float().numpy()[valid], **_tol(name))
+
+
+def test_chunked_mma_mirror_empty_rows_and_splits_write_zeros():
+    """A row of length 0 sees no key in any split: every split contributes
+    (0, -1e30, 0) and the combine writes 0, as an empty block does."""
+    case = (2, 6, 2, 40, 256, 128, 200, True, 0, 0.0)
+    (q, k, v, _), kw = _cpa_inputs(case, "float32", 22)
+    lens = torch.tensor([0, 230], dtype=torch.int32)
+    got = mirror_chunked(q, k, v, lens, n_split=_most_splits(case), **kw)
+    assert _most_splits(case) > 1
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    want = TCPA.chunked_prefill_attention_ref(q, k, v, lens, **kw)
+    valid = _cpa_valid(case, lens.numpy())
+    np.testing.assert_allclose(got.numpy()[valid], want.numpy()[valid],
+                               atol=2e-5, rtol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# split_plan and the key partition
+# ---------------------------------------------------------------------------
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("B,Sq,G,off", [
+    (4, 512, 3, 0),       # llama3.2-3b R4 (416 blocks)
+    (1, 2048, 3, 2048),   # llama3.2-3b B1 (392 blocks)
+    (1, 512, 8, 3584),    # jamba G 8 (256 blocks)
+    (1, 512, 3, 0),       # llama's first chunk: 104 blocks, 16 key tiles
+    (1, 128, 3, 0),       # 32 blocks, 4 key tiles
+    (1, 37, 8, 100),      # jamba: 24 blocks, 5 key tiles
+    (1, 256, 3, 736),     # 56 blocks, 31 key tiles
+])
+def test_split_plan_one_split_when_the_grid_fills_the_card(B, Sq, G, off):
+    """One split when the grid gives every SM a block, or when the chunk
+    sees fewer than SPLIT_FROM_TILES key tiles (a chunk at or near offset
+    0, whose walk is too short to pay for a split)."""
+    tiles = chunk_key_tiles(Sq, 4096, off, True, 0, 128)
+    blocks = B * 8 * q_tiles(Sq, G)
+    assert blocks >= H100_SMS or tiles < CK.SPLIT_FROM_TILES
+    assert CK.split_plan(B, 8, q_tiles(Sq, G), tiles, H100_SMS) == 1
+
+
+@pytest.mark.parametrize("Sq,G,off,want", [
+    # B1 Hkv8 Sq16 off4080: one q tile, 8 blocks, 128 key tiles of 32;
+    # enough splits for about two blocks per SM, MIN_SPLIT_TILES tiles or
+    # more each
+    (16, 3, 4080, 128 // CK.MIN_SPLIT_TILES),
+    (128, 3, 3968, 9),    # 4 q tiles of 42 tokens, 32 blocks
+    (512, 3, 3584, 3),    # 13 q tiles, 104 blocks
+    (16, 8, 4000, 31),    # jamba: one q tile of 16 tokens, 126 key tiles
+    (256, 3, 768, 5),     # 56 blocks, 32 key tiles
+])
+def test_split_plan_splits_short_deep_chunks(Sq, G, off, want):
+    tiles = chunk_key_tiles(Sq, 4096, off, True, 0, 128)
+    assert tiles >= CK.SPLIT_FROM_TILES
+    assert CK.split_plan(1, 8, q_tiles(Sq, G), tiles, H100_SMS) == want
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_split_partition_covers_every_key_in_two_tiles_or_more(D):
+    """For every plan: splits are whole tiles, disjoint, in order, cover
+    the chunk's visible keys, and none has fewer than MIN_SPLIT_TILES tiles
+    (so none is empty by construction)."""
+    KT = shape(CHUNKED, D)[1]
+    for Sq, Sk, off, causal, window in ((16, 4096, 4080, True, 0),
+                                        (37, 4096, 2500, True, 1000),
+                                        (64, 4096, 3000, False, 0),
+                                        (512, 8192, 4000, True, 4096),
+                                        (5, 300, 200, True, 0)):
+        T = chunk_key_tiles(Sq, Sk, off, causal, window, D)
+        for blocks in (1, 8, 40, 200):
+            n = CK.split_plan(1, 1, blocks, T, H100_SMS)
+            assert n >= 1 and (n == 1 or T // n >= CK.MIN_SPLIT_TILES)
+            b = split_bounds(Sq, Sk, off, causal, window, D, n)
+            assert n == 1 or all(
+                (hi - lo) % KT == 0 and hi - lo >= CK.MIN_SPLIT_TILES * KT
+                for lo, hi in b)
+            assert all(b[i][1] == b[i + 1][0] for i in range(n - 1))
+            first = max(off - window + 1, 0) if window > 0 else 0
+            last = min(Sk, off + Sq) if causal else Sk
+            assert b[0][0] <= first and b[-1][1] >= last
+
+
+def test_planned_splits_fp32_never_splits():
+    """fp32 keeps the scalar loop, which has no split-K: one split without
+    asking the library (so also here, with no library)."""
+    q = torch.zeros((1, 24, 16, 128))
+    k = torch.zeros((1, 8, 4096, 128))
+    assert CK.planned_splits(q, k, q_offset=4080) == 1
+
+
+@pytest.mark.parametrize("kernel,var", [(PAGED, "PagedGeo"),
+                                        (CHUNKED, "ChunkGeo")])
+def test_mirror_shapes_follow_the_sources(kernel, var):
+    """WARPS and MMA_HEAD_DIMS are the sources' Geometry arguments and
+    instantiations, and shape() follows attend_mma.cuh's rules, so a change
+    to either side fails here rather than letting the mirror drift."""
+    import re
+    src = (build.CSRC / f"{kernel}.cu").read_text()
+    m = re.search(r"using " + var + r" = mma::Geometry<D, (\d+), (\d+)>;",
+                  src)
+    assert m and tuple(map(int, m.groups())) == WARPS[kernel]
+    dims = tuple(int(d) for d in re.findall(
+        r"D == (\d+) +\? mma_launch<\1>\(\)", src))
+    assert dims == MMA_HEAD_DIMS
+    geo = (build.CSRC / "attend_mma.cuh").read_text()
+    for rule in ("MW = D_ > 128 ? 1 : MW_;", "kRows = 16 * MW * W;",
+                 "KT = D_ > 128 || MW > 1 ? 32 : 64;"):
+        assert rule in geo, rule

@@ -9,17 +9,35 @@ checkouts can be compared in one chip call, in turns:
 commit unpacked into ``build/``). Each run imports that checkout's
 ``chip_smoke.py`` (which puts its ``src/`` first on the path), builds its
 kernels and times a fixed set of its decode and prefill parity cases, its
-chunked-prefill cases, its mLSTM chunkwise cases (the parity phase's
+chunked-prefill cases (llama3.2-3b's and jamba's heads, and the short deep
+chunks that split-K cuts), its mLSTM chunkwise cases (the parity phase's
 xlstm-125m shapes), its split-pool decode and prefill cases and its Mamba
 selective-scan cases (jamba's shapes) where it has those kernels (CUDA
-events; inputs from fixed seeds, the same in both checkouts). Prints one
-JSON line ``{"root": ..., "rows": [...]}``.
+events; inputs from fixed seeds, the same in both checkouts). A checkout
+whose chunked kernel splits the keys also times each split case with one
+split (``splits_other``, ``ms_other``), and gives the chunked cases' device
+times (``device_ms``, ``device_ms_other``). Prints one JSON line
+``{"root": ..., "rows": [...]}``.
 """
 from __future__ import annotations
 
+import ast
 import json
 import sys
 from pathlib import Path
+
+
+def own_split_k_cases():
+    """``SPLIT_K_CASES`` of the chip_smoke.py beside this tool (the newest
+    checkout), read without importing it, so that both checkouts of an A/B
+    time the same split-K cases; the run imports the checkout under test."""
+    src = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
+    for node in ast.parse(src).body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "SPLIT_K_CASES"
+                for t in node.targets):
+            return ast.literal_eval(node.value)
+    return []
 
 
 def main(root: str) -> int:
@@ -51,17 +69,36 @@ def main(root: str) -> int:
             lens = [Sq, 1000 + Sq - 3, 3 * Sq + 5, 0]
         cs.prefill_case(cases, f"R{R} Sq{Sq} bf16", pos, lens, Sq, bf,
                         iters=5 if Sq == 2048 else 10)
+    cs.prefill_case(cases, "R2 Sq4 verify-rows bf16", [1500, 700],
+                    [1504, 702], 4, bf)
+    cs.prefill_case(cases, "R4 Sq512 G8 bf16", [0, 1000, 1029, 0],
+                    [512, 1509, 1541, 0], 512, bf, G=8)
+    cs.prefill_case(cases, "R4 Sq128 fp32", [0, 1000, 261, 0],
+                    [128, 1125, 389, 0], 128, torch.float32)
     if hasattr(cs, "chunked_case"):      # checkouts with the slot kernel
-        for Sq, off in ((16, 4080), (512, 0), (512, 3584), (2048, 2048)):
+        for Sq, off in ((16, 4080), (128, 3968), (512, 0), (512, 3584),
+                        (2048, 2048)):
             cs.chunked_case(cases, f"Sq{Sq} off{off} bf16", Sq, off,
                             [off + Sq], bf, iters=5 if Sq == 2048 else 10)
+        for Sq, off in ((512, 3584), (37, 100)):
+            cs.chunked_case(cases, f"jamba H64 Sq{Sq} off{off} bf16", Sq, off,
+                            [off + Sq], bf, H=64)
+        cs.chunked_case(cases, "Sq512 off1000 fp32", 512, 1000, [1512],
+                        torch.float32)
+        # the split-K cases of the parity phase, on either checkout
+        for name, Sq, off, lens, H, window, cap in own_split_k_cases():
+            cs.chunked_case(cases, name, Sq, off, lens, bf, H=H,
+                            window=window, softcap=cap)
     if hasattr(cs, "mlstm_cases"):       # checkouts with the mLSTM kernel
         cs.mlstm_cases(cases)
     if hasattr(cs, "split_cases"):       # checkouts with the split kernels
         cs.split_cases(cases, main_lens)
     if hasattr(cs, "mamba_cases"):       # checkouts with the Mamba scan
         cs.mamba_cases(cases)
-    rows = [{k: r[k] for k in ("kernel", "case", "ms", "limit_share")}
+    rows = [{k: r[k] for k in ("kernel", "case", "ms", "limit_share",
+                               "splits", "device_ms",
+                               "splits_other", "ms_other", "device_ms_other")
+             if k in r}
             for r in cases.rows]
     print(json.dumps({"root": root, "device": cs.device_line(),
                       "rows": rows}))
