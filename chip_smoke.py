@@ -26,7 +26,13 @@ prints its seconds):
    per-row lengths); the chunked-prefill kernel also at jamba's attention
    shapes (64 query heads over 8 kv heads), the paged prefill kernel at
    G 8, and both at gemma2-2b's (8 query heads over 4 kv heads, head_dim
-   256, window 4096, softcap 50). bf16 prefill runs on the tensor cores;
+   256, window 4096, softcap 50). The decode kernels split each row's
+   pages (split-K, merged in the same launch): each decode case prints its
+   split count and its time from CUDA events and from a profiler trace, a
+   case whose plan splits is also checked and timed at one split and
+   checked again after the timing loops; decode also at G 8, G 12 (two
+   head groups), head_dim 48 and gemma2-2b's heads (G 2, head_dim 256,
+   window 4096, softcap 50). bf16 prefill runs on the tensor cores;
    each chunked case whose plan splits the keys (split-K) prints its split
    count and is also checked and timed with one split, and three more
    short deep chunks are split-K cases. The split-pool decode and
@@ -177,6 +183,7 @@ def check(what, got, want, limit, mask=None):
                                diff.shape)
     if mask is not None:
         diff, limit = diff[mask], limit[mask]
+    diff, limit = diff.reshape(-1), limit.reshape(-1)
     if diff.numel() and not bool(torch.isfinite(diff).all()):
         raise AssertionError(f"{what}: non-finite values")
     bad = diff > limit
@@ -271,10 +278,48 @@ def decode_yardsticks(cs, q, kv, bt, lens_t, need, G, D, window, softcap,
     return (lib, *bound(nbytes, flops, str(q.dtype).split(".")[-1]))
 
 
+@contextlib.contextmanager
+def fixed_splits(module, plan, n):
+    """The wrappers of kernel module ``module`` launch n key splits inside
+    this block: their plan, the function ``module.<plan>``, is replaced
+    for the duration (the chunked launcher still cuts n to the chunk's key
+    tiles // 2)."""
+    saved = getattr(module, plan)
+    setattr(module, plan, lambda *args: n)
+    try:
+        yield
+    finally:
+        setattr(module, plan, saved)
+
+
+def decode_timings(cs, name, run, want, dn, splits, iters):
+    """A decode case's time a call with CUDA events around the wrapper
+    calls (``ms``) and from a profiler trace (``device_ms``), the same at
+    one split when the plan splits the keys (checked first), and a check
+    after the timing loops (the split merge's tickets must be left zero)."""
+    torch = cs.torch
+    from repro_torch.kernels.paged_attention import kernel as PK
+    t = {"splits": splits, "ms": cuda_ms(torch, run, iters),
+         "device_ms": device_ms(torch, run, iters)}
+    if splits > 1:
+        with fixed_splits(PK, "planned_splits", 1):
+            check(f"{name}: 1 split", run(), want, vec_limit(want, dn))
+            t.update(ms_other=cuda_ms(torch, run, iters),
+                     device_ms_other=device_ms(torch, run, iters),
+                     splits_other=1)
+    check(f"{name}: after timing", run(), want, vec_limit(want, dn))
+    other = (f"; 1 split: {t['ms_other']:.4f} ms, device "
+             f"{t['device_ms_other']:.4f} ms" if splits > 1 else "")
+    print(f"    {splits} key splits: {t['ms']:.4f} ms, device "
+          f"{t['device_ms']:.4f} ms{other}")
+    return t
+
+
 def decode_case(cs, name, B, lens, dtype, window=0, softcap=0.0, G=3, Hkv=8,
                 D=128, iters=20):
     torch = cs.torch
-    from repro_torch.kernels.paged_attention.kernel import paged_attention_fused
+    from repro_torch.kernels.paged_attention.kernel import (
+        paged_attention_fused, planned_splits)
     from repro_torch.kernels.paged_attention.ref import (
         paged_attention_fused_ref, paged_attention_partial_ref)
     from repro_torch.kernels import ref_common as rc
@@ -308,15 +353,17 @@ def decode_case(cs, name, B, lens, dtype, window=0, softcap=0.0, G=3, Hkv=8,
         check(f"decode {name}: partial combine",
               rc.combine_partials([p1, p2], q.dtype), want,
               vec_limit(want, dn))
-    ms = cuda_ms(torch, lambda: paged_attention_fused(q, kv, bt, lens_t, **kw),
-                 iters)
+    t = decode_timings(cs, f"decode {name}",
+                       lambda: paged_attention_fused(q, kv, bt, lens_t, **kw),
+                       want, dn, planned_splits(q, bt, Hkv), iters)
     plain = cuda_ms(torch, lambda: paged_attention_fused_ref(
         q, kv, bt, lens_t, **kw), 3, warmup=1)
     lib, b_ms, b_by = decode_yardsticks(cs, q, kv, bt, lens_t, need, G, D,
                                         window, softcap, iters)
     cs.record({"kernel": "paged_attention_fused", "case": name, "dtype": dn,
-               "max_abs_err": err, "limit_share": share, "ms": ms, "plain_ms": plain,
-               "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
+               "max_abs_err": err, "limit_share": share, **t,
+               "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+               "bound_by": b_by})
 
 
 def prefill_yardsticks(cs, q, kv, bt, pos, lens, G, D, window, softcap,
@@ -436,7 +483,7 @@ def split_decode_case(cs, name, B, lens, dtype, window=0, softcap=0.0, G=3,
     against the fused kernel on the same keys (the pool split in two)."""
     torch = cs.torch
     from repro_torch.kernels.paged_attention.kernel import (
-        paged_attention, paged_attention_fused)
+        paged_attention, paged_attention_fused, planned_splits)
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     dn = str(dtype).split(".")[-1]
     lens_t = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
@@ -450,14 +497,15 @@ def split_decode_case(cs, name, B, lens, dtype, window=0, softcap=0.0, G=3,
     fused = paged_attention_fused(q, kv, bt, lens_t, **kw)
     torch.cuda.synchronize()
     err, share = check(f"split decode {name}", got, want, vec_limit(want, dn))
-    ms = cuda_ms(torch, lambda: paged_attention(q, kp, vp, bt, lens_t, **kw),
-                 iters)
+    t = decode_timings(cs, f"split decode {name}",
+                       lambda: paged_attention(q, kp, vp, bt, lens_t, **kw),
+                       want, dn, planned_splits(q, bt, Hkv), iters)
     plain = cuda_ms(torch, lambda: paged_attention_ref(
         q, kp, vp, bt, lens_t, **kw), 3, warmup=1)
     lib, b_ms, b_by = decode_yardsticks(cs, q, kv, bt, lens_t, need, G, D,
                                         window, softcap, iters)
     cs.record({"kernel": "paged_attention", "case": name, "dtype": dn,
-               "max_abs_err": err, "limit_share": share, "ms": ms,
+               "max_abs_err": err, "limit_share": share, **t,
                "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
                "bound_by": b_by, "same_as_fused": bool(torch.equal(got, fused))})
     print(f"    bit-identical to the fused kernel: {cs.rows[-1]['same_as_fused']}")
@@ -525,19 +573,6 @@ def split_cases(cs, main_lens):
 SLOT_LEN = 4096      # the slot row of the full-width slot phase (max_len)
 
 
-@contextlib.contextmanager
-def fixed_split(CK, n):
-    """The chunked wrapper launches n key splits inside this block (the
-    launcher still cuts n to the chunk's key tiles // 2): its plan,
-    ``CK.split_plan``, is replaced for the duration."""
-    plan = CK.split_plan
-    CK.split_plan = lambda *args: n
-    try:
-        yield
-    finally:
-        CK.split_plan = plan
-
-
 def chunked_case(cs, name, Sq, q_offset, lengths, dtype, causal=True,
                  window=0, softcap=0.0, H=24, Hkv=8, D=128, Sk=SLOT_LEN,
                  iters=10, other_splits=None):
@@ -546,7 +581,7 @@ def chunked_case(cs, name, Sq, q_offset, lengths, dtype, causal=True,
     (views of a [B, Sk, Hkv, D] slot cache). A bf16 case whose plan splits
     the keys is also checked and timed with one split, and one that the
     plan keeps whole with ``other_splits`` splits when given
-    (``fixed_split``); each timing with CUDA events around the wrapper
+    (``fixed_splits``); each timing with CUDA events around the wrapper
     calls (``ms``) and as device time (``device_ms``)."""
     torch = cs.torch
     from repro_torch.kernels.chunked_prefill_attention import kernel as CK
@@ -587,7 +622,7 @@ def chunked_case(cs, name, Sq, q_offset, lengths, dtype, causal=True,
     other = {}
     n_other = 1 if splits > 1 else other_splits
     if n_other:
-        with fixed_split(CK, n_other):
+        with fixed_splits(CK, "split_plan", n_other):
             check(f"chunked {name}: {n_other} splits", run(), want,
                   vec_limit(want, dn), valid)
             other = {"splits_other": n_other,
@@ -835,6 +870,16 @@ def kernel_phase(torch):
                 edges + [int(x) for x in rng.integers(1, 4097, 4)], f32)
     decode_case(cs, "B4 G4 D256 fp32", 4, [300, 17, 1024, 5], f32, G=4,
                 Hkv=2, D=256)
+    # the decode block's other shapes: G 8 (jamba's heads), two head groups
+    # (G 12), a head dim of 6 vectors a row, and gemma2-2b's heads (G 2,
+    # D 256, window 4096, softcap 50) past the window
+    decode_case(cs, "B4 G8 bf16", 4, [2000, 1, 700, 4096], bf, G=8)
+    decode_case(cs, "B2 G12 D64 window300 bf16", 2, [1000, 77], bf, G=12,
+                Hkv=2, D=64, window=300)
+    decode_case(cs, "B3 D48 fp32", 3, [500, 16, 33], f32, G=2, Hkv=4, D=48)
+    decode_case(cs, "gemma2-2b B2 D256 window4096 softcap50 bf16", 2,
+                [6000, 300], bf, G=2, Hkv=4, D=256, window=4096,
+                softcap=50.0)
     for R in (1, 4):
         for Sq in (16, 128, 512, 2048):
             if R == 1:

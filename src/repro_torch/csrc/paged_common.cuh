@@ -1,12 +1,14 @@
-// Shared device code of the attention kernels (paged_attention.cu: decode
-// rows; paged_prefill_attention.cu: ragged prefill and speculative-verify
-// rows, each over the fused page pool or over split K and V pools;
-// chunked_prefill_attention.cu: a query chunk over contiguous K/V rows).
+// Shared device code of the scalar attention kernels
+// (paged_prefill_attention.cu: ragged prefill and speculative-verify rows,
+// each over the fused page pool or over split K and V pools;
+// chunked_prefill_attention.cu: a query chunk over contiguous K/V rows; in
+// bf16 the fused-pool and chunked kernels take attend_mma.cuh instead).
+// The decode kernels (paged_attention.cu) have their own split-K block and
+// use only floordiv, the dtype conversions and reserve_smem from here.
 //
-// One thread block owns BR query rows of one (batch row, kv head): the G
-// grouped query heads of one token for decode, BQ tokens x G heads for
-// prefill (row r = t*G + g, the TPU kernel's layout). It walks the live key
-// range [key_lo, key_hi), tile_keys keys per tile:
+// One thread block owns BR query rows of one (batch row, kv head): BQ
+// tokens x G heads (row r = t*G + g, the TPU kernel's layout). It walks
+// the live key range [key_lo, key_hi), tile_keys keys per tile:
 //   1. the tile's K and V rows -> shared memory through the block's KV
 //      source (PagedKV: whole pages through the block table, each page's K
 //      plane and V plane one contiguous 2*ps*D run in the fused pool;

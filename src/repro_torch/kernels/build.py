@@ -36,15 +36,17 @@ SIGNATURES = {
         "paged_attention_fused_launch": [
             _P, _P, _P, _P,              # q, kv_pages, block_tables, lengths
             _P, _P, _P,                  # out, m_out, l_out
+            _P, _P,                      # split scratch, tickets (or null)
             _I, _I, _I, _I, _I, _I, _I,  # B, Hkv, G, D, P, ps, n
             _F, _I, _F,                  # scale, window, softcap
-            _I, _I, _P],                 # partial, is_bf16, stream
+            _I, _I, _I, _P],             # partial, n_split, is_bf16, stream
         "paged_attention_split_launch": [
             _P, _P, _P, _P, _P,          # q, k_pages, v_pages, bt, lengths
             _P,                          # out
+            _P, _P,                      # split scratch, tickets (or null)
             _I, _I, _I, _I, _I, _I, _I,  # B, Hkv, G, D, P, ps, n
             _F, _I, _F,                  # scale, window, softcap
-            _I, _P]},                    # is_bf16, stream
+            _I, _I, _P]},                # n_split, is_bf16, stream
     "paged_prefill_attention": {
         "paged_prefill_attention_fused_launch": [
             _P, _P, _P, _P, _P,          # q, kv_pages, bt, row_pos, lengths
@@ -196,6 +198,13 @@ def check_mma_geometry(name: str, G: int, D: int) -> None:
     if G > rows:
         raise ValueError(f"{name}: bf16 takes at most {rows} query heads per "
                          f"kv head at head_dim {D}, got {G}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (the split plans' input)."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(name: str, code: int) -> None:

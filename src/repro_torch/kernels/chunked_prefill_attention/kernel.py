@@ -21,7 +21,6 @@ scalar loop and never splits.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -64,11 +63,6 @@ def split_plan(B, Hkv, q_tiles, key_tiles, sms) -> int:
     return max(1, min(-(-2 * sms // blocks), key_tiles // MIN_SPLIT_TILES))
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def planned_splits(q, k, *, q_offset=0, causal=True, window=0) -> int:
     """The key splits the wrapper launches for these operands: 1 for fp32,
     else ``split_plan`` at q's card, from the q tiles and key tiles that the
@@ -81,7 +75,7 @@ def planned_splits(q, k, *, q_offset=0, causal=True, window=0) -> int:
     info = (ctypes.c_int * 2)()
     build.check(KERNEL, build.library(KERNEL).chunked_prefill_attention_mma_plan(
         Sq, Sk, H // Hkv, D, int(q_offset), int(causal), int(window), info))
-    return split_plan(B, Hkv, info[0], info[1], _sm_count(q.device))
+    return split_plan(B, Hkv, info[0], info[1], build.sm_count(q.device))
 
 
 def _check(q, k, v, lengths) -> None:

@@ -10,12 +10,20 @@ PyTorch version (``ref.py``); a CUDA tensor goes to the kernel, or the
 wrapper raises. Each wrapper allocates the outputs, launches on the current
 stream and counts its launches in ``<wrapper>.launches``.
 
-The launch geometry (threads, query rows and pages per block, shared
-memory) is chosen by the C launcher, which owns the block's layout; a
-launch whose grouped heads do not fit a block fails with CUDA's
-"invalid argument".
+Both launch one kernel, split-K over each row's live pages, so the split
+pools give the fused pool's output bit for bit on the same keys.
+``split_plan`` chooses the number of splits from shapes alone (never
+``lengths``, which stay on the card); each block cuts its row's page range
+on the device, and the last block of each (row, head group) merges the
+splits in the same launch, through fp32 scratch that the wrapper allocates
+and a per-device buffer of tickets that the kernel leaves zero (so calls
+on one stream share it). The block's geometry (warps, lanes a key row,
+keys a chunk, heads a block) is the C launcher's; any number of query
+heads per kv head is taken.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -25,6 +33,54 @@ from repro_torch.kernels.paged_attention.ref import (
     paged_attention_ref)
 
 DTYPES = (torch.bfloat16, torch.float32)
+
+# The split plan: blocks an SM the grid aims at, the fewest table columns a
+# split may cover (one page for each of the block's kWarps warps), and the
+# query heads one block holds (kHeadsPerBlock; more heads take more head
+# groups of the grid), as in csrc/paged_attention.cu.
+SPLIT_BLOCKS_PER_SM = 2
+MIN_SPLIT_PAGES = 8
+HEADS_PER_BLOCK = 8
+
+
+def split_plan(B, Hkv, G, n, sms) -> int:
+    """Key splits of a decode launch over B rows, Hkv kv heads with G query
+    heads each, through block tables n columns wide, on a card of ``sms``
+    SMs: 1 when the grid of B x Hkv x head groups blocks already gives every
+    SM SPLIT_BLOCKS_PER_SM blocks, else enough splits for that, at most
+    n // MIN_SPLIT_PAGES. Shapes only: a row shorter than the splits leaves
+    some of them empty, and they cost a block that exits early."""
+    blocks = B * Hkv * -(-G // HEADS_PER_BLOCK)
+    want = SPLIT_BLOCKS_PER_SM * sms
+    if blocks <= 0 or blocks >= want:
+        return 1
+    return max(1, min(-(-want // blocks), n // MIN_SPLIT_PAGES))
+
+
+@functools.lru_cache(maxsize=None)
+def _planned(device, B, Hkv, G, n) -> int:
+    return split_plan(B, Hkv, G, n, build.sm_count(device))
+
+
+def planned_splits(q, block_tables, Hkv) -> int:
+    """The key splits the wrappers launch for q [B, H, D] over Hkv kv heads
+    through ``block_tables`` [B, n] on q's card (cached per shape)."""
+    B, H = q.shape[:2]
+    return _planned(q.device, B, Hkv, H // Hkv, block_tables.shape[1])
+
+
+_tickets = {}
+
+
+def _tickets_for(device, count):
+    """At least ``count`` zeroed int32 tickets on ``device``; one buffer a
+    device, grown when a launch needs more, which the kernel leaves zero."""
+    t = _tickets.get(device)
+    if t is None or t.numel() < count:
+        size = max(count, 0 if t is None else 2 * t.numel())
+        t = _tickets[device] = torch.zeros(size, dtype=torch.int32,
+                                           device=device)
+    return t
 
 
 def check_operands(q, pools, int_args) -> None:
@@ -71,6 +127,21 @@ def _decode_dims(q, Hkv, block_tables, lengths):
     return B, H, D, H // Hkv, block_tables.shape[1]
 
 
+def _split_scratch(q, block_tables, Hkv):
+    """(n_split, scratch pointer, tickets pointer) of a launch: with more
+    than one split, the fp32 partial state of every split (acc [S, B*H, D],
+    then m and l [S, B*H]; one allocation) and the device's tickets."""
+    n_split = planned_splits(q, block_tables, Hkv)
+    if n_split == 1:
+        return 1, None, None
+    B, H, D = q.shape
+    part = torch.empty(n_split * B * H * (D + 2), device=q.device,
+                       dtype=torch.float32)
+    # freeing `part` on return is safe: the caching allocator hands its
+    # block only to work queued later on this stream
+    return n_split, part.data_ptr(), _tickets_for(q.device, B * H).data_ptr()
+
+
 def paged_attention_fused(q, kv_pages, block_tables, lengths, *, scale,
                           window=0, softcap=0.0, partial=False):
     """Decode attention: q [B, H, D] over kv_pages [Hkv, P, 2, ps, D]
@@ -93,6 +164,7 @@ def paged_attention_fused(q, kv_pages, block_tables, lengths, *, scale,
     if partial:
         m = torch.empty((B, H), device=q.device, dtype=torch.float32)
         l = torch.empty((B, H), device=q.device, dtype=torch.float32)
+    n_split, part, tickets = _split_scratch(q, block_tables, Hkv)
     lib = build.library("paged_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -100,10 +172,10 @@ def paged_attention_fused(q, kv_pages, block_tables, lengths, *, scale,
             q.data_ptr(), kv_pages.data_ptr(), block_tables.data_ptr(),
             lengths.data_ptr(), out.data_ptr(),
             m.data_ptr() if partial else None,
-            l.data_ptr() if partial else None,
+            l.data_ptr() if partial else None, part, tickets,
             B, Hkv, G, D, P, ps, n, float(scale), int(window),
-            float(softcap), int(partial), int(q.dtype == torch.bfloat16),
-            stream)
+            float(softcap), int(partial), n_split,
+            int(q.dtype == torch.bfloat16), stream)
     build.check("paged_attention", code)
     paged_attention_fused.launches += 1
     return (out, m, l) if partial else out
@@ -129,14 +201,16 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *, scale,
     Hkv, P, ps, _ = k_pages.shape
     B, H, D, G, n = _decode_dims(q, Hkv, block_tables, lengths)
     out = torch.empty((B, H, D), device=q.device, dtype=q.dtype)
+    n_split, part, tickets = _split_scratch(q, block_tables, Hkv)
     lib = build.library("paged_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.paged_attention_split_launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, Hkv, G, D, P, ps, n, float(scale), int(window),
-            float(softcap), int(q.dtype == torch.bfloat16), stream)
+            part, tickets, B, Hkv, G, D, P, ps, n, float(scale),
+            int(window), float(softcap), n_split,
+            int(q.dtype == torch.bfloat16), stream)
     build.check("paged_attention", code)
     paged_attention.launches += 1
     return out

@@ -16,13 +16,18 @@ selective-scan cases (jamba's shapes) where it has those kernels (CUDA
 events; inputs from fixed seeds, the same in both checkouts). A checkout
 whose chunked kernel splits the keys also times each split case with one
 split (``splits_other``, ``ms_other``), and gives the chunked cases' device
-times (``device_ms``, ``device_ms_other``). Prints one JSON line
-``{"root": ..., "rows": [...]}``.
+times (``device_ms``, ``device_ms_other``); so does one whose decode
+kernels split the keys for the decode cases. Every decode and split-pool
+decode case gives its device time on either checkout (``device_ms``,
+timed here where the checkout's case does not time it); a decode case
+that fails its check on a checkout is recorded with its ``error``. Prints
+one JSON line ``{"root": ..., "rows": [...]}``.
 """
 from __future__ import annotations
 
 import ast
 import json
+import math
 import sys
 from pathlib import Path
 
@@ -38,6 +43,29 @@ def own_split_k_cases():
                 for t in node.targets):
             return ast.literal_eval(node.value)
     return []
+
+
+def decode_device_ms(cs, cases, row, B, lens, dtype, split=False, window=0,
+                     softcap=0.0, G=3, Hkv=8, D=128, iters=20):
+    """Give ``row`` (a decode case just recorded by the checkout under
+    test) its device time, where the checkout's case did not: the same
+    shapes through that checkout's wrapper, timed from a profiler trace."""
+    if "device_ms" in row:
+        return
+    torch = cases.torch
+    from repro_torch.kernels.paged_attention import kernel as PK
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    n = 1 << max(math.ceil(max(lens) / cs.PAGE) - 1, 0).bit_length()
+    kv, bt, _ = cases.pool_and_tables(lens, n, Hkv, D, dtype)
+    q = cases.randn((B, Hkv * G, D), dtype)
+    kw = dict(scale=D ** -0.5, window=window, softcap=softcap)
+    if split:
+        kp, vp = cs.split_pools(kv)
+        row["device_ms"] = cs.device_ms(torch, lambda: PK.paged_attention(
+            q, kp, vp, bt, lens_t, **kw), iters)
+    else:
+        row["device_ms"] = cs.device_ms(torch, lambda: PK.paged_attention_fused(
+            q, kv, bt, lens_t, **kw), iters)
 
 
 def main(root: str) -> int:
@@ -56,11 +84,27 @@ def main(root: str) -> int:
     rng = np.random.default_rng(7)
     bf = torch.bfloat16
     main_lens = [int(x) + 40 for x in rng.integers(128, 2049, 8)]
-    cs.decode_case(cases, "B8 serving-like ctx bf16", 8, main_lens, bf)
     edges = [4096, 16, 13, 4088]
-    cs.decode_case(cases, "B8 ctx<=4096 fp32", 8,
-                   edges + [int(x) for x in rng.integers(1, 4097, 4)],
-                   torch.float32)
+    decode = [("B8 serving-like ctx bf16", 8, main_lens, bf, {}),
+              ("B8 ctx<=4096 fp32", 8,
+               edges + [int(x) for x in rng.integers(1, 4097, 4)],
+               torch.float32, {}),
+              ("B1 ctx<=4096 bf16", 1, [4093], bf, {}),
+              ("B64 ctx<=4096 bf16", 64,
+               edges + [int(x) for x in rng.integers(1, 4097, 60)], bf, {}),
+              ("B8 window1000 softcap30 bf16", 8,
+               edges + [int(x) for x in rng.integers(1, 4097, 4)], bf,
+               dict(window=1000, softcap=30.0))]
+    for name, B, lens, dtype, kw in decode:
+        try:
+            cs.decode_case(cases, name, B, lens, dtype, **kw)
+        except (AssertionError, ValueError) as err:
+            # a case the checkout's kernel fails is recorded, not timed
+            print(f"  {name}: {err}", flush=True)
+            cases.rows.append({"kernel": "paged_attention_fused",
+                               "case": name, "error": str(err)})
+            continue
+        decode_device_ms(cs, cases, cases.rows[-1], B, lens, dtype, **kw)
     for R, Sq in ((1, 512), (1, 2048), (4, 512), (4, 2048)):
         if R == 1:
             pos, lens = [37], [37 + Sq]
@@ -93,10 +137,15 @@ def main(root: str) -> int:
         cs.mlstm_cases(cases)
     if hasattr(cs, "split_cases"):       # checkouts with the split kernels
         cs.split_cases(cases, main_lens)
+        for row in cases.rows:
+            if row["kernel"] == "paged_attention" and row["case"] == \
+                    "B8 serving-like ctx bf16":
+                decode_device_ms(cs, cases, row, 8, main_lens, bf,
+                                 split=True)
     if hasattr(cs, "mamba_cases"):       # checkouts with the Mamba scan
         cs.mamba_cases(cases)
     rows = [{k: r[k] for k in ("kernel", "case", "ms", "limit_share",
-                               "splits", "device_ms",
+                               "error", "splits", "device_ms",
                                "splits_other", "ms_other", "device_ms_other")
              if k in r}
             for r in cases.rows]
