@@ -38,12 +38,12 @@ prints its seconds):
    short deep chunks are split-K cases. The split-pool decode and
    prefill kernels at llama3.2-3b shapes, each also against the fused
    kernel on the same keys (whether the two are bit-identical is printed;
-   in bf16 the prefill pair no longer is, the fused one being on the
-   tensor cores).
-   The mLSTM chunkwise kernel at xlstm-125m shapes (4 heads, head_dim 384,
-   bf16): fresh state at S 2048 and S 1000 (a ragged last chunk), a carried
-   state at S 37, the decode of 8 of 10 state rows, fp32, and the smoke
-   config's head_dim 32. The Mamba selective scan at jamba's shapes
+   the split prefill must be, in bf16 and fp32: the bf16 pair shares its
+   tensor-core tile loop).
+   The mLSTM chunkwise kernels at xlstm-125m shapes (4 heads, head_dim 384,
+   bf16): fresh state at S 2048 and S 1000 (a ragged last chunk), carried
+   states at S 37 and S 512, the decode of 8 of 10 and 4 of 6 state rows,
+   fp32, and the smoke config's head_dim 32; each with its device time. The Mamba selective scan at jamba's shapes
    (d_inner 16384, d_state 16, bf16) in the same six cases, the last at
    the smoke config's d_inner 128. Tolerance, at valid query positions,
    elementwise: fp32 ``|got - want| <= 2e-5 + 2e-5 * |want|``; bf16
@@ -84,9 +84,11 @@ prints its seconds):
    ``torch.profiler``.
 7. full-width xlstm-125m slot serving: 12 layers (6 mLSTM, 6 sLSTM),
    d_model 768, 4 heads, random weights from a seed, bf16, the same
-   requests over 8 slots; the mLSTM chunkwise kernel must have launched
-   6 x (chunk + decode dispatches). A second run repeats it under
-   ``torch.profiler``.
+   requests over 8 slots; the mLSTM chunkwise wrapper must have been
+   called 6 x (chunk + decode dispatches); its calls, the CUDA kernels
+   they launched (one for a decode step, three passes for a bf16 chunk)
+   and its decode and chunk calls are printed apart. A second run repeats
+   it under ``torch.profiler`` and prints #7's kernels in the trace.
 8. full-width jamba-1.5-large-398b slot serving, cut in depth to one
    8-layer period (``jamba_cut``: every published width, 7 Mamba layers
    and one attention layer, the last FFN MoE; 18.06 B parameters), random
@@ -159,6 +161,25 @@ def device_ms(torch, fn, iters: int) -> float:
         torch.cuda.synchronize()
     ns = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
              if e.device_type() == DeviceType.CUDA)
+    return ns / iters / 1e6
+
+
+def cold_device_ms(torch, fn, iters, match):
+    """Device time per call of the kernels of ``fn`` whose names hold
+    ``match``, with the 50 MB L2 flushed before each call (a 128 MB buffer
+    written), as a caller finds its operands that the layers in between
+    have evicted; ``device_ms``'s repeated calls find them in the L2."""
+    from torch.autograd import DeviceType
+    buf = torch.empty(32 << 20, dtype=torch.float32, device=DEVICE)
+    fn()
+    torch.cuda.synchronize()
+    with profiler(torch) as prof:
+        for _ in range(iters):
+            buf.zero_()
+            fn()
+        torch.cuda.synchronize()
+    ns = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA and match in e.name())
     return ns / iters / 1e6
 
 
@@ -540,6 +561,9 @@ def split_prefill_case(cs, name, pos, lens, Sq, dtype, window=0, softcap=0.0,
         raise AssertionError(f"split prefill {name}: non-finite output")
     err, share = check(f"split prefill {name}", got, want, vec_limit(want, dn),
                        valid)
+    if not torch.equal(got, fused):
+        raise AssertionError(f"split prefill {name}: not bit-identical to the "
+                             f"fused kernel on the same keys")
     ms = cuda_ms(torch, lambda: paged_prefill_attention(*args, **kw), iters)
     plain = cuda_ms(torch, lambda: paged_prefill_attention_ref(*args, **kw), 2,
                     warmup=1)
@@ -689,7 +713,9 @@ def mlstm_case(cs, name, B, S, dtype, carried, H=MLSTM_H, D=MLSTM_D,
     projections), log_i a strided view of the gate projection, from a
     fresh state (C 0, n 0, m -1e30) or the state a random prefix leaves;
     ``rows`` maps batch rows to the rows of a larger state, as a slot
-    decode does."""
+    decode does. Timed with CUDA events around the wrapper calls (``ms``)
+    and as device time (``device_ms``, the passes' kernels summed), also
+    with the L2 flushed before each call (``device_ms_cold``)."""
     torch = cs.torch
     from repro_torch.kernels.mlstm_chunkwise.kernel import mlstm_chunkwise
     from repro_torch.kernels.mlstm_chunkwise.ref import (
@@ -730,8 +756,11 @@ def mlstm_case(cs, name, B, S, dtype, carried, H=MLSTM_H, D=MLSTM_D,
     if not torch.equal(C_got[others], C[others]):
         raise AssertionError(f"mlstm {name}: state rows outside the batch "
                              f"changed")
-    ms = cuda_ms(torch, lambda: mlstm_chunkwise(*args, C_got, n, m,
-                                                rows=rows_t), iters)
+    def run():
+        return mlstm_chunkwise(*args, C_got, n, m, rows=rows_t)
+    ms = cuda_ms(torch, run, iters)
+    dev = device_ms(torch, run, iters)
+    cold = cold_device_ms(torch, run, iters, "mlstm_")
     plain = cuda_ms(torch, lambda: mlstm_chunkwise_ref(
         *args, C_want, n, m, rows=rows_t), 2, warmup=1)
     # bytes: q, k, v, the gates and h once, the batch's C rows read and
@@ -749,23 +778,29 @@ def mlstm_case(cs, name, B, S, dtype, carried, H=MLSTM_H, D=MLSTM_D,
     b_ms, b_by = bound(nbytes, flops, dn)
     cs.record({"kernel": "mlstm_chunkwise", "case": name, "dtype": dn,
                "max_abs_err": err, "limit_share": share,
-               "C_limit_share": c_share, "ms": ms, "plain_ms": plain,
-               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
+               "C_limit_share": c_share, "ms": ms, "device_ms": dev,
+               "device_ms_cold": cold, "plain_ms": plain, "library_ms": None,
+               "bound_ms": b_ms, "bound_by": b_by})
+    print(f"    device {dev:.4f} ms, with the L2 flushed {cold:.4f} ms; C at "
+          f"{c_share:.3f} of its limit")
 
 
 def mlstm_cases(cs):
     """#7 at the xlstm-125m shapes (H 4, D 384): the engine's fresh first
-    chunks (S 2048; S 1000, whose last 64-token chunk is ragged), a chunk
-    from a carried state (S 37), the decode of 8 of 10 slots (S 1, state
-    rows permuted; the other two must not change), fp32, and the smoke
-    config's D 32."""
+    chunks (S 2048; S 1000, whose last 64-token chunk is ragged), chunks
+    from a carried state (S 37, S 512), the decode of 8 of 10 slots and of
+    4 of 6 (S 1, state rows permuted; the others must not change), fp32,
+    and the smoke config's D 32."""
     torch = cs.torch
     bf, f32 = torch.bfloat16, torch.float32
     mlstm_case(cs, "B1 S2048 fresh bf16", 1, 2048, bf, False, iters=5)
     mlstm_case(cs, "B1 S1000 fresh bf16", 1, 1000, bf, False, iters=5)
     mlstm_case(cs, "B1 S37 carried bf16", 1, 37, bf, True)
+    mlstm_case(cs, "B1 S512 carried bf16", 1, 512, bf, True)
     mlstm_case(cs, "B8 S1 decode carried bf16", 8, 1, bf, True,
                rows=[3, 0, 7, 1, 6, 2, 9, 4], iters=20)
+    mlstm_case(cs, "B4 S1 decode carried bf16", 4, 1, bf, True,
+               rows=[5, 2, 0, 3], iters=20)
     mlstm_case(cs, "B1 S512 carried fp32", 1, 512, f32, True)
     mlstm_case(cs, "B4 S100 carried fp32 D32", 4, 100, f32, True, D=32)
 
@@ -994,11 +1029,24 @@ def smoke_engine_phase(torch, arch="llama3.2-3b", modes=("paged", "slot")):
         print("  smoke engine: slot tokens == paged tokens")
 
 
+COUNTERS = ("launches", "combine_launches",    # #5's split-K combine
+            "kernel_launches", "decode_launches")  # #7's kernels, S = 1
+
+
 def reset_counts(kernels):
     for fn in kernels.values():
-        fn.launches = 0
-        if hasattr(fn, "combine_launches"):     # #5's split-K combine
-            fn.combine_launches = 0
+        for name in COUNTERS:
+            if hasattr(fn, name):
+                setattr(fn, name, 0)
+
+
+def mlstm_counts(kernels):
+    """#7's wrapper calls, the CUDA kernels they launched, and its decode
+    (S = 1) and chunk calls, since the last reset."""
+    fn = kernels["mlstm_chunkwise"]
+    return {"calls": fn.launches, "kernel_launches": fn.kernel_launches,
+            "decode_calls": fn.decode_launches,
+            "chunk_calls": fn.launches - fn.decode_launches}
 
 
 def combine_count(kernels):
@@ -1223,6 +1271,8 @@ def slot_serving_phase(torch, cfg, params, kernels, expected,
                    launches["chunked_prefill_attention_combine"],
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                "traced": traced}
+        if "mlstm_chunkwise" in expected:
+            rec["mlstm"] = mlstm_counts(kernels)
         same = ""
         if paged_streams is not None:
             n_same = sum(a == b for a, b in zip(toks, paged_streams))
@@ -1242,9 +1292,20 @@ def slot_serving_phase(torch, cfg, params, kernels, expected,
               f"{st.prefill_calls}; launches {rec['kernel_launches']} (#5's "
               f"split-K combine {rec['combine_launches']}); peak "
               f"memory {rec['peak_mem_gb']:.2f} GB{same}", flush=True)
+        if "mlstm" in rec:
+            print(f"  #7: {rec['mlstm']}")
         if traced:
-            rec["trace"] = trace_summary(torch, prof, wall, names=kernels)
+            rec["trace"] = trace_summary(torch, prof, wall,
+                                         names=(*kernels, "mlstm_"))
             print_trace(rec["trace"], wall)
+            if "mlstm" in rec:
+                mk = [k for k in rec["trace"]["port_kernels"]
+                      if "mlstm_" in k["name"]]
+                rec["mlstm"]["traced_kernels"] = sum(k["count"] for k in mk)
+                rec["mlstm"]["traced_ms"] = sum(k["ms"] for k in mk)
+                print(f"  #7 in the trace: {rec['mlstm']['traced_kernels']} "
+                      f"kernels, {rec['mlstm']['traced_ms']:.2f} ms (the "
+                      f"wrapper counted {rec['mlstm']['kernel_launches']})")
         results.append(rec)
         del server, core, handles
         release(torch)
@@ -1517,6 +1578,7 @@ def main() -> int:
     launches["mlstm_chunkwise"] = x_launches["mlstm_chunkwise"]
     by_path["mlstm_chunkwise"] = {"xlstm-125m slot":
                                   x_launches["mlstm_chunkwise"]}
+    x_mlstm = x_recs[0]["mlstm"]
     del xparams
     release(torch)
 
@@ -1588,6 +1650,23 @@ def main() -> int:
         if name in ("paged_attention", "paged_prefill_attention"):
             entry["note"] = ("serves no path, here or in the reference: "
                              "launched only by the parity phase")
+        if name == "mlstm_chunkwise":
+            # one call launches one decode kernel (S 1) or three passes
+            # (bf16 chunks); decode is most of the path's calls
+            dec = next(r for r in rows if r["kernel"] == name and
+                       r["case"] == "B8 S1 decode carried bf16")
+            entry.update(
+                device_ms=row["device_ms"],
+                device_ms_cold=row["device_ms_cold"],
+                kernel_launches=x_mlstm["kernel_launches"],
+                decode_calls=x_mlstm["decode_calls"],
+                chunk_calls=x_mlstm["chunk_calls"],
+                decode={"shape": dec["case"], "ms": dec["ms"],
+                        "device_ms": dec["device_ms"],
+                        "device_ms_cold": dec["device_ms_cold"],
+                        "plain_ms": dec["plain_ms"],
+                        "bound_ms": dec["bound_ms"],
+                        "bound_by": dec["bound_by"]})
         kernels.append(entry)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,8 +1,9 @@
 // Tensor-core tile loop of the bf16 prefill attention kernels
-// (paged_prefill_attention.cu: the fused-pool prefill; chunked_prefill_
-// attention.cu: a query chunk over a slot row, with split-K). The fp32
-// instantiations and the decode and split-pool kernels keep the scalar loop
-// of paged_common.cuh.
+// (paged_prefill_attention.cu: the fused-pool and split-pool prefill;
+// chunked_prefill_attention.cu: a query chunk over a slot row, with
+// split-K). The fp32 instantiations keep the scalar loop of
+// paged_common.cuh; the decode kernels have their own block. The mLSTM
+// kernel (mlstm_chunkwise.cu) uses the mma.sync and cp.async helpers.
 //
 // One block (Geometry: W warps of MW m16 row blocks) owns kRows query rows
 // of one (batch row, kv head): row r = t*G + g (token t, grouped head g;
@@ -151,6 +152,21 @@ struct PagedRows {
     const int page = bt_row[kp / ps];
     return kv_head +
            ((size_t)(2 * page + (is_v ? 1 : 0)) * ps + kp % ps) * D;
+  }
+};
+
+// The split page pools: this kv head's K pages and V pages, each [P, ps, D],
+// through the row's block table (the same pages as PagedRows, in two pools).
+struct SplitPagedRows {
+  const bf16* k_head;
+  const bf16* v_head;
+  const int* bt_row;
+  int ps, D;
+
+  __device__ __forceinline__ const bf16* any() const { return k_head; }
+  __device__ __forceinline__ const bf16* row(int kp, bool is_v) const {
+    return (is_v ? v_head : k_head) +
+           ((size_t)bt_row[kp / ps] * ps + kp % ps) * D;
   }
 };
 

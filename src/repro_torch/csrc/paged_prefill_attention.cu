@@ -25,13 +25,40 @@
 // window, length), with floor division so that negative shard-local
 // positions in partial mode stay exact. Query rows are t*G + g, as in the
 // TPU kernel, so a page is read once for all G heads. The split-pool
-// variant keeps the scalar loop in both dtypes.
+// variant takes the same two paths (SplitPagedRows / SplitPagedKV sources):
+// the same tile loop over the same keys gives the fused kernel's bits in
+// both dtypes.
 #include <algorithm>
 
 #include "attend_mma.cuh"
 #include "paged_common.cuh"
 
 namespace {
+
+// The q tile of block (row r, kv head h, tile qi) = blockIdx: tokens [q0,
+// q0 + nt) and the pages [j_lo, j_hi) some query of it can see (causal
+// frontier, window, length), by floor division, so that negative
+// shard-local positions in partial mode stay exact.
+struct QTile {
+  int q0, nt, pos, length, j_lo, j_hi;
+  long tok0;   // (row r, token q0, kv head h)
+
+  __device__ QTile(const int* row_pos, const int* lengths, int Sq, int Hkv,
+                   int n, int ps, int window, int block_q) {
+    const int r = blockIdx.x;
+    q0 = blockIdx.z * block_q;
+    nt = min(block_q, Sq - q0);
+    pos = row_pos[r];
+    length = lengths[r];
+    const int pages_needed = paged::floordiv(length + ps - 1, ps);
+    const int causal_hi = paged::floordiv(pos + q0 + nt - 1, ps) + 1;
+    j_hi = min(min(pages_needed, causal_hi), n);
+    j_lo = window > 0 ? max(paged::floordiv(pos + q0 - window + 1, ps), 0)
+                      : 0;
+    j_lo = min(j_lo, max(j_hi, 0));
+    tok0 = ((long)r * Sq + q0) * Hkv + blockIdx.y;
+  }
+};
 
 // The scalar loop; launched for fp32 only (bf16 takes the tensor-core
 // kernel below). An fp32 block's tiles fill shared memory alone: no
@@ -45,17 +72,11 @@ paged_prefill_attention_fused_kernel(
     float* __restrict__ m_out, float* __restrict__ l_out, int Sq, int Hkv,
     int G, int D, int P, int ps, int n, float scale, int window, float softcap,
     int partial, int block_q, int tile_pages) {
-  const int r = blockIdx.x, h = blockIdx.y, qi = blockIdx.z;
-  const int q0 = qi * block_q;
-  const int nt = min(block_q, Sq - q0);        // tokens in this q tile
-  const int pos = row_pos[r], length = lengths[r];
-  const int pages_needed = paged::floordiv(length + ps - 1, ps);
-  const int causal_hi = paged::floordiv(pos + q0 + nt - 1, ps) + 1;
-  const int j_hi = min(min(pages_needed, causal_hi), n);
-  int j_lo =
-      window > 0 ? max(paged::floordiv(pos + q0 - window + 1, ps), 0) : 0;
-  j_lo = min(j_lo, max(j_hi, 0));
-  const long tok0 = ((long)r * Sq + q0) * Hkv + h;   // (row, token q0, head h)
+  const int r = blockIdx.x, h = blockIdx.y;
+  const QTile t(row_pos, lengths, Sq, Hkv, n, ps, window, block_q);
+  const int pos = t.pos, length = t.length, q0 = t.q0, nt = t.nt;
+  const int j_lo = t.j_lo, j_hi = t.j_hi;
+  const long tok0 = t.tok0;
   const long tok_stride = (long)Hkv * G * D;
   void* o = partial ? (void*)(reinterpret_cast<float*>(out) + tok0 * G * D)
                     : (void*)(reinterpret_cast<T*>(out) + tok0 * G * D);
@@ -72,27 +93,22 @@ paged_prefill_attention_fused_kernel(
 // The same prefill over split K and V pools, each [Hkv, P, ps, D]
 // (replaces the TPU kernel paged_prefill_attention, kernel.py _kernel,
 // which needs Sq % block_q == 0; here any Sq): the fused kernel's page
-// pruning and tile loop through a SplitPagedKV source, no partial mode. A
-// separate kernel, so that the fused one's code stays as it was.
+// pruning and tile loop through a SplitPagedKV source, no partial mode;
+// launched for fp32 only (bf16 takes paged_prefill_attention_split_mma_
+// kernel).
 template <typename T>
-__global__ void __launch_bounds__(paged::kThreads, sizeof(T) == 2 ? 3 : 1)
+__global__ void __launch_bounds__(paged::kThreads, 1)
 paged_prefill_attention_split_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pages,
     const T* __restrict__ v_pages, const int* __restrict__ block_tables,
     const int* __restrict__ row_pos, const int* __restrict__ lengths,
     T* __restrict__ out, int Sq, int Hkv, int G, int D, int P, int ps, int n,
     float scale, int window, float softcap, int block_q, int tile_pages) {
-  const int r = blockIdx.x, h = blockIdx.y, qi = blockIdx.z;
-  const int q0 = qi * block_q;
-  const int nt = min(block_q, Sq - q0);        // tokens in this q tile
-  const int pos = row_pos[r], length = lengths[r];
-  const int pages_needed = paged::floordiv(length + ps - 1, ps);
-  const int causal_hi = paged::floordiv(pos + q0 + nt - 1, ps) + 1;
-  const int j_hi = min(min(pages_needed, causal_hi), n);
-  int j_lo =
-      window > 0 ? max(paged::floordiv(pos + q0 - window + 1, ps), 0) : 0;
-  j_lo = min(j_lo, max(j_hi, 0));
-  const long tok0 = ((long)r * Sq + q0) * Hkv + h;   // (row, token q0, head h)
+  const int r = blockIdx.x, h = blockIdx.y;
+  const QTile t(row_pos, lengths, Sq, Hkv, n, ps, window, block_q);
+  const int pos = t.pos, length = t.length, q0 = t.q0, nt = t.nt;
+  const int j_lo = t.j_lo, j_hi = t.j_hi;
+  const long tok0 = t.tok0;
   const long tok_stride = (long)Hkv * G * D;
   const size_t head = (size_t)h * P * ps * D;
   const paged::SplitPagedKV<T> src{k_pages + head, v_pages + head,
@@ -123,17 +139,11 @@ paged_prefill_attention_fused_mma_kernel(
     float* __restrict__ m_out, float* __restrict__ l_out, int Sq, int Hkv,
     int G, int P, int ps, int n, float scale, int window, float softcap,
     int partial, int block_q) {
-  const int r = blockIdx.x, h = blockIdx.y, qi = blockIdx.z;
-  const int q0 = qi * block_q;
-  const int nt = min(block_q, Sq - q0);        // tokens in this q tile
-  const int pos = row_pos[r], length = lengths[r];
-  const int pages_needed = paged::floordiv(length + ps - 1, ps);
-  const int causal_hi = paged::floordiv(pos + q0 + nt - 1, ps) + 1;
-  const int j_hi = min(min(pages_needed, causal_hi), n);
-  int j_lo =
-      window > 0 ? max(paged::floordiv(pos + q0 - window + 1, ps), 0) : 0;
-  j_lo = min(j_lo, max(j_hi, 0));
-  const long tok0 = ((long)r * Sq + q0) * Hkv + h;   // (row, token q0, head h)
+  const int r = blockIdx.x, h = blockIdx.y;
+  const QTile t(row_pos, lengths, Sq, Hkv, n, ps, window, block_q);
+  const int pos = t.pos, length = t.length, q0 = t.q0, nt = t.nt;
+  const int j_lo = t.j_lo, j_hi = t.j_hi;
+  const long tok0 = t.tok0;
   const long tok_stride = (long)Hkv * G * D;
   void* o = partial ? (void*)(reinterpret_cast<float*>(out) + tok0 * G * D)
                     : (void*)(reinterpret_cast<__nv_bfloat16*>(out) +
@@ -146,6 +156,32 @@ paged_prefill_attention_fused_mma_kernel(
       partial ? l_out + tok0 * G : nullptr, (long)Hkv * G, src, G, nt * G,
       pos + q0, length, true, window, scale, softcap, j_lo * ps, j_hi * ps,
       partial != 0);
+}
+
+// The split-pool prefill on the tensor cores: the fused kernel's rows,
+// page pruning and tile loop over the same keys through SplitPagedRows, so
+// it gives the fused kernel's bits; no partial mode.
+template <int D>
+__global__ void __launch_bounds__(PagedGeo<D>::kThreads,
+                                  PagedGeo<D>::kMinBlocks)
+paged_prefill_attention_split_mma_kernel(
+    const __nv_bfloat16* __restrict__ q,
+    const __nv_bfloat16* __restrict__ k_pages,
+    const __nv_bfloat16* __restrict__ v_pages,
+    const int* __restrict__ block_tables, const int* __restrict__ row_pos,
+    const int* __restrict__ lengths, __nv_bfloat16* __restrict__ out, int Sq,
+    int Hkv, int G, int P, int ps, int n, float scale, int window,
+    float softcap, int block_q) {
+  const int r = blockIdx.x, h = blockIdx.y;
+  const QTile t(row_pos, lengths, Sq, Hkv, n, ps, window, block_q);
+  const long tok_stride = (long)Hkv * G * D;
+  const size_t head = (size_t)h * P * ps * D;
+  const mma::SplitPagedRows src{k_pages + head, v_pages + head,
+                                block_tables + (size_t)r * n, ps, D};
+  mma::attend_rows<PagedGeo<D>>(
+      q + t.tok0 * G * D, tok_stride, D, out + t.tok0 * G * D, tok_stride, D,
+      nullptr, nullptr, 0, src, G, t.nt * G, t.pos + t.q0, t.length, true,
+      window, scale, softcap, t.j_lo * ps, t.j_hi * ps, false);
 }
 
 // Query tokens per block: as many as fit the block's rows (t*G + g), at
@@ -175,11 +211,14 @@ int launch(const void* q, const void* kv, const int* bt, const int* row_pos,
   return (int)cudaGetLastError();
 }
 
-using MmaKernel = decltype(&paged_prefill_attention_fused_mma_kernel<128>);
+using FusedKernel = decltype(&paged_prefill_attention_fused_mma_kernel<128>);
+using SplitKernel = decltype(&paged_prefill_attention_split_mma_kernel<128>);
 
-// The tensor-core kernel at head dim D and its block shape.
+// The tensor-core kernels at head dim D (fused pool, split pools) and
+// their one block shape, PagedGeo<D>.
 struct MmaLaunch {
-  MmaKernel kernel;   // null for a D it is not instantiated for
+  FusedKernel fused;   // null for a D they are not instantiated for
+  SplitKernel split;
   int rows, threads, key_tile;
   size_t smem;
 };
@@ -187,20 +226,28 @@ struct MmaLaunch {
 template <int D>
 MmaLaunch mma_launch() {
   using Geo = PagedGeo<D>;
-  return {paged_prefill_attention_fused_mma_kernel<D>, Geo::kRows,
+  return {paged_prefill_attention_fused_mma_kernel<D>,
+          paged_prefill_attention_split_mma_kernel<D>, Geo::kRows,
           Geo::kThreads, Geo::KT, Geo::kSmem};
 }
 
-// The launch shape at head dim D, its shared memory reserved; err is
-// cudaErrorInvalidValue for a D outside {64, 128, 256}.
+// The launch shape at head dim D, both kernels' shared memory reserved;
+// err is cudaErrorInvalidValue for a D outside {64, 128, 256}.
 MmaLaunch mma_launch(int D, cudaError_t* err) {
   MmaLaunch m = D == 64    ? mma_launch<64>()
                 : D == 128 ? mma_launch<128>()
                 : D == 256 ? mma_launch<256>()
-                           : MmaLaunch{nullptr, 0, 0, 0, 0};
-  *err = m.kernel ? paged::reserve_smem(m.kernel, m.smem)
-                  : cudaErrorInvalidValue;
+                           : MmaLaunch{nullptr, nullptr, 0, 0, 0, 0};
+  *err = m.fused ? paged::reserve_smem(m.fused, m.smem)
+                 : cudaErrorInvalidValue;
+  if (*err == cudaSuccess) *err = paged::reserve_smem(m.split, m.smem);
   return m;
+}
+
+// Query tokens a tensor-core block: rows / G; cudaErrorInvalidValue (0
+// tokens) for more query heads per kv head than rows.
+int mma_block_q(const MmaLaunch& m, int G) {
+  return G < 1 || G > m.rows ? 0 : m.rows / G;
 }
 
 // The tensor-core launch: rows / G tokens a block; cudaErrorInvalidValue
@@ -213,11 +260,11 @@ int launch_mma(const void* q, const void* kv, const int* bt,
   cudaError_t err;
   const MmaLaunch m = mma_launch(D, &err);
   if (err != cudaSuccess) return (int)err;
-  if (G < 1 || G > m.rows) return (int)cudaErrorInvalidValue;
-  const int block_q = m.rows / G;
+  const int block_q = mma_block_q(m, G);
+  if (block_q == 0) return (int)cudaErrorInvalidValue;
   const int nq = (Sq + block_q - 1) / block_q;
   if (R == 0 || Hkv == 0 || nq == 0) return 0;
-  m.kernel<<<dim3(R, Hkv, nq), m.threads, m.smem, stream>>>(
+  m.fused<<<dim3(R, Hkv, nq), m.threads, m.smem, stream>>>(
       reinterpret_cast<const __nv_bfloat16*>(q),
       reinterpret_cast<const __nv_bfloat16*>(kv), bt, row_pos, lengths, out,
       m_out, l_out, Sq, Hkv, G, P, ps, n, scale, window, softcap, partial,
@@ -225,28 +272,51 @@ int launch_mma(const void* q, const void* kv, const int* bt,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+// The scalar split-pool launch, for fp32 (bf16 takes launch_split_mma).
 int launch_split(const void* q, const void* k_pages, const void* v_pages,
                  const int* bt, const int* row_pos, const int* lengths,
                  void* out, int R, int Sq, int Hkv, int G, int D, int P,
                  int ps, int n, float scale, int window, float softcap,
                  cudaStream_t stream) {
   const int block_q = std::max(1, std::min(kMaxBlockQ, paged::max_rows(D) / G));
-  const int tile_pages = paged::tile_pages(block_q * G, ps, D, sizeof(T));
+  const int tile_pages = paged::tile_pages(block_q * G, ps, D, sizeof(float));
   if (tile_pages == 0) return (int)cudaErrorInvalidValue;
   const size_t smem =
-      paged::smem_bytes(block_q * G, tile_pages * ps, D, sizeof(T));
+      paged::smem_bytes(block_q * G, tile_pages * ps, D, sizeof(float));
   cudaError_t err =
-      paged::reserve_smem(paged_prefill_attention_split_kernel<T>, smem);
+      paged::reserve_smem(paged_prefill_attention_split_kernel<float>, smem);
   if (err != cudaSuccess) return (int)err;
   const int nq = (Sq + block_q - 1) / block_q;
   if (R == 0 || Hkv == 0 || nq == 0) return 0;
-  paged_prefill_attention_split_kernel<T>
+  paged_prefill_attention_split_kernel<float>
       <<<dim3(R, Hkv, nq), paged::kThreads, smem, stream>>>(
-          reinterpret_cast<const T*>(q), reinterpret_cast<const T*>(k_pages),
-          reinterpret_cast<const T*>(v_pages), bt, row_pos, lengths,
-          reinterpret_cast<T*>(out), Sq, Hkv, G, D, P, ps, n, scale, window,
+          reinterpret_cast<const float*>(q), reinterpret_cast<const float*>(k_pages),
+          reinterpret_cast<const float*>(v_pages), bt, row_pos, lengths,
+          reinterpret_cast<float*>(out), Sq, Hkv, G, D, P, ps, n, scale, window,
           softcap, block_q, tile_pages);
+  return (int)cudaGetLastError();
+}
+
+// The split-pool tensor-core launch: the fused one's table, shape and
+// limits.
+int launch_split_mma(const void* q, const void* k_pages, const void* v_pages,
+                     const int* bt, const int* row_pos, const int* lengths,
+                     void* out, int R, int Sq, int Hkv, int G, int D, int P,
+                     int ps, int n, float scale, int window, float softcap,
+                     cudaStream_t stream) {
+  cudaError_t err;
+  const MmaLaunch m = mma_launch(D, &err);
+  if (err != cudaSuccess) return (int)err;
+  const int block_q = mma_block_q(m, G);
+  if (block_q == 0) return (int)cudaErrorInvalidValue;
+  const int nq = (Sq + block_q - 1) / block_q;
+  if (R == 0 || Hkv == 0 || nq == 0) return 0;
+  m.split<<<dim3(R, Hkv, nq), m.threads, m.smem, stream>>>(
+      reinterpret_cast<const __nv_bfloat16*>(q),
+      reinterpret_cast<const __nv_bfloat16*>(k_pages),
+      reinterpret_cast<const __nv_bfloat16*>(v_pages), bt, row_pos, lengths,
+      reinterpret_cast<__nv_bfloat16*>(out), Sq, Hkv, G, P, ps, n, scale,
+      window, softcap, block_q);
   return (int)cudaGetLastError();
 }
 
@@ -283,10 +353,10 @@ int paged_prefill_attention_split_launch(
     float scale, int window, float softcap, int is_bf16, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_split<__nv_bfloat16>(q, k_pages, v_pages, block_tables,
-                                       row_pos, lengths, out, R, Sq, Hkv, G,
-                                       D, P, ps, n, scale, window, softcap, s);
-  return launch_split<float>(q, k_pages, v_pages, block_tables, row_pos,
+    return launch_split_mma(q, k_pages, v_pages, block_tables, row_pos,
+                            lengths, out, R, Sq, Hkv, G, D, P, ps, n, scale,
+                            window, softcap, s);
+  return launch_split(q, k_pages, v_pages, block_tables, row_pos,
                              lengths, out, R, Sq, Hkv, G, D, P, ps, n, scale,
                              window, softcap, s);
 }
@@ -302,7 +372,7 @@ int paged_prefill_attention_mma_attributes(int D, int* info) {
   if (err != cudaSuccess) return (int)err;
   info[4] = m.rows;
   info[5] = m.key_tile;
-  return mma::attributes(m.kernel, m.threads, m.smem, info);
+  return mma::attributes(m.fused, m.threads, m.smem, info);
 }
 
 const char* paged_prefill_attention_error_string(int code) {

@@ -76,16 +76,19 @@ SIGNATURES = {
             _I, _I, _I, _I,              # Sq, Sk, G, D
             _I, _I, _I, _P],             # q_offset, causal, window, info[2]
         "chunked_prefill_attention_mma_attributes": [_I, _P]},  # D, info[6]
-    "mlstm_chunkwise": {"mlstm_chunkwise_launch": [
-        _P, _P, _P, _P, _P,          # q, k, v, log_i, log_f
-        _L, _L, _L, _L, _L, _L,      # q, k strides (batch, token, head)
-        _L, _L, _L,                  # v strides
-        _L, _L, _L, _L, _L, _L,      # log_i, log_f strides
-        _P, _P, _P, _P,              # C (in place), n, m, rows (or null)
-        _L, _L, _L,                  # C, n, m batch strides
-        _P, _P, _P,                  # h, n_out, m_out
-        _I, _I, _I, _I,              # B, S, H, D
-        _I, _P]},                    # is_bf16, stream
+    "mlstm_chunkwise": {
+        "mlstm_chunkwise_launch": [
+            _P, _P, _P, _P, _P,          # q, k, v, log_i, log_f
+            _L, _L, _L, _L, _L, _L,      # q, k strides (batch, token, head)
+            _L, _L, _L,                  # v strides
+            _L, _L, _L, _L, _L, _L,      # log_i, log_f strides
+            _P, _P, _P, _P,              # C (in place), n, m, rows (or null)
+            _L, _L, _L,                  # C, n, m batch strides
+            _P, _P, _P,                  # h, n_out, m_out
+            _P, _P, _P,                  # scratch: gates, C planes, n (or null)
+            _I, _I, _I, _I,              # B, S, H, D
+            _I, _P],                     # is_bf16, stream
+        "mlstm_chunkwise_plan": [_I, _I, _I, _P]},   # S, D, is_bf16, info[4]
     "mamba_scan": {"mamba_scan_launch": [
         _P, _L, _L,                  # x and its strides (batch, token)
         _P, _L, _L,                  # dt

@@ -1,18 +1,25 @@
-"""Wrapper of the CUDA mLSTM chunkwise kernel (``csrc/mlstm_chunkwise.cu``),
+"""Wrapper of the CUDA mLSTM chunkwise kernels (``csrc/mlstm_chunkwise.cu``),
 the port of the TPU kernel ``mlstm_chunkwise`` of the reference package,
 with the carried state in and out. It is the recurrence core of every
 ``mlstm_mix`` call (``models/ssm.py``): the slot engine's prompt chunks and
 its decode steps.
 
 A tensor on the CPU goes to the plain PyTorch version (``ref.py``); a CUDA
-tensor goes to the kernel, or the wrapper raises. q, k and v are read in
+tensor goes to the kernels, or the wrapper raises. q, k and v are read in
 place through their strides (unit last stride). ``C`` is updated in place
 at the state rows; the new ``n`` and ``m`` come back in fresh tensors,
-because every value tile of a head reads the old ones. Launches are
-counted in ``mlstm_chunkwise.launches``. The launch geometry (value-tile
-width, shared memory) is chosen by the C launcher.
+because every tile of a head reads the old ones. The C launcher picks the
+path: a decode step (S = 1) is one streaming kernel in either dtype; a bf16
+chunk runs three passes (gates, chunk-start states, outputs) whose scratch
+this wrapper allocates at the sizes ``mlstm_chunkwise_plan`` gives; an
+fp32 chunk runs the scalar chunk loop. Counters: ``launches`` (wrapper
+calls that launched), ``kernel_launches`` (CUDA kernels they launched) and
+``decode_launches`` (calls with S = 1).
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -66,6 +73,25 @@ def _check(q, k, v, log_i, log_f, C, n, m, rows) -> None:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if name in ("q", "k", "v") and t.stride(3) != 1:
             raise ValueError(f"{name} needs a contiguous last axis")
+    if C.data_ptr() % 16 or C.stride(0) % 4:
+        raise ValueError("C must be 16-byte aligned at every state row")
+    if q.dtype == torch.bfloat16 and S > 1:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or any(x % 8 for x in t.stride()[:3]):
+                raise ValueError(f"bf16 chunks read {name} in 16-byte copies: "
+                                 f"it must be 16-byte aligned with strides "
+                                 f"of multiples of 8 elements")
+
+
+@functools.lru_cache(maxsize=None)
+def plan(S: int, D: int, bf16: bool):
+    """(kernels a call launches, scratch per (batch row, head): gate
+    floats, bf16 elements of the chunk-start C planes, floats of the
+    chunk-start n), as the C launcher reports them."""
+    info = (ctypes.c_longlong * 4)()
+    build.check("mlstm_chunkwise", build.library("mlstm_chunkwise")
+                .mlstm_chunkwise_plan(S, D, int(bf16), info))
+    return tuple(info)
 
 
 def mlstm_chunkwise(q, k, v, log_i, log_f, C, n, m, *, rows=None):
@@ -81,10 +107,20 @@ def mlstm_chunkwise(q, k, v, log_i, log_f, C, n, m, *, rows=None):
     _check(q, k, v, log_i, log_f, C, n, m, rows)
     B, S, H, D = q.shape
     lib = build.library("mlstm_chunkwise")
+    bf16 = q.dtype == torch.bfloat16
     h = torch.empty((B, S, H, D), device=q.device, dtype=q.dtype)
     n_out = torch.empty((B, H, D), device=q.device, dtype=torch.float32)
     m_out = torch.empty((B, H), device=q.device, dtype=torch.float32)
+    kernels, g_n, c_n, n_n = plan(S, D, bf16)
     rows32 = None if rows is None else rows.to(torch.int32).contiguous()
+    scratch = [None, None, None]
+    if c_n:
+        scratch = [torch.empty(B * H * g_n, device=q.device,
+                               dtype=torch.float32),
+                   torch.empty(B * H * c_n, device=q.device,
+                               dtype=torch.bfloat16),
+                   torch.empty(B * H * n_n, device=q.device,
+                               dtype=torch.float32)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.mlstm_chunkwise_launch(
@@ -94,11 +130,16 @@ def mlstm_chunkwise(q, k, v, log_i, log_f, C, n, m, *, rows=None):
             C.data_ptr(), n.data_ptr(), m.data_ptr(),
             None if rows32 is None else rows32.data_ptr(),
             C.stride(0), n.stride(0), m.stride(0), h.data_ptr(),
-            n_out.data_ptr(), m_out.data_ptr(), B, S, H, D,
-            int(q.dtype == torch.bfloat16), stream)
+            n_out.data_ptr(), m_out.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in scratch),
+            B, S, H, D, int(bf16), stream)
     build.check("mlstm_chunkwise", code)
     mlstm_chunkwise.launches += 1
+    mlstm_chunkwise.kernel_launches += kernels
+    mlstm_chunkwise.decode_launches += int(S == 1)
     return h, n_out, m_out
 
 
 mlstm_chunkwise.launches = 0
+mlstm_chunkwise.kernel_launches = 0
+mlstm_chunkwise.decode_launches = 0

@@ -6,9 +6,11 @@ ragged prefill rows and its speculative-verify rows) and
 
 A tensor on the CPU goes to the plain PyTorch version (``ref.py``); a CUDA
 tensor goes to the kernel, or the wrapper raises. Launches are counted in
-``<wrapper>.launches``. In bf16 the fused-pool kernel runs on the tensor
-cores and takes head_dim 64, 128 or 256 (``build.check_mma_geometry`` asks
-the library); fp32 and the split-pool kernel keep the scalar loop.
+``<wrapper>.launches``. In bf16 both kernels run on the tensor cores (one
+tile loop, one block shape: the split-pool kernel gives the fused one's
+bits on the same keys) and take head_dim 64, 128 or 256 and at most a
+block's rows of query heads per kv head (``build.check_mma_geometry`` asks
+the library); fp32 keeps the scalar loop.
 """
 from __future__ import annotations
 
@@ -94,6 +96,8 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, row_pos,
                     "lengths": lengths})
     Hkv, P, ps, _ = k_pages.shape
     R, Sq, G, D, n = _prefill_dims(q, Hkv, block_tables, row_pos, lengths)
+    if q.dtype == torch.bfloat16:
+        build.check_mma_geometry("paged_prefill_attention", G, D)
     out = torch.empty(q.shape, device=q.device, dtype=q.dtype)
     lib = build.library("paged_prefill_attention")
     with torch.cuda.device(q.device):

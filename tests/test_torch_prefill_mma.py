@@ -174,13 +174,17 @@ def floordiv(a: int, b: int) -> int:
     return q - 1 if q * b != a and a < 0 else q
 
 
-def mirror_paged_prefill(q, kv, bt, pos, lens, *, scale, window, softcap):
+def mirror_paged_prefill(q, kv, bt, pos, lens, *, scale, window, softcap,
+                         pools=None):
     """The grid of paged_prefill_attention_fused_mma_kernel: one block per
     (row, kv head, tile of rows // G tokens) over pages [j_lo, j_hi), keys
-    fetched page by page through the block table. Returns the partial
-    state (acc, m, l) of every query row."""
+    fetched page by page through the block table. With ``pools`` = (k_pages,
+    v_pages) [Hkv, P, ps, D] the keys come from the split pools instead
+    (paged_prefill_attention_split_mma_kernel: the same grid and block
+    through SplitPagedRows). Returns the partial state (acc, m, l) of every
+    query row."""
     R, Sq, Hkv, G, D = q.shape
-    ps = kv.shape[3]
+    ps = kv.shape[3] if pools is None else pools[0].shape[2]
     bq = shape(PAGED, D)[0] // G
     acc = torch.zeros(R, Sq, Hkv, G, D)
     m = torch.zeros(R, Sq, Hkv, G)
@@ -198,6 +202,9 @@ def mirror_paged_prefill(q, kv, bt, pos, lens, *, scale, window, softcap):
             for h in range(Hkv):
                 def key_rows(kp, h=h, r=r):
                     page = bt[r, (kp // ps)].long()
+                    if pools is not None:
+                        return (pools[0][h, page, kp % ps],
+                                pools[1][h, page, kp % ps])
                     return kv[h, page, 0, kp % ps], kv[h, page, 1, kp % ps]
                 a, mm, ll = mma_block(
                     PAGED, q[r, q0:q0 + nt, h].reshape(nt * G, D), p0 + q0, G,
@@ -239,6 +246,28 @@ def test_paged_prefill_mma_block_mirror(case, name):
     assert torch.isfinite(got.float()).all()      # padding rows included
     np.testing.assert_allclose(got.float().numpy()[valid],
                                want.float().numpy()[valid], **_tol(name))
+
+
+@pytest.mark.parametrize("case", [c for c in FUSED_PPA_CASES
+                                  if c[4] in MMA_HEAD_DIMS])
+def test_split_pool_mma_mirror_gives_the_fused_bits(case):
+    """#4 in bf16: the split-pool kernel's block over K and V pools that
+    hold the fused pool's keys gives the fused kernel's output bit for bit
+    (the same tile loop over the same keys), and that output is the split
+    pools' plain version within the bf16 tolerance."""
+    args, kw, valid = _prefill_inputs(case, "bfloat16", 13)
+    q, kv, bt, pos, lens = args
+    k_pages, v_pages = (t.contiguous() for t in rc.split_fused(kv))
+    acc, _, l = mirror_paged_prefill(*args, **kw)
+    fused = finalize(acc, l).to(q.dtype)
+    acc, _, l = mirror_paged_prefill(*args, pools=(k_pages, v_pages), **kw)
+    split = finalize(acc, l).to(q.dtype)
+    assert torch.equal(split, fused)
+    want = TPPA.paged_prefill_attention_ref(q, k_pages, v_pages, bt, pos,
+                                            lens, **kw)
+    np.testing.assert_allclose(split.float().numpy()[valid],
+                               want.float().numpy()[valid],
+                               **_tol("bfloat16"))
 
 
 @pytest.mark.parametrize(
@@ -476,7 +505,10 @@ def test_planned_splits_fp32_never_splits():
 def test_mirror_shapes_follow_the_sources(kernel, var):
     """WARPS and MMA_HEAD_DIMS are the sources' Geometry arguments and
     instantiations, and shape() follows attend_mma.cuh's rules, so a change
-    to either side fails here rather than letting the mirror drift."""
+    to either side fails here rather than letting the mirror drift. In the
+    paged source both the fused-pool and the split-pool tensor-core kernels
+    take PagedGeo<D> from the one launch table, so the split kernel's
+    mirror (``pools=``) has the fused one's shape."""
     import re
     src = (build.CSRC / f"{kernel}.cu").read_text()
     m = re.search(r"using " + var + r" = mma::Geometry<D, (\d+), (\d+)>;",
@@ -485,6 +517,17 @@ def test_mirror_shapes_follow_the_sources(kernel, var):
     dims = tuple(int(d) for d in re.findall(
         r"D == (\d+) +\? mma_launch<\1>\(\)", src))
     assert dims == MMA_HEAD_DIMS
+    if kernel == PAGED:
+        for k in ("fused", "split"):
+            assert re.search(
+                r"paged_prefill_attention_" + k + r"_mma_kernel\(.*?"
+                r"mma::attend_rows<PagedGeo<D>>", src, re.S), k
+        table = re.search(r"MmaLaunch mma_launch\(\) \{(.*?)\n\}", src,
+                          re.S).group(1)
+        assert "using Geo = PagedGeo<D>;" in table
+        assert "paged_prefill_attention_fused_mma_kernel<D>" in table
+        assert "paged_prefill_attention_split_mma_kernel<D>" in table
+        assert "m.split<<<" in src and "m.fused<<<" in src
     geo = (build.CSRC / "attend_mma.cuh").read_text()
     for rule in ("MW = D_ > 128 ? 1 : MW_;", "kRows = 16 * MW * W;",
                  "KT = D_ > 128 || MW > 1 ? 32 : 64;"):

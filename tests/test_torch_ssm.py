@@ -4,11 +4,16 @@ kernel against the JAX oracle ``mlstm_ref`` and the interpret-mode Pallas
 5e-4 fp32, 5e-2 bf16); the port's ``mlstm_mix`` and ``slstm_mix`` against
 the JAX ones over a sequence cut into chunks of 37, 1 and 90 tokens with
 the state carried across (fp32; outputs and every state leaf); the row
-subset a slot decode runs; and a torch mirror of the CUDA kernel's loop
-(value tiles with private n/m, the head dim streamed in 32-column tiles,
-ragged last chunks, S 1, fresh and carried states, state rows) against the
-plain version. The CUDA kernel itself runs only on the GPU
-(``chip_smoke.py`` holds it against the plain version there)."""
+subset a slot decode runs; and a torch mirror of the CUDA kernels' design
+(the streaming decode step with its row groups merged in a permuted order;
+the bf16 chunk passes: gates with the m chain across chunks, chunk-start
+states in 64 x 64 tiles with k*w split into bf16 hi and lo parts, outputs
+computed over the chunks in reverse order) against the plain version, on
+ragged last chunks, S 1 with permuted state rows, D 32, 64 and 96; and a
+mirror of the scalar chunk loop, which fp32 chunks still take (value
+tiles with private n/m, the head dim streamed in 32-column tiles). The
+CUDA kernels themselves run only on the GPU (``chip_smoke.py`` holds them
+against the plain version there)."""
 import math
 
 import pytest
@@ -204,9 +209,340 @@ def test_conv_returns_the_last_inputs_as_state():
 
 
 # ---------------------------------------------------------------------------
-# torch mirror of the CUDA kernel's loop (csrc/mlstm_chunkwise.cu)
+# torch mirror of the CUDA kernels' design (csrc/mlstm_chunkwise.cu): the
+# streaming decode step and the three bf16 chunk passes
 # ---------------------------------------------------------------------------
-KCHUNK, KDK = MR.CHUNK, 32     # the kernel's chunk and head-dim stream tile
+KCHUNK = MR.CHUNK      # tokens per chunk
+KTILE = 64             # rows and columns of C a state tile; h columns a tile
+DEC_COLS = 32          # C columns a decode block
+DEC_ROW_GROUPS = 32    # its row groups (256 threads, float4 columns)
+# the split's relative error on a product with a bf16 operand (the source's
+# note): |x - (hi + lo)| <= 2^-8 |x - hi| <= 2^-16 |x|
+SPLIT_REL = 2.0 ** -16
+
+
+def _hi_lo(x):
+    """x = hi + lo, hi = bf16(x), lo = bf16(x - hi)."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
+
+
+def _split_mm(a, b):
+    """a @ b with a fp32 split into hi and lo bf16 parts and b exact in
+    bf16: two products into one fp32 accumulator, as two mma.sync."""
+    hi, lo = _hi_lo(a)
+    return hi.float() @ b + lo.float() @ b
+
+
+def mirror_gate_pass(q, k, li, lf, c):
+    """Pass a for one (row, head) and chunk c (all chunks in parallel): q,
+    k [S, D] (bf16 values), li, lf [S]. Returns the chunk's per-token b
+    (one lane's serial sum) and log_i, each token's row max over the chunk
+    (zero past S), its (b_last, row max) at the last token, and its raw
+    scores Q K^T [KCHUNK, KCHUNK] (exact products, fp32 sums; zero rows and
+    columns past S)."""
+    S = q.shape[0]
+    t0, L = c * KCHUNK, min(KCHUNK, S - c * KCHUNK)
+    b, lic, x = torch.zeros(KCHUNK), torch.zeros(KCHUNK), torch.zeros(KCHUNK)
+    b[:L], lic[:L] = lf[t0:t0 + L], li[t0:t0 + L]
+    for u in range(1, L):
+        b[u] = b[u] + b[u - 1]
+    for u in range(L):
+        x[u] = ((b[u] - b[:u + 1]) + lic[:u + 1]).max()
+    scores = torch.zeros((KCHUNK, KCHUNK))
+    scores[:L, :L] = q[t0:t0 + L] @ k[t0:t0 + L].T
+    return {"b": b, "li": lic, "x": x}, (b[L - 1], x[L - 1]), scores
+
+
+def m_chain(last, m):
+    """The scalar m chain from each chunk's (b_last, row max): the m carried
+    into each chunk, then the final m (as each state and output block
+    computes it)."""
+    out = []
+    for b_last, x_last in last:
+        out.append(m)
+        m = torch.maximum(b_last + m, x_last)
+    return out + [m]
+
+
+def mirror_state_pass(k, v, gate, last, m0, C0, n0):
+    """Pass b for one (row, head): k, v [S, D] (bf16 values), C0 [D, D],
+    n0 [D]. Each 64 x 64 tile of C computes the m chain, then walks the
+    chunks in order in fp32: writes the chunk's starting C as hi/lo planes
+    (and n, from the column-0 tiles), then C <- decay * C + (k w)^T V with
+    k w split. Returns (C planes [nc, 2, D, D] bf16, n starts [nc, D], C',
+    n', m')."""
+    S, D = k.shape
+    nc = len(last)
+    ms = m_chain(last, m0)
+    planes = torch.zeros((nc, 2, D, D), dtype=torch.bfloat16)
+    n_starts = torch.zeros((nc, D))
+    C1, n1 = torch.zeros((D, D)), torch.zeros(D)
+    for i0 in range(0, D, KTILE):
+        rows = slice(i0, min(i0 + KTILE, D))
+        for j0 in range(0, D, KTILE):
+            cols = slice(j0, min(j0 + KTILE, D))
+            acc = C0[rows, cols].clone()
+            nacc = n0[rows].clone()
+            for c in range(nc):
+                t0 = c * KCHUNK
+                L = min(KCHUNK, S - t0)
+                b_last = last[c][0]
+                w = torch.exp(b_last - gate[c]["b"][:L] + gate[c]["li"][:L]
+                              - ms[c + 1])
+                decay = torch.exp(b_last + ms[c] - ms[c + 1])
+                hi, lo = _hi_lo(acc)
+                planes[c, 0, rows, cols], planes[c, 1, rows, cols] = hi, lo
+                if j0 == 0:
+                    n_starts[c, rows] = nacc
+                kw = k[t0:t0 + L, rows] * w[:, None]
+                acc = acc * decay + _split_mm(kw.T, v[t0:t0 + L, cols])
+                if j0 == 0:           # n: an n-block of ones
+                    nacc = nacc * decay + _split_mm(
+                        kw.T, torch.ones((L, 1)))[:, 0]
+            C1[rows, cols] = acc
+            if j0 == 0:
+                n1[rows] = nacc
+    return planes, n_starts, C1, n1, ms[nc]
+
+
+def mirror_output_pass(q, v, gate, last, m0, scores, planes, n_starts, c):
+    """Pass c for one (row, head) and chunk c, each 64-column tile of h on
+    its own (in any order): the m chain up to the chunk, the gate pass's
+    raw scores decayed and masked, kept as hi/lo planes; then h = (g * Q
+    C_c + S V) / den. Returns h of the chunk's tokens [L, D] in fp32."""
+    S, D = q.shape
+    t0 = c * KCHUNK
+    L = min(KCHUNK, S - t0)
+    qc, vc = q[t0:t0 + L], v[t0:t0 + L]
+    m_c = m_chain(last[:c], m0)[c]
+    b, li, x = (gate[c][f][:L] for f in ("b", "li", "x"))
+    inter = b + m_c
+    m = torch.maximum(inter, x)
+    g = torch.exp(inter - m)
+    e = (b[:, None] - b[None, :]) + li[None, :] - m[:, None]
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool))
+    s = torch.where(tri, scores[:L, :L] * torch.exp(e), torch.zeros(()))
+    nrm = g * (qc @ n_starts[c]) + s.sum(-1)
+    den = torch.clamp(torch.maximum(nrm.abs(), torch.exp(
+        -torch.clamp(m, max=30.0))), min=1e-30)
+    s_hi, s_lo = _hi_lo(s)
+    h = torch.zeros((L, D))
+    for j0 in reversed(range(0, D, KTILE)):
+        cols = slice(j0, min(j0 + KTILE, D))
+        acc = qc @ planes[c, 0, :, cols].float() + \
+            qc @ planes[c, 1, :, cols].float()
+        acc = g[:, None] * acc + (s_hi.float() @ vc[:, cols]
+                                  + s_lo.float() @ vc[:, cols])
+        h[:, cols] = acc / den[:, None]
+    return h
+
+
+def mirror_decode(q, k, v, li, lf, C, n, m, perm):
+    """The decode kernel for one (row, head), S = 1: q, k, v [D]; C [D, D]
+    updated in place. Each block of DEC_COLS columns sums its row groups'
+    partial q.C in the order ``perm`` (any order is the same sum up to
+    rounding). Returns (h [D], n', m')."""
+    D = q.shape[0]
+    inter = lf + m
+    m_new = torch.maximum(inter, li)
+    g = torch.exp(inter - m_new)
+    s = (q @ k) * torch.exp(li - m_new)
+    w = torch.exp(li - m_new)
+    den = torch.clamp(torch.maximum((g * (q @ n) + s).abs(),
+                                    torch.exp(-torch.clamp(m_new, max=30.0))),
+                      min=1e-30)
+    kw = k * w
+    h = torch.zeros(D)
+    for j0 in range(0, D, DEC_COLS):
+        cols = slice(j0, j0 + DEC_COLS)
+        parts = [q[r::DEC_ROW_GROUPS] @ C[r::DEC_ROW_GROUPS, cols]
+                 for r in range(DEC_ROW_GROUPS)]
+        qc = sum(parts[r] for r in perm)
+        h[cols] = (g * qc + s * v[cols]) / den
+        C[:, cols] = g * C[:, cols] + kw[:, None] * v[None, cols]
+    return h, g * n + kw, m_new
+
+
+def mirror_mlstm_chunkwise(q, k, v, li, lf, C, n, m, *, rows):
+    """The launcher: S = 1 takes the decode kernel (row groups merged in a
+    permuted order), S > 1 the bf16 passes (gates and scores per chunk,
+    the state walk, outputs computed over the chunks and column tiles in
+    reverse order). Updates C in place at the state rows; returns (h, n',
+    m') and, per (b, h), the state pass's chunk planes, n starts and the m
+    carried into each chunk."""
+    B, S, H, D = q.shape
+    h = torch.zeros((B, S, H, D))
+    n_out, m_out = torch.zeros((B, H, D)), torch.zeros((B, H))
+    starts = {}
+    perm = list(np.random.default_rng(3).permutation(DEC_ROW_GROUPS))
+    for bb in range(B):
+        sb = bb if rows is None else int(rows[bb])
+        for hh in range(H):
+            qs, ks, vs = (t[bb, :, hh].float() for t in (q, k, v))
+            if S == 1:
+                h[bb, 0, hh], n_out[bb, hh], m_out[bb, hh] = mirror_decode(
+                    qs[0], ks[0], vs[0], li[bb, 0, hh], lf[bb, 0, hh],
+                    C[sb, hh], n[sb, hh], m[sb, hh], perm)
+                continue
+            nc = -(-S // KCHUNK)
+            gate, last, scores = zip(*[mirror_gate_pass(
+                qs, ks, li[bb, :, hh], lf[bb, :, hh], c) for c in range(nc)])
+            planes, n_starts, C1, n_out[bb, hh], m_out[bb, hh] = \
+                mirror_state_pass(ks, vs, gate, last, m[sb, hh], C[sb, hh],
+                                  n[sb, hh])
+            C[sb, hh] = C1
+            starts[bb, hh] = (planes, n_starts,
+                              m_chain(last, m[sb, hh])[:nc])
+            for c in reversed(range(nc)):
+                t0 = c * KCHUNK
+                h[bb, t0:t0 + KCHUNK, hh] = mirror_output_pass(
+                    qs, vs, gate, last, m[sb, hh], scores[c], planes,
+                    n_starts, c)
+    return (h, n_out, m_out), starts
+
+
+def _within_state_limits(got, want, name):
+    """The state's limits of chip_smoke.py: C and n 1e-5 + 1e-4 |ref|, m
+    1e-3 + 1e-5 |m|."""
+    lim = (1e-3 + 1e-5 * want.abs()) if name == "m" else \
+        (1e-5 + 1e-4 * want.abs())
+    assert bool(((got - want).abs() <= lim).all()), (name, float(
+        (got - want).abs().max()))
+
+
+def _carried_state(Bs, H, D):
+    C = _torch(RNG.normal(size=(Bs, H, D, D)) * 0.3)
+    n = _torch(np.abs(RNG.normal(size=(Bs, H, D))))
+    m = _torch(RNG.normal(size=(Bs, H)) * 2.0)
+    return C, n, m
+
+
+# (B, S, H, D, state, rows): ragged last chunks (150 = 64 + 64 + 22; 70),
+# a chunk shorter than one (37), decode (S 1) of permuted state rows of a
+# larger state, D 32, D 64 and D 96 (a 64-column tile and a 32-column one)
+MIRROR_CASES = [
+    (2, 150, 2, 64, "carried", None),
+    (2, 150, 2, 64, "fresh", None),
+    (3, 1, 2, 64, "carried", [4, 0, 2]),
+    (1, 37, 1, 32, "fresh", None),
+    (2, 70, 3, 96, "carried", [1, 0]),
+    (4, 1, 2, 96, "carried", [5, 3, 0, 1]),
+]
+
+
+@pytest.mark.parametrize("case", MIRROR_CASES)
+def test_kernel_design_mirror_matches_plain(case):
+    """The mirror of the decode kernel and of the three bf16 passes against
+    the plain version, on bf16 values: h within the split's error (1e-4
+    relative to the row's scale), the state within chip_smoke.py's state
+    limits, rows outside ``rows`` untouched."""
+    B, S, H, D, start, rows = case
+    Bs = B if rows is None else max(rows) + 1
+    bf = torch.bfloat16
+    q = _torch(RNG.normal(size=(B, S, H, D)), bf).float()
+    k = (_torch(RNG.normal(size=(B, S, H, D))) / math.sqrt(D)).to(bf).float()
+    v = _torch(RNG.normal(size=(B, S, H, D)), bf).float()
+    li = _torch(RNG.normal(size=(B, S, H)))
+    lf = torch.nn.functional.logsigmoid(
+        _torch(RNG.normal(size=(B, S, H)) + 3.0))
+    C, n, m = _fresh(Bs, H, D) if start == "fresh" else \
+        _carried_state(Bs, H, D)
+    rows_t = None if rows is None else torch.tensor(rows)
+    C_plain, C_mirror = C.clone(), C.clone()
+    want = MR.mlstm_chunkwise_ref(q, k, v, li, lf, C_plain, n, m, rows=rows_t)
+    got, starts = mirror_mlstm_chunkwise(q, k, v, li, lf, C_mirror, n, m,
+                                         rows=rows_t)
+    scale = want[0].abs().amax(-1, keepdim=True)
+    assert bool(((got[0] - want[0]).abs() <= 1e-4 * scale + 1e-6).all()), \
+        float((got[0] - want[0]).abs().max())
+    _within_state_limits(got[1], want[1], "n")
+    _within_state_limits(got[2], want[2], "m")
+    idx = list(range(B)) if rows is None else rows
+    _within_state_limits(C_mirror[idx], C_plain[idx], "C")
+    others = [r for r in range(Bs) if r not in idx]
+    assert torch.equal(C_mirror[others], C[others])
+    assert torch.equal(C_plain[others], C[others])
+    assert (S == 1) == (not starts)
+
+
+@pytest.mark.parametrize("case", [c for c in MIRROR_CASES if c[1] > 1])
+def test_state_pass_writes_each_chunks_starting_state(case):
+    """The gate pass's m chain and the state pass's chunk-start planes are
+    the plain version's state after the tokens before each chunk."""
+    B, S, H, D, start, rows = case
+    bf = torch.bfloat16
+    q, k, v = (_torch(RNG.normal(size=(1, S, H, D)), bf).float()
+               for _ in range(3))
+    k = k / 8
+    li = _torch(RNG.normal(size=(1, S, H)))
+    lf = torch.nn.functional.logsigmoid(
+        _torch(RNG.normal(size=(1, S, H)) + 3.0))
+    C, n, m = _fresh(1, H, D) if start == "fresh" else \
+        _carried_state(1, H, D)
+    _, starts = mirror_mlstm_chunkwise(q, k, v, li, lf, C.clone(), n, m,
+                                       rows=None)
+    for hh in range(H):
+        planes, n_starts, m_c = starts[0, hh]
+        for c in range(planes.shape[0]):
+            t0 = c * KCHUNK
+            Cp = C.clone()
+            if t0:
+                _, n_p, m_p = MR.mlstm_chunkwise_ref(
+                    q[:, :t0], k[:, :t0], v[:, :t0], li[:, :t0], lf[:, :t0],
+                    Cp, n, m)
+            else:
+                n_p, m_p = n, m
+            c_start = planes[c, 0].float() + planes[c, 1].float()
+            _within_state_limits(c_start, Cp[0, hh], "C")
+            _within_state_limits(n_starts[c], n_p[0, hh], "n")
+            _within_state_limits(m_c[c].reshape(1), m_p[0, hh].reshape(1), "m")
+
+
+def test_hi_lo_split_times_bf16_is_the_fp32_product():
+    """hi = bf16(x), lo = bf16(x - hi): hi*b + lo*b (both products exact in
+    fp32) is x*b within 2^-16 relative, the error the source states; bf16
+    alone is off by up to 2^-8."""
+    x = _torch(RNG.normal(size=4096) * np.exp(RNG.normal(size=4096) * 3))
+    b = _torch(RNG.normal(size=4096), torch.bfloat16).float()
+    hi, lo = _hi_lo(x)
+    want = x.double() * b.double()
+    got = hi.double() * b.double() + lo.double() * b.double()
+    rel = ((got - want).abs() / want.abs()).max()
+    assert float(rel) <= SPLIT_REL
+    assert float(((hi.double() * b.double() - want).abs()
+                  / want.abs()).max()) > 2.0 ** -10
+    # and through an fp32 accumulator, as the tensor cores sum
+    acc = (hi.float() * b + lo.float() * b)
+    assert float(((acc.double() - want).abs() / want.abs()).max()) <= \
+        SPLIT_REL + 2.0 ** -23
+
+
+def test_mirror_sizes_follow_the_source():
+    """The mirror's chunk, tile and decode-block sizes are the source's, and
+    the source states the split's error the mirror holds it to."""
+    import re
+    src = (build.CSRC / "mlstm_chunkwise.cu").read_text()
+
+    def const(name):
+        m = re.search(r"constexpr int " + name + r" = ([^;]+);", src)
+        assert m, name
+        return m.group(1).split("//")[0].strip()
+    assert int(const("kChunk")) == KCHUNK
+    assert int(const("kTile")) == KTILE
+    assert int(const("kDK")) == KDK          # the fp32 loop's stream tile
+    assert int(const("kDecCols")) == DEC_COLS
+    assert const("kDecRowGroups") == "kDecThreads / kDecGroups"
+    assert int(const("kDecThreads")) // (DEC_COLS // 4) == DEC_ROW_GROUPS
+    assert const("kDecGroups") == "kDecCols / 4"
+    assert "about 2^-16" in src
+
+
+# ---------------------------------------------------------------------------
+# torch mirror of the scalar chunk loop (csrc/mlstm_chunkwise.cu, path 3),
+# which fp32 chunks still take
+# ---------------------------------------------------------------------------
+KDK = 32     # the loop's head-dim stream tile
 
 
 def _mirror_tile(q, k, v, li, lf, C_tile, n_priv, m_priv):
@@ -255,7 +591,7 @@ def _mirror_tile(q, k, v, li, lf, C_tile, n_priv, m_priv):
     return h, n_priv, m_priv
 
 
-def mirror_mlstm_chunkwise(q, k, v, li, lf, C, n, m, *, rows, DV):
+def mirror_loop_kernel(q, k, v, li, lf, C, n, m, *, rows, DV):
     """The kernel's grid: a block per (b, h, value tile of DV columns),
     each with a private copy of its head's n and m; C's columns are
     updated in place, tile 0 alone writes the new n and m."""
@@ -286,17 +622,10 @@ def mirror_mlstm_chunkwise(q, k, v, li, lf, C, n, m, *, rows, DV):
     return h, n_out, m_out
 
 
-def _carried_state(Bs, H, D):
-    C = _torch(RNG.normal(size=(Bs, H, D, D)) * 0.3)
-    n = _torch(np.abs(RNG.normal(size=(Bs, H, D))))
-    m = _torch(RNG.normal(size=(Bs, H)) * 2.0)
-    return C, n, m
-
-
 # (B, S, H, D, DV, state, rows): a ragged last chunk (150 = 64 + 64 + 22),
 # decode (S 1), a chunk shorter than one, D of 1 and of 3 stream tiles,
 # value tiles of 8/16/32 columns, state rows of a larger state
-MIRROR_CASES = [
+LOOP_MIRROR_CASES = [
     (2, 150, 2, 64, 16, "carried", None),
     (2, 150, 2, 64, 32, "fresh", None),
     (3, 1, 2, 64, 32, "carried", [4, 0, 2]),
@@ -305,7 +634,7 @@ MIRROR_CASES = [
 ]
 
 
-@pytest.mark.parametrize("case", MIRROR_CASES)
+@pytest.mark.parametrize("case", LOOP_MIRROR_CASES)
 def test_kernel_loop_mirror_matches_plain(case):
     B, S, H, D, DV, start, rows = case
     Bs = B if rows is None else max(rows) + 1
@@ -320,8 +649,8 @@ def test_kernel_loop_mirror_matches_plain(case):
     rows_t = None if rows is None else torch.tensor(rows)
     C_plain, C_mirror = C.clone(), C.clone()
     want = MR.mlstm_chunkwise_ref(q, k, v, li, lf, C_plain, n, m, rows=rows_t)
-    got = mirror_mlstm_chunkwise(q, k, v, li, lf, C_mirror, n, m,
-                                 rows=rows_t, DV=DV)
+    got = mirror_loop_kernel(q, k, v, li, lf, C_mirror, n, m, rows=rows_t,
+                             DV=DV)
     for g, w in zip(got, want):
         np.testing.assert_allclose(_np(g), _np(w), atol=2e-5, rtol=2e-5)
     np.testing.assert_allclose(_np(C_mirror), _np(C_plain), atol=2e-5,
@@ -431,3 +760,24 @@ def test_wrapper_checks_operands():
         call(ops, rows=_OnCuda(torch.tensor([0, 1, 2])))
     with pytest.raises(ValueError, match="contiguous"):
         call(ops[:5] + [ops[5].transpose(2, 3)] + ops[6:])
+
+
+def test_variants_tool_cuts_apply_to_the_source():
+    """tools/mlstm_variants.py cuts the passes with -DMLSTM_CUT and the
+    scalar chunk loop (the fp32 chunks' path, and the bf16 path of sources
+    before the passes) by text substitutions: each anchor is in the loop
+    exactly once."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "tools" / "mlstm_variants.py"
+    spec = importlib.util.spec_from_file_location("mlstm_variants", path)
+    mv = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mv)
+    src = (build.CSRC / "mlstm_chunkwise.cu").read_text()
+    assert "#ifndef MLSTM_CUT" in src
+    assert mv.variant_source(src, "no loads") == (src, ["-DMLSTM_CUT=1"])
+    assert mv.variant_source(src, "no compute") == (src, ["-DMLSTM_CUT=2"])
+    loop = src[src.index("mlstm_chunkwise_kernel(const T*"):]
+    for cut in mv.LOOP_CUTS.values():
+        for old in cut:
+            assert src.count(old) == 1 and old in loop, old

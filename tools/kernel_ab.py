@@ -10,16 +10,18 @@ commit unpacked into ``build/``). Each run imports that checkout's
 ``chip_smoke.py`` (which puts its ``src/`` first on the path), builds its
 kernels and times a fixed set of its decode and prefill parity cases, its
 chunked-prefill cases (llama3.2-3b's and jamba's heads, and the short deep
-chunks that split-K cuts), its mLSTM chunkwise cases (the parity phase's
-xlstm-125m shapes), its split-pool decode and prefill cases and its Mamba
+chunks that split-K cuts), the mLSTM chunkwise cases of ``MLSTM_CASES``
+(the xlstm-125m shapes of the parity phase), its split-pool decode and
+prefill cases and its Mamba
 selective-scan cases (jamba's shapes) where it has those kernels (CUDA
 events; inputs from fixed seeds, the same in both checkouts). A checkout
 whose chunked kernel splits the keys also times each split case with one
 split (``splits_other``, ``ms_other``), and gives the chunked cases' device
 times (``device_ms``, ``device_ms_other``); so does one whose decode
 kernels split the keys for the decode cases. Every decode and split-pool
-decode case gives its device time on either checkout (``device_ms``,
-timed here where the checkout's case does not time it); a decode case
+decode case and every mLSTM case gives its device time on either
+checkout (``device_ms``, timed here where the checkout's case does not
+time it); a decode case
 that fails its check on a checkout is recorded with its ``error``. Prints
 one JSON line ``{"root": ..., "rows": [...]}``.
 """
@@ -43,6 +45,45 @@ def own_split_k_cases():
                 for t in node.targets):
             return ast.literal_eval(node.value)
     return []
+
+
+# (name, B, S, dtype, carried, D, state rows): the parity phase's mLSTM
+# cases, the same on either checkout
+MLSTM_CASES = [
+    ("B1 S2048 fresh bf16", 1, 2048, "bfloat16", False, 384, None),
+    ("B1 S1000 fresh bf16", 1, 1000, "bfloat16", False, 384, None),
+    ("B1 S37 carried bf16", 1, 37, "bfloat16", True, 384, None),
+    ("B1 S512 carried bf16", 1, 512, "bfloat16", True, 384, None),
+    ("B8 S1 decode carried bf16", 8, 1, "bfloat16", True, 384,
+     [3, 0, 7, 1, 6, 2, 9, 4]),
+    ("B4 S1 decode carried bf16", 4, 1, "bfloat16", True, 384, [5, 2, 0, 3]),
+    ("B1 S512 carried fp32", 1, 512, "float32", True, 384, None),
+    ("B4 S100 carried fp32 D32", 4, 100, "float32", True, 32, None),
+]
+
+
+def mlstm_device_ms(cs, cases, row, B, S, dtype, D, rows, iters=10):
+    """Give ``row`` (an mLSTM case just recorded by the checkout under
+    test) its device time, where the checkout's case did not: the same
+    shapes (inputs drawn anew) through that checkout's wrapper, timed from
+    a profiler trace."""
+    if "device_ms" in row:
+        return
+    torch = cases.torch
+    from repro_torch.kernels.mlstm_chunkwise.kernel import mlstm_chunkwise
+    H = cs.MLSTM_H
+    q, k, v = (cases.randn((B, S, H * D), dtype).view(B, S, H, D)
+               for _ in range(3))
+    gates = cases.randn((B, S, 2 * H), torch.float32)
+    Bs = B if rows is None else max(rows) + 1
+    C = torch.zeros((Bs, H, D, D), device="cuda")
+    n = torch.zeros((Bs, H, D), device="cuda")
+    m = torch.zeros((Bs, H), device="cuda")
+    rows_t = None if rows is None else torch.tensor(rows, device="cuda")
+    row["device_ms"] = cs.device_ms(torch, lambda: mlstm_chunkwise(
+        q, k / math.sqrt(D), v, gates[..., :H],
+        torch.nn.functional.logsigmoid(gates[..., H:] + 4.0), C, n, m,
+        rows=rows_t), iters)
 
 
 def decode_device_ms(cs, cases, row, B, lens, dtype, split=False, window=0,
@@ -133,8 +174,12 @@ def main(root: str) -> int:
         for name, Sq, off, lens, H, window, cap in own_split_k_cases():
             cs.chunked_case(cases, name, Sq, off, lens, bf, H=H,
                             window=window, softcap=cap)
-    if hasattr(cs, "mlstm_cases"):       # checkouts with the mLSTM kernel
-        cs.mlstm_cases(cases)
+    if hasattr(cs, "mlstm_case"):        # checkouts with the mLSTM kernel
+        for name, B, S, dn, carried, D, rows in MLSTM_CASES:
+            dtype = getattr(torch, dn)
+            cs.mlstm_case(cases, name, B, S, dtype, carried, D=D, rows=rows,
+                          iters=5 if S >= 1000 else 10)
+            mlstm_device_ms(cs, cases, cases.rows[-1], B, S, dtype, D, rows)
     if hasattr(cs, "split_cases"):       # checkouts with the split kernels
         cs.split_cases(cases, main_lens)
         for row in cases.rows:
