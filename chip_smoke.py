@@ -43,10 +43,15 @@ prints its seconds):
    The mLSTM chunkwise kernels at xlstm-125m shapes (4 heads, head_dim 384,
    bf16): fresh state at S 2048 and S 1000 (a ragged last chunk), carried
    states at S 37 and S 512, the decode of 8 of 10 and 4 of 6 state rows,
-   fp32, and the smoke config's head_dim 32; each with its device time. The Mamba selective scan at jamba's shapes
-   (d_inner 16384, d_state 16, bf16) in the same six cases, the last at
-   the smoke config's d_inner 128. Tolerance, at valid query positions,
-   elementwise: fp32 ``|got - want| <= 2e-5 + 2e-5 * |want|``; bf16
+   fp32, and the smoke config's head_dim 32; each with its device time.
+   The Mamba selective scan at jamba's shapes (d_inner 16384, d_state 16,
+   bf16): fresh chunks of 2048 and 1000 steps, a carried chunk of 37, the
+   decode of 8 of 10 state rows, fp32, and the smoke config's d_inner 128;
+   each with its device time, also with the L2 flushed, and whether its
+   new state equals the plain version's bit for bit (which a decode step
+   must: its kernel keeps expf; the chunk kernel's ex2 does not).
+   Tolerance, at valid query positions, elementwise: fp32
+   ``|got - want| <= 2e-5 + 2e-5 * |want|``; bf16
    ``|got - want| <= 2**-7 * |want| + 0.05 * rms(want)``, one bf16 rounding
    step of the element plus a twentieth of the RMS of its head's D-vector
    (the token's d_inner vector for the scan), so the limit follows bf16
@@ -95,7 +100,8 @@ prints its seconds):
    weights from a seed, bf16, the same requests over 8 slots; the selective
    scan must have launched 7 x (chunk + decode dispatches) and the
    chunked-prefill kernel 1 x the chunk dispatches. A second run repeats
-   it under ``torch.profiler``.
+   it under ``torch.profiler`` and prints #6's chunk and decode kernels'
+   device time in the trace apart.
 
 The traces are summarised in one pass over the profiler's raw events;
 each also lists the device time and count of every port kernel in it (the
@@ -816,7 +822,13 @@ def mamba_case(cs, name, B, S, dtype, carried, d=MAMBA_D, n=MAMBA_N,
     init_mamba draws them. From a zero state, or from the state a
     100-token prefix leaves (as in serving); ``rows`` maps batch rows to
     the rows of a larger state, as a slot decode does (the other rows must
-    not change)."""
+    not change). Timed with CUDA events around the wrapper calls (``ms``)
+    and as device time (``device_ms``), also with the L2 flushed before
+    each call (``device_ms_cold``). Whether the new h equals the plain
+    version's bit for bit is recorded (``h_bits_equal``); it must for a
+    decode step (S 1), whose kernel keeps the reference's rounding (expf,
+    no contraction). The chunk kernel takes ex2.approx of dt * (A log2 e),
+    so its h is held to the limit alone."""
     torch = cs.torch
     from repro_torch.kernels.mamba_scan.kernel import mamba_scan
     from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
@@ -847,12 +859,20 @@ def mamba_case(cs, name, B, S, dtype, carried, d=MAMBA_D, n=MAMBA_N,
     idx = list(range(B)) if rows is None else rows
     _, h_share = check(f"mamba {name}: h", h_got[idx], h_want[idx],
                        1e-5 + 1e-4 * h_want[idx].abs())
+    h_bits = bool(torch.equal(h_got[idx], h_want[idx]))
+    if S == 1 and not h_bits:
+        diff = float((h_got[idx] - h_want[idx]).abs().max())
+        raise AssertionError(f"mamba {name}: h is not bit-identical to the "
+                             f"plain version's (max |diff| {diff:.3e})")
     others = [r for r in range(Bs) if r not in idx]
     if not torch.equal(h_got[others], h[others]):
         raise AssertionError(f"mamba {name}: state rows outside the batch "
                              f"changed")
-    ms = cuda_ms(torch, lambda: mamba_scan(*args, A, Dp, h_got, rows=rows_t),
-                 iters)
+    def run():
+        return mamba_scan(*args, A, Dp, h_got, rows=rows_t)
+    ms = cuda_ms(torch, run, iters)
+    dev = device_ms(torch, run, iters)
+    cold = cold_device_ms(torch, run, iters, "mamba_scan")
     plain = cuda_ms(torch, lambda: mamba_scan_ref(*args, A, Dp, h_want,
                                                   rows=rows_t), 2, warmup=1)
     # bytes: x, dt, Bc, Cc and y once, A and D, the batch's h rows read and
@@ -865,8 +885,11 @@ def mamba_case(cs, name, B, S, dtype, carried, d=MAMBA_D, n=MAMBA_N,
     b_ms, b_by = bound(nbytes, B * S * d * (7 * n + 3), "float32")
     cs.record({"kernel": "mamba_scan", "case": name, "dtype": dn,
                "max_abs_err": err, "limit_share": share,
-               "h_limit_share": h_share, "ms": ms, "plain_ms": plain,
+               "h_limit_share": h_share, "h_bits_equal": h_bits, "ms": ms,
+               "device_ms": dev, "device_ms_cold": cold, "plain_ms": plain,
                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
+    print(f"    device {dev:.4f} ms, with the L2 flushed {cold:.4f} ms; h "
+          f"bit-identical: {h_bits}")
 
 
 def mamba_cases(cs):
@@ -1046,6 +1069,14 @@ def mlstm_counts(kernels):
     fn = kernels["mlstm_chunkwise"]
     return {"calls": fn.launches, "kernel_launches": fn.kernel_launches,
             "decode_calls": fn.decode_launches,
+            "chunk_calls": fn.launches - fn.decode_launches}
+
+
+def mamba_counts(kernels):
+    """#6's wrapper calls since the last reset: decode (S = 1, the decode
+    kernel) and chunk calls (the chunk kernel)."""
+    fn = kernels["mamba_scan"]
+    return {"calls": fn.launches, "decode_calls": fn.decode_launches,
             "chunk_calls": fn.launches - fn.decode_launches}
 
 
@@ -1273,6 +1304,8 @@ def slot_serving_phase(torch, cfg, params, kernels, expected,
                "traced": traced}
         if "mlstm_chunkwise" in expected:
             rec["mlstm"] = mlstm_counts(kernels)
+        if "mamba_scan" in expected:
+            rec["mamba"] = mamba_counts(kernels)
         same = ""
         if paged_streams is not None:
             n_same = sum(a == b for a, b in zip(toks, paged_streams))
@@ -1294,6 +1327,8 @@ def slot_serving_phase(torch, cfg, params, kernels, expected,
               f"memory {rec['peak_mem_gb']:.2f} GB{same}", flush=True)
         if "mlstm" in rec:
             print(f"  #7: {rec['mlstm']}")
+        if "mamba" in rec:
+            print(f"  #6: {rec['mamba']}")
         if traced:
             rec["trace"] = trace_summary(torch, prof, wall,
                                          names=(*kernels, "mlstm_"))
@@ -1306,6 +1341,24 @@ def slot_serving_phase(torch, cfg, params, kernels, expected,
                 print(f"  #7 in the trace: {rec['mlstm']['traced_kernels']} "
                       f"kernels, {rec['mlstm']['traced_ms']:.2f} ms (the "
                       f"wrapper counted {rec['mlstm']['kernel_launches']})")
+            if "mamba" in rec:
+                # #6's device time in the trace, by kernel: prompt chunks
+                # and decode steps
+                for part in ("chunk", "decode"):
+                    mk = [k for k in rec["trace"]["port_kernels"]
+                          if f"mamba_scan_{part}_kernel" in k["name"]]
+                    rec["mamba"][f"traced_{part}_kernels"] = sum(
+                        k["count"] for k in mk)
+                    rec["mamba"][f"traced_{part}_ms"] = sum(
+                        k["ms"] for k in mk)
+                m = rec["mamba"]
+                print(f"  #6 in the trace: chunk kernel "
+                      f"{m['traced_chunk_ms']:.2f} ms over "
+                      f"{m['traced_chunk_kernels']}, decode kernel "
+                      f"{m['traced_decode_ms']:.2f} ms over "
+                      f"{m['traced_decode_kernels']} (the wrapper counted "
+                      f"{m['chunk_calls']} chunk and {m['decode_calls']} "
+                      f"decode calls)")
         results.append(rec)
         del server, core, handles
         release(torch)
@@ -1598,6 +1651,9 @@ def main() -> int:
         rec["reduced"] = JAMBA_REDUCED
     serving += j_recs
     launches["mamba_scan"] = j_launches["mamba_scan"]
+    j_mamba = {**j_recs[0]["mamba"],
+               **{k: v for k, v in j_recs[1]["mamba"].items()
+                  if k.startswith("traced")}}
     by_path["mamba_scan"] = {"jamba slot": j_launches["mamba_scan"]}
     by_path["chunked_prefill_attention"]["jamba slot"] = \
         j_launches["chunked_prefill_attention"]
@@ -1667,6 +1723,16 @@ def main() -> int:
                         "plain_ms": dec["plain_ms"],
                         "bound_ms": dec["bound_ms"],
                         "bound_by": dec["bound_by"]})
+        if name == "mamba_scan":
+            # S 1 calls launch the decode kernel, chunks the chunk kernel
+            dec = next(r for r in rows if r["kernel"] == name and
+                       r["case"] == "B8 S1 decode carried bf16")
+            entry.update(
+                device_ms=row["device_ms"],
+                device_ms_cold=row["device_ms_cold"], **j_mamba,
+                decode={k: dec[k] for k in (
+                    "case", "ms", "device_ms", "device_ms_cold", "plain_ms",
+                    "bound_ms", "bound_by", "h_bits_equal")})
         kernels.append(entry)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -8,7 +8,10 @@ A tensor on the CPU goes to the plain PyTorch version (``ref.py``); a CUDA
 tensor goes to the kernel, or the wrapper raises. x, dt, Bc and Cc are
 read in place through their strides (unit last stride: Bc and Cc may be
 column slices of the x_proj output). The state ``h`` is updated in place at
-the state rows. Launches are counted in ``mamba_scan.launches``.
+the state rows. The kernel is picked by S: S = 1 (the engine's decode
+steps) launches the streaming decode kernel, S >= 2 (prompt chunks) the
+chunk kernel. Launches are counted in ``mamba_scan.launches``, the decode
+ones also in ``mamba_scan.decode_launches``.
 """
 from __future__ import annotations
 
@@ -83,7 +86,9 @@ def mamba_scan(x, dt, Bc, Cc, A, D, h, *, rows=None):
             B, S, d, A.shape[1], int(x.dtype == torch.bfloat16), stream)
     build.check("mamba_scan", code)
     mamba_scan.launches += 1
+    mamba_scan.decode_launches += int(S == 1)
     return y
 
 
 mamba_scan.launches = 0
+mamba_scan.decode_launches = 0

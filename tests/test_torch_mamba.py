@@ -4,12 +4,14 @@ against the JAX oracle ``mamba_scan_ref`` and the interpret-mode Pallas
 fp32, 5e-2 bf16); the port's ``mamba_mix`` against the JAX one over a
 sequence cut into chunks of 37, 1 and 90 tokens with the state carried
 across (fp32, 1e-5; outputs and both state leaves); the row subset a slot
-decode runs, the other rows bit-identical; and a torch mirror of the CUDA
-kernel's loop (channel blocks, time tiles staged with a ragged last tile,
-state in and out at the state rows, d_state below the register width)
-against the plain version. The CUDA kernel itself runs only on the GPU
-(``chip_smoke.py`` holds it against the plain version there)."""
+decode runs, the other rows bit-identical; and a torch mirror of the two
+CUDA kernels (lanes a channel with each lane's part of y summed in an xor
+tree, channel blocks, time tiles staged with a ragged last tile, the chunk
+kernel's exp2, the decode kernel's rows) against the plain version. The
+CUDA kernels themselves run only on the GPU (``chip_smoke.py`` holds them
+against the plain version there)."""
 import math
+import re
 
 import pytest
 
@@ -145,46 +147,91 @@ def test_softplus_matches_jax_at_large_arguments():
 # ---------------------------------------------------------------------------
 # torch mirror of csrc/mamba_scan.cu
 # ---------------------------------------------------------------------------
-def _cuda_loop_mirror(x, dt, Bc, Cc, A, D, h, rows, *, threads, tile):
-    """The CUDA kernel's loop, written out: blocks of ``threads`` channels of
-    one row (the last block ragged), the state of each (row, channel) held
-    from the first tile to the last, ``tile`` time steps staged at a time
-    (the last tile ragged), the update rounded product by product in the
-    plain version's order, y as a running multiply-add over the states."""
+# the source's shapes (tied to it by test_mirror_constants_are_the_sources)
+MAX_N, CHANNELS, TILE = 16, 64, 32      # kMaxN, kChannels, kTile
+CHUNK_LANES, DECODE_LANES = 2, 4        # MAMBA_LANES, kDecLanes
+LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
+
+
+def _by_lane(v, lanes):
+    """[c, n] -> [c, lanes, MAX_N // lanes]: state j of a channel in lane
+    j // P, slot j % P; states past n are zero."""
+    out = v.new_zeros((v.shape[0], MAX_N))
+    out[:, :v.shape[1]] = v
+    return out.view(v.shape[0], lanes, MAX_N // lanes)
+
+
+def _xor_tree(parts):
+    """Lane 0's sum of the lanes' parts [..., L] in the order of an xor
+    tree: at L 4, (p0 + p2) + (p1 + p3)."""
+    q = list(parts.unbind(-1))
+    o = len(q) // 2
+    while o:
+        q = [q[lane] + q[lane ^ o] for lane in range(len(q))]
+        o //= 2
+    return q[0]
+
+
+def _lane_step(hs, a, dtt, dtx, bv, cv, exp2):
+    """One step of every lane of a block's channels: hs, a [c, L, P]; dtt,
+    dtx [c]; bv, cv [L, P]. The update rounded product by product; each
+    lane's part of y summed over its states as a running multiply-add."""
+    v = dtt[:, None, None] * a
+    da = torch.exp2(v) if exp2 else torch.exp(v)
+    hs = da * hs + dtx[:, None, None] * bv
+    part = torch.zeros(hs.shape[:2])
+    for i in range(hs.shape[2]):
+        part = part + hs[..., i] * cv[:, i]
+    return hs, part
+
+
+def _cuda_mirror(x, dt, Bc, Cc, A, D, h, rows, *, lanes=CHUNK_LANES,
+                 channels=CHANNELS, tile=TILE, exp2=True):
+    """The two CUDA kernels, written out. S 1, the decode kernel: per
+    (batch row, channel) DECODE_LANES lanes of the state row rows[b], expf,
+    y = tree(parts) + D*x. S >= 2, the chunk kernel: blocks of ``channels``
+    channels of one row (the last ragged), ``lanes`` lanes a channel
+    holding their states from the first tile to the last, ``tile`` time
+    steps staged at a time (the last tile ragged; B and C zero-padded to
+    MAX_N), each lane's part of y kept a tile, then summed in the xor-tree
+    order and D*x added; the exponential 2^(dt * (A log2 e)) (``exp2``) or
+    exp(dt * A)."""
     B, S, d = x.shape
     n = A.shape[1]
+    if S == 1:
+        lanes, exp2 = DECODE_LANES, False
+    a_all = A * LOG2E if exp2 else A
     y = torch.empty((B, S, d), dtype=x.dtype)
     for b in range(B):
         r = b if rows is None else int(rows[b])
-        for c0 in range(0, d, threads):
-            ch = slice(c0, min(c0 + threads, d))
-            hs = h[r, ch].clone()                            # [c, n]
-            a = A[ch]
+        for c0 in range(0, d, channels):
+            ch = slice(c0, min(c0 + channels, d))
+            hs = _by_lane(h[r, ch], lanes)
+            a = _by_lane(a_all[ch], lanes)
             for t0 in range(0, S, tile):
                 nt = min(tile, S - t0)
-                x_s = x[b, t0:t0 + nt, ch].float()           # staged tile
+                x_s = x[b, t0:t0 + nt, ch].float()            # staged tile
                 dt_s = dt[b, t0:t0 + nt, ch]
-                b_s, c_s = Bc[b, t0:t0 + nt], Cc[b, t0:t0 + nt]
+                b_s = _by_lane(Bc[b, t0:t0 + nt], lanes)      # [nt, L, P]
+                c_s = _by_lane(Cc[b, t0:t0 + nt], lanes)
+                parts = []
                 for t in range(nt):
-                    dtx = dt_s[t] * x_s[t]
-                    acc = torch.zeros_like(dtx)
-                    for j in range(n):
-                        da = torch.exp(dt_s[t] * a[:, j])
-                        hs[:, j] = da * hs[:, j] + dtx * b_s[t, j]
-                        acc = acc + hs[:, j] * c_s[t, j]
-                    y[b, t0 + t, ch] = (acc + D[ch] * x_s[t]).to(x.dtype)
-            h[r, ch] = hs
+                    hs, part = _lane_step(hs, a, dt_s[t], dt_s[t] * x_s[t],
+                                          b_s[t], c_s[t], exp2)
+                    parts.append(part)
+                y[b, t0:t0 + nt, ch] = (_xor_tree(torch.stack(parts))
+                                        + D[ch] * x_s).to(x.dtype)
+            h[r, ch] = hs.reshape(hs.shape[0], MAX_N)[:, :n]
     return y
 
 
-@pytest.mark.parametrize("B,S,d,n,threads,tile,rows", [
-    (1, 37, 48, 16, 16, 8, None),         # ragged last tile
-    (2, 20, 40, 8, 16, 32, None),         # ragged channel block, n < 16
-    (3, 1, 24, 16, 16, 8, [4, 0, 2]),     # a decode of 3 of 5 state rows
-    (2, 9, 16, 4, 16, 4, [1, 0]),         # tiles of 4, rows swapped
-])
-def test_cuda_loop_mirror_matches_plain(B, S, d, n, threads, tile, rows):
-    rng = np.random.default_rng(B * 100 + S)
+def _check_mirror(B, S, d, n, rows, **kw):
+    """The mirror against the plain version on inputs as mamba_mix passes
+    them (x a bf16 column view, B and C column views of one fp32 tensor),
+    from a random state: h to 1e-6 (the same update; exp2 of the scaled A
+    or a CPU's vector exp moves it by a few ulps), y to bf16 rounding, the
+    state rows outside the batch untouched."""
+    rng = np.random.default_rng(B * 100 + S + 7 * n)
     Bs = B if rows is None else max(rows) + 2
     x = torch.from_numpy(rng.normal(size=(B, S, 2 * d)).astype(
         np.float32)).to(torch.bfloat16)[..., :d]
@@ -199,16 +246,109 @@ def test_cuda_loop_mirror_matches_plain(B, S, d, n, threads, tile, rows):
     rows_t = None if rows is None else torch.tensor(rows)
     h_want, h_got = h0.clone(), h0.clone()
     want = mamba_scan_ref(x, dt, Bc, Cc, A, D, h_want, rows=rows_t)
-    got = _cuda_loop_mirror(x, dt, Bc, Cc, A, D, h_got, rows_t,
-                            threads=threads, tile=tile)
-    # the state update is the same arithmetic in the same order (to an ulp:
-    # a CPU's exp may round an element in a vector's tail differently)
+    got = _cuda_mirror(x, dt, Bc, Cc, A, D, h_got, rows_t, **kw)
     np.testing.assert_allclose(h_got.numpy(), h_want.numpy(), rtol=1e-6,
                                atol=1e-7)
     np.testing.assert_allclose(_np(got), _np(want), rtol=2 ** -7, atol=1e-5)
+    others = [i for i in range(Bs) if rows is None or i not in rows]
     if rows is not None:
-        others = [i for i in range(Bs) if i not in rows]
         assert torch.equal(h_got[others], h0[others])
+    return got, h_got
+
+
+@pytest.mark.parametrize("B,S,d,n,channels,tile,rows", [
+    (1, 37, 48, 16, 16, 8, None),         # ragged last tile
+    (2, 20, 40, 8, 16, 32, None),         # ragged channel block, n < 16
+    (3, 1, 24, 16, 16, 8, [4, 0, 2]),     # a decode of 3 of 5 state rows
+    (2, 9, 16, 4, 16, 4, [1, 0]),         # tiles of 4, rows swapped
+])
+def test_cuda_loop_mirror_matches_plain(B, S, d, n, channels, tile, rows):
+    """The kernels' mirror (the source's lanes a channel) on the cases of
+    the first port's loop mirror."""
+    _check_mirror(B, S, d, n, rows, channels=channels, tile=tile)
+
+
+@pytest.mark.parametrize("B,S,d,n,lanes,channels,tile,rows,exp2", [
+    (1, 40, 48, 16, 2, 16, 8, None, True),     # L 2, ragged last tile
+    (1, 40, 48, 16, 4, 16, 8, None, True),     # L 4
+    (1, 40, 48, 16, 4, 16, 8, None, False),    # L 4, expf
+    (2, 19, 40, 6, 4, 16, 8, None, True),      # d_state 6: lane 1 partial
+    (1, 23, 24, 1, 2, 16, 8, None, True),      # d_state 1: one state
+    (3, 1, 40, 6, 2, 16, 8, [2, 4, 0], True),  # decode of 3 of 5, permuted
+    (2, 32, 40, 16, 2, 16, 32, None, True),    # a chunk of exactly T steps
+    (1, 70, 72, 16, CHUNK_LANES, CHANNELS, TILE, [1], True),  # the source's
+])
+def test_cuda_mirror_lanes_matches_plain(B, S, d, n, lanes, channels, tile,
+                                         rows, exp2):
+    """The mirror at both lane counts, both exponentials, partial lanes,
+    a permuted decode and whole tiles, against the plain version."""
+    _check_mirror(B, S, d, n, rows, lanes=lanes, channels=channels,
+                  tile=tile, exp2=exp2)
+
+
+def test_mirror_lanes_and_tiles_change_only_y_order():
+    """L 2 and L 4, and tiles of 8 and 32, walk the same recurrence: the
+    states agree to the last bit, y only to its summation order."""
+    (y2, h2), (y4, h4) = (_check_mirror(1, 37, 24, 16, None, lanes=lanes,
+                                        tile=tile)
+                          for lanes, tile in ((2, 8), (4, 32)))
+    assert torch.equal(h2, h4)
+    np.testing.assert_allclose(_np(y2), _np(y4), rtol=2 ** -7, atol=1e-5)
+
+
+def test_xor_tree_order():
+    """Lane 0's sum at L 4 is (p0 + p2) + (p1 + p3), at L 2 p0 + p1: with
+    parts whose fp32 sum depends on the order, the tree gives that order's
+    (2), not a running sum's (0)."""
+    p = torch.tensor([1.0, 1e8, 1.0, -1e8])
+    assert float(_xor_tree(p)) == float((p[0] + p[2]) + (p[1] + p[3])) == 2
+    assert float(((p[0] + p[1]) + p[2]) + p[3]) == 0
+    assert float(_xor_tree(p[:2])) == float(p[0] + p[1])
+
+
+def _source_define(src, name):
+    m = re.search(r"#define " + name + r" (\d+)", src)
+    return int(m.group(1))
+
+
+def test_mirror_constants_are_the_sources():
+    """The mirror's shapes are csrc/mamba_scan.cu's: states, channels a
+    block, steps a tile, lanes of each kernel, and the chunk kernel's
+    default exponential (exp2); the wrapper's MAX_N is the kernel's."""
+    src = (build.CSRC / "mamba_scan.cu").read_text()
+    for name, want in (("kMaxN", MAX_N), ("kChannels", CHANNELS),
+                       ("kTile", TILE), ("kDecLanes", DECODE_LANES)):
+        m = re.search(r"constexpr int " + name + r" = (\d+);", src)
+        assert m and int(m.group(1)) == want, name
+    assert _source_define(src, "MAMBA_LANES") == CHUNK_LANES
+    assert _source_define(src, "MAMBA_EXP2") == 1
+    assert MK.MAX_N == MAX_N
+
+
+def _variants_tool():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "tools" / "mamba_variants.py"
+    spec = importlib.util.spec_from_file_location("mamba_variants", path)
+    mv = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mv)
+    return mv
+
+
+def test_variants_tool_switches_are_in_the_source():
+    """tools/mamba_variants.py builds its variants with -D switches: each
+    switch it sets has a default in the source, so every variant is built
+    from this source; an older source without them gives the source
+    alone."""
+    mv = _variants_tool()
+    src = (build.CSRC / "mamba_scan.cu").read_text()
+    assert mv.variants_of(src) == mv.VARIANTS
+    for _, flags, _ in mv.VARIANTS:
+        for flag in flags:
+            name = flag[2:].split("=")[0]
+            assert f"#ifndef {name}\n#define {name} " in src, flag
+    assert [v[0] for v in mv.variants_of("one thread a channel")] == \
+        ["source"]
 
 
 # ---------------------------------------------------------------------------

@@ -12,16 +12,18 @@ kernels and times a fixed set of its decode and prefill parity cases, its
 chunked-prefill cases (llama3.2-3b's and jamba's heads, and the short deep
 chunks that split-K cuts), the mLSTM chunkwise cases of ``MLSTM_CASES``
 (the xlstm-125m shapes of the parity phase), its split-pool decode and
-prefill cases and its Mamba
-selective-scan cases (jamba's shapes) where it has those kernels (CUDA
-events; inputs from fixed seeds, the same in both checkouts). A checkout
+prefill cases and the Mamba
+selective-scan cases of ``MAMBA_CASES`` (jamba's shapes, and the smoke
+config's d_inner 128) where it has those kernels (CUDA events; inputs from
+fixed seeds, the same in both checkouts). A checkout
 whose chunked kernel splits the keys also times each split case with one
 split (``splits_other``, ``ms_other``), and gives the chunked cases' device
 times (``device_ms``, ``device_ms_other``); so does one whose decode
 kernels split the keys for the decode cases. Every decode and split-pool
-decode case and every mLSTM case gives its device time on either
-checkout (``device_ms``, timed here where the checkout's case does not
-time it); a decode case
+decode case and every mLSTM and Mamba case gives its device time on
+either checkout (``device_ms``, timed here where the checkout's case does
+not time it; the Mamba cases also with the L2 flushed, ``device_ms_cold``);
+a decode case
 that fails its check on a checkout is recorded with its ``error``. Prints
 one JSON line ``{"root": ..., "rows": [...]}``.
 """
@@ -84,6 +86,48 @@ def mlstm_device_ms(cs, cases, row, B, S, dtype, D, rows, iters=10):
         q, k / math.sqrt(D), v, gates[..., :H],
         torch.nn.functional.logsigmoid(gates[..., H:] + 4.0), C, n, m,
         rows=rows_t), iters)
+
+
+# (name, B, S, dtype, carried, d_inner, state rows): the parity phase's
+# Mamba cases, the same on either checkout
+MAMBA_CASES = [
+    ("B1 S2048 fresh bf16", 1, 2048, "bfloat16", False, 16384, None),
+    ("B1 S1000 fresh bf16", 1, 1000, "bfloat16", False, 16384, None),
+    ("B1 S37 carried bf16", 1, 37, "bfloat16", True, 16384, None),
+    ("B8 S1 decode carried bf16", 8, 1, "bfloat16", True, 16384,
+     [3, 0, 7, 1, 6, 2, 9, 4]),
+    ("B1 S512 carried fp32", 1, 512, "float32", True, 16384, None),
+    ("B4 S100 carried fp32 d128", 4, 100, "float32", True, 128, None),
+]
+
+
+def mamba_device_ms(cs, cases, row, B, S, dtype, d, rows, iters=10):
+    """Give ``row`` (a Mamba case just recorded by the checkout under test)
+    its device time, and with the L2 flushed before each call, where the
+    checkout's case did not: the same shapes (inputs drawn anew, a state
+    of ones) through that checkout's wrapper, timed from profiler
+    traces."""
+    if "device_ms" in row:
+        return
+    torch = cases.torch
+    from repro_torch.kernels.mamba_scan.kernel import mamba_scan
+    n = cs.MAMBA_N
+    x = cases.randn((B, S, 2 * d), dtype)[..., :d]
+    dt = torch.rand((B, S, d), generator=cases.gen, device="cuda") * 0.1
+    dbc = cases.randn((B, S, 32 + 2 * n), torch.float32)
+    A = -torch.arange(1, n + 1, dtype=torch.float32,
+                      device="cuda").expand(d, n).contiguous()
+    Dp = torch.ones((d,), device="cuda")
+    Bs = B if rows is None else max(rows) + 1
+    h = torch.ones((Bs, d, n), device="cuda")
+    rows_t = None if rows is None else torch.tensor(rows, device="cuda")
+
+    def run():
+        return mamba_scan(x, dt, dbc[..., 32:32 + n], dbc[..., 32 + n:], A,
+                          Dp, h, rows=rows_t)
+    row["device_ms"] = cs.device_ms(torch, run, iters)
+    row["device_ms_cold"] = cs.cold_device_ms(torch, run, iters,
+                                              "mamba_scan")
 
 
 def decode_device_ms(cs, cases, row, B, lens, dtype, split=False, window=0,
@@ -187,10 +231,15 @@ def main(root: str) -> int:
                     "B8 serving-like ctx bf16":
                 decode_device_ms(cs, cases, row, 8, main_lens, bf,
                                  split=True)
-    if hasattr(cs, "mamba_cases"):       # checkouts with the Mamba scan
-        cs.mamba_cases(cases)
+    if hasattr(cs, "mamba_case"):        # checkouts with the Mamba scan
+        for name, B, S, dn, carried, d, rows in MAMBA_CASES:
+            dtype = getattr(torch, dn)
+            cs.mamba_case(cases, name, B, S, dtype, carried, d=d, rows=rows,
+                          iters=5 if S >= 1000 else (20 if S == 1 else 10))
+            mamba_device_ms(cs, cases, cases.rows[-1], B, S, dtype, d, rows)
     rows = [{k: r[k] for k in ("kernel", "case", "ms", "limit_share",
                                "error", "splits", "device_ms",
+                               "device_ms_cold", "h_bits_equal",
                                "splits_other", "ms_other", "device_ms_other")
              if k in r}
             for r in cases.rows]
