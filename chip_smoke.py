@@ -12,10 +12,11 @@ prints its seconds):
    library per source (five), all nvcc processes at once, and prints each
    kernel's registers and spills (ptxas), and the registers, spills,
    dynamic shared memory and resident blocks per SM of the bf16
-   tensor-core prefill kernels at head_dim 64, 128 and 256 (the runtime's
-   report) with their rows and key tile (the library's); the wrappers'
-   bf16 check must refuse more query heads per kv head than rows, and a
-   head_dim without a kernel.
+   tensor-core prefill kernels at head_dim 64, 128 and 256, and of #5 at
+   deepseek-v3's MLA pair (keys 192, values 128) (the runtime's report)
+   with their rows and key tile (the library's); the wrappers' bf16 check
+   must refuse more query heads per kv head than rows, and a head_dim or a
+   (head_dim, value width) pair without a kernel.
 3. kernel parity: the seven CUDA kernels against their plain PyTorch
    versions on the same inputs. The attention kernels at llama3.2-3b
    shapes (bf16, 24 query heads, 8 kv heads, head_dim 128; page size 16 for
@@ -26,7 +27,12 @@ prints its seconds):
    per-row lengths); the chunked-prefill kernel also at jamba's attention
    shapes (64 query heads over 8 kv heads), the paged prefill kernel at
    G 8, and both at gemma2-2b's (8 query heads over 4 kv heads, head_dim
-   256, window 4096, softcap 50). The decode kernels split each row's
+   256, window 4096, softcap 50, contexts past the window); the
+   chunked-prefill kernel also at deepseek-v3's MLA shapes (128 heads, G
+   1, keys 192 and values 128 read in place from the expanded rows: Sq 512
+   at offset 3584 of a 4096 row, also split three ways, and Sq 100 at
+   offset 2000; in fp32 the smoke config's keys 24 and values 16). The
+   decode kernels split each row's
    pages (split-K, merged in the same launch): each decode case prints its
    split count and its time from CUDA events and from a profiler trace, a
    case whose plan splits is also checked and timed at one split and
@@ -70,8 +76,10 @@ prints its seconds):
 4. end to end on a small input: the smoke llama3.2-3b engine (fp32) on the
    GPU gives the same greedy tokens as on the CPU (plain versions), in
    paged and in slot mode, and slot mode gives the paged tokens; so do the
-   smoke xlstm-125m and jamba slot engines, and the smoke qwen2-moe-a2.7b
-   engine (MoE FFN) in both modes.
+   smoke xlstm-125m and jamba slot engines, the smoke qwen2-moe-a2.7b
+   engine (MoE FFN) in both modes, gemma2-2b (paged and slot) and
+   gemma2-27b (paged) with the window cut to 16 tokens so that it masks
+   keys, qwen3-1.7b (paged) and deepseek-v3-671b (MLA, slot).
 5. full-width paged serving: llama3.2-3b (28 layers, d_model 3072, random
    weights from a seed, bf16) through ``InferenceServer(EngineCore(...))``
    with a 65536-token KV pool, 8 requests, once with ``spec_k=0`` and once
@@ -102,6 +110,18 @@ prints its seconds):
    chunked-prefill kernel 1 x the chunk dispatches. A second run repeats
    it under ``torch.profiler`` and prints #6's chunk and decode kernels'
    device time in the trace apart.
+9. full-width gemma2-2b paged serving (26 layers, d_model 2304, every
+   published width, bf16), 8 requests of which 4 have prompts of 4097-6144
+   tokens, past the local layers' 4096-key window, at spec_k 0 and 4 and
+   a traced repeat, checked as phase 5.
+10. full-width qwen3-1.7b paged serving (28 layers, per-head q/k norm,
+   nothing cut), phase 5's requests at spec_k 0 and a traced repeat.
+11. full-width deepseek-v3-671b slot serving, cut in depth to 4 layers
+   (``deepseek_cut``: the 3 first_k_dense layers and 1 MoE layer of 256
+   experts, every published width; 15.1 B parameters), the same requests
+   over 8 slots of 4096; #5 must have launched 4 x the chunk dispatches
+   (one per MLA layer), its split-K combine launches are printed, and a
+   second run repeats it under ``torch.profiler``.
 
 The traces are summarised in one pass over the profiler's raw events;
 each also lists the device time and count of every port kernel in it (the
@@ -605,10 +625,13 @@ SLOT_LEN = 4096      # the slot row of the full-width slot phase (max_len)
 
 def chunked_case(cs, name, Sq, q_offset, lengths, dtype, causal=True,
                  window=0, softcap=0.0, H=24, Hkv=8, D=128, Sk=SLOT_LEN,
-                 iters=10, other_splits=None):
+                 iters=10, other_splits=None, Dv=None, scale=None):
     """q as the model passes it (a [B, H, Sq, D] view of the kv-major
     [B, Sq, H, D] projections) over k/v as the slot engine passes them
-    (views of a [B, Sk, Hkv, D] slot cache). A bf16 case whose plan splits
+    (views of a [B, Sk, Hkv, D] slot cache). With ``Dv`` (MLA) the values
+    are Dv wide and, as ``mla_block`` passes them, the second half of each
+    head's [B, Sk, H, 2 * Dv] expanded row, read in place; ``scale``
+    defaults to D**-0.5. A bf16 case whose plan splits
     the keys is also checked and timed with one split, and one that the
     plan keeps whole with ``other_splits`` splits when given
     (``fixed_splits``); each timing with CUDA events around the wrapper
@@ -622,12 +645,19 @@ def chunked_case(cs, name, Sq, q_offset, lengths, dtype, causal=True,
     dn = str(dtype).split(".")[-1]
     B, G = len(lengths), H // Hkv
     q = cs.randn((B, Sq, H, D), dtype).permute(0, 2, 1, 3)
-    cache = cs.randn((2, B, Sk, Hkv, D), dtype)
-    k, v = cache[0].permute(0, 2, 1, 3), cache[1].permute(0, 2, 1, 3)
+    if Dv is None:
+        Dv = D
+        cache = cs.randn((2, B, Sk, Hkv, D), dtype)
+        k, v = cache[0].permute(0, 2, 1, 3), cache[1].permute(0, 2, 1, 3)
+    else:
+        k = cs.randn((B, Sk, Hkv, D), dtype).permute(0, 2, 1, 3)
+        v = cs.randn((B, Sk, Hkv, 2 * Dv), dtype)[..., Dv:].permute(
+            0, 2, 1, 3)
     lens_t = torch.tensor(lengths, dtype=torch.int32, device=DEVICE)
-    kw = dict(scale=D ** -0.5, q_offset=q_offset, causal=causal,
+    scale = D ** -0.5 if scale is None else scale
+    kw = dict(scale=scale, q_offset=q_offset, causal=causal,
               window=window, softcap=softcap)
-    splits = planned_splits(q, k, q_offset=q_offset, causal=causal,
+    splits = planned_splits(q, k, v, q_offset=q_offset, causal=causal,
                             window=window)
     got = chunked_prefill_attention(q, k, v, lens_t, **kw)
     want = chunked_prefill_attention_ref(q, k, v, lens_t, **kw)
@@ -642,7 +672,7 @@ def chunked_case(cs, name, Sq, q_offset, lengths, dtype, causal=True,
         vis = vis & (kp <= qp)
     if window > 0:
         vis = vis & (qp - kp < window)
-    valid = vis.any(-1)[:, None, :, None].expand(B, H, Sq, D)
+    valid = vis.any(-1)[:, None, :, None].expand(B, H, Sq, Dv)
     err, share = check(f"chunked {name}", got, want, vec_limit(want, dn),
                        valid)
     def run():
@@ -664,20 +694,26 @@ def chunked_case(cs, name, Sq, q_offset, lengths, dtype, causal=True,
     vr = v.repeat_interleave(G, dim=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     mask = vis[:, None]
-    lib = round(cuda_ms(torch, lambda: sdpa(
-        q, kr, vr, attn_mask=mask, scale=D ** -0.5), iters), 5)
+    try:     # a value width of its own (Ev != E) where the library takes it
+        lib = round(cuda_ms(torch, lambda: sdpa(
+            q, kr, vr, attn_mask=mask, scale=scale), iters), 5)
+    except RuntimeError as e:
+        print(f"    scaled_dot_product_attention refused the case: {e}")
+        lib = None
     del kr, vr
-    # bytes: q and out once, each row's attended key range once per kv head
+    # bytes: q and out once, each row's attended key range once per kv
+    # head; flops: Q.K^T and P.V over the (query, key) pairs the masks leave
     elt = q.element_size()
     counts = vis.sum(-1)                                    # [B, Sq]
     span = [int(x) for x in vis.any(1).sum(-1).tolist()]    # keys per row
-    nbytes = 2 * q.numel() * elt + sum(span) * Hkv * 2 * D * elt + B * 4
-    flops = 4 * D * H * int(counts.sum())
+    nbytes = (q.numel() * (D + Dv) // D * elt
+              + sum(span) * Hkv * (D + Dv) * elt + B * 4)
+    flops = 2 * (D + Dv) * H * int(counts.sum())
     b_ms, b_by = bound(nbytes, flops, dn)
     cs.record({"kernel": "chunked_prefill_attention", "case": name,
                "dtype": dn, "max_abs_err": err, "limit_share": share,
                "ms": ms, "plain_ms": plain, "library_ms": lib,
-               "bound_ms": b_ms, "bound_by": b_by,
+               "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
                "keys_attended": sum(span), "splits": splits,
                "device_ms": dev, **other})
     if other:
@@ -701,6 +737,27 @@ def split_k_cases(cs):
     for name, Sq, off, lens, H, window, cap in SPLIT_K_CASES:
         chunked_case(cs, name, Sq, off, lens, cs.torch.bfloat16, H=H,
                      window=window, softcap=cap)
+
+
+MLA_CASE = "deepseek-v3 MLA H128 Sq512 off3584 Dqk192 Dv128 bf16"
+
+
+def mla_cases(cs):
+    """#5 at deepseek-v3's MLA shapes as ``mla_block`` passes them: 128
+    heads, G 1, keys [k_nope | k_rope] of 192, values of 128 read in place
+    from the expanded [k_nope | v] rows, scale 1/sqrt(192); a 512-token
+    chunk at offset 3584 of a 4096 row (its 1024 blocks fill the card, so
+    it is also checked and timed split three ways), a 100-token chunk
+    carried at offset 2000, and the smoke config's (24, 16) in fp32."""
+    torch = cs.torch
+    bf = torch.bfloat16
+    mla = dict(H=128, Hkv=128, D=192, Dv=128, scale=192 ** -0.5)
+    chunked_case(cs, MLA_CASE, 512, 3584, [4096], bf, other_splits=3, **mla)
+    chunked_case(cs, "deepseek-v3 MLA H128 Sq100 off2000 carried Dqk192 "
+                 "Dv128 bf16", 100, 2000, [2100], bf, **mla)
+    chunked_case(cs, "deepseek-v3 smoke MLA H4 Sq37 off50 Dqk24 Dv16 fp32",
+                 37, 50, [87], torch.float32, H=4, Hkv=4, D=24, Dv=16,
+                 Sk=256, scale=24 ** -0.5)
 
 
 MLSTM_H, MLSTM_D = 4, 384     # xlstm-125m: 4 heads of 1536 / 4
@@ -938,6 +995,11 @@ def kernel_phase(torch):
     decode_case(cs, "gemma2-2b B2 D256 window4096 softcap50 bf16", 2,
                 [6000, 300], bf, G=2, Hkv=4, D=256, window=4096,
                 softcap=50.0)
+    # gemma2-2b's serving batch: half the rows past the 4096-key window
+    decode_case(cs, "gemma2-2b B8 ctx 4097-6144 D256 window4096 softcap50 "
+                "bf16", 8, [int(x) for x in rng.integers(4097, 6145, 4)]
+                + [int(x) for x in rng.integers(128, 2049, 4)], bf, G=2,
+                Hkv=4, D=256, window=4096, softcap=50.0)
     for R in (1, 4):
         for Sq in (16, 128, 512, 2048):
             if R == 1:
@@ -961,6 +1023,10 @@ def kernel_phase(torch):
     prefill_case(cs, "gemma2-2b R2 Sq512 D256 window4096 softcap50 bf16",
                  [4000, 100], [4512, 612], 512, bf, window=4096,
                  softcap=50.0, G=2, Hkv=4, D=256, partial_split=True)
+    prefill_case(cs, "gemma2-2b R4 Sq256 ctx<=6144 D256 window4096 "
+                 "softcap50 bf16", [5888, 4200, 0, 1000],
+                 [6144, 4456, 256, 1200], 256, bf, window=4096, softcap=50.0,
+                 G=2, Hkv=4, D=256)
     # chunked prefill over one 4096-token slot row: the engine passes
     # lengths = q_offset + Sq
     for Sq in (16, 128, 512, 2048):
@@ -989,6 +1055,7 @@ def kernel_phase(torch):
     chunked_case(cs, "gemma2-2b H8 Sq512 off4000 window4096 softcap50 bf16",
                  512, 4000, [4512], bf, window=4096, softcap=50.0, H=8,
                  Hkv=4, D=256, Sk=8192)
+    mla_cases(cs)
     split_k_cases(cs)
     mlstm_cases(cs)
     split_cases(cs, main)
@@ -996,10 +1063,14 @@ def kernel_phase(torch):
     return cs.rows
 
 
-def smoke_engine_phase(torch, arch="llama3.2-3b", modes=("paged", "slot")):
+def smoke_engine_phase(torch, arch="llama3.2-3b", modes=("paged", "slot"),
+                       window=None):
     """The smoke engine of ``arch`` on the GPU (CUDA kernels, fp32) and on
     the CPU (plain versions) on the same weights: same greedy tokens, in
-    each cache mode of ``modes``; with both, slot gives paged's tokens."""
+    each cache mode of ``modes``; with both, slot gives paged's tokens.
+    ``window`` replaces the config's sliding window (the smoke config keeps
+    gemma2's 4096, which its prompts never reach)."""
+    import dataclasses
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import SlidingServeScheduler
@@ -1007,6 +1078,8 @@ def smoke_engine_phase(torch, arch="llama3.2-3b", modes=("paged", "slot")):
     from repro_torch.serving.engine import EngineCore
     from repro_torch.serving.request import Request
     cfg = get_config(arch).smoke()
+    if window is not None:
+        cfg = dataclasses.replace(cfg, sliding_window=window)
     cpu_params = init_params(cfg, seed=0, device="cpu")
 
     def to(tree, dev):
@@ -1041,8 +1114,9 @@ def smoke_engine_phase(torch, arch="llama3.2-3b", modes=("paged", "slot")):
             raise AssertionError(f"smoke {mode} engine GPU vs CPU tokens "
                                  f"differ: {outs[mode, DEVICE]} vs "
                                  f"{outs[mode, 'cpu']}")
-        print(f"  smoke {arch} {mode} engine: GPU tokens == CPU tokens for "
-              f"{len(spec)} requests "
+        print(f"  smoke {arch} {mode} engine"
+              f"{f' (window {window})' if window is not None else ''}: GPU "
+              f"tokens == CPU tokens for {len(spec)} requests "
               f"({sum(len(v) for v in outs[mode, DEVICE].values())} tokens)")
     if len(modes) > 1 and outs["slot", DEVICE] != outs["paged", DEVICE]:
         raise AssertionError(f"smoke engine slot vs paged tokens differ: "
@@ -1114,17 +1188,41 @@ def serving_workload(cfg):
     return prompts, outputs
 
 
-def serving_phase(torch, params, kernels):
-    """Full-width llama3.2-3b through the streaming server over the paged
-    cache, spec_k 0 and 4. Returns the path's launch counts, the records
-    and the spec_k 0 token streams."""
+def long_workload(cfg):
+    """gemma2-2b's full-width requests: 8 prompts, 4 of 4097-6144 tokens
+    (past the local layers' 4096-key window, in prefill and decode) and 4
+    of 128-2048, with 16-64 output tokens, all submitted at once."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    prompt_lens = ([int(x) for x in rng.integers(4097, 6145, 4)]
+                   + [int(x) for x in rng.integers(128, 2049, 4)])
+    outputs = [int(x) for x in rng.integers(16, 65, 8)]
+    prompts = [rng.integers(0, cfg.vocab_size, p).astype(np.int32)
+               for p in prompt_lens]
+    return prompts, outputs
+
+
+# (spec_k, traced) of the paged serving runs; a traced run repeats an
+# untraced one under torch.profiler, for the host/device breakdown (its
+# wall time includes the tracing cost)
+PAGED_RUNS = ((0, False), (4, False), (0, True))
+
+
+def serving_phase(torch, params, kernels, cfg=None, workload=None,
+                  runs=PAGED_RUNS):
+    """Full-width ``cfg`` (llama3.2-3b by default) through the streaming
+    server over the paged cache, one run per (spec_k, traced) of ``runs``,
+    on ``workload``'s requests (``serving_workload``'s by default). The
+    counters are set to 0 just before the first run and read just after
+    the last. Returns the path's launch counts, the records and the first
+    spec_k 0 token streams."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import SlidingServeScheduler
     from repro_torch.serving.engine import EngineCore
     from repro_torch.serving.server import InferenceServer
-    cfg = get_config("llama3.2-3b")
-    prompts, outputs = serving_workload(cfg)
+    cfg = cfg or get_config("llama3.2-3b")
+    prompts, outputs = (workload or serving_workload)(cfg)
     prompt_lens = [len(p) for p in prompts]
     layers = cfg.num_layers
     pa_fn = kernels["paged_attention_fused"]
@@ -1132,9 +1230,7 @@ def serving_phase(torch, params, kernels):
     reset_counts(kernels)
     results = []
     streams = None
-    # the third run repeats the first under torch.profiler, for the
-    # host/device breakdown (its wall time includes the tracing cost)
-    for spec_k, traced in ((0, False), (4, False), (0, True)):
+    for spec_k, traced in runs:
         pa0 = pa_fn.launches
         ppa0 = ppa_fn.launches
         core = EngineCore(cfg, SlidingServeScheduler(max_budget=512,
@@ -1186,7 +1282,7 @@ def serving_phase(torch, params, kernels):
         n_out = sum(outputs)
         n_in = sum(prompt_lens)
         ttft = [h.first_token_t - h.request.arrival for h in handles]
-        rec = {"cache_mode": "paged", "spec_k": spec_k,
+        rec = {"arch": cfg.name, "cache_mode": "paged", "spec_k": spec_k,
                "requests": len(handles),
                "prompt_tokens": n_in, "output_tokens": n_out,
                "wall_s": wall, "output_tok_per_s": n_out / wall,
@@ -1198,6 +1294,7 @@ def serving_phase(torch, params, kernels):
                "decode_calls": st.decode_calls,
                "prefill_calls": st.prefill_calls,
                "spec_calls": st.spec_calls,
+               "prompt_lens": prompt_lens,
                "max_round_calls": st.max_round_calls,
                "token_readbacks": st.token_readbacks,
                "sync_s": st.sync_s, "dispatch_s": st.dispatch_s,
@@ -1209,8 +1306,8 @@ def serving_phase(torch, params, kernels):
         if traced:
             rec["trace"] = trace_summary(torch, prof, wall, names=kernels)
         results.append(rec)
-        print(f"  serve spec_k={spec_k}{' traced' if traced else ''}: "
-              f"{len(handles)} requests, "
+        print(f"  serve {cfg.name} spec_k={spec_k}"
+              f"{' traced' if traced else ''}: {len(handles)} requests, "
               f"{n_in} prompt + {n_out} output tokens in {wall:.3f}s: "
               f"{rec['output_tok_per_s']:.1f} output tok/s, "
               f"{rec['total_tok_per_s']:.1f} total tok/s, "
@@ -1513,6 +1610,27 @@ JAMBA_REDUCED = [
 ]
 
 
+def deepseek_cut():
+    """deepseek-v3-671b at every published width (d_model 7168, 128 heads,
+    MLA q_lora 1536 / kv_lora 512 / qk_nope 128 / qk_rope 64 / v 128, dense
+    d_ff 18432, 256 routed experts top-8 of width 2048 plus one shared,
+    vocab 129280, untied head), cut in depth to 4 layers: the three
+    first_k_dense layers and one MoE layer. One MoE layer holds 11.3 B
+    parameters (256 x 3 x 7168 x 2048); the cut holds 15.1 B (30.2 GB in
+    bf16), the published 61 layers 671 B."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("deepseek-v3-671b"), num_layers=4)
+
+
+DEEPSEEK_REDUCED = [
+    "num_layers 61 -> 4 (the 3 first_k_dense layers and 1 MoE layer; every "
+    "published width kept)",
+    "MoE layers 58 -> 1",
+    "the MTP module is not drawn (only the training loss reads it)",
+]
+
+
 def count_mixers(cfg, kind):
     from repro_torch.models.model import build_stacks
     return sum(reps * [m for m, _ in period].count(kind)
@@ -1531,7 +1649,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import ATTN, MAMBA, MLSTM
+    from repro_torch.configs.base import ATTN, MAMBA, MLA, MLSTM
     from repro_torch.kernels import build
     from repro_torch.kernels.chunked_prefill_attention import kernel as cpa_kernel
     from repro_torch.kernels.mamba_scan import kernel as ms_kernel
@@ -1549,7 +1667,7 @@ def main() -> int:
                "mamba_scan": ms_kernel.mamba_scan}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ph = Phases(8)
+    ph = Phases(11)
 
     ph.start("device")
     dev = device_line()
@@ -1579,6 +1697,24 @@ def main() -> int:
                     continue
                 raise AssertionError(f"{name}: G {G} at head_dim {Dx} was "
                                      f"taken by the bf16 check")
+    # #5's value width of its own: deepseek-v3's MLA pair, and pairs
+    # without a kernel refused by both prefill libraries' checks
+    cpa = "chunked_prefill_attention"
+    attrs = build.mma_attributes(cpa, 192, 128)
+    print(f"  {cpa} bf16 tensor-core kernel, (D, Dv) (192, 128): {attrs}",
+          flush=True)
+    build.check_mma_geometry(cpa, attrs["rows"], 192, 128)
+    for name, G, D, Dv in ((cpa, attrs["rows"] + 1, 192, 128),
+                           (cpa, 1, 192, 192), (cpa, 1, 128, 64),
+                           (cpa, 1, 256, 128),
+                           ("paged_prefill_attention", 1, 192, 128),
+                           ("paged_prefill_attention", 1, 128, 64)):
+        try:
+            build.check_mma_geometry(name, G, D, Dv)
+        except ValueError:
+            continue
+        raise AssertionError(f"{name}: G {G} at (D, Dv) ({D}, {Dv}) was "
+                             f"taken by the bf16 check")
 
     ph.start("kernel parity and timing")
     reset_counts(kernels)
@@ -1591,6 +1727,12 @@ def main() -> int:
     smoke_engine_phase(torch, "xlstm-125m", modes=("slot",))
     smoke_engine_phase(torch, "jamba-1.5-large-398b", modes=("slot",))
     smoke_engine_phase(torch, "qwen2-moe-a2.7b")
+    # window 16: the smoke prompts (19-130 tokens) pass it, so #1, #2 and
+    # #5 mask keys by the window on the card
+    smoke_engine_phase(torch, "gemma2-2b", window=16)
+    smoke_engine_phase(torch, "qwen3-1.7b", modes=("paged",))
+    smoke_engine_phase(torch, "gemma2-27b", modes=("paged",), window=16)
+    smoke_engine_phase(torch, "deepseek-v3-671b", modes=("slot",))
 
     ph.start("full-width llama3.2-3b serving, paged cache")
     cfg = get_config("llama3.2-3b")
@@ -1660,6 +1802,44 @@ def main() -> int:
     combines["jamba slot"] = j_launches["chunked_prefill_attention_combine"]
     del jparams
     release(torch)
+
+    for arch, workload, runs in (
+            ("gemma2-2b", long_workload, PAGED_RUNS),
+            ("qwen3-1.7b", serving_workload, ((0, False), (0, True)))):
+        ph.start(f"full-width {arch} serving, paged cache")
+        acfg = get_config(arch)
+        aparams = load_params(torch, acfg)
+        a_launches, a_recs, _ = serving_phase(torch, aparams, kernels,
+                                              cfg=acfg, workload=workload,
+                                              runs=runs)
+        serving += a_recs
+        for name in ("paged_attention_fused",
+                     "paged_prefill_attention_fused"):
+            if a_launches[name] <= 0:
+                raise AssertionError(f"{name} never launched on the "
+                                     f"{arch} paged path")
+            by_path[name][f"{arch} paged"] = a_launches[name]
+        del aparams
+        release(torch)
+
+    ph.start("full-width deepseek-v3-671b (4-layer cut) serving, slot cache")
+    dcfg = deepseek_cut()
+    print(f"  reduced: {DEEPSEEK_REDUCED}")
+    dparams = load_params(torch, dcfg)
+    mla_layers = count_mixers(dcfg, MLA)
+    d_launches, d_recs = slot_serving_phase(
+        torch, dcfg, dparams, kernels,
+        {"chunked_prefill_attention":
+             lambda st: mla_layers * st.prefill_calls})
+    for rec in d_recs:
+        rec["reduced"] = DEEPSEEK_REDUCED
+    serving += d_recs
+    by_path["chunked_prefill_attention"]["deepseek-v3 slot"] = \
+        d_launches["chunked_prefill_attention"]
+    combines["deepseek-v3 slot"] = \
+        d_launches["chunked_prefill_attention_combine"]
+    del dparams
+    release(torch)
     ph.stop()
 
     rep = {"paged_attention_fused": ("B8 serving-like ctx bf16",
@@ -1699,10 +1879,18 @@ def main() -> int:
                  "parity_launches": parity_launches[name]}
         if name == "chunked_prefill_attention":
             # the split-K combine kernel of the same source, launched by the
-            # same wrapper call when the plan splits the keys
+            # same wrapper call when the plan splits the keys; and the MLA
+            # shape (its own value width)
+            mla = next(r for r in rows if r["kernel"] == name
+                       and r["case"] == MLA_CASE)
             entry.update(combine_launches=sum(combines.values()),
                          combine_launches_by_path=combines,
-                         combine_parity_launches=parity_combines)
+                         combine_parity_launches=parity_combines,
+                         mla={k: mla[k] for k in (
+                             "case", "ms", "device_ms", "plain_ms",
+                             "library_ms", "bound_ms", "bound_by", "flops",
+                             "max_abs_err", "ms_other", "device_ms_other",
+                             "splits_other")})
         if name in ("paged_attention", "paged_prefill_attention"):
             entry["note"] = ("serves no path, here or in the reference: "
                              "launched only by the parity phase")

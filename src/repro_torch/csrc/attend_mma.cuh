@@ -29,7 +29,10 @@
 //   5. O += P.V with V's B fragments through ldmatrix.trans, O fp32 in
 //      registers.
 // Finally out = O / max(l, 1e-30) in bf16, or the fp32 partial state
-// (O, m, l). An empty key range gives zeros, or (0, -1e30, 0).
+// (O, m, l). An empty key range gives zeros, or (0, -1e30, 0). Q and K rows
+// are D wide, V rows, O and the output DV (DV <= D: MLA's values are
+// narrower than its keys, 128 against 192); Q.K^T takes D / 16 k-steps,
+// P.V DV / 8 n-blocks.
 //
 // A row whose first tiles are all masked keeps m = -1e30 and takes exp(0)
 // = 1 for those entries, until a visible key's corr = exp(-1e30 - m) = 0
@@ -46,19 +49,24 @@ using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -1e30f;
 
-// The shape of one block: W warps, each owning MW m16 blocks of query
-// rows (one at D = 256, where O alone is 128 floats a thread), so kRows =
-// 16 * MW * W rows t*G + g. More rows a block read each K/V tile for more
-// queries (fewer copies from L2 per product); more row blocks a warp use
-// each K and V fragment in more products (fewer ldmatrix per mma); more
-// warps a block keep a few-block grid's SMs busier. Each kernel picks its
-// shape (paged_prefill_attention.cu, chunked_prefill_attention.cu).
-template <int D_, int W, int MW_>
+// The shape of one block: W warps, each owning MW m16 blocks of query rows
+// (one for values wider than 128, where O alone is 128 floats a thread;
+// MLA's values of 128 under keys of 192 keep two, which took its Sq512 chunk
+// from 1.66 to 1.11 ms on an NVIDIA H100 80GB HBM3 at 700 W), so kRows = 16
+// * MW * W rows t*G + g, for keys D wide and values DV_ wide (D by default).
+// More rows a block read each K/V tile for more queries (fewer copies from
+// L2 per product); more row blocks a warp use each K and V fragment in more
+// products (fewer ldmatrix per mma); more warps a block keep a few-block
+// grid's SMs busier. Each kernel picks its shape
+// (paged_prefill_attention.cu, chunked_prefill_attention.cu).
+template <int D_, int W, int MW_, int DV_ = D_>
 struct Geometry {
+  static_assert(DV_ <= D_ && DV_ % 16 == 0, "values no wider than keys");
   static constexpr int D = D_;
+  static constexpr int DV = DV_;
   static constexpr int kWarps = W;
   static constexpr int kThreads = 32 * W;
-  static constexpr int MW = D_ > 128 ? 1 : MW_;
+  static constexpr int MW = DV_ > 128 ? 1 : MW_;
   static constexpr int kRows = 16 * MW * W;
   // keys per tile: 64 (4 pages of 16); 32 at D = 256 or with two row
   // blocks a warp, where the registers rule out more
@@ -73,7 +81,8 @@ struct Geometry {
   // more)
   static constexpr int kStages = D_ > 128 ? 2 : (kQInRegs ? 3 : 4);
   static constexpr int P = D_ + 8;      // row pitch: ldmatrix conflict-free
-  static constexpr int SE = 2 * KT * P;  // one stage: a K and a V tile
+  static constexpr int PV = DV_ + 8;    // V's row pitch
+  static constexpr int SE = KT * (P + PV);   // one stage: a K and a V tile
   static constexpr size_t kSmem =
       ((size_t)kStages * SE + (kQInRegs ? 0 : (size_t)kRows * P)) *
       sizeof(bf16);
@@ -189,17 +198,21 @@ template <typename Geo, typename Rows>
 __device__ __forceinline__ void load_tile(bf16* k_s, bf16* v_s,
                                           const Rows& rows, int k0, int hi) {
   constexpr int KT = Geo::KT;
-  constexpr int CH = Geo::D / 8;          // 16-byte chunks per row
+  constexpr int CH = Geo::D / 8;          // 16-byte chunks per K row
+  constexpr int CHV = Geo::DV / 8;        // and per V row
   constexpr int P = Geo::P;
+  constexpr int PV = Geo::PV;
 #pragma unroll 4
-  for (int i = threadIdx.x; i < 2 * KT * CH; i += Geo::kThreads) {
-    const int row = i / CH, c = i % CH;
-    const bool is_v = row >= KT;
-    const int key = is_v ? row - KT : row;
+  for (int i = threadIdx.x; i < KT * (CH + CHV); i += Geo::kThreads) {
+    const bool is_v = i >= KT * CH;       // K rows, then V rows
+    const int j = is_v ? i - KT * CH : i;
+    const int key = is_v ? j / CHV : j / CH;
+    const int c = is_v ? j % CHV : j % CH;
     const int kp = k0 + key;
     const bool live = kp < hi;
     const bf16* src = live ? rows.row(kp, is_v) + c * 8 : rows.any();
-    cp_async16((is_v ? v_s : k_s) + key * P + c * 8, src, live ? 16 : 0);
+    cp_async16((is_v ? v_s + key * PV : k_s + key * P) + c * 8, src,
+               live ? 16 : 0);
   }
 }
 
@@ -219,10 +232,11 @@ __device__ __forceinline__ void attend_rows(
   constexpr int D = Geo::D;
   constexpr int KT = Geo::KT;
   constexpr int P = Geo::P;
+  constexpr int PV = Geo::PV;
   constexpr int MW = Geo::MW;           // row blocks per warp
   constexpr int RB = Geo::kRows;        // rows per block
   constexpr int NB = KT / 8;            // n-blocks of S per row block
-  constexpr int ND = D / 8;             // n-blocks of O per row block
+  constexpr int ND = Geo::DV / 8;       // n-blocks of O per row block
   constexpr int KD = D / 16;            // k-steps of Q.K^T
   constexpr int S = Geo::kStages;
   constexpr int SE = Geo::SE;
@@ -413,7 +427,7 @@ __device__ __forceinline__ void attend_rows(
 #pragma unroll
       for (int nd = 0; nd < ND; nd += 2) {
         uint32_t b[4];
-        ldmatrix_x4_trans(b, v_s + (kk * 16 + (lane & 15)) * P + nd * 8 +
+        ldmatrix_x4_trans(b, v_s + (kk * 16 + (lane & 15)) * PV + nd * 8 +
                                  (lane >> 4) * 8);
 #pragma unroll
         for (int mi = 0; mi < MW; ++mi) {

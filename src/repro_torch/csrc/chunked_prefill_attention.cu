@@ -4,11 +4,12 @@
 //
 // Replaces the TPU kernel chunked_prefill_attention
 // (src/repro/kernels/chunked_prefill_attention/kernel.py, _kernel): q
-// [B, H, Sq, D] over k/v [B, Hkv, Sk, D] with query head h on kv head
-// h / G, mask k_pos < lengths[b], plus k_pos <= q_pos when causal and
-// q_pos - k_pos < window when window > 0, optional softcap, fp32 online
-// softmax, p rounded to V's dtype before the P.V product, out =
-// acc / max(l, 1e-30).
+// [B, H, Sq, D] over k [B, Hkv, Sk, D] and v [B, Hkv, Sk, Dv], out [B, H,
+// Sq, Dv] (Dv <= D: deepseek-v3's MLA attends with keys of 192 and values
+// of 128), with query head h on kv head h / G, mask k_pos < lengths[b],
+// plus k_pos <= q_pos when causal and q_pos - k_pos < window when window >
+// 0, optional softcap, fp32 online softmax, p rounded to V's dtype before
+// the P.V product, out = acc / max(l, 1e-30).
 //
 // Bound on the H100: operations at the engine's chunk sizes. A q tile of
 // BQ tokens x G heads reads each live key once, so a chunk of Sq tokens
@@ -16,14 +17,15 @@
 // Sq*G flops per byte, above the 295 where HBM stops being the limit for
 // Sq >= 128. So bf16 (the serving dtype) runs on the tensor cores: the tile
 // loop of attend_mma.cuh (mma.sync bf16 products, a cp.async ring of K/V
-// tiles, 128 query rows t*G + g a block, D 64, 128 or 256). fp32 keeps
-// the scalar fp32 FMA loop of paged_common.cuh on purpose: its limit
-// (2e-5 + 2e-5|ref|) rules out bf16 and TF32 operands. Both prune: each
-// (batch row, kv head, q tile) loops only over the keys [lo, hi) that some
-// query of the tile can see, lo from the window start of the tile's first
-// query and hi = min(lengths[b], last query + 1, Sk), so a chunk at offset
-// pos of a 4096-token slot row reads pos + Sq keys, not 4096. A tile whose
-// range is empty writes zeros.
+// tiles, 128 query rows t*G + g a block, 64 at Dv > 128), for the (D, Dv)
+// pairs that mma_launch names below. fp32 keeps the scalar fp32 FMA loop
+// of paged_common.cuh on purpose, for any D and Dv that are multiples of 8
+// up to 256: its limit (2e-5 + 2e-5|ref|) rules out bf16 and TF32
+// operands. Both prune: each (batch row, kv head, q tile) loops only over
+// the keys [lo, hi) that some query of the tile can see, lo from the
+// window start of the tile's first query and hi = min(lengths[b], last
+// query + 1, Sk), so a chunk at offset pos of a 4096-token slot row reads
+// pos + Sq keys, not 4096. A tile whose range is empty writes zeros.
 //
 // Split-K (bf16): a short chunk at a deep offset gives few q tiles (8
 // blocks for 16 tokens of llama3.2-3b, on 132 SMs), each walking thousands
@@ -38,7 +40,8 @@
 //
 // Every operand is addressed through the strides the wrapper passes (unit
 // last stride), so the slot cache [B, Smax, Hkv, D] and the kv-major q
-// [B, Sq, Hkv, G, D] are read without a copy.
+// [B, Sq, Hkv, G, D] are read without a copy (and MLA's values, the second
+// half of each head's expanded [k_nope | v] row, in place too).
 #include <algorithm>
 
 #include "attend_mma.cuh"
@@ -57,7 +60,7 @@ __global__ void __launch_bounds__(paged::kThreads)
 chunked_prefill_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int* __restrict__ lengths, T* __restrict__ out, Strides qs,
-    Strides ks, Strides vs, Strides os, int Sq, int Sk, int G, int D,
+    Strides ks, Strides vs, Strides os, int Sq, int Sk, int G, int D, int Dv,
     int q_offset, int causal, int window, float scale, float softcap,
     int block_q, int tile_keys) {
   const int b = blockIdx.x, h = blockIdx.y, qi = blockIdx.z;
@@ -74,26 +77,26 @@ chunked_prefill_attention_kernel(
   paged::attend_rows<T>(
       q + b * qs.b + qh0 * qs.h + q0 * qs.s, qs.s, qs.h,
       out + b * os.b + qh0 * os.h + q0 * os.s, os.s, os.h, nullptr, nullptr,
-      0, src, D, G, nt * G, q_offset + q0, length, causal != 0, window,
+      0, src, D, Dv, G, nt * G, q_offset + q0, length, causal != 0, window,
       scale, softcap, lo, hi, tile_keys, false);
 }
 
 // The bf16 chunk attention on the tensor cores: one block of 4 warps, 32
-// query rows each (16 at D = 256), per (batch row, kv head, tile of rows /
+// query rows each (16 at Dv > 128), per (batch row, kv head, tile of rows /
 // G tokens, key split), through attend_mma.cuh. Two row blocks a warp use
 // each K and V fragment twice: on an H100 this shape walked jamba's long
 // G 8 chunks faster than eight warps of one row block; the short chunks
 // that it walks more slowly are split.
 // Split sp of n_split covers key tiles [sp*key_tiles / n_split,
 // (sp+1)*key_tiles / n_split) from key_base; with n_split > 1 the block
-// writes its partial state to part_acc [n_split, B, Sq, H, D] and part_m,
+// writes its partial state to part_acc [n_split, B, Sq, H, Dv] and part_m,
 // part_l [n_split, B, Sq, H], else out directly.
-template <int D>
-using ChunkGeo = mma::Geometry<D, 4, 2>;
+template <int D, int Dv>
+using ChunkGeo = mma::Geometry<D, 4, 2, Dv>;
 
-template <int D>
-__global__ void __launch_bounds__(ChunkGeo<D>::kThreads,
-                                  ChunkGeo<D>::kMinBlocks)
+template <int D, int Dv>
+__global__ void __launch_bounds__(ChunkGeo<D, Dv>::kThreads,
+                                  ChunkGeo<D, Dv>::kMinBlocks)
 chunked_prefill_attention_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
@@ -110,7 +113,8 @@ chunked_prefill_attention_mma_kernel(
   int hi = min(length, Sk);
   if (causal) hi = min(hi, q_offset + q0 + nt);
   int lo = window > 0 ? max(q_offset + q0 - window + 1, 0) : 0;
-  constexpr int KT = ChunkGeo<D>::KT;
+  using Geo = ChunkGeo<D, Dv>;
+  constexpr int KT = Geo::KT;
   if (n_split > 1) {
     lo = max(lo, key_base + (int)((long)sp * key_tiles / n_split) * KT);
     hi = min(hi, key_base + (int)((long)(sp + 1) * key_tiles / n_split) * KT);
@@ -123,13 +127,13 @@ chunked_prefill_attention_mma_kernel(
   const __nv_bfloat16* qb = q + b * qs.b + qh0 * qs.h + q0 * qs.s;
   if (n_split > 1) {
     const long row0 = ((long)sp * B + b) * Sq + q0;   // (split, b, token q0)
-    mma::attend_rows<ChunkGeo<D>>(
-        qb, qs.s, qs.h, part_acc + (row0 * H + qh0) * D, (long)H * D, D,
+    mma::attend_rows<Geo>(
+        qb, qs.s, qs.h, part_acc + (row0 * H + qh0) * Dv, (long)H * Dv, Dv,
         part_m + row0 * H + qh0, part_l + row0 * H + qh0, H, src, G, nt * G,
         q_offset + q0, length, causal != 0, window, scale, softcap, lo, hi,
         true);
   } else {
-    mma::attend_rows<ChunkGeo<D>>(
+    mma::attend_rows<Geo>(
         qb, qs.s, qs.h, out + b * os.b + qh0 * os.h + q0 * os.s, os.s, os.h,
         nullptr, nullptr, 0, src, G, nt * G, q_offset + q0, length,
         causal != 0, window, scale, softcap, lo, hi, false);
@@ -137,16 +141,16 @@ chunked_prefill_attention_mma_kernel(
 }
 
 // Merge of the key splits: one thread per 4 elements of an output row
-// (b, t, h), in the order of combine_partials.
+// (b, t, h) of Dv values, in the order of combine_partials.
 __global__ void __launch_bounds__(256) chunked_prefill_attention_combine(
     const float* __restrict__ part_acc, const float* __restrict__ part_m,
     const float* __restrict__ part_l, __nv_bfloat16* __restrict__ out,
-    Strides os, int B, int Sq, int H, int D, int n_split) {
+    Strides os, int B, int Sq, int H, int Dv, int n_split) {
   const long rows = (long)B * Sq * H;
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rows * (D / 4)) return;
-  const long row = i / (D / 4);                // (b * Sq + t) * H + h
-  const int c = (int)(i % (D / 4)) * 4;
+  if (i >= rows * (Dv / 4)) return;
+  const long row = i / (Dv / 4);               // (b * Sq + t) * H + h
+  const int c = (int)(i % (Dv / 4)) * 4;
   const int h = (int)(row % H), t = (int)(row / H % Sq), b = (int)(row / H / Sq);
   float m = mma::kNegInf;
   for (int s = 0; s < n_split; ++s) m = fmaxf(m, part_m[s * rows + row]);
@@ -156,7 +160,7 @@ __global__ void __launch_bounds__(256) chunked_prefill_attention_combine(
     const float e = expf(part_m[s * rows + row] - m);
     l += part_l[s * rows + row] * e;
     const float4 a =
-        *reinterpret_cast<const float4*>(part_acc + (s * rows + row) * D + c);
+        *reinterpret_cast<const float4*>(part_acc + (s * rows + row) * Dv + c);
     acc.x += a.x * e;
     acc.y += a.y * e;
     acc.z += a.z * e;
@@ -175,13 +179,15 @@ constexpr int kMaxBlockQ = 64;
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const int* lengths,
            void* out, Strides qs, Strides ks, Strides vs, Strides os, int B,
-           int Sq, int Sk, int Hkv, int G, int D, int q_offset, int causal,
-           int window, float scale, float softcap, cudaStream_t stream) {
+           int Sq, int Sk, int Hkv, int G, int D, int Dv, int q_offset,
+           int causal, int window, float scale, float softcap,
+           cudaStream_t stream) {
   const int block_q =
-      std::max(1, std::min(kMaxBlockQ, paged::max_rows(D) / G));
-  const int tile_keys = paged::tile_keys(block_q * G, D, sizeof(T));
+      std::max(1, std::min(kMaxBlockQ, paged::max_rows(Dv) / G));
+  const int tile_keys = paged::tile_keys(block_q * G, D, Dv, sizeof(T));
   if (tile_keys == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = paged::smem_bytes(block_q * G, tile_keys, D, sizeof(T));
+  const size_t smem =
+      paged::smem_bytes(block_q * G, tile_keys, D, Dv, sizeof(T));
   cudaError_t err =
       paged::reserve_smem(chunked_prefill_attention_kernel<T>, smem);
   if (err != cudaSuccess) return (int)err;
@@ -191,40 +197,43 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
       <<<dim3(B, Hkv, nq), paged::kThreads, smem, stream>>>(
           reinterpret_cast<const T*>(q), reinterpret_cast<const T*>(k),
           reinterpret_cast<const T*>(v), lengths, reinterpret_cast<T*>(out),
-          qs, ks, vs, os, Sq, Sk, G, D, q_offset, causal, window, scale,
+          qs, ks, vs, os, Sq, Sk, G, D, Dv, q_offset, causal, window, scale,
           softcap, block_q, tile_keys);
   return (int)cudaGetLastError();
 }
 
-using MmaKernel = decltype(&chunked_prefill_attention_mma_kernel<128>);
+using MmaKernel = decltype(&chunked_prefill_attention_mma_kernel<128, 128>);
 
-// The tensor-core kernel at head dim D and its block shape.
+// The tensor-core kernel at key width D and value width Dv, and its block
+// shape.
 struct MmaLaunch {
-  MmaKernel kernel;   // null for a D it is not instantiated for
+  MmaKernel kernel;   // null for a pair it is not instantiated for
   int rows, threads, key_tile;
   size_t smem;
 };
 
-template <int D>
+template <int D, int Dv>
 MmaLaunch mma_launch() {
-  using Geo = ChunkGeo<D>;
-  return {chunked_prefill_attention_mma_kernel<D>, Geo::kRows, Geo::kThreads,
-          Geo::KT, Geo::kSmem};
+  using Geo = ChunkGeo<D, Dv>;
+  return {chunked_prefill_attention_mma_kernel<D, Dv>, Geo::kRows,
+          Geo::kThreads, Geo::KT, Geo::kSmem};
 }
 
-// The launch shape at head dim D (a null kernel for a D outside {64, 128,
-// 256}).
-MmaLaunch mma_launch(int D) {
-  return D == 64    ? mma_launch<64>()
-         : D == 128 ? mma_launch<128>()
-         : D == 256 ? mma_launch<256>()
-                    : MmaLaunch{nullptr, 0, 0, 0, 0};
+// The (D, Dv) pairs the tensor-core kernel is instantiated for: attention
+// at head dim 64, 128 and 256, and deepseek-v3's MLA (keys [k_nope | k_rope]
+// of 128 + 64, values of 128). A null kernel for any other pair.
+MmaLaunch mma_launch(int D, int Dv) {
+  return D == 64 && Dv == 64     ? mma_launch<64, 64>()
+         : D == 128 && Dv == 128 ? mma_launch<128, 128>()
+         : D == 256 && Dv == 256 ? mma_launch<256, 256>()
+         : D == 192 && Dv == 128 ? mma_launch<192, 128>()
+                                 : MmaLaunch{nullptr, 0, 0, 0, 0};
 }
 
-// The launch shape at head dim D, its shared memory reserved; err is
-// cudaErrorInvalidValue for a D outside {64, 128, 256}.
-MmaLaunch mma_launch(int D, cudaError_t* err) {
-  const MmaLaunch m = mma_launch(D);
+// The launch shape at (D, Dv), its shared memory reserved; err is
+// cudaErrorInvalidValue for a pair without a kernel.
+MmaLaunch mma_launch(int D, int Dv, cudaError_t* err) {
+  const MmaLaunch m = mma_launch(D, Dv);
   *err = m.kernel ? paged::reserve_smem(m.kernel, m.smem)
                   : cudaErrorInvalidValue;
   return m;
@@ -254,16 +263,16 @@ Plan plan(const MmaLaunch& m, int Sq, int Sk, int G, int q_offset,
 // The tensor-core launch: rows / G tokens a block, n_split key splits (cut
 // to at most key_tiles / 2, so a split has two tiles or more) and, when
 // there is more than one, the combine; cudaErrorInvalidValue for more query
-// heads per kv head than rows, a D outside {64, 128, 256}, or splits
+// heads per kv head than rows, a (D, Dv) pair without a kernel, or splits
 // without scratch.
 int launch_mma(const void* q, const void* k, const void* v,
                const int* lengths, void* out, float* part_acc, float* part_m,
                float* part_l, Strides qs, Strides ks, Strides vs, Strides os,
-               int B, int Sq, int Sk, int Hkv, int G, int D, int q_offset,
-               int causal, int window, float scale, float softcap,
-               int n_split, cudaStream_t stream) {
+               int B, int Sq, int Sk, int Hkv, int G, int D, int Dv,
+               int q_offset, int causal, int window, float scale,
+               float softcap, int n_split, cudaStream_t stream) {
   cudaError_t err;
-  const MmaLaunch m = mma_launch(D, &err);
+  const MmaLaunch m = mma_launch(D, Dv, &err);
   if (err != cudaSuccess) return (int)err;
   if (G < 1 || G > m.rows) return (int)cudaErrorInvalidValue;
   const Plan p = plan(m, Sq, Sk, G, q_offset, causal, window);
@@ -280,10 +289,10 @@ int launch_mma(const void* q, const void* k, const void* v,
       scale, softcap, p.block_q, n_split, p.key_base, p.key_tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return (int)err;
-  const long threads = (long)B * Sq * Hkv * G * (D / 4);
+  const long threads = (long)B * Sq * Hkv * G * (Dv / 4);
   chunked_prefill_attention_combine<<<(unsigned)((threads + 255) / 256), 256,
                                       0, stream>>>(
-      part_acc, part_m, part_l, o, os, B, Sq, Hkv * G, D, n_split);
+      part_acc, part_m, part_l, o, os, B, Sq, Hkv * G, Dv, n_split);
   return (int)cudaGetLastError();
 }
 
@@ -292,12 +301,14 @@ int launch_mma(const void* q, const void* k, const void* v,
 extern "C" {
 
 // Strides are in elements, (batch row, head, position) for each operand;
-// the head-dim stride is 1. part_acc [n_split, B, Sq, H, D], part_m and
+// the head-dim stride is 1. q and k rows are D wide, v rows and out Dv.
+// part_acc [n_split, B, Sq, H, Dv], part_m and
 // part_l [n_split, B, Sq, H] (fp32) are the split-K scratch of a bf16 launch
 // with n_split > 1 (null otherwise; fp32 ignores n_split). Returns
 // cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue when G query heads per kv head do not fit a block at
-// this D (bf16: D in {64, 128, 256} and G at most the block's rows).
+// this D (bf16: a (D, Dv) pair of mma_launch and G at most the block's
+// rows).
 // Allocates nothing and does not synchronise: out and the scratch are
 // allocated by the caller, the launches go on `stream`.
 int chunked_prefill_attention_launch(
@@ -306,28 +317,28 @@ int chunked_prefill_attention_launch(
     long long qsh, long long qss, long long ksb, long long ksh,
     long long kss, long long vsb, long long vsh, long long vss,
     long long osb, long long osh, long long oss, int B, int Sq, int Sk,
-    int Hkv, int G, int D, int q_offset, int causal, int window, float scale,
-    float softcap, int n_split, int is_bf16, void* stream) {
+    int Hkv, int G, int D, int Dv, int q_offset, int causal, int window,
+    float scale, float softcap, int n_split, int is_bf16, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};
   if (is_bf16)
     return launch_mma(q, k, v, lengths, out, part_acc, part_m, part_l, qs, ks,
-                      vs, os, B, Sq, Sk, Hkv, G, D, q_offset, causal, window,
-                      scale, softcap, n_split, s);
+                      vs, os, B, Sq, Sk, Hkv, G, D, Dv, q_offset, causal,
+                      window, scale, softcap, n_split, s);
   return launch<float>(q, k, v, lengths, out, qs, ks, vs, os, B, Sq, Sk, Hkv,
-                       G, D, q_offset, causal, window, scale, softcap, s);
+                       G, D, Dv, q_offset, causal, window, scale, softcap, s);
 }
 
 // info[0] = q tiles and info[1] = key tiles of a bf16 launch of Sq queries
 // at q_offset over Sk keys (the grid a split covers, and the key range the
 // splits cut), as chunked_prefill_attention_launch computes them; the
 // wrapper chooses the number of splits from these. cudaErrorInvalidValue
-// when the tensor-core kernel does not take G and D. Makes no CUDA call.
-int chunked_prefill_attention_mma_plan(int Sq, int Sk, int G, int D,
+// when the tensor-core kernel does not take G, D and Dv. Makes no CUDA call.
+int chunked_prefill_attention_mma_plan(int Sq, int Sk, int G, int D, int Dv,
                                        int q_offset, int causal, int window,
                                        int* info) {
-  const MmaLaunch m = mma_launch(D);
+  const MmaLaunch m = mma_launch(D, Dv);
   if (!m.kernel || G < 1 || G > m.rows) return (int)cudaErrorInvalidValue;
   const Plan p = plan(m, Sq, Sk, G, q_offset, causal, window);
   info[0] = p.q_tiles;
@@ -337,11 +348,11 @@ int chunked_prefill_attention_mma_plan(int Sq, int Sk, int G, int D,
 
 // info[0..5] = registers, spill bytes, dynamic shared memory, resident
 // blocks per SM, query rows a block and keys a tile of the bf16 tensor-core
-// kernel at head dim D; cudaErrorInvalidValue for a D outside {64, 128,
-// 256}.
-int chunked_prefill_attention_mma_attributes(int D, int* info) {
+// kernel at key width D and value width Dv; cudaErrorInvalidValue for a
+// pair without a kernel.
+int chunked_prefill_attention_mma_attributes(int D, int Dv, int* info) {
   cudaError_t err;
-  const MmaLaunch m = mma_launch(D, &err);
+  const MmaLaunch m = mma_launch(D, Dv, &err);
   if (err != cudaSuccess) return (int)err;
   info[4] = m.rows;
   info[5] = m.key_tile;

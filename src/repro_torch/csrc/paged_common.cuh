@@ -21,7 +21,9 @@
 //      dtype before the P.V product,
 //   4. acc[row, d] = acc * corr + p.v, the fp32 accumulator in registers.
 // Finally out = acc / max(l, 1e-30), or the partial state (acc, m, l). A
-// block whose key range is empty writes zeros.
+// block whose key range is empty writes zeros. Q and K rows are D wide, V
+// rows and the output Dv (Dv <= D; MLA's values are narrower than its
+// keys); the page pools hold both at one width, Dv = D.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -97,15 +99,23 @@ __host__ __device__ __forceinline__ int padded_dim(int D, int elt) {
 }
 
 __host__ __device__ __forceinline__ size_t smem_bytes(int rows, int keys,
-                                                      int D, int elt) {
-  const int DP = padded_dim(D, elt);
-  return (size_t)(rows + 2 * keys) * DP * elt      // q, K, V tiles
+                                                      int D, int Dv,
+                                                      int elt) {
+  return (size_t)(rows + keys) * padded_dim(D, elt) * elt   // q, K tiles
+         + (size_t)keys * padded_dim(Dv, elt) * elt         // V tile
          + (size_t)rows * keys * sizeof(float)     // scores / probabilities
          + (size_t)2 * rows * sizeof(float);       // corr, l
 }
 
+__host__ __device__ __forceinline__ size_t smem_bytes(int rows, int keys,
+                                                      int D, int elt) {
+  return smem_bytes(rows, keys, D, D, elt);
+}
+
 // KV sources of attend_rows: copy keys [k0, k0 + nk) of one kv head into
-// the K and V tiles in shared memory (rows padded to DP elements).
+// the K tile (rows of D elements padded to DP) and the V tile (Dv padded
+// to DVP) in shared memory. The page pools hold K and V at one width: they
+// take Dv = D and DVP = DP, and ignore those two.
 
 // The fused page pool; k0 and nk are multiples of ps.
 template <typename T>
@@ -115,7 +125,7 @@ struct PagedKV {
   int ps;
 
   __device__ __forceinline__ void load(T* k_s, T* v_s, int k0, int nk, int D,
-                                       int DP) const {
+                                       int DP, int, int) const {
     constexpr int VN = 16 / sizeof(T);
     const int dv = D / VN;
     const int per_page = 2 * ps * dv;
@@ -145,7 +155,7 @@ struct SplitPagedKV {
   int ps;
 
   __device__ __forceinline__ void load(T* k_s, T* v_s, int k0, int nk, int D,
-                                       int DP) const {
+                                       int DP, int, int) const {
     constexpr int VN = 16 / sizeof(T);
     const int dv = D / VN;
     const int per_page = 2 * ps * dv;
@@ -166,7 +176,8 @@ struct SplitPagedKV {
 };
 
 // K and V rows at fixed strides (elements between consecutive keys; the
-// last axis is contiguous), e.g. a slot cache row [S, Hkv, D] read in place.
+// last axis is contiguous), e.g. a slot cache row [S, Hkv, D] read in place;
+// V rows may be narrower than K rows (Dv < D).
 template <typename T>
 struct StridedKV {
   const T* k;           // key 0 of this (batch row, kv head)
@@ -174,16 +185,18 @@ struct StridedKV {
   long k_stride, v_stride;
 
   __device__ __forceinline__ void load(T* k_s, T* v_s, int k0, int nk, int D,
-                                       int DP) const {
+                                       int DP, int Dv, int DVP) const {
     constexpr int VN = 16 / sizeof(T);
-    const int dv = D / VN;
-    for (int i = threadIdx.x; i < 2 * nk * dv; i += kThreads) {
-      const int row = i / dv, c = i % dv;       // K rows, then V rows
-      const bool is_v = row >= nk;
-      const int key = is_v ? row - nk : row;
+    const int ck = D / VN, cv = Dv / VN;        // vectors a K / V row
+    for (int i = threadIdx.x; i < nk * (ck + cv); i += kThreads) {
+      const bool is_v = i >= nk * ck;           // K rows, then V rows
+      const int j = is_v ? i - nk * ck : i;
+      const int key = is_v ? j / cv : j / ck;
+      const int c = is_v ? j % cv : j % ck;
       const T* src = (is_v ? v + (long)(k0 + key) * v_stride
                            : k + (long)(k0 + key) * k_stride) + c * VN;
-      T* dst = (is_v ? v_s : k_s) + (size_t)key * DP + c * VN;
+      T* dst = (is_v ? v_s + (size_t)key * DVP : k_s + (size_t)key * DP) +
+               c * VN;
       *reinterpret_cast<uint4*>(dst) =
           __ldg(reinterpret_cast<const uint4*>(src));
     }
@@ -191,7 +204,7 @@ struct StridedKV {
 };
 
 // One block's work. Row r of the block is token t = r / G, head g = r % G:
-// its query sits at q[t * q_tok + g * q_head], its output at
+// its query sits at q[t * q_tok + g * q_head], its output (Dv wide) at
 // out[t * o_tok + g * o_head] (m/l at t * ml_stride + g), its query
 // position is q_pos0 + t. Key kp is visible to query position qp when
 // kp < length, kp <= qp if causal, and qp - kp < window if window > 0.
@@ -199,19 +212,21 @@ template <typename T, typename KV>
 __device__ __forceinline__ void attend_rows(
     const T* __restrict__ q, long q_tok, long q_head, void* __restrict__ out,
     long o_tok, long o_head, float* __restrict__ m_out,
-    float* __restrict__ l_out, long ml_stride, const KV& kv, int D, int G,
-    int BR, int q_pos0, int length, bool causal, int window, float scale,
-    float softcap, int key_lo, int key_hi, int tile_keys, bool partial) {
+    float* __restrict__ l_out, long ml_stride, const KV& kv, int D, int Dv,
+    int G, int BR, int q_pos0, int length, bool causal, int window,
+    float scale, float softcap, int key_lo, int key_hi, int tile_keys,
+    bool partial) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int VN = 16 / sizeof(T);         // elements per 16-byte vector
   const int tid = threadIdx.x;
   const int KT = tile_keys;
   const int DP = padded_dim(D, sizeof(T));
+  const int DVP = padded_dim(Dv, sizeof(T));
   const int dv = D / VN;
   T* q_s = reinterpret_cast<T*>(smem);
   T* k_s = q_s + (size_t)BR * DP;
   T* v_s = k_s + (size_t)KT * DP;
-  float* s_s = reinterpret_cast<float*>(v_s + (size_t)KT * DP);
+  float* s_s = reinterpret_cast<float*>(v_s + (size_t)KT * DVP);
   float* c_s = s_s + (size_t)BR * KT;
   float* l_s = c_s + BR;
 
@@ -222,10 +237,10 @@ __device__ __forceinline__ void attend_rows(
         *reinterpret_cast<const uint4*>(src);
   }
 
-  // P.V ownership: column col of rows rg, rg + nrg, ... (D <= kThreads).
-  const int nrg = kThreads / D;
-  const int col = tid % D;
-  const int rg = tid / D;
+  // P.V ownership: column col of rows rg, rg + nrg, ... (Dv <= kThreads).
+  const int nrg = kThreads / Dv;
+  const int col = tid % Dv;
+  const int rg = tid / Dv;
   const int nacc = rg < nrg ? (BR - rg + nrg - 1) / nrg : 0;
   float acc[kMaxAcc];
 #pragma unroll
@@ -235,7 +250,7 @@ __device__ __forceinline__ void attend_rows(
   for (int k0 = key_lo; k0 < key_hi; k0 += KT) {
     const int nk = min(KT, key_hi - k0);
     __syncthreads();   // q_s is loaded; the previous tile is consumed
-    kv.load(k_s, v_s, k0, nk, D, DP);
+    kv.load(k_s, v_s, k0, nk, D, DP, Dv, DVP);
     __syncthreads();
 
     for (int i = tid; i < BR * nk; i += kThreads) {
@@ -273,7 +288,7 @@ __device__ __forceinline__ void attend_rows(
       acc[i] *= c_s[rg + i * nrg];
     }
     for (int k = 0; k < nk; ++k) {
-      const float v = nacc > 0 ? to_float(v_s[(size_t)k * DP + col]) : 0.f;
+      const float v = nacc > 0 ? to_float(v_s[(size_t)k * DVP + col]) : 0.f;
 #pragma unroll
       for (int i = 0; i < kMaxAcc; ++i) {
         if (i >= nacc) break;
@@ -307,11 +322,11 @@ __device__ __forceinline__ void attend_rows(
 
 // Launch geometry, chosen by the launchers (the only owners of the layout
 // above). Query rows one block holds: one softmax thread per row, and the
-// [rows, D] accumulator spread over the threads at <= kMaxAcc each.
+// [rows, Dv] accumulator spread over the threads at <= kMaxAcc each.
 constexpr size_t kSmemLimit = 200 * 1024;
 
-inline int max_rows(int D) {
-  const int r = kMaxAcc * (kThreads / D);
+inline int max_rows(int Dv) {
+  const int r = kMaxAcc * (kThreads / Dv);
   return r < kThreads ? r : kThreads;
 }
 
@@ -324,13 +339,13 @@ inline int tile_pages(int rows, int ps, int D, int elt) {
   return smem_bytes(rows, tp * ps, D, elt) <= kSmemLimit ? tp : 0;
 }
 
-// Keys per tile over contiguous K/V: 64, fewer if shared memory runs out;
-// 0 if `rows` do not fit a block.
-inline int tile_keys(int rows, int D, int elt) {
-  if (rows < 1 || rows > max_rows(D)) return 0;
+// Keys per tile over contiguous K/V (V rows Dv wide): 64, fewer if shared
+// memory runs out; 0 if `rows` do not fit a block.
+inline int tile_keys(int rows, int D, int Dv, int elt) {
+  if (rows < 1 || rows > max_rows(Dv)) return 0;
   int kt = 64;
-  while (kt > 1 && smem_bytes(rows, kt, D, elt) > kSmemLimit) kt /= 2;
-  return smem_bytes(rows, kt, D, elt) <= kSmemLimit ? kt : 0;
+  while (kt > 1 && smem_bytes(rows, kt, D, Dv, elt) > kSmemLimit) kt /= 2;
+  return smem_bytes(rows, kt, D, Dv, elt) <= kSmemLimit ? kt : 0;
 }
 
 // Raise the dynamic shared-memory limit of a kernel when a launch needs

@@ -85,9 +85,9 @@ paged_prefill_attention_fused_kernel(
   paged::attend_rows<T>(
       q + tok0 * G * D, tok_stride, D, o, tok_stride, D,
       partial ? m_out + tok0 * G : nullptr,
-      partial ? l_out + tok0 * G : nullptr, (long)Hkv * G, src, D, G, nt * G,
-      pos + q0, length, true, window, scale, softcap, j_lo * ps, j_hi * ps,
-      tile_pages * ps, partial != 0);
+      partial ? l_out + tok0 * G : nullptr, (long)Hkv * G, src, D, D, G,
+      nt * G, pos + q0, length, true, window, scale, softcap, j_lo * ps,
+      j_hi * ps, tile_pages * ps, partial != 0);
 }
 
 // The same prefill over split K and V pools, each [Hkv, P, ps, D]
@@ -115,8 +115,8 @@ paged_prefill_attention_split_kernel(
                                    block_tables + (size_t)r * n, ps};
   paged::attend_rows<T>(
       q + tok0 * G * D, tok_stride, D, out + tok0 * G * D, tok_stride, D,
-      nullptr, nullptr, 0, src, D, G, nt * G, pos + q0, length, true, window,
-      scale, softcap, j_lo * ps, j_hi * ps, tile_pages * ps, false);
+      nullptr, nullptr, 0, src, D, D, G, nt * G, pos + q0, length, true,
+      window, scale, softcap, j_lo * ps, j_hi * ps, tile_pages * ps, false);
 }
 
 // The bf16 prefill on the tensor cores: the same rows, page pruning and
@@ -363,10 +363,12 @@ int paged_prefill_attention_split_launch(
 
 // info[0..5] = registers, spill bytes, dynamic shared memory, resident
 // blocks per SM, query rows a block and keys a tile of the bf16 tensor-core
-// kernel at head dim D; cudaErrorInvalidValue for a D outside {64, 128,
-// 256}. The wrapper reads the block's rows here (a block takes at most
+// kernel at key width D and value width Dv; cudaErrorInvalidValue for a D
+// outside {64, 128, 256} or Dv != D (the page pools hold K and V at one
+// width). The wrapper reads the block's rows here (a block takes at most
 // that many query heads per kv head).
-int paged_prefill_attention_mma_attributes(int D, int* info) {
+int paged_prefill_attention_mma_attributes(int D, int Dv, int* info) {
+  if (Dv != D) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   const MmaLaunch m = mma_launch(D, &err);
   if (err != cudaSuccess) return (int)err;

@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -54,7 +54,8 @@ SIGNATURES = {
             _I, _I, _I, _I, _I, _I, _I, _I,  # R, Sq, Hkv, G, D, P, ps, n
             _F, _I, _F,                  # scale, window, softcap
             _I, _I, _P],                 # partial, is_bf16, stream
-        "paged_prefill_attention_mma_attributes": [_I, _P],   # D, info[6]
+        "paged_prefill_attention_mma_attributes": [
+            _I, _I, _P],                 # D, Dv, info[6]
         "paged_prefill_attention_split_launch": [
             _P, _P, _P, _P, _P, _P,      # q, k_pages, v_pages, bt, row_pos,
                                          # lengths
@@ -68,14 +69,15 @@ SIGNATURES = {
             _P, _P, _P,                  # split scratch: acc, m, l (or null)
             _L, _L, _L, _L, _L, _L,      # q, k strides (batch, head, position)
             _L, _L, _L, _L, _L, _L,      # v, out strides
-            _I, _I, _I, _I, _I, _I,      # B, Sq, Sk, Hkv, G, D
+            _I, _I, _I, _I, _I, _I, _I,  # B, Sq, Sk, Hkv, G, D, Dv
             _I, _I, _I, _F, _F,          # q_offset, causal, window, scale,
                                          # softcap
             _I, _I, _P],                 # n_split, is_bf16, stream
         "chunked_prefill_attention_mma_plan": [
-            _I, _I, _I, _I,              # Sq, Sk, G, D
+            _I, _I, _I, _I, _I,          # Sq, Sk, G, D, Dv
             _I, _I, _I, _P],             # q_offset, causal, window, info[2]
-        "chunked_prefill_attention_mma_attributes": [_I, _P]},  # D, info[6]
+        "chunked_prefill_attention_mma_attributes": [
+            _I, _I, _P]},                # D, Dv, info[6]
     "mlstm_chunkwise": {
         "mlstm_chunkwise_launch": [
             _P, _P, _P, _P, _P,          # q, k, v, log_i, log_f
@@ -177,27 +179,33 @@ INVALID_VALUE = 1            # cudaErrorInvalidValue
 
 
 @functools.lru_cache(maxsize=None)
-def mma_attributes(name: str, D: int) -> Dict[str, int]:
+def mma_attributes(name: str, D: int, Dv: Optional[int] = None
+                   ) -> Dict[str, int]:
     """Registers, spill bytes, dynamic shared memory, resident blocks per
     SM, query rows a block and keys a tile of library ``name``'s bf16
-    tensor-core kernel at head dim ``D``, as the library and the CUDA
-    runtime report them (needs a card). The block's shape is the library's
-    own (``mma::Geometry`` in ``csrc/attend_mma.cuh``): nothing in Python
-    repeats it. Raises ValueError for a D that has no tensor-core kernel."""
+    tensor-core kernel at key width ``D`` and value width ``Dv`` (``D``
+    when None), as the library and the CUDA runtime report them (needs a
+    card). The instantiated pairs and the block's shape are the library's
+    own (``mma_launch`` in its source, ``mma::Geometry`` in
+    ``csrc/attend_mma.cuh``): nothing in Python repeats them. Raises
+    ValueError for a pair that has no tensor-core kernel."""
+    Dv = D if Dv is None else Dv
     info = (ctypes.c_int * len(MMA_ATTRIBUTES))()
-    code = getattr(library(name), f"{name}_mma_attributes")(D, info)
+    code = getattr(library(name), f"{name}_mma_attributes")(D, Dv, info)
     if code == INVALID_VALUE:
         raise ValueError(f"{name}: no bf16 tensor-core kernel at head_dim "
-                         f"{D}")
+                         f"{D}, value width {Dv}")
     check(name, code)
     return dict(zip(MMA_ATTRIBUTES, info))
 
 
-def check_mma_geometry(name: str, G: int, D: int) -> None:
+def check_mma_geometry(name: str, G: int, D: int,
+                       Dv: Optional[int] = None) -> None:
     """Raise ValueError for a bf16 launch of library ``name`` that its
-    tensor-core kernel does not take: a head dim it is not instantiated for,
-    or more query heads per kv head than a block has rows."""
-    rows = mma_attributes(name, D)["rows"]
+    tensor-core kernel does not take: a (head dim, value width) pair it is
+    not instantiated for (``Dv`` is ``D`` when None), or more query heads
+    per kv head than a block has rows."""
+    rows = mma_attributes(name, D, Dv)["rows"]
     if G > rows:
         raise ValueError(f"{name}: bf16 takes at most {rows} query heads per "
                          f"kv head at head_dim {D}, got {G}")

@@ -10,13 +10,17 @@ place through their strides. Launches are counted in
 ``chunked_prefill_attention.launches``. The launch geometry (query tokens
 per block, keys per tile, shared memory) is chosen by the C launcher.
 
-In bf16 the kernel runs on the tensor cores (head_dim 64, 128 or 256) and
+The values may be narrower than the keys (v [B, Hkv, Sk, Dv], Dv <= D;
+deepseek-v3's MLA attends with keys of 192 and values of 128). In bf16 the
+kernel runs on the tensor cores, at the (D, Dv) pairs that the C source
+names (``mma_launch``: attention's head dims and MLA's pair), and
 may split the key range (split-K): ``split_plan`` chooses the number of
 splits from the grid and the card's SM count, the wrapper allocates the
 fp32 partial state of the splits as scratch, and a second kernel,
 ``chunked_prefill_attention_combine``, merges them; its launches are
 counted in ``chunked_prefill_attention.combine_launches``. fp32 keeps the
-scalar loop and never splits.
+scalar loop (any D and Dv that are multiples of 8 up to 256) and never
+splits.
 """
 from __future__ import annotations
 
@@ -63,7 +67,7 @@ def split_plan(B, Hkv, q_tiles, key_tiles, sms) -> int:
     return max(1, min(-(-2 * sms // blocks), key_tiles // MIN_SPLIT_TILES))
 
 
-def planned_splits(q, k, *, q_offset=0, causal=True, window=0) -> int:
+def planned_splits(q, k, v, *, q_offset=0, causal=True, window=0) -> int:
     """The key splits the wrapper launches for these operands: 1 for fp32,
     else ``split_plan`` at q's card, from the q tiles and key tiles that the
     library computes for the launch (``chunked_prefill_attention_mma_plan``:
@@ -71,29 +75,34 @@ def planned_splits(q, k, *, q_offset=0, causal=True, window=0) -> int:
     if q.dtype != torch.bfloat16:
         return 1
     B, H, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
+    Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
     info = (ctypes.c_int * 2)()
     build.check(KERNEL, build.library(KERNEL).chunked_prefill_attention_mma_plan(
-        Sq, Sk, H // Hkv, D, int(q_offset), int(causal), int(window), info))
+        Sq, Sk, H // Hkv, D, Dv, int(q_offset), int(causal), int(window),
+        info))
     return split_plan(B, Hkv, info[0], info[1], build.sm_count(q.device))
 
 
 def _check(q, k, v, lengths) -> None:
     B, H, Sq, D = q.shape
-    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B \
-            or k.shape[3] != D:
-        raise ValueError(f"k and v must be [{B}, Hkv, Sk, {D}], got "
-                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3] \
+            or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k must be [{B}, Hkv, Sk, {D}] and v [{B}, Hkv, "
+                         f"Sk, Dv], got {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
+    Dv = v.shape[3]
     if H % k.shape[1]:
         raise ValueError(f"{H} query heads are not a multiple of "
                          f"{k.shape[1]}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k and v must share a dtype in {DTYPES}, got "
                         f"{q.dtype}, {k.dtype} and {v.dtype}")
-    if D % 16 or not 16 <= D <= 256:
-        raise ValueError(f"head_dim {D} must be a multiple of 16 up to 256")
+    if D % 8 or Dv % 8 or not 8 <= Dv <= D <= 256:
+        raise ValueError(f"head_dim {D} and value width {Dv} must be "
+                         f"multiples of 8 with value width <= head_dim <= "
+                         f"256")
     if q.dtype == torch.bfloat16:
-        build.check_mma_geometry(KERNEL, H // k.shape[1], D)
+        build.check_mma_geometry(KERNEL, H // k.shape[1], D, Dv)
     if lengths.shape != (B,) or lengths.dtype != torch.int32 \
             or not lengths.is_contiguous():
         raise ValueError("lengths must be a contiguous int32 [B] tensor")
@@ -113,9 +122,9 @@ def _check(q, k, v, lengths) -> None:
 def chunked_prefill_attention(q, k, v, lengths, *, scale, q_offset=0,
                               causal=True, window=0, softcap=0.0):
     """Attention of a query chunk q [B, H, Sq, D] at positions
-    ``q_offset + t`` over k/v [B, Hkv, Sk, D] with valid lengths [B] int32.
-    Returns [B, H, Sq, D] in q's dtype (a view of a [B, Sq, H, D] tensor on
-    the GPU)."""
+    ``q_offset + t`` over k [B, Hkv, Sk, D] and v [B, Hkv, Sk, Dv] with
+    valid lengths [B] int32. Returns [B, H, Sq, Dv] in q's dtype (a view of
+    a [B, Sq, H, Dv] tensor on the GPU)."""
     if q.device.type == "cpu":
         return chunked_prefill_attention_ref(
             q, k, v, lengths, scale=scale, q_offset=q_offset, causal=causal,
@@ -124,18 +133,18 @@ def chunked_prefill_attention(q, k, v, lengths, *, scale, q_offset=0,
         raise ValueError(f"no chunked_prefill_attention kernel for {q.device}")
     _check(q, k, v, lengths)
     B, H, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
+    Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
     lib = build.library("chunked_prefill_attention")
-    out = torch.empty((B, Sq, H, D), device=q.device,
+    out = torch.empty((B, Sq, H, Dv), device=q.device,
                       dtype=q.dtype).permute(0, 2, 1, 3)
-    n_split = planned_splits(q, k, q_offset=q_offset, causal=causal,
+    n_split = planned_splits(q, k, v, q_offset=q_offset, causal=causal,
                              window=window)
     ptrs = [None, None, None]
     if n_split > 1:   # fp32 partial state of the splits, one allocation:
-        rows = n_split * B * Sq * H            # acc [rows, D], then m, l
-        part = torch.empty(rows * (D + 2), device=q.device,
+        rows = n_split * B * Sq * H            # acc [rows, Dv], then m, l
+        part = torch.empty(rows * (Dv + 2), device=q.device,
                            dtype=torch.float32)
-        ptrs = [part.data_ptr() + 4 * rows * x for x in (0, D, D + 1)]
+        ptrs = [part.data_ptr() + 4 * rows * x for x in (0, Dv, Dv + 1)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.chunked_prefill_attention_launch(
@@ -143,7 +152,7 @@ def chunked_prefill_attention(q, k, v, lengths, *, scale, q_offset=0,
             out.data_ptr(), *ptrs,
             *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], *out.stride()[:3], B, Sq, Sk, Hkv, H // Hkv, D,
-            int(q_offset), int(causal), int(window), float(scale),
+            Dv, int(q_offset), int(causal), int(window), float(scale),
             float(softcap), n_split, int(q.dtype == torch.bfloat16), stream)
     build.check("chunked_prefill_attention", code)
     chunked_prefill_attention.launches += 1

@@ -10,7 +10,9 @@ from repro_torch.kernels.chunked_prefill_attention.kernel import (
 def chunked_prefill_attention_op(q, k, v, lengths, *, scale, q_offset=0,
                                  causal=True, window=0, softcap=0.0):
     """The CUDA kernel for tensors on the GPU, its plain PyTorch version for
-    tensors on the CPU. ``q_offset`` is a runtime integer."""
+    tensors on the CPU: q [B, H, Sq, D] over k [B, Hkv, Sk, D] and v [B,
+    Hkv, Sk, Dv] (values may be narrower than keys), out [B, H, Sq, Dv].
+    ``q_offset`` is a runtime integer."""
     return chunked_prefill_attention(q, k, v, lengths, scale=scale,
                                      q_offset=q_offset, causal=causal,
                                      window=window, softcap=softcap)

@@ -14,11 +14,11 @@ NEG_INF = -1e30
 
 def chunked_prefill_attention_ref(q, k, v, lengths, *, scale, q_offset=0,
                                   causal=True, window=0, softcap=0.0):
-    """q [B, H, Sq, D]; k/v [B, Hkv, Sk, D]; lengths [B] (strided views
-    are fine). Query t sits at position ``q_offset + t`` and sees keys
-    ``k_pos < lengths[b]``, ``k_pos <= q_pos`` when ``causal`` and
-    ``q_pos - k_pos < window`` when ``window > 0``; query head h reads kv
-    head ``h // (H // Hkv)``. Returns [B, H, Sq, D] in q's dtype."""
+    """q [B, H, Sq, D]; k [B, Hkv, Sk, D]; v [B, Hkv, Sk, Dv]; lengths [B]
+    (strided views are fine). Query t sits at position ``q_offset + t`` and
+    sees keys ``k_pos < lengths[b]``, ``k_pos <= q_pos`` when ``causal``
+    and ``q_pos - k_pos < window`` when ``window > 0``; query head h reads
+    kv head ``h // (H // Hkv)``. Returns [B, H, Sq, Dv] in q's dtype."""
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     g = H // Hkv
@@ -37,4 +37,4 @@ def chunked_prefill_attention_ref(q, k, v, lengths, *, scale, q_offset=0,
     s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1).to(v.dtype)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p.float(), v.float())
-    return out.reshape(B, H, Sq, D).to(q.dtype)
+    return out.reshape(B, H, Sq, v.shape[-1]).to(q.dtype)

@@ -11,10 +11,12 @@ Requests are submitted through the online API at their arrival times
     python -m repro_torch.launch.serve --arch xlstm-125m   # slot (auto)
     python -m repro_torch.launch.serve --arch jamba-1.5-large-398b --device cpu
     python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --device cpu
+    python -m repro_torch.launch.serve --arch gemma2-2b --device cpu
+    python -m repro_torch.launch.serve --arch deepseek-v3-671b --device cpu
 
-jamba (Mamba + attention + MoE) serves in slot mode (auto picks it); at
-full width its 398 B parameters do not fit one card, so ``--no-smoke``
-serves it only where the memory holds it.
+jamba (Mamba + attention + MoE) and deepseek-v3 (MLA) serve in slot mode
+(auto picks it); at full width their 398 B and 671 B parameters do not fit
+one card, so ``--no-smoke`` serves them only where the memory holds them.
 
 Flags follow the reference launcher; ``--serve-http``, ``--replicas`` and
 ``--mesh`` are not ported yet. The model's weights are random, drawn from

@@ -1,8 +1,9 @@
 """KV-cache helpers of the reference ``models/attention.py``: the paged
 ones (``gather_pages``, ``write_pages_fused``), the slot-cache writes
-(``update_kv_cache``, ``update_kv_cache_ragged``) and ``decode_attention``
-(plain PyTorch, as it is plain jnp in the reference). Writes go **in place**
-where the reference returns a new buffer."""
+(``update_kv_cache``, ``update_kv_cache_ragged``), ``decode_attention`` and
+``mla_decode_attention`` (plain PyTorch, as they are plain jnp in the
+reference). Writes go **in place** where the reference returns a new
+buffer."""
 from __future__ import annotations
 
 import torch
@@ -108,3 +109,32 @@ def decode_attention(
     p = (p / torch.clamp(l, min=1e-30)).to(v_cache.dtype)
     out = torch.einsum("bhgs,bshd->bhgd", p.float(), v_cache.float())
     return out.to(q.dtype)
+
+
+def mla_decode_attention(
+    q_lat: torch.Tensor,   # [B, H, R]   q_nope absorbed through W_UK
+    q_rope: torch.Tensor,  # [B, H, Dr]
+    ckv: torch.Tensor,     # [B, S, R]   compressed KV latent cache
+    k_rope: torch.Tensor,  # [B, S, Dr]  shared rope key cache
+    length,                # int or [B]: number of valid cache entries
+    *,
+    scale: float,
+) -> torch.Tensor:
+    """Weight-absorbed MLA decode, in the reference's order: fp32 scores
+    ``q_lat . ckv + q_rope . k_rope``, scale, mask ``k_pos < length``,
+    ``exp(s - max) / max(l, 1e-30)`` rounded to ckv's dtype, fp32 P.ckv.
+    Returns the latent output [B, H, R] in q_lat's dtype (the caller
+    expands it through W_UV)."""
+    B, S, _ = ckv.shape
+    s = torch.einsum("bhr,bsr->bhs", q_lat.float(), ckv.float())
+    s = s + torch.einsum("bhd,bsd->bhs", q_rope.float(), k_rope.float())
+    s = s * scale
+    if torch.is_tensor(length) and length.dim():
+        length = length.to(ckv.device).reshape(-1, 1, 1)
+    k_pos = torch.arange(S, device=ckv.device)[None, None, :]
+    s = torch.where(k_pos < length, s, torch.full_like(s, rc.NEG_INF))
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    p = p / torch.clamp(torch.sum(p, dim=-1, keepdim=True), min=1e-30)
+    out = torch.einsum("bhs,bsr->bhr", p.to(ckv.dtype).float(), ckv.float())
+    return out.to(q_lat.dtype)

@@ -7,15 +7,19 @@ leading ``[reps, ...]`` axis. ``forward`` loops over stacks and repetitions
 in Python where the reference uses ``lax.scan``. Both caches mirror the same
 structure: one fused pool ``{"kv_pages": [reps, Hkv, P, 2, ps, D]}`` per slot
 (paged), or per slot (slot cache) contiguous rows ``{"k", "v": [reps, B,
-Smax, Hkv, D]}`` for attention and the recurrent state ``{"mamba":
-{"conv", "ssm"}}`` / ``{"mlstm": {"C", "n", "m", "conv"}}`` / ``{"slstm":
-{"c", "n", "h", "m"}}`` with leaves ``[reps, B, ...]`` for the recurrent
-mixers. The steps write them **in place** (the reference donates them).
+Smax, Hkv, D]}`` for attention, the MLA latents ``{"ckv": [reps, B, Smax,
+kv_lora_rank], "kr": [reps, B, Smax, qk_rope_head_dim]}``, and the
+recurrent state ``{"mamba": {"conv", "ssm"}}`` / ``{"mlstm": {"C", "n",
+"m", "conv"}}`` / ``{"slstm": {"c", "n", "h", "m"}}`` with leaves ``[reps,
+B, ...]`` for the recurrent mixers. The steps write them **in place** (the
+reference donates them).
 
-Ported: attention mixers (ATTN, LOCAL_ATTN) on both caches, Mamba, mLSTM
-and sLSTM mixers on the slot cache, dense, MoE (single device) or no FFN.
-``forward`` raises ``NotImplementedError`` on every other config feature
-instead of computing something else.
+Ported: attention mixers (ATTN, LOCAL_ATTN) on both caches, with the
+per-head q/k norm (qwen3), the post-norms and the embedding scale (gemma2);
+MLA (deepseek-v3), Mamba, mLSTM and sLSTM mixers on the slot cache; dense,
+MoE (single device) or no FFN. ``forward`` raises ``NotImplementedError``
+on every other config feature (the encoder-decoder) instead of computing
+something else.
 """
 from __future__ import annotations
 
@@ -25,8 +29,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.configs.base import (ATTN, DENSE, LOCAL_ATTN, MAMBA, MLSTM,
-                                      MOE, NONE, SLSTM, ModelConfig)
+from repro_torch.configs.base import (ATTN, DENSE, LOCAL_ATTN, MAMBA, MLA,
+                                      MLSTM, MOE, NONE, SLSTM, ModelConfig)
 from repro_torch.kernels.chunked_prefill_attention.ops import (
     chunked_prefill_attention_op)
 from repro_torch.kernels.paged_attention.ops import paged_attention_auto
@@ -61,15 +65,12 @@ def unsupported_features(cfg: ModelConfig) -> list:
     found = []
     for period, _ in build_stacks(cfg):
         for mixer, ffn in period:
-            if mixer not in (ATTN, LOCAL_ATTN, MAMBA, MLSTM, SLSTM):
+            if mixer not in (ATTN, LOCAL_ATTN, MLA, MAMBA, MLSTM, SLSTM):
                 found.append(f"mixer {mixer!r}")
             if ffn not in (DENSE, MOE, NONE):
                 found.append(f"ffn {ffn!r}")
-    for name in ("qk_norm", "post_norm", "embed_scale", "enc_dec"):
-        if getattr(cfg, name):
-            found.append(name)
-    if cfg.final_logit_softcap:
-        found.append("final_logit_softcap")
+    if cfg.enc_dec:
+        found.append("enc_dec")
     return sorted(set(found))
 
 
@@ -134,6 +135,11 @@ def _slot_cache(cfg: ModelConfig, mixer: str, reps: int, B: int,
         Hkv, Dh = cfg.num_kv_heads, cfg.resolved_head_dim
         return {n: torch.zeros((reps, B, max_len, Hkv, Dh), dtype=dtype,
                                device=device) for n in ("k", "v")}
+    if mixer == MLA:
+        return {n: torch.zeros((reps, B, max_len, w), dtype=dtype,
+                               device=device)
+                for n, w in (("ckv", cfg.kv_lora_rank),
+                             ("kr", cfg.qk_rope_head_dim))}
     if mixer == MAMBA:
         state = S.init_mamba_state(B, cfg.mamba_expand * d,
                                    cfg.mamba_d_state, cfg.mamba_d_conv,
@@ -153,7 +159,8 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, dtype=None,
                device=None) -> list:
     """The reference's ``init_cache``: per period slot of each stack, zeroed
     contiguous KV rows ``{"k", "v": [reps, B, max_len, Hkv, Dh]}`` for an
-    attention mixer, or the fresh recurrent state (``m = -1e30`` for the
+    attention mixer, the zeroed latent rows ``{"ckv", "kr"}`` for MLA, or
+    the fresh recurrent state (``m = -1e30`` for the
     mLSTM) for a Mamba or xLSTM mixer; one row per engine slot."""
     dtype = dtype or cfg.dtype
     return [[_slot_cache(cfg, mixer, reps, B, max_len, dtype, device)
@@ -163,12 +170,21 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, dtype=None,
 # =============================================================================
 # blocks
 # =============================================================================
+def _maybe_post(cfg: ModelConfig, p, y):
+    """gemma2's post-norm of a block's output, where the block has one."""
+    return rms_norm(y, p["post_ln"], cfg.norm_eps) \
+        if cfg.post_norm and "post_ln" in p else y
+
+
 def _qkv(cfg: ModelConfig, p, x, positions):
     B, Sq, _ = x.shape
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q = (x @ p["wq"]).reshape(B, Sq, H, Dh)
     k = (x @ p["wk"]).reshape(B, Sq, Hkv, Dh)
     v = (x @ p["wv"]).reshape(B, Sq, Hkv, Dh)
+    if cfg.qk_norm:     # per head, before RoPE
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -228,16 +244,17 @@ def attn_block(cfg, p, x, state, *, mode, pos, lengths, window, paged=None,
     else:
         raise ValueError(mode)
     o = o.reshape(B, Sq, cfg.num_heads * cfg.resolved_head_dim)
-    return o @ p["wo"]
+    return _maybe_post(cfg, p, o @ p["wo"])
 
 
-def _chunk_attend(cfg, q, k_all, v_all, pos, lengths, window):
+def _chunk_attend(cfg, q, k_all, v_all, pos, lengths, window, scale=None):
     """A chunk of queries q [B, Sq, Hkv, G, D] at cache offset ``pos`` over
-    the whole slot cache k_all/v_all [B, Smax, Hkv, D], through the
-    chunked-prefill attention kernel: causal at ``q_offset = pos``, the
-    window, and a per-row length mask ``lengths`` [B] where given (else
-    ``pos + Sq``, which the causal mask already implies). The cache is
-    passed as permuted views, read in place. Returns [B, Sq, Hkv, G, D]."""
+    the whole slot cache k_all [B, Smax, Hkv, D] / v_all [B, Smax, Hkv, Dv],
+    through the chunked-prefill attention kernel: causal at ``q_offset =
+    pos``, the window, and a per-row length mask ``lengths`` [B] where given
+    (else ``pos + Sq``, which the causal mask already implies), at
+    ``scale`` (the config's attention scale when None). The cache is passed
+    as permuted views, read in place. Returns [B, Sq, Hkv, G, Dv]."""
     if torch.is_tensor(pos) and pos.dim():
         raise NotImplementedError(
             "_chunk_attend over ragged per-row offsets is not ported (the "
@@ -250,10 +267,72 @@ def _chunk_attend(cfg, q, k_all, v_all, pos, lengths, window):
     o = chunked_prefill_attention_op(
         q.reshape(B, Sq, Hkv * G, D).permute(0, 2, 1, 3),
         k_all.permute(0, 2, 1, 3), v_all.permute(0, 2, 1, 3),
-        lengths.to(device=q.device, dtype=torch.int32), scale=_attn_scale(cfg),
+        lengths.to(device=q.device, dtype=torch.int32),
+        scale=_attn_scale(cfg) if scale is None else scale,
         q_offset=pos, causal=True, window=window,
         softcap=cfg.attn_logit_softcap)
-    return o.permute(0, 2, 1, 3).reshape(B, Sq, Hkv, G, D)
+    return o.permute(0, 2, 1, 3).reshape(B, Sq, Hkv, G, v_all.shape[-1])
+
+
+def mla_block(cfg, p, x, state, *, mode, pos, lengths, rows=None):
+    """DeepSeek-v3's multi-head latent attention on the slot cache (the
+    reference's ``mla_block`` in modes "chunk" and "decode"): q through the
+    LoRA pair ``wq_a``/``wq_b`` with the q latent normed, one shared
+    ``k_rope`` and the normed kv latent ``ckv`` written to the cache
+    (``state`` "kr" and "ckv", in place) at ``pos``, or at ``lengths - 1``
+    for the ``rows`` of a ragged decode; scale ``1/sqrt(dn + dr)``.
+
+    A chunk expands the latents through ``wkv_b`` (``w_uk`` | ``w_uv`` per
+    head) into per-head keys ``[k_nope | kr]`` and values and attends
+    through ``_chunk_attend`` (the chunked-prefill kernel, G 1, value width
+    ``dv``). The reference expands the whole ``Smax`` buffer; this expands
+    only the first ``pos + Sq`` rows, which gives the same result, since
+    the causal mask hides every later row. A decode step takes the
+    weight-absorbed path: ``q_nope . w_uk`` against the latents
+    (``mla_decode_attention``), then ``. w_uv``. Returns the block's
+    output."""
+    if mode not in ("chunk", "decode"):
+        raise ValueError(f"MLA runs on the slot cache only, not in mode "
+                         f"{mode!r}")
+    B, Sq, _ = x.shape
+    H = cfg.num_heads
+    dn, dr, dv, kvr = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                       cfg.v_head_dim, cfg.kv_lora_rank)
+    eps, theta = cfg.norm_eps, cfg.rope_theta
+    xin = rms_norm(x, p["ln"], eps)
+    positions = _positions(mode, pos, lengths, Sq, x.device)
+    scale = 1.0 / math.sqrt(dn + dr)
+    qf = (rms_norm(xin @ p["wq_a"], p["q_ln"], eps) @ p["wq_b"]).reshape(
+        B, Sq, H, dn + dr)
+    q_nope = qf[..., :dn]
+    q_rope = apply_rope(qf[..., dn:], positions, theta)
+    kv = xin @ p["wkv_a"]
+    ckv = rms_norm(kv[..., :kvr], p["kv_ln"], eps)
+    k_rope = apply_rope(kv[..., kvr:][:, :, None, :], positions, theta)[:, :, 0]
+    if mode == "chunk":
+        A.update_kv_cache(state["ckv"], ckv, pos)
+        A.update_kv_cache(state["kr"], k_rope, pos)
+        n = min(int(pos) + Sq, state["ckv"].shape[1])
+        kvb = (state["ckv"][:, :n] @ p["wkv_b"]).view(B, n, H, dn + dv)
+        k_full = torch.cat([kvb[..., :dn], state["kr"][:, :n, None].expand(
+            B, n, H, dr)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)[:, :, :, None, :]   # G 1
+        o = _chunk_attend(cfg, q, k_full, kvb[..., dn:], pos, lengths, 0,
+                          scale=scale).reshape(B, Sq, H * dv)
+    else:
+        if torch.is_tensor(lengths) and lengths.dim():
+            A.update_kv_cache_ragged(state["ckv"], ckv, lengths - 1, rows)
+            A.update_kv_cache_ragged(state["kr"], k_rope, lengths - 1, rows)
+        else:
+            A.update_kv_cache(state["ckv"], ckv, pos)
+            A.update_kv_cache(state["kr"], k_rope, pos)
+        wkv_b = p["wkv_b"].reshape(kvr, H, dn + dv)
+        q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], wkv_b[..., :dn])
+        o_lat = A.mla_decode_attention(q_lat, q_rope[:, 0], state["ckv"],
+                                       state["kr"], lengths, scale=scale)
+        o = torch.einsum("bhr,rhd->bhd", o_lat, wkv_b[..., dn:]).reshape(
+            B, 1, H * dv)
+    return o @ p["wo"]
 
 
 RECURRENT = (MAMBA, MLSTM, SLSTM)
@@ -282,8 +361,9 @@ def _recurrent_block(cfg, mixer, p, x, state, *, mode, rows=None):
 
 
 def _ffn_apply(cfg, slot, x):
-    """The slot's channel mixer: the dense MLP or the MoE block (its aux
-    loss is a training term, dropped here), on the normed input."""
+    """The slot's channel mixer: the dense MLP (post-normed where the
+    config says so) or the MoE block (its aux loss is a training term,
+    dropped here), on the normed input."""
     if "moe" in slot:
         p = slot["moe"]
         return M.moe_ffn(p, rms_norm(x, p["ln"], cfg.norm_eps),
@@ -291,8 +371,9 @@ def _ffn_apply(cfg, slot, x):
                          top_k=cfg.num_experts_per_tok,
                          activation=cfg.activation,
                          aux_free=cfg.router_aux_free)[0]
-    return mlp(slot["ffn"], rms_norm(x, slot["ffn"]["ln"], cfg.norm_eps),
-               cfg.activation)
+    p = slot["ffn"]
+    return _maybe_post(cfg, p, mlp(p, rms_norm(x, p["ln"], cfg.norm_eps),
+                                   cfg.activation))
 
 
 def _rep(tree, r: int):
@@ -310,6 +391,9 @@ def forward(cfg: ModelConfig, params, tokens, *, cache, mode: str, pos=None,
     (final-normed hidden [B, S, d], cache updated in place)."""
     check_supported(cfg)
     x = params["embed"][tokens.long()]
+    if cfg.embed_scale:     # sqrt(d) rounded to the embedding's dtype first
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
     for i, (period, reps) in enumerate(build_stacks(cfg)):
         for r in range(reps):
             for j, (mixer, _) in enumerate(period):
@@ -318,6 +402,9 @@ def forward(cfg: ModelConfig, params, tokens, *, cache, mode: str, pos=None,
                 if mixer in RECURRENT:
                     x = x + _recurrent_block(cfg, mixer, slot[mixer], x,
                                              state, mode=mode, rows=rows)
+                elif mixer == MLA:
+                    x = x + mla_block(cfg, slot["mla"], x, state, mode=mode,
+                                      pos=pos, lengths=lengths, rows=rows)
                 else:
                     window = cfg.sliding_window if mixer == LOCAL_ATTN else 0
                     x = x + attn_block(cfg, slot["attn"], x, state,

@@ -16,13 +16,18 @@
   written), given as numpy arrays, across unchanged (dtypes kept), so the
   tests can feed both frameworks the same weights and start both from the
   same cache. Stacks keep their ``[reps, ...]`` leading axis.
+
+The reference's ``mtp`` subtree (DeepSeek-v3's multi-token-prediction
+module, which only its training loss ``_mtp_loss`` reads) is dropped, the
+same way in both: ``init_params`` does not draw it and ``from_jax_numpy``
+leaves it out of a parameter tree. Serving never reads it.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import (DENSE, MAMBA, MLSTM, MOE, SLSTM,
+from repro_torch.configs.base import (DENSE, MAMBA, MLA, MLSTM, MOE, SLSTM,
                                       ModelConfig)
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
@@ -60,7 +65,11 @@ def from_jax_numpy(cfg: ModelConfig, tree, device="cpu"):
     """Nested dicts/lists of numpy arrays -> the same structure of tensors
     on ``device`` (dtypes kept; bf16 arrays included). For a parameter tree
     (a dict with ``"stacks"``) or a cache (a list of stacks), every
-    stacked leaf must carry ``cfg``'s repetition count as its leading axis."""
+    stacked leaf must carry ``cfg``'s repetition count as its leading axis.
+    A parameter tree's ``mtp`` subtree is left out (see the module's
+    docstring)."""
+    if isinstance(tree, dict) and "stacks" in tree:
+        tree = {k: v for k, v in tree.items() if k != "mtp"}
     out = _convert(tree, device)
     stacks = out.get("stacks") if isinstance(out, dict) else out
     if isinstance(stacks, list):
@@ -79,8 +88,9 @@ def from_jax_numpy(cfg: ModelConfig, tree, device="cpu"):
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
     """Random parameters in the reference's structure and distributions,
-    for the configs the port computes (attention, Mamba, mLSTM or sLSTM
-    mixers; dense MLP, MoE or no FFN)."""
+    for the configs the port computes (attention with its q/k norms and
+    post-norms where the config has them, MLA, Mamba, mLSTM or sLSTM
+    mixers; dense MLP, MoE or no FFN), without the ``mtp`` subtree."""
     check_supported(cfg)
     device = torch.device(device)
     gen = torch.Generator(device=device)
@@ -108,17 +118,36 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
         elif mixer == SLSTM:
             out = {"slstm": {"ln": zeros(reps, d), **S.init_slstm(
                 gen, reps, d, H, dt, device)}}
+        elif mixer == MLA:
+            qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+            dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+            dv = cfg.v_head_dim
+            out = {"mla": {"ln": zeros(reps, d),
+                           "wq_a": dense(reps, d, qr),
+                           "q_ln": zeros(reps, qr),
+                           "wq_b": dense(reps, qr, H * (dn + dr)),
+                           "wkv_a": dense(reps, d, kvr + dr),
+                           "kv_ln": zeros(reps, kvr),
+                           "wkv_b": dense(reps, kvr, H * (dn + dv)),
+                           "wo": dense(reps, H * dv, d)}}
         else:
             out = {"attn": {"ln": zeros(reps, d),
                             "wq": dense(reps, d, H * Dh),
                             "wk": dense(reps, d, Hkv * Dh),
                             "wv": dense(reps, d, Hkv * Dh),
                             "wo": dense(reps, H * Dh, d)}}
+            if cfg.qk_norm:
+                out["attn"].update(q_norm=zeros(reps, Dh),
+                                   k_norm=zeros(reps, Dh))
+            if cfg.post_norm:
+                out["attn"]["post_ln"] = zeros(reps, d)
         if ffn == DENSE:
             out["ffn"] = {"ln": zeros(reps, d),
                           "wi_gate": dense(reps, d, cfg.d_ff),
                           "wi_up": dense(reps, d, cfg.d_ff),
                           "wo": dense(reps, cfg.d_ff, d)}
+            if cfg.post_norm:
+                out["ffn"]["post_ln"] = zeros(reps, d)
         elif ffn == MOE:
             out["moe"] = {"ln": zeros(reps, d), **M.init_moe(
                 gen, reps, d, cfg.moe_d_ff, cfg.num_experts, _moe_pad(cfg),

@@ -22,16 +22,18 @@ content. ``overlap=False`` syncs every round at once with one transfer per
 row, for A/B profiling.
 
 * **slot** (``cache_mode="slot"``; the reference's mode for the archs whose
-  state the paged cache cannot hold). Each admitted request owns one row of
-  a contiguous ``max_slots x max_len`` KV cache and of the recurrent state
-  of the Mamba and xLSTM mixers (a hybrid such as jamba holds both in one
-  tree). Every prompt chunk is one dispatch at its slot's offset on views
-  of the slot's row, updated in place: attention through the
-  chunked-prefill attention kernel, Mamba through the selective-scan
-  kernel, the mLSTM through the mLSTM chunkwise kernel. Chunk lengths are bucketed by ``CHUNK_BUCKETS`` and
-  padded by repeating the last real token, except for recurrent archs,
-  whose chunks have their exact lengths (padding tokens would advance the
-  state). One decode dispatch runs every slot and writes K/V only for the
+  state the paged cache cannot hold, and what ``"auto"`` picks for them).
+  Each admitted request owns one row of a contiguous ``max_slots x
+  max_len`` KV cache (MLA's latent rows ``ckv``/``kr`` for deepseek-v3)
+  and of the recurrent state of the Mamba and xLSTM mixers (a hybrid such
+  as jamba holds both in one tree). Every prompt chunk is one dispatch at
+  its slot's offset on views of the slot's row, updated in place:
+  attention and MLA through the chunked-prefill attention kernel, Mamba
+  through the selective-scan kernel, the mLSTM through the mLSTM chunkwise
+  kernel. Chunk lengths are bucketed by ``CHUNK_BUCKETS`` and padded by
+  repeating the last real token (MLA keeps no recurrent state, so it is
+  padded too), except for recurrent archs, whose chunks have their exact
+  lengths (padding tokens would advance the state). One decode dispatch runs every slot and writes K/V only for the
   rows that are really decoding; recurrent blocks run and update only
   those rows. Greedy argmax is taken on the device and read back once per
   dispatch that emits; rounds are synchronous. ``spec_k`` and the prefix
@@ -39,9 +41,8 @@ row, for A/B profiling.
   slot's recurrent state is not reset when a new request takes the slot:
   the request starts from the previous owner's final state.
 
-Not ported yet: the MLA and encoder-decoder archs that slot mode also
-exists for (``check_supported`` raises before anything is allocated), and
-the mesh.
+Not ported yet: the encoder-decoder arch that slot mode also exists for
+(``check_supported`` raises before anything is allocated), and the mesh.
 """
 from __future__ import annotations
 

@@ -186,7 +186,7 @@ def test_default_device_is_the_gpu(monkeypatch):
 def test_unpaged_arch_raises(monkeypatch):
     """jamba's Mamba mixers run on the slot cache only: the engine raises
     ValueError for the paged cache, and an arch with a feature the port
-    does not compute (gemma2-2b's post-norm and softcaps) raises
+    does not compute (seamless-m4t's encoder-decoder) raises
     NotImplementedError in every cache mode, both before any weight or
     cache is allocated. In auto mode jamba gets the slot cache."""
     import repro_torch.serving.engine as TE
@@ -201,8 +201,8 @@ def test_unpaged_arch_raises(monkeypatch):
         EngineCore(jamba, SlidingServeScheduler(max_budget=64),
                    cache_mode="paged", device="cpu")
     for mode in ("auto", "slot", "paged"):
-        with pytest.raises(NotImplementedError, match="post_norm"):
-            EngineCore(get_config("gemma2-2b").smoke(),
+        with pytest.raises(NotImplementedError, match="enc_dec"):
+            EngineCore(get_config("seamless-m4t-large-v2").smoke(),
                        SlidingServeScheduler(max_budget=64),
                        cache_mode=mode, device="cpu")
     monkeypatch.undo()

@@ -244,13 +244,15 @@ def test_params_structure_and_cache_conversion(setup):
 
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-1.7b", "qwen2-moe-a2.7b",
-                                  "xlstm-125m", "jamba-1.5-large-398b"])
+                                  "xlstm-125m", "jamba-1.5-large-398b",
+                                  "seamless-m4t-large-v2"])
 def test_unported_features_raise(arch):
     """What the port does not compute raises instead of computing something
-    else: the listed features of gemma2-2b and qwen3-1.7b on every path;
-    for xlstm-125m and jamba (recurrent mixers, which run on the slot
-    cache) the paged cache and the paged forward; qwen2-moe-a2.7b (the MoE
-    FFN) is computed on the paged path."""
+    else: seamless-m4t (the encoder-decoder) on every path; for xlstm-125m
+    and jamba (recurrent mixers, which run on the slot cache) the paged
+    cache and the paged forward. gemma2-2b (post-norms, embedding scale,
+    softcaps), qwen3-1.7b (per-head q/k norm) and qwen2-moe-a2.7b (the MoE
+    FFN) are computed on the paged path."""
     cfg = get_config(arch).smoke()
     if arch in ("xlstm-125m", "jamba-1.5-large-398b"):
         assert TM.unsupported_features(cfg) == []
@@ -261,7 +263,7 @@ def test_unported_features_raise(arch):
                        torch.zeros((1, 1), dtype=torch.int32),
                        cache=TM.init_cache(cfg, 1, 8), mode="paged_decode")
         return
-    if arch == "qwen2-moe-a2.7b":
+    if arch != "seamless-m4t-large-v2":
         assert TM.unsupported_features(cfg) == []
         ids, _ = TM.paged_decode_step(
             cfg, TP.init_params(cfg, device="cpu"),
@@ -272,7 +274,7 @@ def test_unported_features_raise(arch):
             write_slots=torch.zeros((1,), dtype=torch.int32))
         assert ids.shape == (1,) and 0 <= int(ids[0]) < cfg.vocab_size
         return
-    assert TM.unsupported_features(cfg)
+    assert TM.unsupported_features(cfg) == ["enc_dec"]
     with pytest.raises(NotImplementedError):
         TP.init_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError):

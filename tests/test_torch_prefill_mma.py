@@ -10,7 +10,9 @@ the libraries report the same rows and key tiles through
 g`` a block (128; 64 for the chunked kernel at D 256), padding rows zero
 and never written, key tiles (the paged kernel's 64 keys, 4 pages of 16;
 32 keys at D 256 and in the chunked kernel) with keys at or past the
-block's range zero-filled and masked, scores in fp32, the fp32 online softmax with ``l`` summed from
+block's range zero-filled and masked, values as wide as the keys or
+narrower (the chunked kernel's (192, 128) pair, deepseek-v3's MLA), scores
+in fp32, the fp32 online softmax with ``l`` summed from
 the unrounded ``p``, ``p`` rounded to the operand dtype before P.V, and for
 the chunked kernel the key splits of ``split_plan`` written as partial
 states and merged as the combine kernel merges them. The CUDA kernels
@@ -35,18 +37,21 @@ PAGED, CHUNKED = "paged_prefill_attention", "chunked_prefill_attention"
 
 # (warps, m16 row blocks a warp) of each kernel's mma::Geometry<D, W, MW>
 # (csrc/paged_prefill_attention.cu PagedGeo, csrc/chunked_prefill_attention.cu
-# ChunkGeo), and the head dims both instantiate.
+# ChunkGeo), and the (head dim, value width) pairs each instantiates.
 WARPS = {PAGED: (8, 1), CHUNKED: (4, 2)}
 MMA_HEAD_DIMS = (64, 128, 256)
+MMA_PAIRS = {PAGED: tuple((d, d) for d in MMA_HEAD_DIMS),
+             CHUNKED: tuple((d, d) for d in MMA_HEAD_DIMS) + ((192, 128),)}
 
 
-def shape(kernel, D):
-    """(query rows a block, keys a tile) of ``kernel`` at head dim D, by
-    the rules of attend_mma.cuh's Geometry: one row block a warp above D
-    128, rows = 16 * MW * W, 32-key tiles above D 128 or with two row
-    blocks a warp, else 64."""
+def shape(kernel, D, Dv=None):
+    """(query rows a block, keys a tile) of ``kernel`` at head dim D and
+    value width Dv (D when None), by the rules of attend_mma.cuh's
+    Geometry: one row block a warp for values wider than 128, rows = 16 *
+    MW * W, 32-key tiles above D 128 or with two row blocks a warp, else
+    64."""
     W, MW = WARPS[kernel]
-    MW = 1 if D > 128 else MW
+    MW = 1 if (D if Dv is None else Dv) > 128 else MW
     return 16 * MW * W, 32 if D > 128 or MW > 1 else 64
 
 
@@ -65,12 +70,18 @@ def q_tiles(Sq, G, D=128):
     return -(-Sq // (shape(CHUNKED, D)[0] // G))
 
 
-def _cases(cases, d_at):
+def _cases(cases, d_at, kernel=PAGED):
     """(case, dtype name) pairs: fp32 for every case, bf16 for those at a
-    head dim the tensor-core kernels are instantiated for (the CUDA
-    wrappers raise for the others)."""
+    (head dim, value width) pair ``kernel``'s tensor-core kernel is
+    instantiated for (the CUDA wrappers raise for the others)."""
     return [(c, n) for c in cases for n in DTYPES
-            if n == "float32" or c[d_at] in MMA_HEAD_DIMS]
+            if n == "float32" or (c[d_at], _dv(c, d_at)) in MMA_PAIRS[kernel]]
+
+
+def _dv(case, d_at=5):
+    """A chunked case's value width: its 11th entry where given, else its
+    head dim."""
+    return case[10] if len(case) > 10 else case[d_at]
 
 # The cases of tests/test_torch_kernels.py (FUSED_PPA_CASES; CPA_CASES +
 # CPA_EXTRA): G 1, 2, 3, 4, 8, windows, softcap, padding rows, causal=False.
@@ -96,14 +107,20 @@ CPA_CASES = [
     (2, 6, 2, 40, 96, 128, 30, True, 0, 0.0),
     (2, 6, 2, 24, 96, 64, 50, True, 20, 30.0),
     (2, 4, 2, 24, 64, 32, 10, False, 12, 0.0),
+    # MLA (G 1, values narrower than keys, + value width): deepseek-v3's
+    # (192, 128) and its smoke config's (24, 16), fp32 only
+    (1, 2, 2, 40, 128, 192, 60, True, 0, 0.0, 128),
+    (2, 4, 4, 24, 96, 24, 30, True, 0, 0.0, 16),
 ]
 
 # Chunks whose visible keys span four or more tiles, so that split-K cuts
-# them: short and deep, a window with softcap, and causal=False.
+# them: short and deep, a window with softcap, and causal=False; and MLA's
+# pair at a deep offset.
 SPLIT_CASES = [
     (1, 6, 2, 16, 512, 64, 480, True, 0, 0.0),
     (2, 6, 2, 24, 512, 128, 400, True, 300, 30.0),
     (2, 4, 2, 24, 384, 64, 10, False, 0, 0.0),
+    (1, 2, 2, 16, 512, 192, 480, True, 0, 0.0, 128),
 ]
 
 
@@ -120,28 +137,29 @@ def _t(a, dtype):
 # the block
 # ---------------------------------------------------------------------------
 def mma_block(kernel, q_rows, q_pos0, G, key_rows, length, lo, hi, *,
-              causal, window, scale, softcap):
+              causal, window, scale, softcap, Dv=None):
     """One block of attend_mma.cuh in ``kernel``'s shape: q_rows [BR, D]
     (BR <= the block's rows, row r = t*G + g at position q_pos0 + r // G)
-    over keys [lo, hi); ``key_rows(kp)`` gives the K and V rows of key
-    positions kp. Returns the block's partial state (acc [BR, D], m [BR],
-    l [BR]) in fp32; the padding rows past BR are dropped, as the kernel
-    never writes them."""
+    over keys [lo, hi); ``key_rows(kp)`` gives the K rows [n, D] and V
+    rows [n, Dv] (Dv = D when None) of key positions kp. Returns the
+    block's partial state (acc [BR, Dv], m [BR], l [BR]) in fp32; the
+    padding rows past BR are dropped, as the kernel never writes them."""
     BR, D = q_rows.shape
-    ROWS, KT = shape(kernel, D)
+    Dv = D if Dv is None else Dv
+    ROWS, KT = shape(kernel, D, Dv)
     assert BR <= ROWS
     q = torch.zeros(ROWS, D, dtype=q_rows.dtype)
     q[:BR] = q_rows
     qp = q_pos0 + torch.arange(ROWS) // G
     m = torch.full((ROWS,), rc.NEG_INF)
     l = torch.zeros(ROWS)
-    acc = torch.zeros(ROWS, D)
+    acc = torch.zeros(ROWS, Dv)
     lim = min(hi, length)
     for k0 in range(lo, hi, KT):
         kp = k0 + torch.arange(KT)
         live = kp < hi
         k = torch.zeros(KT, D, dtype=q_rows.dtype)
-        v = torch.zeros(KT, D, dtype=q_rows.dtype)
+        v = torch.zeros(KT, Dv, dtype=q_rows.dtype)
         k[live], v[live] = key_rows(kp[live])       # the rest zero-filled
         s = (q.float() @ k.float().T) * scale
         if softcap > 0:
@@ -237,7 +255,7 @@ def _prefill_inputs(case, name, seed):
         valid
 
 
-@pytest.mark.parametrize("case,name", _cases(FUSED_PPA_CASES, 4))
+@pytest.mark.parametrize("case,name", _cases(FUSED_PPA_CASES, 4, PAGED))
 def test_paged_prefill_mma_block_mirror(case, name):
     args, kw, valid = _prefill_inputs(case, name, 11)
     acc, m, l = mirror_paged_prefill(*args, **kw)
@@ -271,7 +289,8 @@ def test_split_pool_mma_mirror_gives_the_fused_bits(case):
 
 
 @pytest.mark.parametrize(
-    "case,name", _cases(FUSED_PPA_CASES[:2] + FUSED_PPA_CASES[-1:], 4))
+    "case,name", _cases(FUSED_PPA_CASES[:2] + FUSED_PPA_CASES[-1:], 4,
+                        PAGED))
 def test_paged_prefill_mma_mirror_partial_negative_pos(case, name):
     """The second half of the block table at shard-local (negative)
     positions: the block's partial state (m, l from the unrounded p) equals
@@ -326,13 +345,14 @@ def mirror_chunked(q, k, v, lens, *, scale, q_offset, causal, window,
     """The grid of chunked_prefill_attention_mma_kernel: one block per
     (batch row, kv head, tile of rows // G tokens, key split) over its part
     of the tile's keys [lo, hi); with n_split > 1 each block's partial
-    state goes to scratch and the splits are combined."""
+    state goes to scratch and the splits are combined. Values may be
+    narrower than keys: v [B, Hkv, Sk, Dv], out [B, H, Sq, Dv]."""
     B, H, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
+    Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // Hkv
-    bq = shape(CHUNKED, D)[0] // G
+    bq = shape(CHUNKED, D, Dv)[0] // G
     bounds = split_bounds(Sq, Sk, q_offset, causal, window, D, n_split)
-    parts = [(torch.zeros(B, H, Sq, D), torch.zeros(B, H, Sq),
+    parts = [(torch.zeros(B, H, Sq, Dv), torch.zeros(B, H, Sq),
               torch.zeros(B, H, Sq)) for _ in bounds]
     for b in range(B):
         length = int(lens[b])
@@ -353,9 +373,9 @@ def mirror_chunked(q, k, v, lens, *, scale, q_offset, causal, window,
                         CHUNKED, rows.reshape(nt * G, D), q_offset + q0, G,
                         lambda kp, h=h, b=b: (k[b, h, kp], v[b, h, kp]),
                         length, lo, hi, causal=causal, window=window,
-                        scale=scale, softcap=softcap)
+                        scale=scale, softcap=softcap, Dv=Dv)
                     acc[b, heads, q0:q0 + nt] = \
-                        a.reshape(nt, G, D).transpose(0, 1)
+                        a.reshape(nt, G, Dv).transpose(0, 1)
                     m[b, heads, q0:q0 + nt] = mm.reshape(nt, G).T
                     l[b, heads, q0:q0 + nt] = ll.reshape(nt, G).T
     if n_split == 1:
@@ -365,11 +385,11 @@ def mirror_chunked(q, k, v, lens, *, scale, q_offset, causal, window,
 
 def _cpa_inputs(case, name, seed):
     rng = np.random.default_rng(seed)
-    B, H, Hkv, Sq, Sk, D, q_off, causal, window, cap = case
+    B, H, Hkv, Sq, Sk, D, q_off, causal, window, cap = case[:10]
     dt = DTYPES[name]
     q = _t(rng.normal(size=(B, H, Sq, D)), dt)
     k = _t(rng.normal(size=(B, Hkv, Sk, D)), dt)
-    v = _t(rng.normal(size=(B, Hkv, Sk, D)), dt)
+    v = _t(rng.normal(size=(B, Hkv, Sk, _dv(case))), dt)
     lens = rng.integers(max(q_off + Sq, 1), Sk + 1, (B,)).astype(np.int32)
     lens[-1] = max(int(lens[-1]) - 7, 1)      # ragged valid length
     kw = dict(scale=D ** -0.5, q_offset=q_off, causal=causal, window=window,
@@ -379,7 +399,7 @@ def _cpa_inputs(case, name, seed):
 
 def _cpa_valid(case, lens):
     """Query positions that see at least one key."""
-    B, H, Hkv, Sq, Sk, D, q_off, causal, window, cap = case
+    B, H, Hkv, Sq, Sk, D, q_off, causal, window, cap = case[:10]
     qp = q_off + np.arange(Sq)[None, :, None]
     kp = np.arange(Sk)[None, None, :]
     ok = kp < np.asarray(lens)[:, None, None]
@@ -387,16 +407,18 @@ def _cpa_valid(case, lens):
         ok = ok & (kp <= qp)
     if window > 0:
         ok = ok & (qp - kp < window)
-    return np.broadcast_to(ok.any(-1)[:, None, :, None], (B, H, Sq, D))
+    return np.broadcast_to(ok.any(-1)[:, None, :, None],
+                           (B, H, Sq, _dv(case)))
 
 
 def _most_splits(case):
-    B, H, Hkv, Sq, Sk, D, q_off, causal, window, cap = case
+    B, H, Hkv, Sq, Sk, D, q_off, causal, window, cap = case[:10]
     return max(chunk_key_tiles(Sq, Sk, q_off, causal, window, D) // 2, 1)
 
 
 @pytest.mark.parametrize("splits", ["one", "most"])
-@pytest.mark.parametrize("case,name", _cases(CPA_CASES + SPLIT_CASES, 5))
+@pytest.mark.parametrize("case,name", _cases(CPA_CASES + SPLIT_CASES, 5,
+                                             CHUNKED))
 def test_chunked_mma_block_mirror(case, name, splits):
     """Without split-K, and with the most splits split_plan may give (two
     key tiles each), on the kernel's block and split geometry."""
@@ -467,7 +489,7 @@ def test_split_plan_splits_short_deep_chunks(Sq, G, off, want):
     assert CK.split_plan(1, 8, q_tiles(Sq, G), tiles, H100_SMS) == want
 
 
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 256, 192])
 def test_split_partition_covers_every_key_in_two_tiles_or_more(D):
     """For every plan: splits are whole tiles, disjoint, in order, cover
     the chunk's visible keys, and none has fewer than MIN_SPLIT_TILES tiles
@@ -497,26 +519,31 @@ def test_planned_splits_fp32_never_splits():
     asking the library (so also here, with no library)."""
     q = torch.zeros((1, 24, 16, 128))
     k = torch.zeros((1, 8, 4096, 128))
-    assert CK.planned_splits(q, k, q_offset=4080) == 1
+    assert CK.planned_splits(q, k, k, q_offset=4080) == 1
 
 
 @pytest.mark.parametrize("kernel,var", [(PAGED, "PagedGeo"),
                                         (CHUNKED, "ChunkGeo")])
 def test_mirror_shapes_follow_the_sources(kernel, var):
-    """WARPS and MMA_HEAD_DIMS are the sources' Geometry arguments and
+    """WARPS and MMA_PAIRS are the sources' Geometry arguments and
     instantiations, and shape() follows attend_mma.cuh's rules, so a change
     to either side fails here rather than letting the mirror drift. In the
     paged source both the fused-pool and the split-pool tensor-core kernels
     take PagedGeo<D> from the one launch table, so the split kernel's
-    mirror (``pools=``) has the fused one's shape."""
+    mirror (``pools=``) has the fused one's shape; the chunked source
+    instantiates (head dim, value width) pairs."""
     import re
     src = (build.CSRC / f"{kernel}.cu").read_text()
-    m = re.search(r"using " + var + r" = mma::Geometry<D, (\d+), (\d+)>;",
-                  src)
-    assert m and tuple(map(int, m.groups())) == WARPS[kernel]
-    dims = tuple(int(d) for d in re.findall(
-        r"D == (\d+) +\? mma_launch<\1>\(\)", src))
-    assert dims == MMA_HEAD_DIMS
+    m = re.search(r"using " + var +
+                  r" = mma::Geometry<D, (\d+), (\d+)(, Dv)?>;", src)
+    assert m and tuple(map(int, m.groups()[:2])) == WARPS[kernel]
+    if kernel == PAGED:
+        pairs = tuple((int(d), int(d)) for d in re.findall(
+            r"D == (\d+) +\? mma_launch<\1>\(\)", src))
+    else:
+        pairs = tuple((int(d), int(dv)) for d, dv in re.findall(
+            r"D == (\d+) && Dv == (\d+) +\? mma_launch<\1, \2>\(\)", src))
+    assert pairs == MMA_PAIRS[kernel]
     if kernel == PAGED:
         for k in ("fused", "split"):
             assert re.search(
@@ -529,6 +556,8 @@ def test_mirror_shapes_follow_the_sources(kernel, var):
         assert "paged_prefill_attention_split_mma_kernel<D>" in table
         assert "m.split<<<" in src and "m.fused<<<" in src
     geo = (build.CSRC / "attend_mma.cuh").read_text()
-    for rule in ("MW = D_ > 128 ? 1 : MW_;", "kRows = 16 * MW * W;",
-                 "KT = D_ > 128 || MW > 1 ? 32 : 64;"):
+    for rule in ("MW = DV_ > 128 ? 1 : MW_;", "kRows = 16 * MW * W;",
+                 "KT = D_ > 128 || MW > 1 ? 32 : 64;",
+                 "constexpr int ND = Geo::DV / 8;",
+                 "SE = KT * (P + PV);"):
         assert rule in geo, rule

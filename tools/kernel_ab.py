@@ -10,7 +10,9 @@ commit unpacked into ``build/``). Each run imports that checkout's
 ``chip_smoke.py`` (which puts its ``src/`` first on the path), builds its
 kernels and times a fixed set of its decode and prefill parity cases, its
 chunked-prefill cases (llama3.2-3b's and jamba's heads, and the short deep
-chunks that split-K cuts), the mLSTM chunkwise cases of ``MLSTM_CASES``
+chunks that split-K cuts; and deepseek-v3's MLA shapes where the chunked
+kernel takes a value width of its own), the mLSTM chunkwise cases of
+``MLSTM_CASES``
 (the xlstm-125m shapes of the parity phase), its split-pool decode and
 prefill cases and the Mamba
 selective-scan cases of ``MAMBA_CASES`` (jamba's shapes, and the smoke
@@ -218,6 +220,8 @@ def main(root: str) -> int:
         for name, Sq, off, lens, H, window, cap in own_split_k_cases():
             cs.chunked_case(cases, name, Sq, off, lens, bf, H=H,
                             window=window, softcap=cap)
+    if hasattr(cs, "mla_cases"):         # checkouts with #5's value width
+        cs.mla_cases(cases)
     if hasattr(cs, "mlstm_case"):        # checkouts with the mLSTM kernel
         for name, B, S, dn, carried, D, rows in MLSTM_CASES:
             dtype = getattr(torch, dn)
