@@ -31,7 +31,11 @@ prints its seconds):
    chunked-prefill kernel also at deepseek-v3's MLA shapes (128 heads, G
    1, keys 192 and values 128 read in place from the expanded rows: Sq 512
    at offset 3584 of a 4096 row, also split three ways, and Sq 100 at
-   offset 2000; in fp32 the smoke config's keys 24 and values 16). The
+   offset 2000; in fp32 the smoke config's keys 24 and values 16), and at
+   seamless-m4t-large-v2's (16 heads of 64 over 16 kv heads, B 4: the
+   encoder's 1024 frames not causal, the decoder's 128-token prefill,
+   cross attention over 1024 encoder positions at prefill and at a
+   decode step, Sq 1). The
    decode kernels split each row's
    pages (split-K, merged in the same launch): each decode case prints its
    split count and its time from CUDA events and from a profiler trace, a
@@ -79,7 +83,10 @@ prints its seconds):
    smoke xlstm-125m and jamba slot engines, the smoke qwen2-moe-a2.7b
    engine (MoE FFN) in both modes, gemma2-2b (paged and slot) and
    gemma2-27b (paged) with the window cut to 16 tokens so that it masks
-   keys, qwen3-1.7b (paged) and deepseek-v3-671b (MLA, slot).
+   keys, qwen3-1.7b (paged) and deepseek-v3-671b (MLA, slot). Then
+   ``prefill`` and 8 greedy ``decode_step``s of every arch's smoke config
+   (fp32; internvl2 with patch embeddings, seamless-m4t with 16 encoder
+   frames): the same greedy tokens on the GPU and on the CPU.
 5. full-width paged serving: llama3.2-3b (28 layers, d_model 3072, random
    weights from a seed, bf16) through ``InferenceServer(EngineCore(...))``
    with a 65536-token KV pool, 8 requests, once with ``spec_k=0`` and once
@@ -122,6 +129,31 @@ prints its seconds):
    over 8 slots of 4096; #5 must have launched 4 x the chunk dispatches
    (one per MLA layer), its split-K combine launches are printed, and a
    second run repeats it under ``torch.profiler``.
+12. the front door: full-width llama3.2-3b (bf16, paged, phase 5's KV
+   pool) behind ``HttpFrontend`` on 127.0.0.1 (port 0, its asyncio loop
+   in a thread of its own), phase 5's 8 requests as concurrent SSE streams
+   through ``EngineHttpClient``, the one with the longest output
+   cancelled by DELETE after its fourth token: every other stream
+   finishes with all its tokens, the cancelled request holds no page when
+   the DELETE is answered, ``/v1/stats`` reports one readback per round,
+   #1 and #2 launch 28 x their dispatches, and the pool is whole after
+   ``request_stop``'s drain. Prints each request's client-side TTFT and
+   tokens per second beside an in-process run of the same requests, and
+   how many streams equal the in-process ones (bf16 streams depend on the
+   batch); the smoke config in fp32 must give the in-process streams.
+13. the router: two full-width llama3.2-3b replicas (one parameter tree)
+   behind the prefix-affine ``EngineRouter`` and HTTP, two groups of four
+   conversations from ``make_shared_prefix_workload`` and a
+   ``multiturn_followup`` turn of each: every stream completes, each
+   follow-up lands on its conversation's replica unless spilled, the
+   directory and that replica's prefix cache hit, both pools are whole
+   after the drain; the same traffic under round-robin, with its hits.
+14. seamless-m4t-large-v2 at full width (bf16, 24 encoder and 24 decoder
+   layers, every published width, random weights from a seed): B 4, 1024
+   encoder frames, 128-token prompts, ``prefill`` and 32 greedy
+   ``decode_step``s; #5 launches 24 + 48 at prefill and 24 a decode step;
+   a traced repeat gives #5's device time, prefill and decode apart, and
+   the run its peak memory.
 
 The traces are summarised in one pass over the profiler's raw events;
 each also lists the device time and count of every port kernel in it (the
@@ -133,12 +165,14 @@ to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import gc
 import json
 import math
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -672,6 +706,7 @@ def chunked_case(cs, name, Sq, q_offset, lengths, dtype, causal=True,
         vis = vis & (kp <= qp)
     if window > 0:
         vis = vis & (qp - kp < window)
+    vis = vis.expand(B, Sq, Sk)     # every query row, causal or not
     valid = vis.any(-1)[:, None, :, None].expand(B, H, Sq, Dv)
     err, share = check(f"chunked {name}", got, want, vec_limit(want, dn),
                        valid)
@@ -758,6 +793,28 @@ def mla_cases(cs):
     chunked_case(cs, "deepseek-v3 smoke MLA H4 Sq37 off50 Dqk24 Dv16 fp32",
                  37, 50, [87], torch.float32, H=4, Hkv=4, D=24, Dv=16,
                  Sk=256, scale=24 ** -0.5)
+
+
+SEAMLESS_CROSS_DECODE = "seamless B4 cross decode Sq1 Sk1024 G1 D64 bf16"
+
+
+def seamless_cases(cs):
+    """#5 at seamless-m4t-large-v2's shapes (16 heads over 16 kv heads of
+    64, B 4) as phase 14 calls it: the encoder over 1024 frames (not
+    causal), the decoder's 128-token prefill over its own keys (causal),
+    and cross attention over the 1024 encoder positions (not causal) at
+    prefill (Sq 128) and at a decode step (Sq 1: one query row of a block,
+    G 1)."""
+    bf = cs.torch.bfloat16
+    sm = dict(H=16, Hkv=16, D=64)
+    chunked_case(cs, "seamless B4 encoder Sq1024 Sk1024 non-causal bf16",
+                 1024, 0, [1024] * 4, bf, causal=False, Sk=1024, **sm)
+    chunked_case(cs, "seamless B4 decoder prefill Sq128 causal bf16", 128, 0,
+                 [128] * 4, bf, Sk=128, **sm)
+    chunked_case(cs, "seamless B4 cross prefill Sq128 Sk1024 bf16", 128, 0,
+                 [1024] * 4, bf, causal=False, Sk=1024, **sm)
+    chunked_case(cs, SEAMLESS_CROSS_DECODE, 1, 0, [1024] * 4, bf,
+                 causal=False, Sk=1024, **sm)
 
 
 MLSTM_H, MLSTM_D = 4, 384     # xlstm-125m: 4 heads of 1536 / 4
@@ -1056,11 +1113,21 @@ def kernel_phase(torch):
                  512, 4000, [4512], bf, window=4096, softcap=50.0, H=8,
                  Hkv=4, D=256, Sk=8192)
     mla_cases(cs)
+    seamless_cases(cs)
     split_k_cases(cs)
     mlstm_cases(cs)
     split_cases(cs, main)
     mamba_cases(cs)
     return cs.rows
+
+
+def to_device(tree, dev):
+    """A parameter tree (nested dicts and lists of tensors) on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, dev) for v in tree]
+    return tree.to(dev)
 
 
 def smoke_engine_phase(torch, arch="llama3.2-3b", modes=("paged", "slot"),
@@ -1081,14 +1148,6 @@ def smoke_engine_phase(torch, arch="llama3.2-3b", modes=("paged", "slot"),
     if window is not None:
         cfg = dataclasses.replace(cfg, sliding_window=window)
     cpu_params = init_params(cfg, seed=0, device="cpu")
-
-    def to(tree, dev):
-        if isinstance(tree, dict):
-            return {k: to(v, dev) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, dev) for v in tree]
-        return tree.to(dev)
-
     rng = np.random.default_rng(1)
     spec = [(40, 6), (77, 5), (19, 8), (130, 4)]
     prompts = {i: rng.integers(1, cfg.vocab_size, p).astype(np.int32)
@@ -1100,7 +1159,7 @@ def smoke_engine_phase(torch, arch="llama3.2-3b", modes=("paged", "slot"),
                                                         max_iter_time=5.0),
                              cache_mode=mode, kv_capacity_tokens=2048,
                              max_slots=4, max_len=256, device=dev,
-                             params=to(cpu_params, dev))
+                             params=to_device(cpu_params, dev))
             reqs = [Request(rid=i, arrival=0.0, prompt_len=p, max_output=o,
                             ttft_slo=900.0, tbt_slo=900.0)
                     for i, (p, o) in enumerate(spec)]
@@ -1550,6 +1609,488 @@ def _leaves(tree):
         yield tree
 
 
+PREFILL_STEPS = 8     # greedy decode steps after each smoke prefill
+
+
+def prefill_decode_phase(torch, kernels, B=2, S=32, enc_len=16):
+    """``prefill`` then ``PREFILL_STEPS`` greedy ``decode_step``s for every
+    arch at its smoke size in fp32 (internvl2 with patch embeddings in
+    place of its first prompt positions, seamless-m4t with encoder frames
+    and its cross cache), on the GPU (CUDA kernels) and on the CPU (plain
+    versions) from the same weights and inputs: the same greedy tokens.
+    Returns #5's launches on the GPU runs (the CPU runs launch none)."""
+    import numpy as np
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.models import model as TM
+    from repro_torch.params import init_params
+    cpa = kernels["chunked_prefill_attention"]
+    n0 = cpa.launches
+    for arch in ARCHS:
+        cfg = get_config(arch).smoke()
+        cpu_params = init_params(cfg, seed=0, device="cpu")
+        rng = np.random.default_rng(0)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
+                                .astype(np.int32))
+        extra = {}
+        if cfg.num_patch_tokens:
+            extra["extra_embeds"] = torch.from_numpy((rng.normal(size=(
+                B, cfg.num_patch_tokens, cfg.d_model)) * 0.02).astype(
+                np.float32))
+        n_enc = enc_len if cfg.enc_dec else 0
+        if n_enc:
+            extra["enc_embeds"] = torch.from_numpy((rng.normal(size=(
+                B, n_enc, cfg.d_model)) * 0.02).astype(np.float32))
+        seqs = {}
+        for dev in (DEVICE, "cpu"):
+            params = to_device(cpu_params, dev)
+            cache = TM.init_cache(cfg, B, S + PREFILL_STEPS, device=dev,
+                                  enc_len=n_enc)
+            logits, cache = TM.prefill(
+                cfg, params, toks.to(dev), cache,
+                **{k: v.to(dev) for k, v in extra.items()})
+            seq = []
+            for t in range(PREFILL_STEPS):
+                tok = logits.argmax(-1).to(torch.int32)
+                seq.append(tok.cpu().tolist())
+                logits, cache = TM.decode_step(cfg, params, tok[:, None],
+                                               cache, S + t)
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"{arch} prefill/decode on {dev}: "
+                                     f"non-finite logits")
+            seqs[dev] = seq
+        if seqs[DEVICE] != seqs["cpu"]:
+            raise AssertionError(f"{arch} prefill/decode: GPU tokens "
+                                 f"{seqs[DEVICE]} != CPU tokens "
+                                 f"{seqs['cpu']}")
+        print(f"  smoke {arch} prefill({S}) + {PREFILL_STEPS} decode steps"
+              f"{' with patch embeddings' if 'extra_embeds' in extra else ''}"
+              f"{f' with {n_enc} encoder frames' if n_enc else ''}: GPU "
+              f"tokens == CPU tokens", flush=True)
+    return cpa.launches - n0
+
+
+@contextlib.contextmanager
+def front_door(backend):
+    """``HttpFrontend`` over ``backend`` on 127.0.0.1, port 0 (loopback
+    only), its asyncio loop in a thread of its own, which alone steps the
+    engines; yields a client and a dict that receives the drain report.
+    On exit: ``request_stop``, the graceful drain (``backend.close()``
+    asserts the pools refill) and the thread joined."""
+    from repro_torch.frontend.client import EngineHttpClient
+    from repro_torch.frontend.http_server import HttpFrontend
+    fe = HttpFrontend(backend, host="127.0.0.1", port=0, drain_s=120.0)
+    box = {}
+
+    def serve():
+        box["report"] = asyncio.run(fe.serve_forever())
+    th = threading.Thread(target=serve, daemon=True)
+    th.start()
+    t_end = time.perf_counter() + 60.0
+    while fe.port == 0 and time.perf_counter() < t_end:
+        time.sleep(0.01)
+    cli = EngineHttpClient(host="127.0.0.1", port=fe.port, timeout=600.0)
+    cli.wait_ready(60.0)
+    try:
+        yield cli, box
+    finally:
+        fe.request_stop()
+        th.join(timeout=300.0)
+        if th.is_alive() or "report" not in box:
+            raise AssertionError("the front door did not drain on stop")
+        if not box["report"]["drained"]:
+            raise AssertionError(f"drain report: {box['report']}")
+
+
+def http_stream(cli, prompt, max_output, cancel_after=None, on_cancel=None):
+    """One SSE stream through the client; with ``cancel_after``, a DELETE
+    after that many tokens, then ``on_cancel(rid)`` as soon as the cancel
+    is acknowledged. Returns the stream's record (client-side TTFT)."""
+    t0 = time.perf_counter()
+    h = cli.generate([int(x) for x in prompt], max_output=max_output)
+    ttft, seen, cancelled = None, 0, None
+    for _ in h.tokens():
+        ttft = time.perf_counter() - t0 if ttft is None else ttft
+        seen += 1
+        if cancel_after and seen == cancel_after and cancelled is None:
+            cancelled = h.cancel()
+            if on_cancel:
+                on_cancel(h.rid)
+    return {"rid": h.rid, "tokens": list(h.collected), "ttft_s": ttft,
+            "wall_s": time.perf_counter() - t0, "aborted": h.aborted,
+            "finished": any(n == "finished" for n, _ in h.events),
+            "cancelled": cancelled}
+
+
+def http_jobs(cli, jobs, **kw):
+    """``jobs`` [(prompt, max_output, cancel_after)] concurrently, one
+    client thread each; returns their records in order."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        return list(ex.map(lambda j: http_stream(cli, *j, **kw), jobs))
+
+
+def settle(backend):
+    """Wait until the front door's pump has no work left."""
+    t_end = time.perf_counter() + 120.0
+    while backend.has_work() and time.perf_counter() < t_end:
+        time.sleep(0.01)
+    if backend.has_work():
+        raise AssertionError("the engine still has work after its streams")
+
+
+def paged_launch_check(what, layers, stats_list, pa, ppa):
+    """#1 and #2 launch ``layers`` times per decode and per chunk or verify
+    dispatch, summed over the replicas' stats."""
+    dec = sum(st["decode_calls"] for st in stats_list)
+    chunk = sum(st["prefill_calls"] + st["spec_calls"] for st in stats_list)
+    if pa != layers * dec or ppa != layers * chunk or pa <= 0 or ppa <= 0:
+        raise AssertionError(f"{what}: launches decode {pa} / prefill {ppa} "
+                             f"vs {layers} x dispatches decode {dec}, chunk "
+                             f"{chunk}")
+    for st in stats_list:
+        if st["token_readbacks"] != st["iterations"]:
+            raise AssertionError(f"{what}: {st['token_readbacks']} readbacks "
+                                 f"for {st['iterations']} rounds")
+
+
+def http_phase(torch, params, kernels):
+    """Full-width llama3.2-3b (bf16, paged, the KV pool of phase 5) behind
+    ``HttpFrontend``: ``serving_workload``'s 8 requests as concurrent SSE
+    streams, the one with the longest output cancelled by DELETE after its
+    fourth token; beside it, the same requests in process on a backend
+    built the same way. Then the smoke config in fp32, where the streams
+    must equal the in-process ones. Returns the HTTP run's launch counts
+    of #1 and #2 and the record."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.frontend.http_server import build_backend
+    cfg = get_config("llama3.2-3b")
+    prompts, outputs = serving_workload(cfg)
+    kw = dict(arch=cfg.name, smoke=False, replicas=1, kv_tokens=65536,
+              max_budget=512, params=params, device=DEVICE)
+    server = build_backend(**kw)
+    release(torch)
+    t0 = time.perf_counter()
+    handles = [server.submit(p, max_output=o)
+               for p, o in zip(prompts, outputs)]
+    server.run(max_wall_s=600.0)
+    torch.cuda.synchronize()
+    wall_in = time.perf_counter() - t0
+    inproc = [list(h.collected) for h in handles]
+    ttft_in = [h.first_token_t - h.request.arrival for h in handles]
+    rounds_in = server.core.stats.iterations
+    server.close()
+    del server, handles
+    release(torch)
+
+    backend = build_backend(**kw)
+    core = backend.core
+    cut = int(np.argmax(outputs))
+    freed = {}
+
+    def on_cancel(rid):    # the DELETE is answered after abort() ran
+        freed[rid] = rid not in core.alloc.owners
+    reset_counts(kernels)
+    with front_door(backend) as (cli, box):
+        t0 = time.perf_counter()
+        res = http_jobs(cli, [(p, o, 4 if i == cut else None) for i, (p, o)
+                              in enumerate(zip(prompts, outputs))],
+                        on_cancel=on_cancel)
+        wall = time.perf_counter() - t0
+        settle(backend)
+        stats = cli.stats()
+    pa = kernels["paged_attention_fused"].launches
+    ppa = kernels["paged_prefill_attention_fused"].launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for i, (r, o) in enumerate(zip(res, outputs)):
+        if i == cut:
+            if not (r["cancelled"] and r["aborted"] and len(r["tokens"]) < o
+                    and freed.get(r["rid"])):
+                raise AssertionError(f"cancelled stream: {r}, pages freed "
+                                     f"at the DELETE: {freed}")
+        elif not (r["finished"] and not r["aborted"]
+                  and len(r["tokens"]) == o):
+            raise AssertionError(f"stream {i}: {len(r['tokens'])}/{o} "
+                                 f"tokens, finished {r['finished']}")
+        if not all(0 <= x < cfg.vocab_size for x in r["tokens"]):
+            raise AssertionError(f"stream {i}: token id out of range")
+    paged_launch_check("http", cfg.num_layers, [stats["engine"]], pa, ppa)
+    if core.alloc.free_blocks != core.alloc.num_blocks:
+        raise AssertionError("http: KV pages still held after the drain")
+    n_same = sum(r["tokens"] == t for i, (r, t) in enumerate(zip(res, inproc))
+                 if i != cut)
+    n_out = sum(len(r["tokens"]) for r in res)
+    rec = {"arch": cfg.name, "cache_mode": "paged", "front_door": "http",
+           "requests": len(res), "cancelled": cut,
+           "ttft_s_http": [r["ttft_s"] for r in res],
+           "ttft_s_inprocess": ttft_in,
+           "wall_s_http": wall, "wall_s_inprocess": wall_in,
+           "output_tokens_http": n_out,
+           "output_tok_per_s_http": n_out / wall,
+           "output_tok_per_s_inprocess": sum(outputs) / wall_in,
+           "same_tokens_as_inprocess": n_same,
+           "first_divergence": [first_divergence(r["tokens"], t)
+                                for r, t in zip(res, inproc)],
+           "iterations": stats["engine"]["iterations"],
+           "iterations_inprocess": rounds_in,
+           "token_readbacks": stats["engine"]["token_readbacks"],
+           "decode_kernel_launches": pa, "prefill_kernel_launches": ppa,
+           "peak_mem_gb": peak}
+    print(f"  http: {len(res)} SSE streams (request {cut} cancelled after 4 "
+          f"of {outputs[cut]} tokens, its pages free when the DELETE was "
+          f"answered), {n_out} output tokens in {wall:.3f}s "
+          f"({rec['output_tok_per_s_http']:.1f} tok/s; in process "
+          f"{wall_in:.3f}s, {rec['output_tok_per_s_inprocess']:.1f} tok/s); "
+          f"{stats['engine']['iterations']} rounds, as many readbacks "
+          f"({rounds_in} in process); "
+          f"launches decode {pa} prefill {ppa}; peak memory {peak:.2f} GB; "
+          f"{n_same}/{len(res) - 1} uncancelled streams equal the in-process "
+          f"run's (bf16; first differing token {rec['first_divergence']})",
+          flush=True)
+    print("  ttft s, client side over HTTP: "
+          + " ".join(f"{x:.3f}" for x in rec["ttft_s_http"])
+          + "; in process: " + " ".join(f"{x:.3f}" for x in ttft_in))
+    rec["smoke_fp32_equal"] = http_smoke_parity(torch)
+    return {"paged_attention_fused": pa,
+            "paged_prefill_attention_fused": ppa}, rec
+
+
+def http_smoke_parity(torch):
+    """The llama3.2-3b smoke config (fp32) on the card: concurrent SSE
+    streams give the in-process streams of the same prompts token for
+    token."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.frontend.http_server import build_backend
+    cfg = get_config("llama3.2-3b").smoke()
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (24, 40, 33, 77, 130)]
+    kw = dict(arch=cfg.name, smoke=True, replicas=1, kv_tokens=4096,
+              device=DEVICE)
+    server = build_backend(**kw)
+    want = [server.submit(p, max_output=6).result(600.0) for p in prompts]
+    server.close()
+    backend = build_backend(**kw)
+    with front_door(backend) as (cli, box):
+        got = [r["tokens"] for r in http_jobs(cli, [(p, 6, None)
+                                                    for p in prompts])]
+    if got != want:
+        raise AssertionError(f"smoke fp32 SSE streams {got} != in-process "
+                             f"{want}")
+    print(f"  http, smoke config fp32: {len(prompts)} concurrent SSE streams "
+          f"== in-process streams", flush=True)
+    return True
+
+
+def router_phase(torch, params, kernels):
+    """Two full-width llama3.2-3b replicas (bf16, paged, one shared
+    parameter tree) behind ``EngineRouter`` and HTTP: two groups of four
+    conversations from ``make_shared_prefix_workload`` (a 1024-token
+    system prompt each, 128-token user parts) and one unrelated 512-token
+    request (so that round-robin's second turn starts on the other
+    replica), then a ``multiturn_followup`` turn of each conversation, all
+    streams of a turn concurrent; under the
+    prefix-affine policy, then the same traffic under round-robin. Each
+    follow-up must land on the replica that served its conversation unless
+    the router spilled it, the prefix-affine run must hit the directory and
+    the replicas' prefix caches, and every pool must be whole after the
+    drain. Returns the launches of #1 and #2 by policy and the records."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.frontend.http_server import build_backend
+    from repro_torch.serving.workloads import (make_shared_prefix_workload,
+                                              multiturn_followup)
+    cfg = get_config("llama3.2-3b")
+    out_len = 16
+    convs = []
+    for g in range(2):
+        _, pr = make_shared_prefix_workload(
+            4, cfg.vocab_size, system_len=1024, unique_len=128,
+            max_output=out_len, seed=g, rid0=4 * g)
+        convs += [pr[r] for r in sorted(pr)]
+    cold = np.random.default_rng(9).integers(1, cfg.vocab_size, 512).astype(
+        np.int32)
+    launches, recs = {}, []
+    for policy in ("prefix-affine", "round-robin"):
+        backend = build_backend(arch=cfg.name, smoke=False, replicas=2,
+                                policy=policy, kv_tokens=32768,
+                                max_budget=512, params=params, device=DEVICE)
+        release(torch)
+        reset_counts(kernels)
+        rng = np.random.default_rng(5)
+        with front_door(backend) as (cli, box):
+            t0 = time.perf_counter()
+            first = http_jobs(cli, [(p, out_len, None)
+                                    for p in convs + [cold]])
+            follow = [multiturn_followup(p, r["tokens"], rng,
+                                         cfg.vocab_size, turn_len=64)
+                      for p, r in zip(convs, first)]
+            second = http_jobs(cli, [(p, out_len, None) for p in follow])
+            wall = time.perf_counter() - t0
+            settle(backend)
+            stats = cli.stats()
+        pa = kernels["paged_attention_fused"].launches
+        ppa = kernels["paged_prefill_attention_fused"].launches
+        for r in first + second:
+            if not (r["finished"] and len(r["tokens"]) == out_len):
+                raise AssertionError(f"router {policy}: stream {r['rid']} "
+                                     f"{len(r['tokens'])}/{out_len} tokens")
+        paged_launch_check(f"router {policy}", cfg.num_layers,
+                           [rep["engine"] for rep in stats["replicas"]],
+                           pa, ppa)
+        for i, rep in enumerate(backend.replicas):
+            alloc = rep.server.core.alloc
+            if alloc.free_blocks != alloc.num_blocks:
+                raise AssertionError(f"router {policy}: replica {i} holds "
+                                     f"pages after the drain")
+        rr = stats["routing"]
+        owners = [backend.owner_of(r["rid"]) for r in first]
+        owners2 = [backend.owner_of(r["rid"]) for r in second]
+        on_holder = sum(a == b for a, b in zip(owners, owners2))
+        hits = [rep["engine"]["cache_hit_tokens"]
+                for rep in stats["replicas"]]
+        if policy == "prefix-affine":
+            if on_holder + rr["spills"] != len(second) or on_holder == 0:
+                raise AssertionError(
+                    f"router: {on_holder} follow-ups on their conversation's "
+                    f"replica, {rr['spills']} spilled, of {len(second)}")
+            if rr["directory"]["hit_lookups"] <= 0 or rr["affine_hits"] <= 0:
+                raise AssertionError(f"router: no directory hit: {rr}")
+            for i in set(b for a, b in zip(owners, owners2) if a == b):
+                if hits[i] <= 0:
+                    raise AssertionError(f"router: replica {i} took "
+                                         f"follow-ups without a cache hit")
+        rec = {"arch": cfg.name, "policy": policy, "replicas": 2,
+               "conversations": len(convs), "wall_s": wall,
+               "owners_turn1": owners, "owners_turn2": owners2,
+               "followups_on_holder": on_holder, "routed": rr["routed"],
+               "spills": rr["spills"], "affine_hits": rr["affine_hits"],
+               "directory": rr["directory"], "cache_hit_tokens": hits,
+               "prefill_tokens": [rep["engine"]["prefill_tokens"]
+                                  for rep in stats["replicas"]],
+               "ttft_s_turn2": [r["ttft_s"] for r in second],
+               "decode_kernel_launches": pa, "prefill_kernel_launches": ppa,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        recs.append(rec)
+        launches[policy] = {"paged_attention_fused": pa,
+                            "paged_prefill_attention_fused": ppa}
+        print(f"  router {policy}: {len(first) + len(second)} SSE streams "
+              f"in {wall:.3f}s; routed {rr['routed']}, follow-ups on their "
+              f"conversation's replica {on_holder}/{len(second)}, spills "
+              f"{rr['spills']}, affine hits {rr['affine_hits']}, directory "
+              f"hit lookups {rr['directory']['hit_lookups']}/"
+              f"{rr['directory']['lookups']}; cache-hit tokens {hits}, "
+              f"prefill tokens {rec['prefill_tokens']}; turn-2 ttft mean "
+              f"{np.mean(rec['ttft_s_turn2']):.3f}s; launches decode {pa} "
+              f"prefill {ppa}; peak memory {rec['peak_mem_gb']:.2f} GB",
+              flush=True)
+        del backend
+    release(torch)
+    return launches, recs
+
+
+SEAMLESS_B, SEAMLESS_ENC, SEAMLESS_S, SEAMLESS_STEPS = 4, 1024, 128, 32
+
+
+def seamless_phase(torch, kernels):
+    """seamless-m4t-large-v2 at full width (bf16, every published width:
+    24 encoder and 24 decoder layers, d_model 1024, 16 heads of 64, d_ff
+    8192, vocab 256206; random weights from a seed): B 4, 1024 encoder
+    frames drawn from a seed, 128-token decoder prompts, ``prefill`` and
+    32 greedy ``decode_step``s. #5 must launch once per encoder layer,
+    twice per decoder layer at prefill (self and cross attention) and once
+    per decoder layer and decode step (cross attention); a second run
+    repeats it under torch.profiler for #5's device time, prefill and
+    decode apart. Returns #5's launches and the record."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as TM
+    cfg = get_config("seamless-m4t-large-v2")
+    params = load_params(torch, cfg)
+    n_params = sum(p.numel() for p in _leaves(params))
+    B, E, S, T = SEAMLESS_B, SEAMLESS_ENC, SEAMLESS_S, SEAMLESS_STEPS
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    enc = (torch.randn((B, E, cfg.d_model), generator=gen, device=DEVICE)
+           * 0.02).to(cfg.dtype)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device=DEVICE, dtype=torch.int32)
+    L = cfg.num_layers
+    want = cfg.num_encoder_layers + 2 * L + T * L
+    cpa = kernels["chunked_prefill_attention"]
+    rec = {"arch": cfg.name, "params_b": n_params / 1e9, "batch": B,
+           "encoder_frames": E, "prompt_tokens": S, "decode_steps": T,
+           "expected_launches": want}
+    for traced in (False, True):
+        release(torch)
+        cache = TM.init_cache(cfg, B, S + T, device=DEVICE, enc_len=E)
+        torch.cuda.synchronize()
+        reset_counts(kernels)
+        profs = [profiler(torch) if traced else contextlib.nullcontext()
+                 for _ in range(2)]
+        t0 = time.perf_counter()
+        with profs[0]:
+            logits, cache = TM.prefill(cfg, params, toks, cache,
+                                       enc_embeds=enc)
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        n_prefill = cpa.launches
+        out = []
+        with profs[1]:
+            for t in range(T):
+                tok = logits.argmax(-1).to(torch.int32)
+                out.append(tok)
+                logits, cache = TM.decode_step(cfg, params, tok[:, None],
+                                               cache, S + t)
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        n5 = cpa.launches
+        if n5 != want or n_prefill != cfg.num_encoder_layers + 2 * L:
+            raise AssertionError(f"seamless: #5 launched {n_prefill} at "
+                                 f"prefill and {n5} in all, expected "
+                                 f"{cfg.num_encoder_layers + 2 * L} and "
+                                 f"{want}")
+        toks_out = torch.stack(out, 1)
+        if not bool(torch.isfinite(logits.float()).all()) or \
+                int(toks_out.min()) < 0 or \
+                int(toks_out.max()) >= cfg.vocab_size:
+            raise AssertionError("seamless: non-finite logits or token ids "
+                                 "out of range")
+        if not traced:
+            rec.update(launches=n5, launches_prefill=n_prefill,
+                       combine_launches=combine_count(kernels),
+                       prefill_s=t1 - t0, decode_ms_per_step=1e3 * (t2 - t1)
+                       / T,
+                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            print(f"  seamless-m4t-large-v2: {n_params / 1e9:.3f}B "
+                  f"parameters; B{B}, {E} encoder frames, {S}-token prompts: "
+                  f"prefill {rec['prefill_s']:.3f}s, {T} decode steps of "
+                  f"{rec['decode_ms_per_step']:.2f} ms; #5 launches "
+                  f"{n_prefill} at prefill ({cfg.num_encoder_layers} encoder "
+                  f"+ {L} self + {L} cross) and {n5 - n_prefill} in decode "
+                  f"({L} cross a step; split-K combines "
+                  f"{rec['combine_launches']}); peak memory "
+                  f"{rec['peak_mem_gb']:.2f} GB", flush=True)
+            continue
+        for part, prof, wall in (("prefill", profs[0], t1 - t0),
+                                 ("decode", profs[1], t2 - t1)):
+            tr = trace_summary(torch, prof, wall, names=kernels)
+            k5 = [k for k in tr["port_kernels"]
+                  if "chunked_prefill_attention" in k["name"]]
+            rec[f"traced_{part}"] = {**tr, "wall_s": wall,
+                                     "cpa_device_ms": sum(k["ms"]
+                                                          for k in k5)}
+            print(f"  seamless traced {part}: device busy "
+                  f"{tr['device_busy_ms']:.1f} ms of {1e3 * wall:.1f} ms "
+                  f"(idle share {tr['device_idle_share']:.3f}); #5 "
+                  f"{rec[f'traced_{part}']['cpa_device_ms']:.3f} ms device: "
+                  + "; ".join(f"{k['count']}x {k['ms']:.3f} ms {k['name']}"
+                              for k in k5), flush=True)
+            print_trace(tr, wall)
+    del params, cache
+    release(torch)
+    return rec["launches"], rec
+
+
 class Phases:
     """Prints each phase's start and, when the next one starts, its
     seconds."""
@@ -1667,7 +2208,7 @@ def main() -> int:
                "mamba_scan": ms_kernel.mamba_scan}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ph = Phases(11)
+    ph = Phases(14)
 
     ph.start("device")
     dev = device_line()
@@ -1733,6 +2274,8 @@ def main() -> int:
     smoke_engine_phase(torch, "qwen3-1.7b", modes=("paged",))
     smoke_engine_phase(torch, "gemma2-27b", modes=("paged",), window=16)
     smoke_engine_phase(torch, "deepseek-v3-671b", modes=("slot",))
+    reset_counts(kernels)
+    smoke_prefill_launches = prefill_decode_phase(torch, kernels)
 
     ph.start("full-width llama3.2-3b serving, paged cache")
     cfg = get_config("llama3.2-3b")
@@ -1840,6 +2383,31 @@ def main() -> int:
         d_launches["chunked_prefill_attention_combine"]
     del dparams
     release(torch)
+
+    ph.start("full-width llama3.2-3b behind the HTTP/SSE front door")
+    params = load_params(torch, cfg)
+    h_launches, h_rec = http_phase(torch, params, kernels)
+    serving.append(h_rec)
+    for name, n in h_launches.items():
+        by_path[name]["llama3.2-3b http"] = n
+
+    ph.start("two full-width llama3.2-3b replicas behind the router and HTTP")
+    r_launches, r_recs = router_phase(torch, params, kernels)
+    serving += r_recs
+    for policy, counts in r_launches.items():
+        for name, n in counts.items():
+            by_path[name][f"llama3.2-3b router {policy}"] = n
+    del params
+    release(torch)
+
+    ph.start("full-width seamless-m4t-large-v2 prefill and decode")
+    s_launches, s_rec = seamless_phase(torch, kernels)
+    serving.append(s_rec)
+    by_path["chunked_prefill_attention"]["seamless-m4t prefill+decode"] = \
+        s_launches
+    by_path["chunked_prefill_attention"]["smoke prefill+decode, all archs"] \
+        = smoke_prefill_launches
+    combines["seamless-m4t prefill+decode"] = s_rec["combine_launches"]
     ph.stop()
 
     rep = {"paged_attention_fused": ("B8 serving-like ctx bf16",
@@ -1883,6 +2451,11 @@ def main() -> int:
             # shape (its own value width)
             mla = next(r for r in rows if r["kernel"] == name
                        and r["case"] == MLA_CASE)
+            xd = next(r for r in rows if r["kernel"] == name
+                      and r["case"] == SEAMLESS_CROSS_DECODE)
+            entry["seamless_cross_decode"] = {k: xd.get(k) for k in (
+                "case", "ms", "device_ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by", "max_abs_err", "splits")}
             entry.update(combine_launches=sum(combines.values()),
                          combine_launches_by_path=combines,
                          combine_parity_launches=parity_combines,

@@ -18,9 +18,19 @@ jamba (Mamba + attention + MoE) and deepseek-v3 (MLA) serve in slot mode
 (auto picks it); at full width their 398 B and 671 B parameters do not fit
 one card, so ``--no-smoke`` serves them only where the memory holds them.
 
-Flags follow the reference launcher; ``--serve-http``, ``--replicas`` and
-``--mesh`` are not ported yet. The model's weights are random, drawn from
-the engine's default seed.
+``--serve-http`` puts the network front door over the server instead
+(``repro_torch.frontend.http_server``: HTTP/SSE on ``--port``, 0 picks a
+free one); with ``--replicas N`` it fronts N engines behind the
+prefix-affine router (each draws the same weights from the default seed):
+
+    python -m repro_torch.launch.serve --device cpu --serve-http --port 0 \
+        --replicas 2
+
+Flags follow the reference launcher; only ``--mesh`` is not ported yet.
+The model's weights are random, drawn from the engine's default seed.
+seamless-m4t (the encoder-decoder) is refused before anything is
+allocated, as the engine refuses it: the reference engine cannot serve it
+either.
 """
 from __future__ import annotations
 
@@ -74,7 +84,34 @@ def main(argv=None):
                          "deterministic per seed)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the default GPU raises when absent")
+    ap.add_argument("--serve-http", action="store_true",
+                    help="expose the server over HTTP/SSE instead of "
+                         "replaying a synthetic workload (SIGINT drains "
+                         "gracefully; see repro_torch.frontend.http_server)")
+    ap.add_argument("--port", type=int, default=8763,
+                    help="HTTP port for --serve-http (0 picks a free one)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="with --serve-http: >1 runs N engine replicas "
+                         "behind the prefix-affine router")
     args = ap.parse_args(argv)
+
+    if args.serve_http:
+        # the network front door owns engine construction (it builds N
+        # replicas for the router)
+        import asyncio
+
+        from repro_torch.frontend.http_server import (HttpFrontend,
+                                                      build_backend)
+        backend = build_backend(
+            arch=args.arch, smoke=args.smoke, replicas=args.replicas,
+            cache_mode=args.cache_mode, kv_tokens=args.kv_tokens,
+            page_size=args.page_size, max_budget=args.max_budget,
+            prefix_cache=args.prefix_cache, spec_k=args.spec_k,
+            temperature=args.temperature, top_k=args.top_k,
+            sample_seed=args.sample_seed, device=args.device)
+        frontend = HttpFrontend(backend, port=args.port)
+        asyncio.run(frontend.serve_forever())
+        return None
 
     cfg = get_config(args.arch)
     if args.smoke:

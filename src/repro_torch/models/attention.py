@@ -1,14 +1,53 @@
-"""KV-cache helpers of the reference ``models/attention.py``: the paged
-ones (``gather_pages``, ``write_pages_fused``), the slot-cache writes
-(``update_kv_cache``, ``update_kv_cache_ragged``), ``decode_attention`` and
-``mla_decode_attention`` (plain PyTorch, as they are plain jnp in the
-reference). Writes go **in place** where the reference returns a new
-buffer."""
+"""Attention of the reference ``models/attention.py``:
+``blockwise_attention`` (through the chunked-prefill attention kernel), the
+paged KV helpers (``gather_pages``, ``write_pages_fused``), the slot-cache
+writes (``update_kv_cache``, ``update_kv_cache_ragged``),
+``decode_attention`` and ``mla_decode_attention`` (plain PyTorch, as they
+are plain jnp in the reference). Writes go **in place** where the
+reference returns a new buffer."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ref_common as rc
+from repro_torch.kernels.chunked_prefill_attention.ops import (
+    chunked_prefill_attention_op)
+
+
+def blockwise_attention(
+    q: torch.Tensor,  # [B, Sq, Hkv, G, Dh]
+    k: torch.Tensor,  # [B, Sk, Hkv, Dh]
+    v: torch.Tensor,  # [B, Sk, Hkv, Dv]
+    *,
+    scale: float,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+    q_offset: int = 0,
+    kv_valid_len=None,  # [B] or scalar; None => all Sk keys
+) -> torch.Tensor:
+    """Attention of queries at positions ``q_offset + t`` over keys
+    ``0 .. Sk-1``: causal or not, a sliding window, softcap, and keys at or
+    past ``kv_valid_len`` masked. Computed by the chunked-prefill attention
+    kernel on the GPU (its plain version for CPU tensors), on permuted
+    views of q, k and v. The reference's ``block_q``, ``block_k`` and
+    ``unroll`` are XLA tiling controls with nothing to do here. Returns
+    [B, Sq, Hkv, G, Dv]."""
+    B, Sq, Hkv, G, D = q.shape
+    Sk, Dv = k.shape[1], v.shape[3]
+    if torch.is_tensor(kv_valid_len):
+        lengths = kv_valid_len.to(device=q.device, dtype=torch.int32)
+        lengths = lengths.reshape(-1).expand(B).contiguous()
+    else:   # filled on the device: no host-to-device copy, no sync
+        lengths = torch.full((B,), Sk if kv_valid_len is None
+                             else int(kv_valid_len), dtype=torch.int32,
+                             device=q.device)
+    o = chunked_prefill_attention_op(
+        q.reshape(B, Sq, Hkv * G, D).permute(0, 2, 1, 3),
+        k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3), lengths, scale=scale,
+        q_offset=int(q_offset), causal=causal, window=window,
+        softcap=softcap)
+    return o.permute(0, 2, 1, 3).reshape(B, Sq, Hkv, G, Dv)
 
 
 def gather_pages(

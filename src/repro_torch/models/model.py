@@ -1,5 +1,5 @@
-"""Decoder LM over the paged KV cache and over the slot cache (port of the
-paged path and of the slot path of the reference ``models/model.py``).
+"""Decoder and encoder-decoder LM over the paged KV cache and over the slot
+cache (port of the serving modes of the reference ``models/model.py``).
 
 Parameters are nested dicts mirroring the reference pytree: a list of
 *stacks*, each a list over the repeating period's slots whose leaves carry a
@@ -11,15 +11,22 @@ Smax, Hkv, D]}`` for attention, the MLA latents ``{"ckv": [reps, B, Smax,
 kv_lora_rank], "kr": [reps, B, Smax, qk_rope_head_dim]}``, and the
 recurrent state ``{"mamba": {"conv", "ssm"}}`` / ``{"mlstm": {"C", "n",
 "m", "conv"}}`` / ``{"slstm": {"c", "n", "h", "m"}}`` with leaves ``[reps,
-B, ...]`` for the recurrent mixers. The steps write them **in place** (the
-reference donates them).
+B, ...]`` for the recurrent mixers; an encoder-decoder's decoder slots
+also hold the cross-attention cache ``{"cross_k", "cross_v": [reps, B,
+enc_len, Hkv, D]}``. The steps write them **in place** (the reference
+donates them).
 
-Ported: attention mixers (ATTN, LOCAL_ATTN) on both caches, with the
-per-head q/k norm (qwen3), the post-norms and the embedding scale (gemma2);
-MLA (deepseek-v3), Mamba, mLSTM and sLSTM mixers on the slot cache; dense,
-MoE (single device) or no FFN. ``forward`` raises ``NotImplementedError``
-on every other config feature (the encoder-decoder) instead of computing
-something else.
+Modes: "paged_chunk" and "paged_decode" over the paged cache; "chunk",
+"decode" and "prefill" (the whole prompt from an empty cache, written at
+0) over the slot cache; "encode" (the encoder, no cache). Ported:
+attention mixers (ATTN, LOCAL_ATTN) on both caches, with the per-head q/k
+norm (qwen3), the post-norms and the embedding scale (gemma2); MLA
+(deepseek-v3), Mamba, mLSTM and sLSTM mixers on the slot cache; dense,
+MoE (single device) or no FFN; the encoder and the decoder's cross
+attention of an encoder-decoder (seamless-m4t), and the patch embeddings
+that replace a prompt's first tokens (internvl2). Every attention over
+contiguous keys (a chunk, a prefill, the encoder, cross attention) runs
+through ``blockwise_attention``, that is the chunked-prefill kernel.
 """
 from __future__ import annotations
 
@@ -31,8 +38,6 @@ import torch
 
 from repro_torch.configs.base import (ATTN, DENSE, LOCAL_ATTN, MAMBA, MLA,
                                       MLSTM, MOE, NONE, SLSTM, ModelConfig)
-from repro_torch.kernels.chunked_prefill_attention.ops import (
-    chunked_prefill_attention_op)
 from repro_torch.kernels.paged_attention.ops import paged_attention_auto
 from repro_torch.kernels.paged_prefill_attention.ops import (
     paged_prefill_attention_auto)
@@ -61,7 +66,7 @@ def build_stacks(cfg: ModelConfig) -> list:
 
 
 def unsupported_features(cfg: ModelConfig) -> list:
-    """Config features this port does not compute yet (empty = supported)."""
+    """Config features this port does not compute (empty = supported)."""
     found = []
     for period, _ in build_stacks(cfg):
         for mixer, ffn in period:
@@ -69,8 +74,6 @@ def unsupported_features(cfg: ModelConfig) -> list:
                 found.append(f"mixer {mixer!r}")
             if ffn not in (DENSE, MOE, NONE):
                 found.append(f"ffn {ffn!r}")
-    if cfg.enc_dec:
-        found.append("enc_dec")
     return sorted(set(found))
 
 
@@ -128,8 +131,8 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
 
 
 # ---- slot cache -------------------------------------------------------------
-def _slot_cache(cfg: ModelConfig, mixer: str, reps: int, B: int,
-                max_len: int, dtype, device) -> dict:
+def _mixer_cache(cfg: ModelConfig, mixer: str, reps: int, B: int,
+                 max_len: int, dtype, device) -> dict:
     d, H = cfg.d_model, cfg.num_heads
     if mixer in (ATTN, LOCAL_ATTN):
         Hkv, Dh = cfg.num_kv_heads, cfg.resolved_head_dim
@@ -155,15 +158,28 @@ def _slot_cache(cfg: ModelConfig, mixer: str, reps: int, B: int,
                     for n, t in state.items()}}
 
 
+def _slot_cache(cfg: ModelConfig, mixer: str, reps: int, B: int,
+                max_len: int, dtype, device, enc_len: int) -> dict:
+    c = _mixer_cache(cfg, mixer, reps, B, max_len, dtype, device)
+    if cfg.enc_dec:     # a decoder slot's cross-attention K/V
+        Hkv, Dh = cfg.num_kv_heads, cfg.resolved_head_dim
+        c.update({n: torch.zeros((reps, B, enc_len, Hkv, Dh), dtype=dtype,
+                                 device=device)
+                  for n in ("cross_k", "cross_v")})
+    return c
+
+
 def init_cache(cfg: ModelConfig, B: int, max_len: int, dtype=None,
-               device=None) -> list:
+               device=None, enc_len: int = 0) -> list:
     """The reference's ``init_cache``: per period slot of each stack, zeroed
     contiguous KV rows ``{"k", "v": [reps, B, max_len, Hkv, Dh]}`` for an
     attention mixer, the zeroed latent rows ``{"ckv", "kr"}`` for MLA, or
     the fresh recurrent state (``m = -1e30`` for the
-    mLSTM) for a Mamba or xLSTM mixer; one row per engine slot."""
+    mLSTM) for a Mamba or xLSTM mixer; one row per engine slot. An
+    encoder-decoder's slots also hold zeroed ``{"cross_k", "cross_v":
+    [reps, B, enc_len, Hkv, Dh]}``, which its prefill fills."""
     dtype = dtype or cfg.dtype
-    return [[_slot_cache(cfg, mixer, reps, B, max_len, dtype, device)
+    return [[_slot_cache(cfg, mixer, reps, B, max_len, dtype, device, enc_len)
              for mixer, _ in period] for period, reps in build_stacks(cfg)]
 
 
@@ -210,7 +226,9 @@ def attn_block(cfg, p, x, state, *, mode, pos, lengths, window, paged=None,
     """Write the call's K/V into the layer's cache ``state`` (in place)
     first, then attend (decode ``lengths`` count the token being written).
     ``rows`` limits a slot decode's writes to the rows really decoding.
-    Returns the block's output."""
+    "prefill" attends over the call's own keys (causal, the window) and
+    writes them at 0; "encode" attends over them without a mask or a
+    cache. Returns the block's output."""
     B, Sq, _ = x.shape
     xin = rms_norm(x, p["ln"], cfg.norm_eps)
     q, k, v = _qkv(cfg, p, xin, _positions(mode, pos, lengths, Sq, x.device))
@@ -227,6 +245,14 @@ def attn_block(cfg, p, x, state, *, mode, pos, lengths, window, paged=None,
         o = paged_attention_auto(q[:, 0].reshape(B, H, Dh), kvp,
                                  paged.block_tables, lengths, scale=scale,
                                  window=window, softcap=cap)
+    elif mode == "encode":
+        o = A.blockwise_attention(q, k, v, scale=scale, causal=False,
+                                  softcap=cap)
+    elif mode == "prefill":
+        o = A.blockwise_attention(q, k, v, scale=scale, causal=True,
+                                  window=window, softcap=cap)
+        A.update_kv_cache(state["k"], k, 0)
+        A.update_kv_cache(state["v"], v, 0)
     elif mode == "chunk":
         A.update_kv_cache(state["k"], k, pos)
         A.update_kv_cache(state["v"], v, pos)
@@ -249,29 +275,22 @@ def attn_block(cfg, p, x, state, *, mode, pos, lengths, window, paged=None,
 
 def _chunk_attend(cfg, q, k_all, v_all, pos, lengths, window, scale=None):
     """A chunk of queries q [B, Sq, Hkv, G, D] at cache offset ``pos`` over
-    the whole slot cache k_all [B, Smax, Hkv, D] / v_all [B, Smax, Hkv, Dv],
-    through the chunked-prefill attention kernel: causal at ``q_offset =
-    pos``, the window, and a per-row length mask ``lengths`` [B] where given
-    (else ``pos + Sq``, which the causal mask already implies), at
-    ``scale`` (the config's attention scale when None). The cache is passed
-    as permuted views, read in place. Returns [B, Sq, Hkv, G, Dv]."""
+    the whole slot cache k_all [B, Smax, Hkv, D] / v_all [B, Smax, Hkv, Dv]:
+    ``blockwise_attention`` causal at ``q_offset = pos``, with the window,
+    and a per-row length mask ``lengths`` [B] where given (else ``pos +
+    Sq``, which the causal mask already implies), at ``scale`` (the
+    config's attention scale when None). Returns [B, Sq, Hkv, G, Dv]."""
     if torch.is_tensor(pos) and pos.dim():
         raise NotImplementedError(
             "_chunk_attend over ragged per-row offsets is not ported (the "
             "slot engine runs one request per chunk dispatch)")
-    B, Sq, Hkv, G, D = q.shape
     pos = int(pos)
     if not (torch.is_tensor(lengths) and lengths.dim()):
-        lengths = torch.full((B,), pos + Sq, dtype=torch.int32,
-                             device=q.device)
-    o = chunked_prefill_attention_op(
-        q.reshape(B, Sq, Hkv * G, D).permute(0, 2, 1, 3),
-        k_all.permute(0, 2, 1, 3), v_all.permute(0, 2, 1, 3),
-        lengths.to(device=q.device, dtype=torch.int32),
-        scale=_attn_scale(cfg) if scale is None else scale,
-        q_offset=pos, causal=True, window=window,
-        softcap=cfg.attn_logit_softcap)
-    return o.permute(0, 2, 1, 3).reshape(B, Sq, Hkv, G, v_all.shape[-1])
+        lengths = pos + q.shape[1]
+    return A.blockwise_attention(
+        q, k_all, v_all, scale=_attn_scale(cfg) if scale is None else scale,
+        causal=True, window=window, softcap=cfg.attn_logit_softcap,
+        q_offset=pos, kv_valid_len=lengths)
 
 
 def mla_block(cfg, p, x, state, *, mode, pos, lengths, rows=None):
@@ -287,11 +306,13 @@ def mla_block(cfg, p, x, state, *, mode, pos, lengths, rows=None):
     through ``_chunk_attend`` (the chunked-prefill kernel, G 1, value width
     ``dv``). The reference expands the whole ``Smax`` buffer; this expands
     only the first ``pos + Sq`` rows, which gives the same result, since
-    the causal mask hides every later row. A decode step takes the
-    weight-absorbed path: ``q_nope . w_uk`` against the latents
+    the causal mask hides every later row. "prefill" expands the call's
+    own latents the same way, attends causally over them through
+    ``blockwise_attention`` and writes the latents at 0. A decode step
+    takes the weight-absorbed path: ``q_nope . w_uk`` against the latents
     (``mla_decode_attention``), then ``. w_uv``. Returns the block's
     output."""
-    if mode not in ("chunk", "decode"):
+    if mode not in ("prefill", "chunk", "decode"):
         raise ValueError(f"MLA runs on the slot cache only, not in mode "
                          f"{mode!r}")
     B, Sq, _ = x.shape
@@ -309,7 +330,16 @@ def mla_block(cfg, p, x, state, *, mode, pos, lengths, rows=None):
     kv = xin @ p["wkv_a"]
     ckv = rms_norm(kv[..., :kvr], p["kv_ln"], eps)
     k_rope = apply_rope(kv[..., kvr:][:, :, None, :], positions, theta)[:, :, 0]
-    if mode == "chunk":
+    if mode == "prefill":
+        kvb = (ckv @ p["wkv_b"]).view(B, Sq, H, dn + dv)
+        k = torch.cat([kvb[..., :dn], k_rope[:, :, None].expand(
+            B, Sq, H, dr)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)[:, :, :, None, :]   # G 1
+        o = A.blockwise_attention(q, k, kvb[..., dn:], scale=scale,
+                                  causal=True).reshape(B, Sq, H * dv)
+        A.update_kv_cache(state["ckv"], ckv, 0)
+        A.update_kv_cache(state["kr"], k_rope, 0)
+    elif mode == "chunk":
         A.update_kv_cache(state["ckv"], ckv, pos)
         A.update_kv_cache(state["kr"], k_rope, pos)
         n = min(int(pos) + Sq, state["ckv"].shape[1])
@@ -340,11 +370,12 @@ RECURRENT = (MAMBA, MLSTM, SLSTM)
 
 def _recurrent_block(cfg, mixer, p, x, state, *, mode, rows=None):
     """A Mamba, mLSTM or sLSTM block on the slot cache: the mixer of the
-    normed input from the layer's state, which it updates in place. With
+    normed input from the layer's state, which it updates in place (a
+    prefill as a chunk at 0, from the state it is given). With
     ``rows`` (a slot decode) only those batch rows run and change their
     state; the block adds nothing to the other rows. Returns the block's
     output."""
-    if mode not in ("chunk", "decode"):
+    if mode not in ("prefill", "chunk", "decode"):
         raise ValueError(f"mixer {mixer!r} runs on the slot cache only, "
                          f"not in mode {mode!r}")
     xin = rms_norm(x, p["ln"], cfg.norm_eps)
@@ -358,6 +389,33 @@ def _recurrent_block(cfg, mixer, p, x, state, *, mode, rows=None):
     if rows is None:
         return y
     return torch.zeros_like(x).index_copy_(0, rows, y)
+
+
+def cross_block(cfg, p, x, enc_out, state, *, mode):
+    """An encoder-decoder's cross attention: queries of the decoder's normed
+    ``x`` (no RoPE) over every encoder position, without a mask. At
+    "prefill" the keys and values come from ``enc_out`` and are written to
+    the slot's ``cross_k``/``cross_v`` cache (cast to its dtype) while the
+    block attends with the uncast ones, as the reference does; a decode or
+    chunk step reads the cache. Returns the block's output."""
+    B, Sq, _ = x.shape
+    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    xin = rms_norm(x, p["ln"], cfg.norm_eps)
+    q = (xin @ p["wq"]).reshape(B, Sq, Hkv, H // Hkv, Dh)
+    if mode == "prefill":
+        k = (enc_out @ p["wk"]).reshape(B, -1, Hkv, Dh)
+        v = (enc_out @ p["wv"]).reshape(B, -1, Hkv, Dh)
+        if k.shape != state["cross_k"].shape:
+            raise ValueError(
+                f"the cross cache holds {tuple(state['cross_k'].shape)}, the "
+                f"encoder gave {tuple(k.shape)}: build it with "
+                f"init_cache(..., enc_len={k.shape[1]})")
+        state["cross_k"].copy_(k)
+        state["cross_v"].copy_(v)
+    else:
+        k, v = state["cross_k"], state["cross_v"]
+    o = A.blockwise_attention(q, k, v, scale=_attn_scale(cfg), causal=False)
+    return o.reshape(B, Sq, H * Dh) @ p["wo"]
 
 
 def _ffn_apply(cfg, slot, x):
@@ -383,35 +441,81 @@ def _rep(tree, r: int):
     return tree[r]
 
 
-def forward(cfg: ModelConfig, params, tokens, *, cache, mode: str, pos=None,
-            lengths=None, paged: Optional[PagedView] = None, rows=None):
-    """Forward over the paged cache (``mode`` "paged_chunk" or
-    "paged_decode") or the slot cache ("chunk" or "decode"). ``rows``
-    limits a slot decode's cache and state writes to those rows. Returns
-    (final-normed hidden [B, S, d], cache updated in place)."""
-    check_supported(cfg)
+def _embed(cfg, params, tokens, extra_embeds=None):
+    """Token embeddings (scaled by sqrt(d) where the config says so); with
+    ``extra_embeds`` [B, P, d] on a config with patch tokens, those replace
+    the first P positions (internvl2's image patches)."""
     x = params["embed"][tokens.long()]
     if cfg.embed_scale:     # sqrt(d) rounded to the embedding's dtype first
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
+    if extra_embeds is not None and cfg.num_patch_tokens:
+        P = extra_embeds.shape[1]
+        x = torch.cat([extra_embeds.to(x.dtype), x[:, P:]], dim=1)
+    return x
+
+
+def _apply_stack(cfg, stack_params, period, reps, x, cache, enc_out, *,
+                 mode, pos, lengths, paged=None, rows=None):
+    """The stack's repetitions in order (the reference's ``lax.scan``):
+    each period slot's mixer, an encoder-decoder's cross attention, then
+    its FFN. ``cache`` is None for the encoder. Returns x."""
+    for r in range(reps):
+        for j, (mixer, _) in enumerate(period):
+            slot = _rep(stack_params[j], r)
+            state = None if cache is None else _rep(cache[j], r)
+            if mixer in RECURRENT:
+                x = x + _recurrent_block(cfg, mixer, slot[mixer], x, state,
+                                         mode=mode, rows=rows)
+            elif mixer == MLA:
+                x = x + mla_block(cfg, slot["mla"], x, state, mode=mode,
+                                  pos=pos, lengths=lengths, rows=rows)
+            else:
+                window = cfg.sliding_window if mixer == LOCAL_ATTN else 0
+                x = x + attn_block(cfg, slot["attn"], x, state, mode=mode,
+                                   pos=pos, lengths=lengths, window=window,
+                                   paged=paged, rows=rows)
+            if "cross" in slot and (enc_out is not None
+                                    or mode in ("decode", "chunk")):
+                x = x + cross_block(cfg, slot["cross"], x, enc_out, state,
+                                    mode=mode)
+            if "ffn" in slot or "moe" in slot:   # xLSTM blocks have none
+                x = x + _ffn_apply(cfg, slot, x)
+    return x
+
+
+def _run_encoder(cfg, params, enc_embeds):
+    """The encoder stack over ``enc_embeds`` [B, S_enc, d] (non-causal,
+    RoPE at positions 0 .. S_enc-1 where the config uses it) and its own
+    final norm. The frames are cast to the parameters' dtype (PyTorch does
+    not promote a product of two dtypes as JAX does)."""
+    enc = params["encoder"]
+    x = enc_embeds.to(enc["final_norm"].dtype)
+    x = _apply_stack(cfg, enc["stacks"][0], ((ATTN, DENSE),),
+                     cfg.num_encoder_layers, x, None, None, mode="encode",
+                     pos=0, lengths=None)
+    return rms_norm(x, enc["final_norm"], cfg.norm_eps)
+
+
+def forward(cfg: ModelConfig, params, tokens, *, cache, mode: str, pos=None,
+            lengths=None, paged: Optional[PagedView] = None, rows=None,
+            extra_embeds=None, enc_embeds=None):
+    """Forward over the paged cache (``mode`` "paged_chunk" or
+    "paged_decode") or the slot cache ("prefill", "chunk" or "decode").
+    ``rows`` limits a slot decode's cache and state writes to those rows.
+    ``extra_embeds`` replace the first prompt positions' embeddings;
+    ``enc_embeds`` run an encoder-decoder's encoder first, whose output the
+    decoder's cross attention reads. Returns (final-normed hidden [B, S,
+    d], cache updated in place)."""
+    check_supported(cfg)
+    enc_out = None
+    if cfg.enc_dec and enc_embeds is not None:
+        enc_out = _run_encoder(cfg, params, enc_embeds)
+    x = _embed(cfg, params, tokens, extra_embeds)
     for i, (period, reps) in enumerate(build_stacks(cfg)):
-        for r in range(reps):
-            for j, (mixer, _) in enumerate(period):
-                slot = _rep(params["stacks"][i][j], r)
-                state = _rep(cache[i][j], r)
-                if mixer in RECURRENT:
-                    x = x + _recurrent_block(cfg, mixer, slot[mixer], x,
-                                             state, mode=mode, rows=rows)
-                elif mixer == MLA:
-                    x = x + mla_block(cfg, slot["mla"], x, state, mode=mode,
-                                      pos=pos, lengths=lengths, rows=rows)
-                else:
-                    window = cfg.sliding_window if mixer == LOCAL_ATTN else 0
-                    x = x + attn_block(cfg, slot["attn"], x, state,
-                                       mode=mode, pos=pos, lengths=lengths,
-                                       window=window, paged=paged, rows=rows)
-                if "ffn" in slot or "moe" in slot:   # xLSTM blocks have none
-                    x = x + _ffn_apply(cfg, slot, x)
+        x = _apply_stack(cfg, params["stacks"][i], period, reps, x, cache[i],
+                         enc_out, mode=mode, pos=pos, lengths=lengths,
+                         paged=paged, rows=rows)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), cache
 
 
@@ -515,6 +619,18 @@ def paged_spec_step(cfg: ModelConfig, params, tokens, cache, row_pos, *,
     return payload.reshape(-1).to(torch.int32), cache
 
 
+def prefill(cfg: ModelConfig, params, tokens, cache, *, extra_embeds=None,
+            enc_embeds=None):
+    """Full prefill of ``tokens`` [B, S] from an empty slot cache (written
+    at 0), with an encoder-decoder's ``enc_embeds`` [B, enc_len, d] (the
+    cache built with ``enc_len``) and internvl2's ``extra_embeds``. Returns
+    (the last position's logits [B, V], cache)."""
+    x, cache = forward(cfg, params, tokens, cache=cache, mode="prefill",
+                       pos=0, extra_embeds=extra_embeds,
+                       enc_embeds=enc_embeds)
+    return _head(cfg, params, x[:, -1]), cache
+
+
 def decode_step(cfg: ModelConfig, params, tokens, cache, pos, *,
                 lengths=None, write_rows=None):
     """One decode step over the slot cache. ``tokens`` [B, 1]; ``pos`` a
@@ -522,8 +638,9 @@ def decode_step(cfg: ModelConfig, params, tokens, cache, pos, *,
     token being written. ``write_rows`` limits the cache writes to those
     rows (the slot engine's decoding rows; every row when None): the KV of
     the other rows and their recurrent state stay bit-identical, and a
-    recurrent block runs only the written rows. Returns (logits [B, V],
-    cache)."""
+    recurrent block runs only the written rows. An encoder-decoder's cross
+    attention reads the cross cache that its prefill wrote. Returns (logits
+    [B, V], cache)."""
     if lengths is None:
         lengths = pos + 1
     x, cache = forward(cfg, params, tokens, cache=cache, mode="decode",

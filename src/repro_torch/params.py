@@ -27,8 +27,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.configs.base import (DENSE, MAMBA, MLA, MLSTM, MOE, SLSTM,
-                                      ModelConfig)
+from repro_torch.configs.base import (ATTN, DENSE, MAMBA, MLA, MLSTM, MOE,
+                                      SLSTM, ModelConfig)
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import dense_init, embed_init
@@ -73,24 +73,32 @@ def from_jax_numpy(cfg: ModelConfig, tree, device="cpu"):
     out = _convert(tree, device)
     stacks = out.get("stacks") if isinstance(out, dict) else out
     if isinstance(stacks, list):
-        built = build_stacks(cfg)
-        if len(stacks) != len(built):
-            raise ValueError(f"{len(stacks)} stacks, {cfg.name} has "
-                             f"{len(built)}")
-        for (_, reps), stack in zip(built, stacks):
-            for leaf in _leaves(stack):
-                if leaf.shape[0] != reps:
-                    raise ValueError(f"stacked leaf of shape "
-                                     f"{tuple(leaf.shape)}: {cfg.name} "
-                                     f"repeats its period {reps} times")
+        _check_reps(cfg, stacks, build_stacks(cfg))
+    if isinstance(out, dict) and "encoder" in out:
+        _check_reps(cfg, out["encoder"]["stacks"],
+                    [(((ATTN, DENSE),), cfg.num_encoder_layers)])
     return out
+
+
+def _check_reps(cfg: ModelConfig, stacks, built) -> None:
+    if len(stacks) != len(built):
+        raise ValueError(f"{len(stacks)} stacks, {cfg.name} has "
+                         f"{len(built)}")
+    for (_, reps), stack in zip(built, stacks):
+        for leaf in _leaves(stack):
+            if leaf.shape[0] != reps:
+                raise ValueError(f"stacked leaf of shape "
+                                 f"{tuple(leaf.shape)}: {cfg.name} "
+                                 f"repeats its period {reps} times")
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
     """Random parameters in the reference's structure and distributions,
     for the configs the port computes (attention with its q/k norms and
     post-norms where the config has them, MLA, Mamba, mLSTM or sLSTM
-    mixers; dense MLP, MoE or no FFN), without the ``mtp`` subtree."""
+    mixers; dense MLP, MoE or no FFN; an encoder-decoder's ``encoder``
+    stack and final norm, and each decoder slot's ``cross`` attention,
+    which has no q/k norms), without the ``mtp`` subtree."""
     check_supported(cfg)
     device = torch.device(device)
     gen = torch.Generator(device=device)
@@ -107,7 +115,19 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
     params = {"embed": embed_init(gen, cfg.vocab_size, d, dt, device),
               "final_norm": zeros(d), "stacks": []}
 
-    def slot(mixer, ffn, reps):
+    def attn(reps, qk_norm):
+        out = {"ln": zeros(reps, d),
+               "wq": dense(reps, d, H * Dh),
+               "wk": dense(reps, d, Hkv * Dh),
+               "wv": dense(reps, d, Hkv * Dh),
+               "wo": dense(reps, H * Dh, d)}
+        if qk_norm:
+            out.update(q_norm=zeros(reps, Dh), k_norm=zeros(reps, Dh))
+        if cfg.post_norm:
+            out["post_ln"] = zeros(reps, d)
+        return out
+
+    def slot(mixer, ffn, reps, cross=False):
         if mixer == MAMBA:
             out = {"mamba": {"ln": zeros(reps, d), **S.init_mamba(
                 gen, reps, d, cfg.mamba_expand * d, cfg.mamba_d_state,
@@ -131,16 +151,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
                            "wkv_b": dense(reps, kvr, H * (dn + dv)),
                            "wo": dense(reps, H * dv, d)}}
         else:
-            out = {"attn": {"ln": zeros(reps, d),
-                            "wq": dense(reps, d, H * Dh),
-                            "wk": dense(reps, d, Hkv * Dh),
-                            "wv": dense(reps, d, Hkv * Dh),
-                            "wo": dense(reps, H * Dh, d)}}
-            if cfg.qk_norm:
-                out["attn"].update(q_norm=zeros(reps, Dh),
-                                   k_norm=zeros(reps, Dh))
-            if cfg.post_norm:
-                out["attn"]["post_ln"] = zeros(reps, d)
+            out = {"attn": attn(reps, cfg.qk_norm)}
+        if cross:
+            out["cross"] = attn(reps, qk_norm=False)
         if ffn == DENSE:
             out["ffn"] = {"ln": zeros(reps, d),
                           "wi_gate": dense(reps, d, cfg.d_ff),
@@ -156,8 +169,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
         return out
 
     for period, reps in build_stacks(cfg):
-        params["stacks"].append([slot(mixer, ffn, reps)
+        params["stacks"].append([slot(mixer, ffn, reps, cross=cfg.enc_dec)
                                  for mixer, ffn in period])
+    if cfg.enc_dec:
+        params["encoder"] = {
+            "stacks": [[slot(ATTN, DENSE, cfg.num_encoder_layers)]],
+            "final_norm": zeros(d)}
     if not cfg.tie_embeddings:
         params["lm_head"] = dense(1, d, cfg.vocab_size)[0]
     return params

@@ -41,8 +41,10 @@ row, for A/B profiling.
   slot's recurrent state is not reset when a new request takes the slot:
   the request starts from the previous owner's final state.
 
-Not ported yet: the encoder-decoder arch that slot mode also exists for
-(``check_supported`` raises before anything is allocated), and the mesh.
+An encoder-decoder (seamless-m4t) is refused before anything is
+allocated (``check_servable``): the model computes it (``prefill`` and
+``decode_step`` of ``models/model.py``), but the reference engine cannot
+serve it, so there is nothing to port. Not ported yet: the mesh.
 """
 from __future__ import annotations
 
@@ -104,6 +106,22 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("EngineCore: no CUDA device is available; pass "
                            "device='cpu' explicitly to run on the CPU")
     return device
+
+
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise for a config the engine cannot serve: one the model does not
+    compute, or an encoder-decoder. The reference engine's slot mode builds
+    its cache with ``init_cache(cfg, max_slots, max_len)``, whose cross
+    cache then holds no encoder position (``enc_len`` 0), and its first
+    chunk fails in the cross attention over zero keys; no request carries
+    encoder frames either."""
+    check_supported(cfg)
+    if cfg.enc_dec:
+        raise NotImplementedError(
+            f"{cfg.name}: the engine does not serve an encoder-decoder "
+            f"(enc_dec; the reference engine cannot: its slot cache holds "
+            f"no encoder output, and requests carry no encoder frames); "
+            f"repro_torch.models.model.prefill and decode_step compute it")
 
 
 class EventKind(enum.Enum):
@@ -212,7 +230,7 @@ class EngineCore:
                  temperature: float = 0.0, top_k: int = 0,
                  sample_seed: int = 0, seed: int = 0,
                  params=None, device=None):
-        check_supported(cfg)     # before any weight or cache is allocated
+        check_servable(cfg)      # before any weight or cache is allocated
         if cache_mode == "auto":
             cache_mode = "paged" if supports_paged_cache(cfg) else "slot"
         if cache_mode not in ("paged", "slot"):

@@ -185,10 +185,11 @@ def test_default_device_is_the_gpu(monkeypatch):
 
 def test_unpaged_arch_raises(monkeypatch):
     """jamba's Mamba mixers run on the slot cache only: the engine raises
-    ValueError for the paged cache, and an arch with a feature the port
-    does not compute (seamless-m4t's encoder-decoder) raises
-    NotImplementedError in every cache mode, both before any weight or
-    cache is allocated. In auto mode jamba gets the slot cache."""
+    ValueError for the paged cache, and an arch the engine does not serve
+    (seamless-m4t's encoder-decoder, which the model computes but the
+    reference engine cannot serve) raises NotImplementedError in every
+    cache mode, both before any weight or cache is allocated. In auto mode
+    jamba gets the slot cache."""
     import repro_torch.serving.engine as TE
 
     def allocated(*args, **kwargs):

@@ -18,12 +18,15 @@ PORT = SRC / "repro_torch"
 
 # Modules the port carries as copies of the reference, with only ``repro.``
 # renamed to ``repro_torch.``: the scheduler, the host-side serving modules
-# and the pure-data model configs.
+# (the simulator among them), the network front door and the pure-data
+# model configs.
 VERBATIM = (
     sorted(p.relative_to(PORT).as_posix() for p in (PORT / "core").glob("*.py"))
     + [f"serving/{n}.py" for n in ("__init__", "request", "block_allocator",
                                    "drafter", "server", "workloads",
-                                   "costmodel", "metrics")]
+                                   "costmodel", "metrics", "simulator")]
+    + [f"frontend/{n}.py" for n in ("__init__", "prefix_directory", "router",
+                                    "client", "http_server")]
     + sorted(p.relative_to(PORT).as_posix()
              for p in (PORT / "configs").glob("*.py") if p.name != "base.py")
 )
@@ -57,7 +60,10 @@ def test_port_imports_no_jax_and_no_reference_module():
                      "repro_torch.kernels.chunked_prefill_attention.kernel",
                      "repro_torch.kernels.mamba_scan.kernel",
                      "repro_torch.models.moe",
-                     "repro_torch.launch.serve", "repro_torch.params"):
+                     "repro_torch.launch.serve", "repro_torch.params",
+                     "repro_torch.frontend.http_server",
+                     "repro_torch.frontend.router",
+                     "repro_torch.serving.simulator"):
         assert required in mods
 
 

@@ -246,13 +246,16 @@ def test_params_structure_and_cache_conversion(setup):
 @pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-1.7b", "qwen2-moe-a2.7b",
                                   "xlstm-125m", "jamba-1.5-large-398b",
                                   "seamless-m4t-large-v2"])
-def test_unported_features_raise(arch):
-    """What the port does not compute raises instead of computing something
-    else: seamless-m4t (the encoder-decoder) on every path; for xlstm-125m
-    and jamba (recurrent mixers, which run on the slot cache) the paged
-    cache and the paged forward. gemma2-2b (post-norms, embedding scale,
-    softcaps), qwen3-1.7b (per-head q/k norm) and qwen2-moe-a2.7b (the MoE
-    FFN) are computed on the paged path."""
+def test_unported_features_raise(arch, monkeypatch):
+    """What the port does not compute or serve raises instead of computing
+    something else: for xlstm-125m and jamba (recurrent mixers, which run
+    on the slot cache) the paged cache and the paged forward; seamless-m4t
+    (the encoder-decoder), which the model computes, is refused by the
+    engine and the launcher (with and without the HTTP front door) before
+    any weight or cache is allocated, as the reference engine cannot serve
+    it. gemma2-2b (post-norms, embedding scale, softcaps), qwen3-1.7b
+    (per-head q/k norm) and qwen2-moe-a2.7b (the MoE FFN) are computed on
+    the paged path."""
     cfg = get_config(arch).smoke()
     if arch in ("xlstm-125m", "jamba-1.5-large-398b"):
         assert TM.unsupported_features(cfg) == []
@@ -274,9 +277,29 @@ def test_unported_features_raise(arch):
             write_slots=torch.zeros((1,), dtype=torch.int32))
         assert ids.shape == (1,) and 0 <= int(ids[0]) < cfg.vocab_size
         return
-    assert TM.unsupported_features(cfg) == ["enc_dec"]
-    with pytest.raises(NotImplementedError):
-        TP.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TM.forward(cfg, {}, torch.zeros((1, 1), dtype=torch.int32),
-                   cache=None, mode="paged_decode", paged=None)
+    import repro_torch.serving.engine as TE
+    from repro_torch.core import SlidingServeScheduler
+    from repro_torch.launch import serve as launcher
+
+    assert TM.unsupported_features(cfg) == []
+    params = TP.init_params(cfg, device="cpu")
+    cache = TM.init_cache(cfg, 1, 8, enc_len=6)
+    logits, cache = TM.prefill(cfg, params,
+                               torch.ones((1, 4), dtype=torch.int32), cache,
+                               enc_embeds=torch.zeros((1, 6, cfg.d_model)))
+    logits, _ = TM.decode_step(cfg, params, torch.ones((1, 1),
+                                                       dtype=torch.int32),
+                               cache, 4)
+    assert logits.shape == (1, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+
+    def allocated(*a, **k):
+        raise AssertionError("allocated before refusing")
+    for name in ("init_params", "init_cache", "init_paged_cache"):
+        monkeypatch.setattr(TE, name, allocated)
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        TE.EngineCore(cfg, SlidingServeScheduler(), cache_mode="slot",
+                      device="cpu")
+    for extra in ([], ["--serve-http", "--port", "0"]):
+        with pytest.raises(NotImplementedError, match="encoder-decoder"):
+            launcher.main(["--arch", arch, "--device", "cpu", *extra])
