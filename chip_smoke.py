@@ -125,7 +125,8 @@ prints its seconds):
    nothing cut), phase 5's requests at spec_k 0 and a traced repeat.
 11. full-width deepseek-v3-671b slot serving, cut in depth to 4 layers
    (``deepseek_cut``: the 3 first_k_dense layers and 1 MoE layer of 256
-   experts, every published width; 15.1 B parameters), the same requests
+   experts, every published width, and the MTP module, which serving does
+   not read; 15.8 B parameters), the same requests
    over 8 slots of 4096; #5 must have launched 4 x the chunk dispatches
    (one per MLA layer), its split-K combine launches are printed, and a
    second run repeats it under ``torch.profiler``.
@@ -154,6 +155,29 @@ prints its seconds):
    ``decode_step``s; #5 launches 24 + 48 at prefill and 24 a decode step;
    a traced repeat gives #5's device time, prefill and decode apart, and
    the run its peak memory.
+15. training. (a) Every arch's smoke config (fp32, TF32 off; patch
+   embeddings and encoder frames from a seed) under remat "full": the
+   loss and every gradient leaf on the card against the same port code on
+   the CPU (the loss to ``2e-5 + 2e-5 * |ref|``, each leaf to ``1e-4 *
+   max|g_ref|``), every gradient finite, the global norm above 0; the
+   forward launches #5/#6/#7 once per attention (self, cross, encoder,
+   MLA, MTP), Mamba and mLSTM call and runs no plain version, the
+   backward launches each once more (the recompute) and runs each plain
+   version once (its gradient, through the kernel's
+   ``autograd.Function``). (b) The smoke llama3.2-3b under
+   ``TrainingSupervisor`` with a failure injected at step 5: one restart,
+   every loss equal to an uninterrupted run's, and a checkpoint written on
+   the card restores on the CPU bit for bit. Then each kernel's forward
+   and its plain backward timed alone (#5 at llama3.2-3b's training layer,
+   #6 and #7 at B1 S2048), and the bf16 gradient witness: llama3.2-3b at
+   full width cut to 4 layers, its bf16 loss and gradients against the
+   same weights in fp32 (the loss to 1e-2 relative, each leaf to 0.05 of
+   its fp32 norm). (c) Full-width llama3.2-3b (bf16, nothing cut),
+   B 2 x S 2048 from ``PackedSyntheticData``, remat "full", six AdamW
+   steps on one batch: finite losses, the first within ln(V) + 3, the last
+   below the first, #5 56 launches a step; the step time, tokens a second,
+   6 N tokens / step time as a share of 989 TFLOP/s, the peak memory, and
+   a traced step.
 
 The traces are summarised in one pass over the profiler's raw events;
 each also lists the device time and count of every port kernel in it (the
@@ -2091,6 +2115,496 @@ def seamless_phase(torch, kernels):
     return rec["launches"], rec
 
 
+# ---------------------------------------------------------------------------
+# phase 15: training
+# ---------------------------------------------------------------------------
+TRAIN_B, TRAIN_S, TRAIN_ENC = 2, 32, 16       # (a): every arch's smoke batch
+FULL_B, FULL_S, FULL_STEPS = 2, 2048, 6        # (c): full-width llama3.2-3b
+FULL_LR = 3e-6       # larger rates move the random model's loss up first
+PLAIN = (("chunked_prefill_attention", "chunked_prefill_attention_ref"),
+         ("mamba_scan", "mamba_scan_ref"),
+         ("mlstm_chunkwise", "mlstm_chunkwise_ref"))
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Count the calls of #5/#6/#7's plain versions (``ref.py``) by caller,
+    for the time of the block: "<kernel> forward" from the wrappers (which
+    run it for a CPU tensor only) and "<kernel> backward" from the
+    ``autograd.Function``'s backward (``ops.py``). Restores the names on
+    exit."""
+    import importlib
+    counts = {}
+    saved = []
+    for kernel, name in PLAIN:
+        for part, where in (("forward", "kernel"), ("backward", "ops")):
+            mod = importlib.import_module(
+                f"repro_torch.kernels.{kernel}.{where}")
+            fn = getattr(mod, name)
+            key = f"{kernel} {part}"
+
+            def counted(*a, _fn=fn, _key=key, **k):
+                counts[_key] = counts.get(_key, 0) + 1
+                return _fn(*a, **k)
+            saved.append((mod, name, fn))
+            setattr(mod, name, counted)
+    try:
+        yield counts
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def train_kernel_calls(cfg, enc):
+    """Calls of #5/#6/#7 in one training forward: every attention or MLA
+    layer, each decoder layer's cross attention and each encoder layer
+    (with encoder frames), the MTP block's mixer; every Mamba and mLSTM
+    layer."""
+    from repro_torch.configs.base import ATTN, LOCAL_ATTN, MAMBA, MLSTM
+    attn = sum(count_mixers(cfg, k) for k in (ATTN, LOCAL_ATTN, "mla"))
+    if cfg.enc_dec and enc:
+        attn += cfg.num_layers + cfg.num_encoder_layers
+    if cfg.mtp_depth and cfg.layer_pattern[0] in (ATTN, LOCAL_ATTN, "mla"):
+        attn += 1
+    return {"chunked_prefill_attention": attn,
+            "mamba_scan": count_mixers(cfg, MAMBA),
+            "mlstm_chunkwise": count_mixers(cfg, MLSTM)}
+
+
+def smoke_train_batch(torch, cfg, seed):
+    """tokens [TRAIN_B, TRAIN_S] and the arch's frontend inputs (patch
+    embeddings, encoder frames) from a numpy seed, on the CPU."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_B, TRAIN_S)).astype(np.int32))}
+    if cfg.num_patch_tokens:
+        batch["extra_embeds"] = torch.from_numpy((rng.normal(size=(
+            TRAIN_B, cfg.num_patch_tokens, cfg.d_model)) * 0.02).astype(
+                np.float32))
+    if cfg.enc_dec:
+        batch["enc_embeds"] = torch.from_numpy((rng.normal(size=(
+            TRAIN_B, TRAIN_ENC, cfg.d_model)) * 0.02).astype(np.float32))
+    return batch
+
+
+def train_loss(cfg, params, batch, rctx):
+    """``loss_fn`` with every parameter leaf requiring grad; returns (loss,
+    the leaves in flattening order)."""
+    from repro_torch.models import model as TM
+    from repro_torch.train import tree as T
+    leaves = [p.requires_grad_() for p in T.leaves(params)]
+    return TM.loss_fn(cfg, params, batch, rctx), leaves
+
+
+def train_smoke_phase(torch, kernels):
+    """(a) Every arch's smoke config (fp32, TF32 off) on the card: loss_fn
+    and every gradient leaf against the same port code on the CPU with the
+    same parameters (the loss to 2e-5 + 2e-5 |ref|, each leaf to 1e-4 x
+    max |g_ref|), every leaf's gradient finite, the global norm above 0.
+    Under remat "full" the forward launches #5/#6/#7 once per call and
+    makes no plain-version call; the backward launches each once more (the
+    recompute) and runs each plain version once (its gradient). Returns
+    the launches of the phase by kernel."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.models import model as TM
+    from repro_torch.params import init_params
+    rctx = TM.RunCtx(remat="full")
+    totals = {}
+    for arch in ARCHS:
+        cfg = get_config(arch).smoke()
+        cpu_params = init_params(cfg, seed=0, device="cpu")
+        batch = smoke_train_batch(torch, cfg, seed=len(arch))
+        want = train_kernel_calls(cfg, "enc_embeds" in batch)
+        ref_loss, leaves = train_loss(cfg, cpu_params, batch, rctx)
+        ref_grads = torch.autograd.grad(ref_loss, leaves, allow_unused=True)
+        params = to_device(cpu_params, DEVICE)
+        dbatch = {k: v.to(DEVICE) for k, v in batch.items()}
+        reset_counts(kernels)
+        with plain_calls() as plain:
+            loss, leaves = train_loss(cfg, params, dbatch, rctx)
+            torch.cuda.synchronize()
+            fwd = {k: kernels[k].launches for k in want}
+            fwd_plain = dict(plain)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            torch.cuda.synchronize()
+            both = {k: kernels[k].launches for k in want}
+            all_plain = dict(plain)
+        for k, n in want.items():
+            totals[k] = totals.get(k, 0) + both[k]
+            if fwd[k] != n or both[k] != 2 * n or \
+                    all_plain.get(f"{k} backward", 0) != n:
+                raise AssertionError(
+                    f"train {arch}: {k} launched {fwd[k]} in the forward and "
+                    f"{both[k]} in all, its plain backward ran "
+                    f"{all_plain.get(f'{k} backward', 0)} times; expected "
+                    f"{n}, {2 * n} and {n}")
+        if fwd_plain or any("forward" in k for k in all_plain):
+            raise AssertionError(f"train {arch}: plain versions ran in the "
+                                 f"forward: {fwd_plain}, {all_plain}")
+        rl, gl = float(ref_loss.detach()), float(loss.detach())
+        check(f"train {arch} loss", torch.tensor([gl]), torch.tensor([rl]),
+              2e-5 + 2e-5 * abs(rl))
+        norm2, worst = 0.0, 0.0
+        for i, (g, r) in enumerate(zip(grads, ref_grads)):
+            if (g is None) != (r is None):
+                raise AssertionError(f"train {arch}: leaf {i} has a gradient "
+                                     f"on one device only")
+            if g is None:
+                continue
+            g = g.cpu()
+            lim = 1e-4 * float(r.abs().max())
+            _, share = check(f"train {arch} grad leaf {i}", g, r, lim)
+            worst = max(worst, share)
+            norm2 += float(g.double().square().sum())
+        if not (math.isfinite(norm2) and norm2 > 0.0):
+            raise AssertionError(f"train {arch}: global norm^2 {norm2}")
+        print(f"  train {arch} (smoke, fp32, remat full): loss "
+              f"{gl:.6f} (CPU {rl:.6f}); {len(grads)} leaves, "
+              f"worst {worst:.3f} of the limit, global norm "
+              f"{math.sqrt(norm2):.4f}; launches forward/all "
+              + ", ".join(f"{k.split('_')[0]} {fwd[k]}/{both[k]}"
+                          for k in want if want[k])
+              + f"; plain {all_plain}", flush=True)
+    return totals
+
+
+def train_supervisor_phase(torch):
+    """(b) The smoke llama3.2-3b (fp32) on the card under
+    ``TrainingSupervisor`` (asynchronous checkpoints every 3 steps, the
+    launcher's out-of-memory guard) for 8 steps with a failure injected at
+    step 5: exactly one restart, and every loss, replayed ones included,
+    equals an uninterrupted run's; a checkpoint written on the card
+    restores on the CPU bit for bit."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import oom_as_memory_error
+    from repro_torch.models import model as TM
+    from repro_torch.params import init_params
+    from repro_torch.runtime.fault_tolerance import TrainingSupervisor
+    from repro_torch.train import checkpoint
+    from repro_torch.train import tree as T
+    from repro_torch.train.data import DataConfig, PackedSyntheticData
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (TrainConfig, init_train_state,
+                                              make_train_step)
+    cfg = get_config("llama3.2-3b").smoke()
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-2, warmup_steps=0,
+                                             total_steps=50))
+    step_fn = make_train_step(cfg, TM.RunCtx(remat="full"), tcfg)
+    data = PackedSyntheticData(DataConfig(cfg.vocab_size, 64, 4, seed=0))
+    batches = [torch.from_numpy(data.batch(i)).to(DEVICE) for i in range(8)]
+    root = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def run(name, fail_step):
+        params = init_params(cfg, seed=0, device=DEVICE)
+        state = {"params": params,
+                 "train": init_train_state(cfg, params, tcfg)}
+        losses = {}
+
+        def one_step(st, i):
+            p, t, m = step_fn(st["params"], st["train"],
+                              {"tokens": batches[i]})
+            losses.setdefault(i, []).append(float(m["loss"]))
+            return {"params": p, "train": t}
+        fired = []
+
+        def fail_at(i):
+            if i == fail_step and not fired:
+                fired.append(i)
+                return True
+            return False
+        sup = TrainingSupervisor(str(root / name), save_every=3)
+        state, end, restarts = sup.run(oom_as_memory_error(one_step), state,
+                                       0, len(batches), fail_at=fail_at)
+        return state, end, restarts, losses
+
+    _, end0, restarts0, clean = run("clean", None)
+    state, end, restarts, losses = run("failed", 5)
+    if (end0, restarts0, end, restarts) != (8, 0, 8, 1):
+        raise AssertionError(f"supervisor: ended at {end0}/{end} with "
+                             f"{restarts0}/{restarts} restarts")
+    replayed = {i: v for i, v in losses.items() if len(v) > 1}
+    if sorted(replayed) != [3, 4] or any(
+            x != clean[i][0] for i, v in losses.items() for x in v):
+        raise AssertionError(f"supervisor: losses {losses} against an "
+                             f"uninterrupted run's {clean}")
+    checkpoint.save(str(root / "final"), end, state)
+    like = T.tree_map(lambda t: torch.empty_like(t, device="cpu"), state)
+    back = checkpoint.restore(str(root / "final"), end, like)
+    n = 0
+    for a, b in zip(T.leaves(state), T.leaves(back)):
+        if a.dtype != b.dtype or not torch.equal(a.detach().cpu(), b):
+            raise AssertionError("supervisor: the card's checkpoint did not "
+                                 "restore bit for bit on the CPU")
+        n += 1
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"  supervised smoke llama3.2-3b: 8 steps, 1 restart (failure at "
+          f"step 5, restored from step 3), losses of steps 3-4 replayed "
+          f"and every loss equal to an uninterrupted run's "
+          f"({', '.join(f'{clean[i][0]:.4f}' for i in range(8))}); the "
+          f"final state ({n} leaves) restored on the CPU bit for bit",
+          flush=True)
+    return {"restarts": restarts, "losses": clean, "replayed": replayed}
+
+
+def backward_timings(torch):
+    """Each kernel's forward (the kernel) and its Function's backward (the
+    plain version recomputed under autograd) timed alone with CUDA events:
+    #5 at llama3.2-3b's training layer (bf16, B2, 24 heads over 8, S 2048,
+    causal; its bound from the keys each query attends), #6 and #7 at the
+    parity phase's B1 S2048 (jamba's d_inner 16384, d_state 16;
+    xlstm-125m's 4 heads of 384), bf16."""
+    from repro_torch.kernels.chunked_prefill_attention.ops import (
+        chunked_prefill_attention_op)
+    from repro_torch.kernels.mamba_scan.ops import mamba_scan_fresh_op
+    from repro_torch.kernels.mlstm_chunkwise.ops import (
+        mlstm_chunkwise_fresh_op)
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    bf = torch.bfloat16
+
+    def rand(*shape, dtype=bf, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=DEVICE) * scale).to(
+            dtype).requires_grad_()
+    B, S = FULL_B, FULL_S
+    lengths = torch.full((B,), S, dtype=torch.int32, device=DEVICE)
+    cases = {
+        "chunked_prefill_attention": (
+            f"llama3.2-3b train layer B{B} S{S} H24 Hkv8 D128 causal bf16",
+            lambda q, k, v: chunked_prefill_attention_op(
+                q, k, v, lengths, scale=128 ** -0.5),
+            (rand(B, 24, S, 128), rand(B, 8, S, 128), rand(B, 8, S, 128))),
+        "mamba_scan": (
+            f"B1 S2048 d{MAMBA_D} n{MAMBA_N} bf16",
+            lambda *a: mamba_scan_fresh_op(*a)[0],
+            (rand(1, 2048, MAMBA_D),
+             (torch.rand((1, 2048, MAMBA_D), generator=gen, device=DEVICE)
+              * 0.1).requires_grad_(),
+             rand(1, 2048, MAMBA_N, dtype=torch.float32),
+             rand(1, 2048, MAMBA_N, dtype=torch.float32),
+             (-torch.arange(1, MAMBA_N + 1, dtype=torch.float32,
+                            device=DEVICE).expand(MAMBA_D, MAMBA_N)
+              ).contiguous().requires_grad_(),
+             torch.ones((MAMBA_D,), device=DEVICE).requires_grad_())),
+        "mlstm_chunkwise": (
+            f"B1 S2048 H{MLSTM_H} D{MLSTM_D} bf16",
+            lambda *a: mlstm_chunkwise_fresh_op(*a)[0],
+            (rand(1, 2048, MLSTM_H, MLSTM_D),
+             rand(1, 2048, MLSTM_H, MLSTM_D, scale=MLSTM_D ** -0.5),
+             rand(1, 2048, MLSTM_H, MLSTM_D),
+             rand(1, 2048, MLSTM_H, dtype=torch.float32),
+             torch.nn.functional.logsigmoid(
+                 torch.randn((1, 2048, MLSTM_H), generator=gen,
+                             device=DEVICE) + 4.0).requires_grad_())),
+    }
+    out = {}
+    for name, (shape, fn, ins) in cases.items():
+        fwd_ms = cuda_ms(torch, lambda: fn(*ins), iters=5)
+        y = fn(*ins)
+        w = torch.randn(y.shape, generator=gen, device=DEVICE).to(y.dtype)
+        need = [t for t in ins if t.requires_grad]
+
+        def backward():
+            torch.autograd.grad(y, need, w, retain_graph=True)
+        bwd_ms = cuda_ms(torch, backward, iters=2, warmup=1)
+        out[name] = {"shape": shape, "forward_ms": fwd_ms,
+                     "backward_ms": bwd_ms,
+                     "backward": "plain version through autograd"}
+        if name == "chunked_prefill_attention":
+            # forward: QK^T and PV over the S(S+1)/2 causal pairs a head
+            flops = 4 * B * 24 * 128 * S * (S + 1) // 2
+            nbytes = sum(t.numel() * t.element_size() for t in ins) \
+                + y.numel() * y.element_size()
+            out[name]["forward_bound_ms"], out[name]["forward_bound_by"] = \
+                bound(nbytes, flops, "bfloat16")
+        print(f"  {name} {shape}: forward (kernel) {fwd_ms:.3f} ms"
+              + (f" (bound {out[name]['forward_bound_ms']:.4f} ms, "
+                 f"{out[name]['forward_bound_by']})"
+                 if "forward_bound_ms" in out[name] else "")
+              + f", backward (plain version through autograd) {bwd_ms:.3f} "
+              f"ms", flush=True)
+        del y, ins
+    release(torch)
+    return out
+
+
+WITNESS_LAYERS = 4     # the bf16 gradient witness: llama3.2-3b cut in depth
+
+
+def witness_cfg():
+    """llama3.2-3b at full width (d_model 3072, 24 heads over 8, d_ff
+    8192, vocab 128256) cut to ``WITNESS_LAYERS`` layers."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("llama3.2-3b"),
+                               num_layers=WITNESS_LAYERS)
+
+
+def train_bf16_witness(torch):
+    """The full-width bf16 gradient held against fp32: the depth-cut
+    llama3.2-3b (``witness_cfg``) with random bf16 weights, and the same
+    weights cast to fp32 (TF32 off), on the batch of (c) (B 2 x S 2048),
+    remat "full". Both go through #5 (bf16: the tensor-core kernel; fp32:
+    the scalar loop) and its plain backward. The bf16 loss is held to 1e-2
+    x the fp32 loss, and each leaf's bf16 gradient to 0.05 x the fp32
+    gradient's L2 norm in L2 norm: bf16 rounding (2^-9 relative a value)
+    through four layers stays far inside that, while a wrong or missing
+    gradient path is off by its own size."""
+    from repro_torch.models import model as TM
+    from repro_torch.params import init_params
+    from repro_torch.train import tree as T
+    from repro_torch.train.data import DataConfig, PackedSyntheticData
+    cfg = witness_cfg()
+    release(torch)
+    rctx = TM.RunCtx(remat="full", loss_vocab_blocks=16)
+    data = PackedSyntheticData(DataConfig(cfg.vocab_size, FULL_S, FULL_B,
+                                          seed=0))
+    batch = {"tokens": torch.from_numpy(data.batch(0)).to(DEVICE)}
+    bf = init_params(cfg, seed=0, device=DEVICE)
+    runs = {}
+    for name, params in (("bf16", bf),
+                         ("fp32", T.tree_map(lambda t: t.float(), bf))):
+        t0 = time.perf_counter()
+        loss, leaves = train_loss(cfg, params, batch, rctx)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        runs[name] = (float(loss.detach()), [g.float() for g in grads],
+                      time.perf_counter() - t0)
+        del loss, leaves, params
+    (l16, g16, s16), (l32, g32, s32) = runs["bf16"], runs["fp32"]
+    if not (math.isfinite(l16) and abs(l16 - l32) <= 1e-2 * abs(l32)):
+        raise AssertionError(f"bf16 witness: loss {l16} against fp32 {l32}")
+    worst, worst_path, min_cos = 0.0, None, 1.0
+    paths = [p for p, _ in T.leaves_with_paths(bf)]
+    for path, a, b in zip(paths, g16, g32):
+        ref = float(torch.linalg.vector_norm(b))
+        rel = float(torch.linalg.vector_norm(a - b)) / max(ref, 1e-30)
+        cos = float(torch.nn.functional.cosine_similarity(
+            a.reshape(1, -1), b.reshape(1, -1)))
+        if not (math.isfinite(rel) and ref > 0.0 and rel <= 0.05):
+            raise AssertionError(f"bf16 witness: gradient {path} off by "
+                                 f"{rel:.4f} of its fp32 norm {ref:.3e}")
+        if rel > worst:
+            worst, worst_path = rel, path
+        min_cos = min(min_cos, cos)
+    n2 = [sum(float(g.double().square().sum()) for g in gs)
+          for gs in (g16, g32)]
+    rec = {"layers": cfg.num_layers, "loss_bf16": l16, "loss_fp32": l32,
+           "loss_rel": abs(l16 - l32) / abs(l32), "worst_leaf_rel_l2": worst,
+           "worst_leaf": worst_path, "min_cosine": min_cos,
+           "grad_norm_bf16": math.sqrt(n2[0]),
+           "grad_norm_fp32": math.sqrt(n2[1]), "seconds_bf16": s16,
+           "seconds_fp32": s32}
+    print(f"  bf16 witness (llama3.2-3b, {cfg.num_layers} of 28 layers, full "
+          f"width, B{FULL_B} x S{FULL_S}): loss bf16 {l16:.5f} / fp32 "
+          f"{l32:.5f} (rel {rec['loss_rel']:.2e}); {len(paths)} leaves, "
+          f"worst |g16 - g32| / |g32| {worst:.4f} ({worst_path}; limit "
+          f"0.05), min cosine {min_cos:.5f}; global norm bf16 "
+          f"{rec['grad_norm_bf16']:.4f} / fp32 {rec['grad_norm_fp32']:.4f}",
+          flush=True)
+    del bf, g16, g32, runs, batch
+    release(torch)
+    return rec
+
+
+def train_full_phase(torch, kernels):
+    """(c) Full-width llama3.2-3b (28 layers, d_model 3072, vocab 128256,
+    bf16, nothing cut; random weights from a seed): B 2 x S 2048 from
+    ``PackedSyntheticData``, remat "full", grad_accum 1, AdamW (lr
+    ``FULL_LR``, no warmup), six steps on one fixed batch: every loss
+    finite, the first within ln(V) + 3, the last below the first, #5
+    launched 56 times a step (28 forward, 28 recomputed). Prints each
+    step's time (CUDA events), tokens a second and 6 N tokens / step time
+    as a share of 989 TFLOP/s from the median of the last 4, the peak
+    memory, and a traced repeat of one step (#5's device time, the largest
+    device entries, the idle share)."""
+    import statistics
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as TM
+    from repro_torch.train.data import DataConfig, PackedSyntheticData
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (TrainConfig, init_train_state,
+                                              make_train_step)
+    cfg = get_config("llama3.2-3b")
+    release(torch)
+    params = load_params(torch, cfg)
+    n_params = sum(p.numel() for p in _leaves(params))
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=FULL_LR, warmup_steps=0,
+                                             total_steps=1000))
+    state = init_train_state(cfg, params, tcfg)
+    step_fn = make_train_step(cfg, TM.RunCtx(remat="full",
+                                             loss_vocab_blocks=16), tcfg)
+    t0 = time.perf_counter()
+    data = PackedSyntheticData(DataConfig(cfg.vocab_size, FULL_S, FULL_B,
+                                          seed=0))
+    batch = {"tokens": torch.from_numpy(data.batch(0)).to(DEVICE)}
+    data_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    cpa = kernels["chunked_prefill_attention"]
+    layers = cfg.num_layers
+    losses, times, launches = [], [], []
+    for i in range(FULL_STEPS):
+        reset_counts(kernels)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, state, m = step_fn(params, state, batch)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+        launches.append(cpa.launches)
+        print(f"  step {i}: loss {losses[-1]:.4f}, {times[-1]:.1f} ms, #5 "
+              f"launches {launches[-1]}, grad norm "
+              f"{float(m['grad_norm']):.3f}", flush=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x) for x in losses) or \
+            losses[0] > math.log(cfg.vocab_size) + 3.0 or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"full-width training losses {losses}")
+    if any(n != 2 * layers for n in launches):
+        raise AssertionError(f"#5 launched {launches} a step, expected "
+                             f"{2 * layers} ({layers} forward + {layers} "
+                             f"recomputed)")
+    step_ms = statistics.median(times[-4:])
+    tokens = FULL_B * FULL_S
+    flops = 6.0 * n_params * tokens
+    rec = {"arch": cfg.name, "params_b": n_params / 1e9, "batch": FULL_B,
+           "seq": FULL_S, "steps": FULL_STEPS, "losses": losses,
+           "step_ms": times, "step_ms_median_last4": step_ms,
+           "tokens_per_s": tokens / (step_ms / 1e3),
+           "model_flops_share_989": flops / (step_ms / 1e3) / 989e12,
+           "cpa_launches_per_step": launches, "state_gb": state_gb,
+           "peak_mem_gb": peak_gb, "data_s": data_s}
+    print(f"  llama3.2-3b training ({n_params / 1e9:.3f}B parameters, B"
+          f"{FULL_B} x S{FULL_S}, remat full): step {step_ms:.1f} ms "
+          f"(median of the last 4), {rec['tokens_per_s']:.0f} tokens/s, "
+          f"6 N tokens / step time {rec['model_flops_share_989']:.3f} of 989 "
+          f"TFLOP/s; parameters + AdamW state {state_gb:.2f} GB, peak "
+          f"{peak_gb:.2f} GB; {device_line()}", flush=True)
+    torch.cuda.synchronize()
+    with profiler(torch) as prof:
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    tr = trace_summary(torch, prof, wall, top=12, names=kernels)
+    k5 = [k for k in tr["port_kernels"]
+          if "chunked_prefill_attention" in k["name"]]
+    rec["traced"] = {**tr, "wall_s": wall,
+                     "cpa_device_ms": sum(k["ms"] for k in k5),
+                     "cpa_count": sum(k["count"] for k in k5)}
+    print(f"  traced step: #5 {rec['traced']['cpa_device_ms']:.3f} ms device "
+          f"over {rec['traced']['cpa_count']} launches", flush=True)
+    print_trace(tr, wall)
+    del params, state, m, batch
+    release(torch)
+    return rec
+
+
 class Phases:
     """Prints each phase's start and, when the next one starts, its
     seconds."""
@@ -2156,9 +2670,10 @@ def deepseek_cut():
     MLA q_lora 1536 / kv_lora 512 / qk_nope 128 / qk_rope 64 / v 128, dense
     d_ff 18432, 256 routed experts top-8 of width 2048 plus one shared,
     vocab 129280, untied head), cut in depth to 4 layers: the three
-    first_k_dense layers and one MoE layer. One MoE layer holds 11.3 B
-    parameters (256 x 3 x 7168 x 2048); the cut holds 15.1 B (30.2 GB in
-    bf16), the published 61 layers 671 B."""
+    first_k_dense layers and one MoE layer, with the MTP module (0.69 B,
+    which serving does not read). One MoE layer holds 11.3 B parameters
+    (256 x 3 x 7168 x 2048); the cut holds 15.8 B (31.6 GB in bf16), the
+    published 61 layers 671 B."""
     import dataclasses
     from repro_torch.configs import get_config
     return dataclasses.replace(get_config("deepseek-v3-671b"), num_layers=4)
@@ -2168,7 +2683,6 @@ DEEPSEEK_REDUCED = [
     "num_layers 61 -> 4 (the 3 first_k_dense layers and 1 MoE layer; every "
     "published width kept)",
     "MoE layers 58 -> 1",
-    "the MTP module is not drawn (only the training loss reads it)",
 ]
 
 
@@ -2208,7 +2722,7 @@ def main() -> int:
                "mamba_scan": ms_kernel.mamba_scan}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ph = Phases(14)
+    ph = Phases(15)
 
     ph.start("device")
     dev = device_line()
@@ -2408,6 +2922,26 @@ def main() -> int:
     by_path["chunked_prefill_attention"]["smoke prefill+decode, all archs"] \
         = smoke_prefill_launches
     combines["seamless-m4t prefill+decode"] = s_rec["combine_launches"]
+
+    ph.start("training: every arch's smoke config, the supervisor, "
+             "full-width llama3.2-3b")
+    smoke_train = train_smoke_phase(torch, kernels)
+    supervised = train_supervisor_phase(torch)
+    backward = backward_timings(torch)
+    witness = train_bf16_witness(torch)
+    full_train = train_full_phase(torch, kernels)
+    serving.append({"training_full": full_train,
+                    "training_supervised": supervised,
+                    "training_bf16_witness": witness})
+    by_path["chunked_prefill_attention"][
+        "smoke training, all archs (forward + recompute)"] = \
+        smoke_train["chunked_prefill_attention"]
+    by_path["chunked_prefill_attention"][
+        f"llama3.2-3b training, {FULL_STEPS} steps"] = \
+        sum(full_train["cpa_launches_per_step"])
+    for name in ("mamba_scan", "mlstm_chunkwise"):
+        by_path[name]["smoke training (forward + recompute)"] = \
+            smoke_train[name]
     ph.stop()
 
     rep = {"paged_attention_fused": ("B8 serving-like ctx bf16",
@@ -2445,6 +2979,8 @@ def main() -> int:
                  "library_ms": row["library_ms"], "shape": case,
                  "launches_by_path": by_path.get(name, {}),
                  "parity_launches": parity_launches[name]}
+        if name in backward:
+            entry["train_backward"] = backward[name]
         if name == "chunked_prefill_attention":
             # the split-K combine kernel of the same source, launched by the
             # same wrapper call when the plan splits the keys; and the MLA

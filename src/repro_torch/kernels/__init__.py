@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels for the serving hot path, each with a wrapper
 (``kernel.py``), its plain PyTorch version (``ref.py``) and the dispatch the
-model calls (``ops.py``):
+model calls (``ops.py``; for the three kernels training runs through, also
+an ``autograd.Function``: the kernel forward, the plain version's gradient,
+``autograd.py``):
 
 - ``paged_attention`` — decode GQA attention over the fused paged KV pool
   ``[Hkv, P, 2, ps, D]`` through block tables, or over split K and V pools

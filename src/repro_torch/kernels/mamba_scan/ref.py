@@ -25,7 +25,9 @@ def mamba_scan_ref(x, dt, Bc, Cc, A, D, h, *,
     xf = x.float()
     dtf, Bf, Cf = dt.float(), Bc.float(), Cc.float()
     Af = A.float()
-    hh = (h if rows is None else h.index_select(0, rows)).float()
+    # a copy even for all rows: the final write into h must not touch the
+    # tensor the first step read (autograd saved it in a training backward)
+    hh = (h.clone() if rows is None else h.index_select(0, rows)).float()
     ys = []
     for t in range(x.shape[1]):
         da = torch.exp(dtf[:, t, :, None] * Af)                  # [B, d, n]

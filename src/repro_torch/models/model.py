@@ -18,23 +18,37 @@ donates them).
 
 Modes: "paged_chunk" and "paged_decode" over the paged cache; "chunk",
 "decode" and "prefill" (the whole prompt from an empty cache, written at
-0) over the slot cache; "encode" (the encoder, no cache). Ported:
+0) over the slot cache; "encode" (the encoder, no cache); "train" (no
+cache: causal attention over the call's own keys, the recurrent mixers
+from a fresh state, the MoE aux loss kept), which ``loss_fn`` drives.
+Ported:
 attention mixers (ATTN, LOCAL_ATTN) on both caches, with the per-head q/k
 norm (qwen3), the post-norms and the embedding scale (gemma2); MLA
 (deepseek-v3), Mamba, mLSTM and sLSTM mixers on the slot cache; dense,
 MoE (single device) or no FFN; the encoder and the decoder's cross
 attention of an encoder-decoder (seamless-m4t), and the patch embeddings
 that replace a prompt's first tokens (internvl2). Every attention over
-contiguous keys (a chunk, a prefill, the encoder, cross attention) runs
-through ``blockwise_attention``, that is the chunked-prefill kernel.
+contiguous keys (a chunk, a prefill, the encoder, cross attention, every
+attention of training) runs through ``blockwise_attention``, that is the
+chunked-prefill kernel.
+
+Training (``loss_fn``): next-token cross-entropy in sequence blocks, each
+under ``torch.utils.checkpoint`` (``_blocked_ce``), plus 0.01 x the MoE
+aux loss and deepseek-v3's multi-token-prediction loss (``_mtp_loss``),
+as in the reference. The kernels on this path (#5 attention, #6 Mamba, #7
+mLSTM) run forward on the card and are differentiated through their
+``autograd.Function`` (``kernels/*/ops.py``). ``RunCtx.remat`` wraps one
+repetition of a period (the reference's scan body) in a checkpoint.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN, DENSE, LOCAL_ATTN, MAMBA, MLA,
                                       MLSTM, MOE, NONE, SLSTM, ModelConfig)
@@ -87,6 +101,45 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def _moe_pad(cfg: ModelConfig) -> int:
     return M.pad_experts(cfg.num_experts, 16)
+
+
+@dataclasses.dataclass(frozen=True)
+class RunCtx:
+    """The reference's ``RunCtx`` fields that mean something on one device:
+    ``remat`` ("none" | "dots" | "full") for training and
+    ``loss_vocab_blocks`` (the loss's sequence blocks). The reference's
+    ``block_q``/``block_k``/``mlstm_block``/``unroll_layers`` are XLA
+    tiling controls (the kernels here pick their own tiles), and its mesh
+    and MoE routing fields wait for the port's mesh."""
+
+    remat: str = "none"          # none | dots | full
+    loss_vocab_blocks: int = 8
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """"dots": keep the outputs of the matrix products (the reference keeps
+    its dot_generals), recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(rctx: RunCtx, fn, *args):
+    """``fn(*args)`` under the context's rematerialization, when autograd
+    records: "full" keeps only the inputs and recomputes the rest in the
+    backward (``torch.utils.checkpoint``), "dots" keeps the outputs of the
+    matrix products and recomputes the rest (selective checkpointing)."""
+    if rctx.remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if rctx.remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    if rctx.remat == "dots":
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=(
+            functools.partial(create_selective_checkpoint_contexts,
+                              _dots_policy)))
+    raise ValueError(f"remat {rctx.remat!r}: none, dots or full")
 
 
 # ---- paged cache -------------------------------------------------------------
@@ -227,8 +280,9 @@ def attn_block(cfg, p, x, state, *, mode, pos, lengths, window, paged=None,
     first, then attend (decode ``lengths`` count the token being written).
     ``rows`` limits a slot decode's writes to the rows really decoding.
     "prefill" attends over the call's own keys (causal, the window) and
-    writes them at 0; "encode" attends over them without a mask or a
-    cache. Returns the block's output."""
+    writes them at 0; "train" attends the same way without a cache;
+    "encode" attends over them without a mask or a cache. Returns the
+    block's output."""
     B, Sq, _ = x.shape
     xin = rms_norm(x, p["ln"], cfg.norm_eps)
     q, k, v = _qkv(cfg, p, xin, _positions(mode, pos, lengths, Sq, x.device))
@@ -248,6 +302,9 @@ def attn_block(cfg, p, x, state, *, mode, pos, lengths, window, paged=None,
     elif mode == "encode":
         o = A.blockwise_attention(q, k, v, scale=scale, causal=False,
                                   softcap=cap)
+    elif mode == "train":
+        o = A.blockwise_attention(q, k, v, scale=scale, causal=True,
+                                  window=window, softcap=cap)
     elif mode == "prefill":
         o = A.blockwise_attention(q, k, v, scale=scale, causal=True,
                                   window=window, softcap=cap)
@@ -295,7 +352,8 @@ def _chunk_attend(cfg, q, k_all, v_all, pos, lengths, window, scale=None):
 
 def mla_block(cfg, p, x, state, *, mode, pos, lengths, rows=None):
     """DeepSeek-v3's multi-head latent attention on the slot cache (the
-    reference's ``mla_block`` in modes "chunk" and "decode"): q through the
+    reference's ``mla_block`` in modes "chunk", "decode", "prefill" and,
+    without a cache, "train"): q through the
     LoRA pair ``wq_a``/``wq_b`` with the q latent normed, one shared
     ``k_rope`` and the normed kv latent ``ckv`` written to the cache
     (``state`` "kr" and "ckv", in place) at ``pos``, or at ``lengths - 1``
@@ -308,13 +366,14 @@ def mla_block(cfg, p, x, state, *, mode, pos, lengths, rows=None):
     only the first ``pos + Sq`` rows, which gives the same result, since
     the causal mask hides every later row. "prefill" expands the call's
     own latents the same way, attends causally over them through
-    ``blockwise_attention`` and writes the latents at 0. A decode step
+    ``blockwise_attention`` and writes the latents at 0; "train" does the
+    same without writing. A decode step
     takes the weight-absorbed path: ``q_nope . w_uk`` against the latents
     (``mla_decode_attention``), then ``. w_uv``. Returns the block's
     output."""
-    if mode not in ("prefill", "chunk", "decode"):
-        raise ValueError(f"MLA runs on the slot cache only, not in mode "
-                         f"{mode!r}")
+    if mode not in ("prefill", "chunk", "decode", "train"):
+        raise ValueError(f"MLA runs on the slot cache only (and in "
+                         f"training), not in mode {mode!r}")
     B, Sq, _ = x.shape
     H = cfg.num_heads
     dn, dr, dv, kvr = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
@@ -330,15 +389,16 @@ def mla_block(cfg, p, x, state, *, mode, pos, lengths, rows=None):
     kv = xin @ p["wkv_a"]
     ckv = rms_norm(kv[..., :kvr], p["kv_ln"], eps)
     k_rope = apply_rope(kv[..., kvr:][:, :, None, :], positions, theta)[:, :, 0]
-    if mode == "prefill":
+    if mode in ("prefill", "train"):
         kvb = (ckv @ p["wkv_b"]).view(B, Sq, H, dn + dv)
         k = torch.cat([kvb[..., :dn], k_rope[:, :, None].expand(
             B, Sq, H, dr)], dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)[:, :, :, None, :]   # G 1
         o = A.blockwise_attention(q, k, kvb[..., dn:], scale=scale,
                                   causal=True).reshape(B, Sq, H * dv)
-        A.update_kv_cache(state["ckv"], ckv, 0)
-        A.update_kv_cache(state["kr"], k_rope, 0)
+        if mode == "prefill":
+            A.update_kv_cache(state["ckv"], ckv, 0)
+            A.update_kv_cache(state["kr"], k_rope, 0)
     elif mode == "chunk":
         A.update_kv_cache(state["ckv"], ckv, pos)
         A.update_kv_cache(state["kr"], k_rope, pos)
@@ -373,11 +433,14 @@ def _recurrent_block(cfg, mixer, p, x, state, *, mode, rows=None):
     normed input from the layer's state, which it updates in place (a
     prefill as a chunk at 0, from the state it is given). With
     ``rows`` (a slot decode) only those batch rows run and change their
-    state; the block adds nothing to the other rows. Returns the block's
-    output."""
-    if mode not in ("prefill", "chunk", "decode"):
-        raise ValueError(f"mixer {mixer!r} runs on the slot cache only, "
-                         f"not in mode {mode!r}")
+    state; the block adds nothing to the other rows. In "train" the mixer
+    runs from a fresh state and no cache is read or written. Returns the
+    block's output."""
+    if mode not in ("prefill", "chunk", "decode", "train"):
+        raise ValueError(f"mixer {mixer!r} runs on the slot cache only "
+                         f"(and in training), not in mode {mode!r}")
+    if mode == "train":
+        state = {mixer: None}
     xin = rms_norm(x, p["ln"], cfg.norm_eps)
     if rows is not None:
         xin = xin.index_select(0, rows)
@@ -396,15 +459,17 @@ def cross_block(cfg, p, x, enc_out, state, *, mode):
     ``x`` (no RoPE) over every encoder position, without a mask. At
     "prefill" the keys and values come from ``enc_out`` and are written to
     the slot's ``cross_k``/``cross_v`` cache (cast to its dtype) while the
-    block attends with the uncast ones, as the reference does; a decode or
-    chunk step reads the cache. Returns the block's output."""
+    block attends with the uncast ones, as the reference does; "train"
+    takes them from ``enc_out`` without a cache; a decode or chunk step
+    reads the cache. Returns the block's output."""
     B, Sq, _ = x.shape
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     xin = rms_norm(x, p["ln"], cfg.norm_eps)
     q = (xin @ p["wq"]).reshape(B, Sq, Hkv, H // Hkv, Dh)
-    if mode == "prefill":
+    if mode in ("prefill", "train"):
         k = (enc_out @ p["wk"]).reshape(B, -1, Hkv, Dh)
         v = (enc_out @ p["wv"]).reshape(B, -1, Hkv, Dh)
+    if mode == "prefill":
         if k.shape != state["cross_k"].shape:
             raise ValueError(
                 f"the cross cache holds {tuple(state['cross_k'].shape)}, the "
@@ -412,33 +477,40 @@ def cross_block(cfg, p, x, enc_out, state, *, mode):
                 f"init_cache(..., enc_len={k.shape[1]})")
         state["cross_k"].copy_(k)
         state["cross_v"].copy_(v)
-    else:
+    elif mode != "train":
         k, v = state["cross_k"], state["cross_v"]
     o = A.blockwise_attention(q, k, v, scale=_attn_scale(cfg), causal=False)
     return o.reshape(B, Sq, H * Dh) @ p["wo"]
 
 
 def _ffn_apply(cfg, slot, x):
-    """The slot's channel mixer: the dense MLP (post-normed where the
-    config says so) or the MoE block (its aux loss is a training term,
-    dropped here), on the normed input."""
+    """The slot's channel mixer on the normed input: the dense MLP
+    (post-normed where the config says so) or the MoE block. Returns (y,
+    aux): the MoE load-balance loss, a training term (the number 0 for the
+    MLP, so that a dense model's forward adds no kernel for it)."""
     if "moe" in slot:
         p = slot["moe"]
         return M.moe_ffn(p, rms_norm(x, p["ln"], cfg.norm_eps),
                          num_real=cfg.num_experts,
                          top_k=cfg.num_experts_per_tok,
                          activation=cfg.activation,
-                         aux_free=cfg.router_aux_free)[0]
+                         aux_free=cfg.router_aux_free)
     p = slot["ffn"]
-    return _maybe_post(cfg, p, mlp(p, rms_norm(x, p["ln"], cfg.norm_eps),
-                                   cfg.activation))
+    y = _maybe_post(cfg, p, mlp(p, rms_norm(x, p["ln"], cfg.norm_eps),
+                                cfg.activation))
+    return y, 0.0
 
 
-def _rep(tree, r: int):
-    """Slice repetition ``r`` out of every ``[reps, ...]`` leaf."""
+def _reps(tree, reps: int) -> list:
+    """The ``reps`` repetitions of a tree of ``[reps, ...]`` leaves, as
+    views (``torch.unbind`` of each leaf): a cache's writes land in the
+    cache, and a parameter's gradient is one stack of the repetitions'
+    gradients (indexing each repetition apart would add each into a
+    full-size zero tensor: O(reps^2) traffic a training step)."""
     if isinstance(tree, dict):
-        return {k: _rep(v, r) for k, v in tree.items()}
-    return tree[r]
+        per = {k: _reps(v, reps) for k, v in tree.items()}
+        return [{k: v[r] for k, v in per.items()} for r in range(reps)]
+    return list(torch.unbind(tree, 0))
 
 
 def _embed(cfg, params, tokens, extra_embeds=None):
@@ -455,68 +527,100 @@ def _embed(cfg, params, tokens, extra_embeds=None):
     return x
 
 
+def _apply_slot(cfg, slot, mixer, x, state, enc_out, *, mode, pos,
+                lengths, paged, rows):
+    """One period slot: its mixer, an encoder-decoder's cross attention,
+    then its FFN. Returns (x, the FFN's aux loss)."""
+    if mixer in RECURRENT:
+        x = x + _recurrent_block(cfg, mixer, slot[mixer], x, state,
+                                 mode=mode, rows=rows)
+    elif mixer == MLA:
+        x = x + mla_block(cfg, slot["mla"], x, state, mode=mode, pos=pos,
+                          lengths=lengths, rows=rows)
+    else:
+        window = cfg.sliding_window if mixer == LOCAL_ATTN else 0
+        x = x + attn_block(cfg, slot["attn"], x, state, mode=mode, pos=pos,
+                           lengths=lengths, window=window, paged=paged,
+                           rows=rows)
+    if "cross" in slot and (enc_out is not None
+                            or mode in ("decode", "chunk")):
+        x = x + cross_block(cfg, slot["cross"], x, enc_out, state, mode=mode)
+    if "ffn" not in slot and "moe" not in slot:   # xLSTM blocks have none
+        return x, 0.0
+    y, aux = _ffn_apply(cfg, slot, x)
+    return x + y, aux
+
+
 def _apply_stack(cfg, stack_params, period, reps, x, cache, enc_out, *,
-                 mode, pos, lengths, paged=None, rows=None):
-    """The stack's repetitions in order (the reference's ``lax.scan``):
-    each period slot's mixer, an encoder-decoder's cross attention, then
-    its FFN. ``cache`` is None for the encoder. Returns x."""
-    for r in range(reps):
+                 mode, pos, lengths, paged=None, rows=None, rctx=None):
+    """The stack's repetitions in order (the reference's ``lax.scan``), one
+    repetition of the period under ``rctx``'s rematerialization (the
+    reference's scan body). ``cache`` is None for the encoder and in
+    training. Returns (x, the summed aux loss: summed in "train" only, the
+    number 0 in serving, which adds no kernel for it)."""
+    rctx = rctx or RunCtx()
+
+    slots = [_reps(p, reps) for p in stack_params]
+    states = [_reps(c, reps) for c in cache] if cache is not None else None
+
+    def body(r, x, aux):
         for j, (mixer, _) in enumerate(period):
-            slot = _rep(stack_params[j], r)
-            state = None if cache is None else _rep(cache[j], r)
-            if mixer in RECURRENT:
-                x = x + _recurrent_block(cfg, mixer, slot[mixer], x, state,
-                                         mode=mode, rows=rows)
-            elif mixer == MLA:
-                x = x + mla_block(cfg, slot["mla"], x, state, mode=mode,
-                                  pos=pos, lengths=lengths, rows=rows)
-            else:
-                window = cfg.sliding_window if mixer == LOCAL_ATTN else 0
-                x = x + attn_block(cfg, slot["attn"], x, state, mode=mode,
-                                   pos=pos, lengths=lengths, window=window,
-                                   paged=paged, rows=rows)
-            if "cross" in slot and (enc_out is not None
-                                    or mode in ("decode", "chunk")):
-                x = x + cross_block(cfg, slot["cross"], x, enc_out, state,
-                                    mode=mode)
-            if "ffn" in slot or "moe" in slot:   # xLSTM blocks have none
-                x = x + _ffn_apply(cfg, slot, x)
-    return x
+            x, a = _apply_slot(cfg, slots[j][r], mixer, x,
+                               None if states is None else states[j][r],
+                               enc_out, mode=mode, pos=pos, lengths=lengths,
+                               paged=paged, rows=rows)
+            if mode == "train":
+                aux = aux + a
+        return x, aux
+
+    aux = 0.0
+    for r in range(reps):
+        x, aux = _remat(rctx, functools.partial(body, r), x, aux)
+    return x, aux
 
 
-def _run_encoder(cfg, params, enc_embeds):
+def _run_encoder(cfg, params, enc_embeds, rctx=None):
     """The encoder stack over ``enc_embeds`` [B, S_enc, d] (non-causal,
     RoPE at positions 0 .. S_enc-1 where the config uses it) and its own
     final norm. The frames are cast to the parameters' dtype (PyTorch does
     not promote a product of two dtypes as JAX does)."""
     enc = params["encoder"]
     x = enc_embeds.to(enc["final_norm"].dtype)
-    x = _apply_stack(cfg, enc["stacks"][0], ((ATTN, DENSE),),
-                     cfg.num_encoder_layers, x, None, None, mode="encode",
-                     pos=0, lengths=None)
+    x, _ = _apply_stack(cfg, enc["stacks"][0], ((ATTN, DENSE),),
+                        cfg.num_encoder_layers, x, None, None, mode="encode",
+                        pos=0, lengths=None, rctx=rctx)
     return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
-def forward(cfg: ModelConfig, params, tokens, *, cache, mode: str, pos=None,
-            lengths=None, paged: Optional[PagedView] = None, rows=None,
-            extra_embeds=None, enc_embeds=None):
+def forward(cfg: ModelConfig, params, tokens, *, mode: str, cache=None,
+            pos=None, lengths=None,
+            paged: Optional[PagedView] = None, rows=None, extra_embeds=None,
+            enc_embeds=None, rctx: Optional[RunCtx] = None):
     """Forward over the paged cache (``mode`` "paged_chunk" or
-    "paged_decode") or the slot cache ("prefill", "chunk" or "decode").
-    ``rows`` limits a slot decode's cache and state writes to those rows.
-    ``extra_embeds`` replace the first prompt positions' embeddings;
-    ``enc_embeds`` run an encoder-decoder's encoder first, whose output the
-    decoder's cross attention reads. Returns (final-normed hidden [B, S,
-    d], cache updated in place)."""
+    "paged_decode"), the slot cache ("prefill", "chunk" or "decode"), or no
+    cache ("train", under ``rctx``). ``rows`` limits a slot decode's cache
+    and state writes to those rows. ``extra_embeds`` replace the first
+    prompt positions' embeddings; ``enc_embeds`` run an encoder-decoder's
+    encoder first, whose output the decoder's cross attention reads.
+    Returns (final-normed hidden [B, S, d], cache updated in place), or in
+    "train" (hidden, the MoE layers' summed aux loss: an fp32 scalar
+    tensor, or the number 0 without MoE layers)."""
     check_supported(cfg)
+    train = mode == "train"
     enc_out = None
     if cfg.enc_dec and enc_embeds is not None:
-        enc_out = _run_encoder(cfg, params, enc_embeds)
+        enc_out = _run_encoder(cfg, params, enc_embeds, rctx)
     x = _embed(cfg, params, tokens, extra_embeds)
+    aux = 0.0
     for i, (period, reps) in enumerate(build_stacks(cfg)):
-        x = _apply_stack(cfg, params["stacks"][i], period, reps, x, cache[i],
-                         enc_out, mode=mode, pos=pos, lengths=lengths,
-                         paged=paged, rows=rows)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps), cache
+        x, a = _apply_stack(cfg, params["stacks"][i], period, reps, x,
+                            None if train else cache[i], enc_out, mode=mode,
+                            pos=pos, lengths=lengths, paged=paged, rows=rows,
+                            rctx=rctx)
+        if train:
+            aux = aux + a
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return (x, aux) if train else (x, cache)
 
 
 # ---- sampling ---------------------------------------------------------------
@@ -565,6 +669,72 @@ def _sample_tokens(cfg: ModelConfig, params, hidden,
     u = torch.rand(logits.shape, generator=gen, device=logits.device)
     gumbel = -torch.log(-torch.log(u.clamp_(min=1e-20)))
     return torch.argmax(logits + gumbel, dim=-1).to(torch.int32)
+
+
+# ---- training loss ----------------------------------------------------------
+def loss_fn(cfg: ModelConfig, params, batch: dict, rctx: RunCtx):
+    """Next-token cross-entropy (+ 0.01 x the MoE aux loss + 0.3 x the MTP
+    loss where the params carry ``mtp``), as the reference's ``loss_fn``.
+    ``batch``: "tokens" [B, S] (+ "extra_embeds" / "enc_embeds"). The
+    labels are the tokens rolled by one, the last position masked."""
+    tokens = batch["tokens"]
+    x, aux = forward(cfg, params, tokens, mode="train", pos=0, rctx=rctx,
+                     extra_embeds=batch.get("extra_embeds"),
+                     enc_embeds=batch.get("enc_embeds"))
+    labels = torch.roll(tokens, -1, dims=1)
+    mask = torch.ones(labels.shape, dtype=torch.float32, device=x.device)
+    mask[:, -1] = 0.0
+    loss = _blocked_ce(cfg, params, x, labels, mask, rctx)
+    if cfg.mtp_depth and "mtp" in params:
+        loss = loss + 0.3 * _mtp_loss(cfg, params, x, tokens, rctx)
+    return loss + 0.01 * aux
+
+
+def _block_ce(cap, xb, lb, mb, w):
+    logits = softcap(xb @ w, cap).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lb[..., None].long())[..., 0]
+    return torch.sum((lse - gold) * mb)
+
+
+def _blocked_ce(cfg, params, x, labels, mask, rctx):
+    """Cross-entropy in ``nb`` blocks of the sequence (``nb =
+    min(loss_vocab_blocks, S)``, reduced until it divides S), each under
+    ``torch.utils.checkpoint``, so the fp32 logits [B, S, V] never exist
+    whole (2.1 GB for llama3.2-3b at B 2, S 2048): a block's are recomputed
+    in the backward."""
+    B, S, _ = x.shape
+    nb = min(rctx.loss_vocab_blocks, S)
+    while S % nb:
+        nb -= 1
+    xs = x.reshape(B, nb, S // nb, -1)
+    ls = labels.reshape(B, nb, S // nb)
+    ms = mask.reshape(B, nb, S // nb)
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    ce = functools.partial(_block_ce, cfg.final_logit_softcap)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(nb):
+        args = (xs[:, i], ls[:, i], ms[:, i], w)
+        total = total + (checkpoint(ce, *args, use_reentrant=False)
+                         if torch.is_grad_enabled() else ce(*args))
+    return total / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def _mtp_loss(cfg, params, hidden, tokens, rctx):
+    """DeepSeek-v3's multi-token prediction: one extra block predicting
+    token t+2 from the final hidden state and the embedding of t+1 (labels
+    rolled by two, the last two positions masked)."""
+    mtp = params["mtp"]
+    emb_next = _embed(cfg, params, torch.roll(tokens, -1, dims=1))
+    h = torch.cat([rms_norm(hidden, mtp["ln"], cfg.norm_eps), emb_next],
+                  dim=-1) @ mtp["proj"]
+    h, _ = _apply_stack(cfg, mtp["block"], ((cfg.layer_pattern[0], DENSE),),
+                        1, h, None, None, mode="train", pos=0, lengths=None,
+                        rctx=rctx)
+    labels2 = torch.roll(tokens, -2, dims=1)
+    mask = torch.ones(labels2.shape, dtype=torch.float32, device=h.device)
+    mask[:, -2:] = 0.0
+    return _blocked_ce(cfg, params, h, labels2, mask, rctx)
 
 
 # ---- user-facing steps ------------------------------------------------------

@@ -19,7 +19,12 @@
 Every mixer takes the state of the rows it runs and updates it **in
 place** (the reference returns a new state): pass ``rows`` to run a subset
 of a larger state's batch rows (the slot engine's decoding rows); the other
-rows stay bit-identical. ``state=None`` starts from a fresh state.
+rows stay bit-identical. ``state=None`` starts from a fresh state and
+returns the new one outside the autograd graph: that is training's path,
+where the Mamba and mLSTM kernels run through their ``autograd.Function``
+(``mamba_scan_fresh_op``, ``mlstm_chunkwise_fresh_op``: the kernel
+forward, the plain version's gradient) and the sLSTM loop is
+differentiated by autograd as it runs.
 """
 from __future__ import annotations
 
@@ -29,8 +34,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.mamba_scan.ops import mamba_scan_op
-from repro_torch.kernels.mlstm_chunkwise.ops import mlstm_chunkwise_op
+from repro_torch.kernels.mamba_scan.ops import (mamba_scan_fresh_op,
+                                                mamba_scan_op)
+from repro_torch.kernels.mlstm_chunkwise.ops import (mlstm_chunkwise_fresh_op,
+                                                     mlstm_chunkwise_op)
 from repro_torch.models.layers import dense_init
 
 NEG_INF = -1e30
@@ -121,19 +128,17 @@ def mamba_mix(params, x, state: Optional[dict], *,
 
     state = {"conv": [Bs, K-1, d_inner], "ssm": [Bs, d_inner, d_state]
     f32}, or None for a fresh one; batch row b runs on state row
-    ``rows[b]`` (b when None). The state is updated in place. Returns
-    (out [B, S, d_model], state)."""
-    B, S, _ = x.shape
-    d_inner = params["in_proj"].shape[-1] // 2
+    ``rows[b]`` (b when None). The state is updated in place; a fresh one
+    is returned outside the autograd graph. Returns (out [B, S, d_model],
+    state)."""
     d_state = params["A_log"].shape[-1]
     dt_rank = params["dt_proj"].shape[0]
-    if state is None:
-        state = init_mamba_state(B, d_inner, d_state,
-                                 params["conv_w"].shape[0], x.dtype, x.device)
+    fresh = state is None
 
     xz = x @ params["in_proj"]
     xm, z = torch.chunk(xz, 2, dim=-1)
     xm, new_conv = _mamba_conv_full(xm, params["conv_w"], params["conv_b"],
+                                    None if fresh else
                                     _gather(state["conv"], rows))
     dbc = xm @ params["x_proj"]
     Bm = dbc[..., dt_rank:dt_rank + d_state].float()             # [B,S,n]
@@ -141,9 +146,14 @@ def mamba_mix(params, x, state: Optional[dict], *,
     # jax.nn.softplus is logaddexp(v, 0); F.softplus turns linear above 20
     v = (dbc[..., :dt_rank] @ params["dt_proj"]).float() + params["dt_bias"]
     dt = torch.logaddexp(v, v.new_zeros(()))                      # [B,S,d]
-    y = mamba_scan_op(xm, dt, Bm, Cm, -torch.exp(params["A_log"]),
-                      params["D"], state["ssm"], rows=rows)
-    _put(state["conv"], rows, new_conv)
+    A = -torch.exp(params["A_log"])
+    if fresh:
+        y, h = mamba_scan_fresh_op(xm, dt, Bm, Cm, A, params["D"])
+        state = {"conv": new_conv.detach(), "ssm": h}
+    else:
+        y = mamba_scan_op(xm, dt, Bm, Cm, A, params["D"], state["ssm"],
+                          rows=rows)
+        _put(state["conv"], rows, new_conv)
     return (y * F.silu(z)) @ params["out_proj"], state
 
 
@@ -194,18 +204,19 @@ def mlstm_mix(params, x, state: Optional[dict], num_heads: int, *,
 
     state = {"C": [Bs,H,Dh,Dh] f32, "n": [Bs,H,Dh] f32, "m": [Bs,H] f32,
     "conv": [Bs, 3, di]}, or None for a fresh one; batch row b runs on
-    state row ``rows[b]`` (b when None). The state is updated in place.
-    Returns (out [B, S, d_model], state)."""
+    state row ``rows[b]`` (b when None). The state is updated in place; a
+    fresh one is returned outside the autograd graph. Returns (out [B, S,
+    d_model], state)."""
     B, S, d_model = x.shape
     H = num_heads
     di = 2 * d_model
     Dh = di // H
-    if state is None:
-        state = init_mlstm_state(B, d_model, H, x.dtype, x.device)
+    fresh = state is None
 
     xz = x @ params["up_proj"]
     xm, z = torch.chunk(xz, 2, dim=-1)
     xc, new_conv = _mamba_conv_full(xm, params["conv_w"], params["conv_b"],
+                                    None if fresh else
                                     _gather(state["conv"], rows))
     q = (xc @ params["wq"]).reshape(B, S, H, Dh)
     k = (xc @ params["wk"]).reshape(B, S, H, Dh) / math.sqrt(Dh)
@@ -213,11 +224,16 @@ def mlstm_mix(params, x, state: Optional[dict], num_heads: int, *,
     gates = (xm @ params["w_gates"]).float() + params["gate_bias"]
     log_i = gates[..., :H]                                       # [B,S,H]
     log_f = F.logsigmoid(gates[..., H:])
-    h, n_new, m_new = mlstm_chunkwise_op(q, k, v, log_i, log_f, state["C"],
-                                         state["n"], state["m"], rows=rows)
-    _put(state["n"], rows, n_new)
-    _put(state["m"], rows, m_new)
-    _put(state["conv"], rows, new_conv)
+    if fresh:
+        h, C, n_new, m_new = mlstm_chunkwise_fresh_op(q, k, v, log_i, log_f)
+        state = {"C": C, "n": n_new, "m": m_new, "conv": new_conv.detach()}
+    else:
+        h, n_new, m_new = mlstm_chunkwise_op(q, k, v, log_i, log_f,
+                                             state["C"], state["n"],
+                                             state["m"], rows=rows)
+        _put(state["n"], rows, n_new)
+        _put(state["m"], rows, m_new)
+        _put(state["conv"], rows, new_conv)
 
     h = _group_norm_heads(h.reshape(B, S, di).to(x.dtype), params["gn_scale"],
                           H)
@@ -266,12 +282,14 @@ def slstm_mix(params, x, state: Optional[dict], num_heads: int, *,
               rows: Optional[torch.Tensor] = None):
     """sLSTM over x [B, S, d]: a loop over time (recurrent gate feedback).
     state = {"c", "n", "h", "m": [Bs, H, Dh] f32} or None; batch row b runs
-    on state row ``rows[b]`` (b when None). The state is updated in place.
-    Returns (out [B, S, d], state)."""
+    on state row ``rows[b]`` (b when None). The state is updated in place;
+    a fresh one is returned outside the autograd graph. Returns (out [B, S,
+    d], state)."""
     B, S, d = x.shape
     H = num_heads
     Dh = d // H
-    if state is None:
+    fresh = state is None
+    if fresh:
         state = init_slstm_state(B, d, H, device=x.device)
     gx = (x @ params["w_gates"]).float() + params["gate_bias"]   # [B,S,4d]
     gx = gx.reshape(B, S, 4, H, Dh)
@@ -293,8 +311,12 @@ def slstm_mix(params, x, state: Optional[dict], num_heads: int, *,
         h = o_t * (c / torch.clamp(n, min=1e-6))
         m = m_new
         ys.append(h)
-    for name, val in (("c", c), ("n", n), ("h", h), ("m", m)):
-        _put(state[name], rows, val)
+    if fresh:
+        state = {"c": c.detach(), "n": n.detach(), "h": h.detach(),
+                 "m": m.detach()}
+    else:
+        for name, val in (("c", c), ("n", n), ("h", h), ("m", m)):
+            _put(state[name], rows, val)
     y = torch.stack(ys, dim=1).reshape(B, S, d).to(x.dtype)
     y = _group_norm_heads(y, params["gn_scale"], H)
     a, b = torch.chunk(y @ params["up_proj"], 2, dim=-1)

@@ -17,10 +17,10 @@
   tests can feed both frameworks the same weights and start both from the
   same cache. Stacks keep their ``[reps, ...]`` leading axis.
 
-The reference's ``mtp`` subtree (DeepSeek-v3's multi-token-prediction
-module, which only its training loss ``_mtp_loss`` reads) is dropped, the
-same way in both: ``init_params`` does not draw it and ``from_jax_numpy``
-leaves it out of a parameter tree. Serving never reads it.
+Both carry the reference's ``mtp`` subtree (DeepSeek-v3's
+multi-token-prediction module: ``proj`` [2d, d], a one-repetition ``block``
+stack of the first mixer with a dense FFN, ``ln``), which only the
+training loss ``_mtp_loss`` reads; serving never reads it.
 """
 from __future__ import annotations
 
@@ -65,11 +65,8 @@ def from_jax_numpy(cfg: ModelConfig, tree, device="cpu"):
     """Nested dicts/lists of numpy arrays -> the same structure of tensors
     on ``device`` (dtypes kept; bf16 arrays included). For a parameter tree
     (a dict with ``"stacks"``) or a cache (a list of stacks), every
-    stacked leaf must carry ``cfg``'s repetition count as its leading axis.
-    A parameter tree's ``mtp`` subtree is left out (see the module's
-    docstring)."""
-    if isinstance(tree, dict) and "stacks" in tree:
-        tree = {k: v for k, v in tree.items() if k != "mtp"}
+    stacked leaf must carry ``cfg``'s repetition count as its leading axis
+    (one for the ``mtp`` block)."""
     out = _convert(tree, device)
     stacks = out.get("stacks") if isinstance(out, dict) else out
     if isinstance(stacks, list):
@@ -77,6 +74,9 @@ def from_jax_numpy(cfg: ModelConfig, tree, device="cpu"):
     if isinstance(out, dict) and "encoder" in out:
         _check_reps(cfg, out["encoder"]["stacks"],
                     [(((ATTN, DENSE),), cfg.num_encoder_layers)])
+    if isinstance(out, dict) and "mtp" in out:
+        _check_reps(cfg, [out["mtp"]["block"]],
+                    [(((cfg.layer_pattern[0], DENSE),), 1)])
     return out
 
 
@@ -98,7 +98,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
     post-norms where the config has them, MLA, Mamba, mLSTM or sLSTM
     mixers; dense MLP, MoE or no FFN; an encoder-decoder's ``encoder``
     stack and final norm, and each decoder slot's ``cross`` attention,
-    which has no q/k norms), without the ``mtp`` subtree."""
+    which has no q/k norms), with the ``mtp`` subtree where the config has
+    ``mtp_depth`` (drawn last, so the other leaves do not depend on it)."""
     check_supported(cfg)
     device = torch.device(device)
     gen = torch.Generator(device=device)
@@ -177,4 +178,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
             "final_norm": zeros(d)}
     if not cfg.tie_embeddings:
         params["lm_head"] = dense(1, d, cfg.vocab_size)[0]
+    if cfg.mtp_depth:
+        params["mtp"] = {"proj": dense(1, 2 * d, d)[0],
+                         "block": [slot(cfg.layer_pattern[0], DENSE, 1)],
+                         "ln": zeros(d)}
     return params

@@ -18,8 +18,8 @@ PORT = SRC / "repro_torch"
 
 # Modules the port carries as copies of the reference, with only ``repro.``
 # renamed to ``repro_torch.``: the scheduler, the host-side serving modules
-# (the simulator among them), the network front door and the pure-data
-# model configs.
+# (the simulator among them), the network front door, the pure-data
+# model configs, the synthetic training data and the training supervisor.
 VERBATIM = (
     sorted(p.relative_to(PORT).as_posix() for p in (PORT / "core").glob("*.py"))
     + [f"serving/{n}.py" for n in ("__init__", "request", "block_allocator",
@@ -29,6 +29,7 @@ VERBATIM = (
                                     "client", "http_server")]
     + sorted(p.relative_to(PORT).as_posix()
              for p in (PORT / "configs").glob("*.py") if p.name != "base.py")
+    + ["train/__init__.py", "train/data.py", "runtime/fault_tolerance.py"]
 )
 
 IMPORT_ALL = r"""
@@ -63,7 +64,14 @@ def test_port_imports_no_jax_and_no_reference_module():
                      "repro_torch.launch.serve", "repro_torch.params",
                      "repro_torch.frontend.http_server",
                      "repro_torch.frontend.router",
-                     "repro_torch.serving.simulator"):
+                     "repro_torch.serving.simulator",
+                     "repro_torch.train.train_step",
+                     "repro_torch.train.checkpoint",
+                     "repro_torch.train.optimizer",
+                     "repro_torch.train.data",
+                     "repro_torch.runtime.compression",
+                     "repro_torch.runtime.fault_tolerance",
+                     "repro_torch.launch.train"):
         assert required in mods
 
 

@@ -209,15 +209,22 @@ def test_mla_block_chunk_and_decode_match_jax(setup):
 # the model's slot steps
 # ---------------------------------------------------------------------------
 def test_params_and_cache_structure(setup):
-    """init_params draws the reference's tree without the ``mtp`` subtree,
-    which from_jax_numpy drops too; the slot cache holds ckv/kr latents;
-    the paged cache refuses MLA."""
+    """init_params draws the reference's tree with its ``mtp`` subtree
+    (the multi-token-prediction module the training loss reads), which
+    from_jax_numpy carries across equal to JAX's; the slot cache holds
+    ckv/kr latents; the paged cache refuses MLA."""
     jcfg, tcfg, jparams, tparams = setup
     drawn = TP.init_params(tcfg, seed=0, device="cpu")
-    assert "mtp" in jparams and "mtp" not in tparams and "mtp" not in drawn
-    jflat = jax.tree_util.tree_flatten_with_path(
-        {k: v for k, v in jparams.items() if k != "mtp"})[0]
+    assert "mtp" in jparams and "mtp" in tparams and "mtp" in drawn
+    jflat = jax.tree_util.tree_flatten_with_path(jparams)[0]
     want = {jax.tree_util.keystr(p): tuple(v.shape) for p, v in jflat}
+    jmtp = jax.tree_util.tree_flatten_with_path(jparams["mtp"])[0]
+    assert len(jmtp) > 3
+    for p, v in jmtp:
+        t = tparams["mtp"]
+        for key in p:
+            t = t[key.key if hasattr(key, "key") else key.idx]
+        np.testing.assert_array_equal(t.numpy(), np.asarray(v))
     got = {}
 
     def walk(t, path):
