@@ -178,6 +178,21 @@ prints its seconds):
    below the first, #5 56 launches a step; the step time, tokens a second,
    6 N tokens / step time as a share of 989 TFLOP/s, the peak memory, and
    a traced step.
+16. sharded paged serving on the one card (``tools/sharded_phase.py``):
+   worlds of 1-4 spawned ranks over the serving mesh ``"W"`` (world 1's
+   data plane NCCL; worlds 2-4 share the card, which NCCL refuses, so
+   gloo). (a) Smoke llama3.2-3b (fp32, Hkv 2) and an 8-KV-head variant at
+   worlds 1-4: the driver's greedy tokens equal the mesh-less engine's on
+   the card, one readback per round, the pool whole, every rank's
+   dispatches the driver's; spec_k 4 at world 3. (b) #1 and #2 at
+   llama3.2-3b's heads (bf16) on phase 3's cases at world 2 (heads) and 3
+   (sequence, ``partial=True``) against the plain version at phase 3's
+   limit, an empty shard's state (0, -1e30, 0), the kernel's time alone,
+   the collectives' alone and the whole op's. (c) Full-width llama3.2-3b
+   with phase 5's requests and pool at worlds 2 and 3: every request
+   finishes, #1/#2 launch 28 x each rank's dispatches (counters read
+   through the control plane), the backend, tokens/s, round time beside
+   phase 5's and the control plane's cost a dispatch.
 
 The traces are summarised in one pass over the profiler's raw events;
 each also lists the device time and count of every port kernel in it (the
@@ -2722,7 +2737,7 @@ def main() -> int:
                "mamba_scan": ms_kernel.mamba_scan}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ph = Phases(15)
+    ph = Phases(16)
 
     ph.start("device")
     dev = device_line()
@@ -2942,6 +2957,15 @@ def main() -> int:
     for name in ("mamba_scan", "mlstm_chunkwise"):
         by_path[name]["smoke training (forward + recompute)"] = \
             smoke_train[name]
+
+    ph.start("sharded paged serving over 1-4 ranks on the card")
+    sys.path.insert(0, str(ROOT / "tools"))
+    import sharded_phase
+    sharded, sharded_launches = sharded_phase.sharded_phase(
+        torch, phase5_round_ms=serving[0]["round_ms"], device_line=dev)
+    serving.append({"sharded_serving": sharded})
+    for name, counts in sharded_launches.items():
+        by_path[name].update(counts)
     ph.stop()
 
     rep = {"paged_attention_fused": ("B8 serving-like ctx bf16",

@@ -26,8 +26,20 @@ prefix-affine router (each draws the same weights from the default seed):
     python -m repro_torch.launch.serve --device cpu --serve-http --port 0 \
         --replicas 2
 
-Flags follow the reference launcher; only ``--mesh`` is not ported yet.
-The model's weights are random, drawn from the engine's default seed.
+``--mesh N`` (or ``REPRO_FORCE_MESH``) serves over a mesh of the ranks
+that ``torchrun`` starts, one process a rank (the paged cache's KV heads,
+or its sequence, sharded on the ``model`` axis; see
+``serving/engine.py``): rank 0 prints the shard banner and serves, the
+other ranks run the worker loop. The data plane is NCCL when every rank
+has a card of its own and gloo when ranks share one (or on the CPU):
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh 2
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh 2 \
+        --device cpu
+
+``--serve-http`` stays single-process, as in the reference (it reads no
+mesh). Flags follow the reference launcher. The model's weights are
+random, drawn from the engine's default seed on every rank.
 seamless-m4t (the encoder-decoder) is refused before anything is
 allocated, as the engine refuses it: the reference engine cannot serve it
 either.
@@ -40,6 +52,8 @@ import numpy as np
 
 from repro_torch.configs import get_config
 from repro_torch.core import SlidingServeScheduler
+from repro_torch.launch.mesh import (add_mesh_argument, init_distributed,
+                                     make_serving_mesh, serving_mesh_spec)
 from repro_torch.serving.engine import EngineCore
 from repro_torch.serving.request import Request
 from repro_torch.serving.server import SLO_CLASSES, InferenceServer
@@ -93,6 +107,7 @@ def main(argv=None):
     ap.add_argument("--replicas", type=int, default=1,
                     help="with --serve-http: >1 runs N engine replicas "
                          "behind the prefix-affine router")
+    add_mesh_argument(ap)
     args = ap.parse_args(argv)
 
     if args.serve_http:
@@ -116,6 +131,19 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
+    device, mesh = args.device, None
+    if serving_mesh_spec(args.mesh):
+        device = init_distributed(args.device).device
+        mesh = make_serving_mesh(args.mesh)
+    try:
+        return _serve(args, cfg, device, mesh)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _serve(args, cfg, device, mesh):
     sched = SlidingServeScheduler(max_budget=args.max_budget, max_iter_time=2.0)
     core = EngineCore(cfg, sched, cache_mode=args.cache_mode,
                       max_slots=4, max_len=512,
@@ -124,7 +152,22 @@ def main(argv=None):
                       prefix_cache=args.prefix_cache, spec_k=args.spec_k,
                       temperature=args.temperature, top_k=args.top_k,
                       sample_seed=args.sample_seed,
-                      device=args.device)
+                      device=device, mesh=mesh)
+    if core.mesh is not None:
+        if not core.is_driver:
+            core.serve_as_worker()
+            return None
+        print(core.shard_banner(), flush=True)
+    elif mesh is not None and mesh.get_rank() != 0:
+        return None     # slot mode ignores the mesh: rank 0 serves alone
+    try:
+        return _drive(args, core)
+    finally:
+        core.close()
+
+
+def _drive(args, core):
+    st = core.stats
     server = InferenceServer(core)
     slo = SLO_CLASSES[args.slo_class]
     rng = np.random.default_rng(0)
@@ -137,7 +180,6 @@ def main(argv=None):
                     slo_class=slo.name)
             for i in range(args.requests)]
     out = run_open_loop(server, reqs, max_wall_s=300.0)
-    st = core.stats
     print(f"finished {len(out['finished'])}/{len(reqs)} "
           f"[{core.cache_mode} cache on {core.device}, slo={args.slo_class}]; "
           f"iterations={st.iterations} "

@@ -1,0 +1,260 @@
+"""Per-arch partition rules: params, optimizer state, caches, inputs.
+
+Port of the reference ``launch/sharding.py``'s rule functions, over the
+port's trees (nested dicts and lists of tensors; a leaf's path is
+``jax.tree_util.keystr``'s, from ``train/tree.py``, so the reference's
+name patterns carry over verbatim). A spec is a :class:`Spec`, one entry
+per dim: an axis name, a tuple of axis names, or ``None`` (replicated);
+``tuple(spec)`` equals ``tuple()`` of the reference's ``PartitionSpec``.
+
+Rules are name/shape-driven over the param tree (Megatron-style TP on the
+``model`` axis, DP over (``pod``, ``data``)):
+
+* column-parallel: attention q/k/v, MLP up/gate, Mamba in-proj, MLA q_b/kv_b
+  (output-feature dim on ``model``);
+* row-parallel: attention/MLP/Mamba output projections (input-feature dim on
+  ``model``);
+* expert-parallel: MoE expert stacks sharded on the expert dim;
+* vocab-parallel embedding / LM head;
+* small tensors (norms, biases, routers, MLA latent down-projs) replicated.
+
+KV caches shard heads on ``model`` when the head count divides the axis, else
+the *sequence* dim. Recurrent states shard d_inner. xlstm-125m is
+replicated over ``model`` (DP only). ZeRO: optimizer moments/master weights
+additionally shard their largest still-replicated dim over the DP axes
+(``zero_shard``).
+
+Serving uses :func:`paged_cache_specs` (each rank allocates its pool at
+:func:`local_shape`); the training slice applies the rest. A mesh here is a
+``DeviceMesh`` or a ``launch.mesh.MeshShape``: the rules read its axis sizes
+only. The reference's ``shardings_of`` (JAX ``ShapeDtypeStruct``s) has no
+counterpart yet.
+"""
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Optional, Tuple
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import axis_sizes, dp_axes, dp_size
+from repro_torch.train.tree import leaves_with_paths, unflatten
+
+
+class Spec:
+    """A partition spec: one entry a dim, ``Spec("model", None)``. Not a
+    tuple, so the tree walkers of ``train/tree.py`` keep it as a leaf;
+    ``tuple(spec)`` gives its entries."""
+
+    __slots__ = ("parts",)
+
+    def __init__(self, *parts):
+        self.parts = tuple(parts)
+
+    def __iter__(self):
+        return iter(self.parts)
+
+    def __len__(self):
+        return len(self.parts)
+
+    def __getitem__(self, i):
+        return self.parts[i]
+
+    def __repr__(self):
+        return f"Spec{self.parts!r}"
+
+
+def _map_with_path(fn, tree: Any) -> Any:
+    """``fn(path, leaf)`` over the leaves of ``tree``, in its structure."""
+    return unflatten(tree, [fn(p, leaf) for p, leaf in
+                            leaves_with_paths(tree)])
+
+
+# leaf-name patterns -> which dim (from the end, ignoring the leading stack
+# dim) goes on the model axis. "col" = last dim, "row" = second-to-last.
+_COL = re.compile(
+    r"(wq'\]|wk'\]|wv'\]|wi_gate'\]|wi_up'\]|in_proj'\]|up_proj'\]|"
+    r"dt_proj'\]|wq_b'\]|w_gates'\]|conv_w'\]|conv_b'\]|dt_bias'\]|D'\])")
+_ROW = re.compile(r"(wo'\]|out_proj'\]|down_proj'\]|x_proj'\]|A_log'\])")
+_EXPERT = re.compile(r"(w_gate'\]|w_up'\]|w_down'\])")
+_REPL = re.compile(
+    r"(ln'\]|norm'\]|gn_scale'\]|gate_bias'\]|router|bias|embed'\]|"
+    r"wq_a'\]|wkv_a'\]|wkv_b'\]|q_ln'\]|kv_ln'\]|r_gates'\]|proj'\])")
+
+
+def _spec_for_leaf(path: str, shape: Tuple[int, ...], cfg: ModelConfig,
+                   tp: str) -> Spec:
+    nd = len(shape)
+    if path.endswith("['embed']"):
+        return Spec(tp, None)
+    if path.endswith("['lm_head']"):
+        return Spec(None, tp)
+    if cfg.name == "xlstm-125m":
+        return Spec(*([None] * nd))          # DP-only tiny model
+    if _EXPERT.search(path):
+        # [*, E, d, f] / [*, E, f, d]: experts on model (EP)
+        return Spec(*([None] * (nd - 3) + [tp, None, None]))
+    if path.endswith("['wkv_b']"):
+        # [*, kvr, H*(dn+dv)]: heads (last dim) on model
+        return Spec(*([None] * (nd - 1) + [tp]))
+    if _REPL.search(path):
+        return Spec(*([None] * nd))
+    if _ROW.search(path):
+        # [*, d_in, d_out] (and A_log/x_proj's [*, d_inner, ...]): the
+        # second-to-last dim on model
+        return Spec(*([None] * (nd - 2) + [tp, None]))
+    if _COL.search(path):
+        return Spec(*([None] * (nd - 1) + [tp]))
+    return Spec(*([None] * nd))
+
+
+def param_specs(cfg: ModelConfig, params_shape: Any, mesh,
+                fsdp: bool = False) -> Any:
+    """The param tree's specs. ``fsdp=True`` additionally shards each
+    parameter's largest still-replicated dim over the DP axes (ZeRO-3)."""
+    tp = "model"
+
+    def one(path, leaf):
+        spec = _spec_for_leaf(path, tuple(leaf.shape), cfg, tp)
+        spec = _validated(spec, leaf.shape, mesh)
+        if fsdp:
+            spec = zero_shard(spec, leaf.shape, mesh)
+        return spec
+
+    return _map_with_path(one, params_shape)
+
+
+def _validated(spec: Spec, shape, mesh) -> Spec:
+    """Drop shardings that do not divide evenly (avoid padded-shard blowup)."""
+    sizes = axis_sizes(mesh)
+    parts = []
+    for i, s in enumerate(spec):
+        if s is None:
+            parts.append(None)
+            continue
+        axes = s if isinstance(s, tuple) else (s,)
+        size = 1
+        for a in axes:
+            size *= sizes[a]
+        parts.append(s if shape[i] % size == 0 else None)
+    return Spec(*parts)
+
+
+def zero_shard(spec: Spec, shape, mesh) -> Spec:
+    """ZeRO-1: shard the largest still-replicated dim over the DP axes."""
+    dp = dp_axes(mesh)
+    n = dp_size(mesh)
+    # already DP-sharded (e.g. FSDP params): nothing to add
+    for entry in spec:
+        for a in (entry if isinstance(entry, tuple) else (entry,)):
+            if a in dp:
+                return spec
+    best, best_size = None, 0
+    for i in range(len(shape)):
+        cur = spec[i] if i < len(spec) else None
+        if cur is None and shape[i] % n == 0 and shape[i] > best_size:
+            best, best_size = i, shape[i]
+    if best is None:
+        return spec
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    parts[best] = dp if len(dp) > 1 else dp[0]
+    return Spec(*parts)
+
+
+def opt_state_specs(cfg: ModelConfig, opt_shape: Any, pspecs: Any,
+                    mesh) -> Any:
+    """Moments/master mirror the params + ZeRO sharding; step is replicated."""
+    by_path: Dict[str, Spec] = dict(leaves_with_paths(pspecs))
+
+    def one(path, leaf):
+        if path.endswith("['step']"):
+            return Spec()
+        # strip the leading "['m']"/"['v']"/"['master']" to find the param
+        pspec: Optional[Spec] = by_path.get(path.split("]", 1)[1])
+        if pspec is None:
+            pspec = Spec(*([None] * len(leaf.shape)))
+        return zero_shard(pspec, leaf.shape, mesh)
+
+    return _map_with_path(one, opt_shape)
+
+
+def cache_specs(cfg: ModelConfig, cache_shape: Any, mesh) -> Any:
+    """The slot cache's specs (``models.model.init_cache`` leaves)."""
+    tp = "model"
+    sizes = axis_sizes(mesh)
+    dp = dp_axes(mesh)
+    dpa = dp if len(dp) > 1 else dp[0]
+    heads_fit = cfg.num_kv_heads % sizes[tp] == 0
+
+    def one(p, leaf):
+        nd = len(leaf.shape)
+        B = leaf.shape[1] if nd >= 2 else 1
+        bspec = dpa if B % dp_size(mesh) == 0 else None
+        if cfg.name == "xlstm-125m":
+            return _validated(Spec(*([None, bspec] + [None] * (nd - 2))),
+                              leaf.shape, mesh)
+        if re.search(r"\['(k|v|cross_k|cross_v)'\]", p):
+            # [R, B, S, Hkv, Dh]
+            if heads_fit:
+                return _validated(Spec(None, bspec, None, tp, None),
+                                  leaf.shape, mesh)
+            return _validated(Spec(None, bspec, tp, None, None), leaf.shape,
+                              mesh)
+        if re.search(r"\['(ckv|kr)'\]", p):
+            # [R, B, S, latent] -- shard sequence
+            return _validated(Spec(None, bspec, tp, None), leaf.shape, mesh)
+        if "['mamba']" in p:
+            # conv [R, B, K-1, di] / ssm [R, B, di, n]
+            if p.endswith("['conv']"):
+                return _validated(Spec(None, bspec, None, tp), leaf.shape,
+                                  mesh)
+            return _validated(Spec(None, bspec, tp, None), leaf.shape, mesh)
+        if "['mlstm']" in p or "['slstm']" in p:
+            return _validated(Spec(*([None, bspec] + [None] * (nd - 2))),
+                              leaf.shape, mesh)
+        return _validated(Spec(*([None] * nd)), leaf.shape, mesh)
+
+    return _map_with_path(one, cache_shape)
+
+
+def paged_cache_specs(cfg: ModelConfig, cache_shape: Any, mesh,
+                      axis: str = "model") -> Any:
+    """Specs of the *serving* paged KV pools (``init_paged_cache`` leaves,
+    fused head-interleaved ``[reps, Hkv, num_pages, 2, page_size, Dh]``).
+
+    Mirrors :func:`cache_specs`' head rule: pages shard their KV-head dim on
+    ``axis`` when the head count divides it; otherwise the pools stay
+    replicated and the attention ops sequence-shard the computation instead
+    (partial-softmax combine). A mesh without ``axis`` replicates the pools.
+    The shared ``head_shards`` rule keeps placement, ops dispatch and
+    reporting in lockstep."""
+    from repro_torch.kernels.shard_utils import head_shards
+    heads_fit = head_shards(cfg.num_kv_heads, mesh, axis) > 1
+
+    def one(path, leaf):
+        nd = len(leaf.shape)
+        if heads_fit and nd >= 2:
+            return _validated(Spec(None, axis, *([None] * (nd - 2))),
+                              leaf.shape, mesh)
+        return Spec(*([None] * nd))
+
+    return _map_with_path(one, cache_shape)
+
+
+def local_shape(shape, spec: Spec, mesh) -> Tuple[int, ...]:
+    """The shape of one rank's shard of a leaf of ``shape`` under ``spec``
+    (each sharded dim divided by its axes' sizes; ``_validated`` specs
+    divide evenly)."""
+    sizes = axis_sizes(mesh)
+    out = []
+    for i, n in enumerate(shape):
+        s = spec[i] if i < len(spec) else None
+        for a in (() if s is None else s if isinstance(s, tuple) else (s,)):
+            n //= sizes[a]
+        out.append(n)
+    return tuple(out)
+
+
+def batch_spec(mesh, extra_dims: int = 1) -> Spec:
+    dp = dp_axes(mesh)
+    dpa = dp if len(dp) > 1 else dp[0]
+    return Spec(dpa, *([None] * extra_dims))

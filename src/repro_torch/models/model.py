@@ -45,13 +45,14 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN, DENSE, LOCAL_ATTN, MAMBA, MLA,
                                       MLSTM, MOE, NONE, SLSTM, ModelConfig)
+from repro_torch.kernels import shard_utils as su
 from repro_torch.kernels.paged_attention.ops import paged_attention_auto
 from repro_torch.kernels.paged_prefill_attention.ops import (
     paged_prefill_attention_auto)
@@ -105,15 +106,22 @@ def _moe_pad(cfg: ModelConfig) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class RunCtx:
-    """The reference's ``RunCtx`` fields that mean something on one device:
-    ``remat`` ("none" | "dots" | "full") for training and
-    ``loss_vocab_blocks`` (the loss's sequence blocks). The reference's
-    ``block_q``/``block_k``/``mlstm_block``/``unroll_layers`` are XLA
-    tiling controls (the kernels here pick their own tiles), and its mesh
-    and MoE routing fields wait for the port's mesh."""
+    """The reference's ``RunCtx`` fields the port uses: ``remat`` ("none" |
+    "dots" | "full") and ``loss_vocab_blocks`` (the loss's sequence blocks)
+    for training, and ``mesh``/``shard_axis`` for sharded serving: with a
+    mesh, the paged attention ops run their sharded dispatch (KV heads on
+    ``shard_axis`` when they divide it, else the sequence-sharded
+    fallback; ``kernels/shard_utils.py``), and each rank writes only its
+    own heads' K/V into its shard of the pool. ``None`` is the exact
+    single-device dispatch. The reference's ``block_q``/``block_k``/
+    ``mlstm_block``/``unroll_layers`` are XLA tiling controls (the kernels
+    here pick their own tiles); its MoE routing context waits for sharded
+    training."""
 
     remat: str = "none"          # none | dots | full
     loss_vocab_blocks: int = 8
+    mesh: Any = None
+    shard_axis: str = "model"
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -275,10 +283,12 @@ def _positions(mode, pos, lengths, Sq, device):
 
 
 def attn_block(cfg, p, x, state, *, mode, pos, lengths, window, paged=None,
-               rows=None):
+               rows=None, rctx=None):
     """Write the call's K/V into the layer's cache ``state`` (in place)
     first, then attend (decode ``lengths`` count the token being written).
     ``rows`` limits a slot decode's writes to the rows really decoding.
+    With ``rctx.mesh`` the paged modes write this rank's KV heads into its
+    shard of the pool and attend through the sharded dispatch.
     "prefill" attends over the call's own keys (causal, the window) and
     writes them at 0; "train" attends the same way without a cache;
     "encode" attends over them without a mask or a cache. Returns the
@@ -289,16 +299,21 @@ def attn_block(cfg, p, x, state, *, mode, pos, lengths, window, paged=None,
     scale = _attn_scale(cfg)
     cap = cfg.attn_logit_softcap
     if mode in ("paged_chunk", "paged_decode"):
-        kvp = A.write_pages_fused(state["kv_pages"], k, v, paged.write_slots)
+        rctx = rctx or RunCtx()
+        mesh, axis, Hkv = rctx.mesh, rctx.shard_axis, cfg.num_kv_heads
+        mine = su.local_heads(Hkv, Hkv, mesh, axis)   # q stays whole
+        kvp = A.write_pages_fused(state["kv_pages"], k[:, :, mine],
+                                  v[:, :, mine], paged.write_slots)
     if mode == "paged_chunk":
         o = paged_prefill_attention_auto(
             q, kvp, paged.block_tables, pos, lengths, scale=scale,
-            window=window, softcap=cap)
+            window=window, softcap=cap, mesh=mesh, axis=axis)
     elif mode == "paged_decode":
         H, Dh = cfg.num_heads, cfg.resolved_head_dim
         o = paged_attention_auto(q[:, 0].reshape(B, H, Dh), kvp,
                                  paged.block_tables, lengths, scale=scale,
-                                 window=window, softcap=cap)
+                                 window=window, softcap=cap, mesh=mesh,
+                                 axis=axis, kv_heads=Hkv)
     elif mode == "encode":
         o = A.blockwise_attention(q, k, v, scale=scale, causal=False,
                                   softcap=cap)
@@ -528,7 +543,7 @@ def _embed(cfg, params, tokens, extra_embeds=None):
 
 
 def _apply_slot(cfg, slot, mixer, x, state, enc_out, *, mode, pos,
-                lengths, paged, rows):
+                lengths, paged, rows, rctx=None):
     """One period slot: its mixer, an encoder-decoder's cross attention,
     then its FFN. Returns (x, the FFN's aux loss)."""
     if mixer in RECURRENT:
@@ -541,7 +556,7 @@ def _apply_slot(cfg, slot, mixer, x, state, enc_out, *, mode, pos,
         window = cfg.sliding_window if mixer == LOCAL_ATTN else 0
         x = x + attn_block(cfg, slot["attn"], x, state, mode=mode, pos=pos,
                            lengths=lengths, window=window, paged=paged,
-                           rows=rows)
+                           rows=rows, rctx=rctx)
     if "cross" in slot and (enc_out is not None
                             or mode in ("decode", "chunk")):
         x = x + cross_block(cfg, slot["cross"], x, enc_out, state, mode=mode)
@@ -568,7 +583,7 @@ def _apply_stack(cfg, stack_params, period, reps, x, cache, enc_out, *,
             x, a = _apply_slot(cfg, slots[j][r], mixer, x,
                                None if states is None else states[j][r],
                                enc_out, mode=mode, pos=pos, lengths=lengths,
-                               paged=paged, rows=rows)
+                               paged=paged, rows=rows, rctx=rctx)
             if mode == "train":
                 aux = aux + a
         return x, aux
@@ -740,14 +755,17 @@ def _mtp_loss(cfg, params, hidden, tokens, rctx):
 # ---- user-facing steps ------------------------------------------------------
 def paged_chunk_step(cfg: ModelConfig, params, tokens, cache, row_pos, *,
                      row_lens, block_tables, write_slots, logits_at,
-                     sampling: Optional[Sampling] = None, nonce=None):
+                     sampling: Optional[Sampling] = None, nonce=None,
+                     rctx: Optional[RunCtx] = None):
     """Fused ragged chunked-prefill step over the paged cache: ``tokens``
     [R, L] holds each request's (bucket-padded) chunk, ``row_pos`` [R] its
     cache offset, ``row_lens`` [R] its post-chunk length, ``logits_at`` [R]
-    the index of its last real token. Returns (token_ids [R] int32, cache)."""
+    the index of its last real token. ``rctx`` carries the serving mesh
+    (``cache`` is then this rank's shard). Returns (token_ids [R] int32,
+    cache)."""
     x, cache = forward(cfg, params, tokens, cache=cache, mode="paged_chunk",
                        pos=row_pos, lengths=row_lens,
-                       paged=PagedView(block_tables, write_slots))
+                       paged=PagedView(block_tables, write_slots), rctx=rctx)
     rows = torch.arange(x.shape[0], device=x.device)
     sel = x[rows, logits_at.long()]
     return _sample_tokens(cfg, params, sel, sampling, nonce), cache
@@ -755,19 +773,21 @@ def paged_chunk_step(cfg: ModelConfig, params, tokens, cache, row_pos, *,
 
 def paged_decode_step(cfg: ModelConfig, params, tokens, cache, *, lengths,
                       block_tables, write_slots,
-                      sampling: Optional[Sampling] = None, nonce=None):
+                      sampling: Optional[Sampling] = None, nonce=None,
+                      rctx: Optional[RunCtx] = None):
     """One decode step for a ragged row batch over the paged cache.
     ``lengths`` [R] counts each row's tokens *including* the one being
     written. Returns (token_ids [R] int32, cache)."""
     x, cache = forward(cfg, params, tokens, cache=cache, mode="paged_decode",
                        lengths=lengths,
-                       paged=PagedView(block_tables, write_slots))
+                       paged=PagedView(block_tables, write_slots), rctx=rctx)
     return _sample_tokens(cfg, params, x[:, -1], sampling, nonce), cache
 
 
 def paged_spec_step(cfg: ModelConfig, params, tokens, cache, row_pos, *,
                     row_lens, block_tables, write_slots,
-                    sampling: Optional[Sampling] = None, nonce=None):
+                    sampling: Optional[Sampling] = None, nonce=None,
+                    rctx: Optional[RunCtx] = None):
     """Speculative **verify** step through the ragged paged-prefill path.
 
     ``tokens`` [R, S] holds each row's pending token followed by its draft
@@ -779,7 +799,7 @@ def paged_spec_step(cfg: ModelConfig, params, tokens, cache, row_pos, *,
     S = tokens.shape[1]
     x, cache = forward(cfg, params, tokens, cache=cache, mode="paged_chunk",
                        pos=row_pos, lengths=row_lens,
-                       paged=PagedView(block_tables, write_slots))
+                       paged=PagedView(block_tables, write_slots), rctx=rctx)
     out = _sample_tokens(cfg, params, x, sampling, nonce)          # [R, S]
     n_real = (row_lens.long() - row_pos.long())[:, None]
     jidx = torch.arange(1, S, device=x.device)[None, :]

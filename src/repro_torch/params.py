@@ -99,11 +99,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
     mixers; dense MLP, MoE or no FFN; an encoder-decoder's ``encoder``
     stack and final norm, and each decoder slot's ``cross`` attention,
     which has no q/k norms), with the ``mtp`` subtree where the config has
-    ``mtp_depth`` (drawn last, so the other leaves do not depend on it)."""
+    ``mtp_depth`` (drawn last, so the other leaves do not depend on it).
+    On ``device="meta"`` the tree holds shapes only (the sharding rules
+    read a full-width model's without allocating it)."""
     check_supported(cfg)
     device = torch.device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = None      # the meta device: the tree's shapes, nothing drawn
+    if device.type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
     d, H, Hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     Dh, dt = cfg.resolved_head_dim, cfg.param_dtype
 

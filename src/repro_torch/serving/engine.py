@@ -41,10 +41,28 @@ row, for A/B profiling.
   slot's recurrent state is not reset when a new request takes the slot:
   the request starts from the previous owner's final state.
 
+* **sharded paged** (``mesh=``, a ``DeviceMesh`` from
+  ``launch/mesh.make_serving_mesh``; paged mode only, slot mode ignores it
+  as the reference does). Every rank of the process group builds the same
+  ``EngineCore`` on the same parameters; the KV pools shard their heads on
+  the mesh's ``model`` axis when the head count divides it, else they stay
+  replicated and attention is sequence-sharded (``launch/sharding.py``,
+  ``kernels/shard_utils.py``). The scheduler is mesh-oblivious and runs
+  once: rank 0 is the driver and owns all host state (scheduler,
+  allocator, block tables, prefix cache, predictor); before each fused
+  dispatch it broadcasts the dispatch (kind, shapes, sampling nonce and
+  int operands) over the control plane, the process group's gloo backend
+  on CPU tensors, and every rank then runs the same ``paged_*_step`` on
+  its shard, the attention ops' collectives going over the ``model`` axis's
+  group (the data plane). The other ranks run :meth:`EngineCore.serve_as_worker`
+  until the driver's :meth:`EngineCore.close`. Parameters and all math but
+  attention are replicated (checked at start-up), so every rank draws the
+  same tokens; only the driver reads them back.
+
 An encoder-decoder (seamless-m4t) is refused before anything is
 allocated (``check_servable``): the model computes it (``prefill`` and
 ``decode_step`` of ``models/model.py``), but the reference engine cannot
-serve it, so there is nothing to port. Not ported yet: the mesh.
+serve it, so there is nothing to port.
 """
 from __future__ import annotations
 
@@ -60,16 +78,23 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.scheduler import KVPressure, SchedulerBase
-from repro_torch.models.model import (PAGED_KV_LAYOUT, RECURRENT, Sampling,
-                                      check_supported, chunk_prefill_step,
-                                      decode_step, init_cache,
-                                      init_paged_cache, paged_chunk_step,
-                                      paged_decode_step, paged_spec_step,
-                                      supports_paged_cache)
+from repro_torch.kernels import shard_utils as su
+from repro_torch.kernels.paged_attention.kernel import paged_attention_fused
+from repro_torch.kernels.paged_prefill_attention.kernel import (
+    paged_prefill_attention_fused)
+from repro_torch.launch.mesh import data_backend
+from repro_torch.launch.sharding import local_shape, paged_cache_specs
+from repro_torch.models.model import (PAGED_KV_LAYOUT, RECURRENT, RunCtx,
+                                      Sampling, check_supported,
+                                      chunk_prefill_step, decode_step,
+                                      init_cache, init_paged_cache,
+                                      paged_chunk_step, paged_decode_step,
+                                      paged_spec_step, supports_paged_cache)
 from repro_torch.params import init_params
 from repro_torch.serving.block_allocator import BlockAllocator
 from repro_torch.serving.drafter import DrafterBase, NGramDrafter
 from repro_torch.serving.request import ReqState, Request
+from repro_torch.train.tree import leaves, leaves_with_paths, unflatten
 
 # chunk-length ladder for shape bucketing; allocations above the top rung
 # are split across dispatches instead of being silently truncated.
@@ -96,6 +121,33 @@ def _pow2(n: int, lo: int = 1) -> int:
     while b < n:
         b *= 2
     return b
+
+
+# ---- the driver's control plane ----------------------------------------------
+# A message is a fixed header of int64s, [op, kind, nonce, group, Rb, Lb,
+# nb, 0], broadcast from rank 0, then for a dispatch one int64 payload: the
+# assembly's int operands in _WIRE order, each raveled.
+_OP_DISPATCH, _OP_COUNTERS, _OP_STOP = 1, 2, 3
+_HEADER = 8
+_KINDS = ("decode", "chunk", "spec")
+
+
+def _wire(kind: str, Rb: int, Lb: int, nb: int):
+    """(name, shape, dtype) of a dispatch's operands on the wire."""
+    i32 = np.int32
+    if kind == "decode":
+        return (("tokens", (Rb, 1), i32), ("lengths", (Rb,), i32),
+                ("tables", (Rb, nb), i32), ("slots", (Rb,), np.int64))
+    rows = (("tokens", (Rb, Lb), i32), ("row_pos", (Rb,), i32),
+            ("row_lens", (Rb,), i32))
+    if kind == "chunk":
+        rows += (("logits_at", (Rb,), i32),)
+    return rows + (("tables", (Rb, nb), i32), ("slots", (Rb, Lb), np.int64))
+
+
+# what a rank reports to the driver's ``mesh_counters``
+_COUNTERS = ("decode_calls", "prefill_calls", "spec_calls",
+             "paged_attention_fused", "paged_prefill_attention_fused")
 
 
 def resolve_device(device) -> torch.device:
@@ -171,6 +223,8 @@ class EngineStats:
     device_busy_s: float = 0.0    # wall covered by an in-flight round
     host_s: float = 0.0           # wall with NO round in flight
     reused_uploads: int = 0       # block-table uploads served from device cache
+    control_s: float = 0.0        # driver wall time broadcasting dispatches
+                                  # to the mesh's workers (control plane)
     # ---- speculative decoding (spec_k > 0) -----------------------------------
     spec_calls: int = 0           # fused verify dispatches
     spec_rounds: int = 0          # rounds that dispatched >=1 verify row
@@ -215,7 +269,10 @@ class EngineCore:
     ``max_slots`` rows of ``max_len`` tokens. ``prefix_cache`` reuses frozen
     full pages across requests sharing a prefix; greedy tokens are the same
     with it on or off. ``spec_k > 0`` turns decode rows into speculative
-    verify rows (n-gram drafter). Both are paged-mode only.
+    verify rows (n-gram drafter). Both are paged-mode only. ``mesh``: the
+    serving mesh (paged mode only; see the module docstring): every rank
+    of the process group constructs the engine alike, rank 0 drives it
+    through the step API, the others call :meth:`serve_as_worker`.
     """
 
     def __init__(self, cfg: ModelConfig, scheduler: SchedulerBase, *,
@@ -229,7 +286,7 @@ class EngineCore:
                  spec_class_caps: Optional[Dict[int, int]] = None,
                  temperature: float = 0.0, top_k: int = 0,
                  sample_seed: int = 0, seed: int = 0,
-                 params=None, device=None):
+                 params=None, device=None, mesh=None):
         check_servable(cfg)      # before any weight or cache is allocated
         if cache_mode == "auto":
             cache_mode = "paged" if supports_paged_cache(cfg) else "slot"
@@ -240,6 +297,13 @@ class EngineCore:
                 f"{cfg.name}: paged KV requires pure-attention mixers; "
                 f"use cache_mode='slot'")
         self.cache_mode = cache_mode
+        # the mesh applies to the paged executor only; slot mode (recurrent
+        # / MLA archs) stays single-device, as in the reference.
+        self.mesh = mesh if cache_mode == "paged" else None
+        self.rctx = RunCtx(mesh=self.mesh)
+        self.rank, self.world_size = 0, 1
+        self.data_plane: Optional[str] = None   # the mesh's attention backend
+        self._closed = False
         self.cfg = cfg
         self.sched = scheduler
         self.max_slots = max_slots
@@ -303,20 +367,212 @@ class EngineCore:
         self.decode_reserve = decode_reserve_tokens
         # one extra physical page (the last) is the trash page: padding
         # tokens' KV writes land there and are never read back.
-        self.cache = init_paged_cache(cfg, self.alloc.num_blocks + 1,
-                                      page_size, device=self.device)
+        if self.mesh is None:
+            self.cache = init_paged_cache(cfg, self.alloc.num_blocks + 1,
+                                          page_size, device=self.device)
+        else:
+            self._init_mesh_state()
         self._trash_slot = self.alloc.num_blocks * page_size
         self._dev_cache: Dict[Tuple, Tuple[np.ndarray, torch.Tensor]] = {}
 
+    # =========================================================================
+    # sharded paged executor: one driver, workers on the mesh
+    # =========================================================================
+    def _init_mesh_state(self) -> None:
+        """Join the mesh: check that every rank holds the same parameters,
+        then allocate this rank's shard of the KV pools at the shape
+        ``paged_cache_specs`` gives it (a head slice ``[reps, Hkv/M, P, 2,
+        ps, D]`` when the heads divide the ``model`` axis, the whole pool
+        otherwise). The control plane is the process group's gloo backend
+        on CPU tensors."""
+        import torch.distributed as dist
+        if data_backend("cpu") != "gloo":
+            raise RuntimeError("the serving mesh's control plane needs gloo "
+                               "for CPU tensors in the default process "
+                               "group (launch.mesh.init_distributed)")
+        self.rank = dist.get_rank()
+        self.world_size = dist.get_world_size()
+        self.data_plane = data_backend(self.device.type)
+        self._check_replicas()
+        shapes = init_paged_cache(self.cfg, self.alloc.num_blocks + 1,
+                                  self.page_size, device="meta")
+        specs = paged_cache_specs(self.cfg, shapes, self.mesh,
+                                  axis=self.rctx.shard_axis)
+        self.cache = unflatten(shapes, [
+            torch.zeros(local_shape(leaf.shape, spec, self.mesh),
+                        dtype=leaf.dtype, device=self.device)
+            for leaf, spec in zip(leaves(shapes), leaves(specs))])
+
+    def _check_replicas(self) -> None:
+        """Raise on every rank unless all ranks hold the same parameters:
+        one all-reduce (MAX) of the per-leaf checksums (each leaf's sum,
+        accumulated in fp32 without a converted copy, as fp64) and their
+        negations gives each leaf's largest and smallest over the ranks."""
+        import torch.distributed as dist
+        paths, sums = [], []
+        for path, leaf in leaves_with_paths(self.params):
+            paths.append(path)
+            sums.append(leaf.sum(dtype=torch.float32).double())
+        s = torch.stack(sums).cpu()
+        both = torch.cat([s, -s])
+        dist.all_reduce(both, op=dist.ReduceOp.MAX)
+        n = len(paths)
+        bad = [p for p, hi, lo in zip(paths, both[:n], -both[n:])
+               if hi != lo]
+        if bad:
+            raise RuntimeError(f"the mesh's ranks hold different parameters "
+                               f"({len(bad)} leaves differ, first "
+                               f"{bad[0]}): give every rank the same seed "
+                               f"or params")
+
+    @property
+    def is_driver(self) -> bool:
+        """Rank 0 of the mesh (or the engine without one) runs the
+        scheduler and the step API."""
+        return self.rank == 0
+
+    def _require_driver(self) -> None:
+        if not self.is_driver:
+            raise RuntimeError(f"rank {self.rank} is a worker of the serving "
+                               f"mesh: only rank 0 runs the scheduler "
+                               f"(call serve_as_worker())")
+
+    def _broadcast_dispatch(self, asm: dict, nonce: int) -> None:
+        """The driver's message for one dispatch: header, then operands."""
+        import torch.distributed as dist
+        t0 = time.perf_counter()
+        kind = asm["kind"]
+        head = torch.tensor([_OP_DISPATCH, _KINDS.index(kind), nonce,
+                             asm.get("group", 0), asm["Rb"], asm.get("Lb", 1),
+                             asm["nb"], 0], dtype=torch.int64)
+        dist.broadcast(head, 0)
+        payload = np.concatenate([
+            np.asarray(asm[name], np.int64).reshape(-1)
+            for name, _, _ in _wire(kind, asm["Rb"], asm.get("Lb", 1),
+                                    asm["nb"])])
+        dist.broadcast(torch.from_numpy(payload), 0)
+        self.stats.control_s += time.perf_counter() - t0
+
+    def _receive(self) -> Tuple[int, Optional[dict], int]:
+        """A worker's next message: (op, the dispatch's assembly or None,
+        its nonce)."""
+        import torch.distributed as dist
+        head = torch.empty(_HEADER, dtype=torch.int64)
+        dist.broadcast(head, 0)
+        op, k, nonce, group, Rb, Lb, nb, _ = (int(x) for x in head)
+        if op != _OP_DISPATCH:
+            return op, None, 0
+        kind = _KINDS[k]
+        wire = _wire(kind, Rb, Lb, nb)
+        payload = torch.empty(sum(int(np.prod(shape)) for _, shape, _ in wire),
+                              dtype=torch.int64)
+        dist.broadcast(payload, 0)
+        flat = payload.numpy()
+        asm = {"kind": kind, "group": group, "Rb": Rb, "Lb": Lb, "nb": nb}
+        at = 0
+        for name, shape, dtype in wire:
+            size = int(np.prod(shape))
+            asm[name] = flat[at:at + size].reshape(shape).astype(dtype)
+            at += size
+        return op, asm, nonce
+
+    def serve_as_worker(self) -> None:
+        """A worker rank's loop: run every dispatch the driver broadcasts on
+        this rank's shard (the same ``paged_*_step`` with the driver's
+        nonce), answer ``mesh_counters``, and return at the driver's
+        ``close()``. Never schedules and never reads tokens back."""
+        if self.mesh is None or self.is_driver:
+            raise RuntimeError("serve_as_worker() is for the mesh's ranks "
+                               "other than 0")
+        while True:
+            op, asm, nonce = self._receive()
+            if op == _OP_STOP:
+                return
+            if op == _OP_COUNTERS:
+                self._gather_counters()
+                continue
+            self._sample_nonce = nonce
+            self._dispatch(asm)
+
+    def _gather_counters(self) -> List[Dict[str, int]]:
+        """Every rank's :data:`_COUNTERS`, gathered on every rank."""
+        import torch.distributed as dist
+        st = self.stats
+        mine = torch.tensor([st.decode_calls, st.prefill_calls,
+                             st.spec_calls, paged_attention_fused.launches,
+                             paged_prefill_attention_fused.launches],
+                            dtype=torch.int64)
+        parts = [torch.empty_like(mine) for _ in range(self.world_size)]
+        dist.all_gather(parts, mine)
+        return [dict(zip(_COUNTERS, (int(x) for x in p))) for p in parts]
+
+    def mesh_counters(self) -> List[Dict[str, int]]:
+        """The driver's view of every rank's dispatches and #1/#2 launches
+        (rank order), fetched through the control plane."""
+        import torch.distributed as dist
+        self._require_driver()
+        if self.mesh is None:
+            raise RuntimeError("mesh_counters() needs a mesh")
+        dist.broadcast(torch.tensor([_OP_COUNTERS] + [0] * (_HEADER - 1),
+                                    dtype=torch.int64), 0)
+        return self._gather_counters()
+
+    def close(self) -> None:
+        """The driver ends the workers' loops (idempotent; without a mesh
+        and on a worker, nothing to do)."""
+        import torch.distributed as dist
+        if self.mesh is None or not self.is_driver or self._closed:
+            return
+        self._closed = True
+        dist.broadcast(torch.tensor([_OP_STOP] + [0] * (_HEADER - 1),
+                                    dtype=torch.int64), 0)
+
+    def kv_shards(self) -> int:
+        """How many ways the KV page pools are partitioned (1 = replicated
+        or single-device); the shared ``head_shards`` rule, so this always
+        agrees with cache placement and ops dispatch."""
+        if self.cache_mode != "paged" or self.mesh is None:
+            return 1
+        return su.head_shards(self.cfg.num_kv_heads, self.mesh,
+                              self.rctx.shard_axis)
+
     def shard_info(self) -> Dict:
-        """KV-pool accounting in the reference's record shape (one device:
-        the pool is not partitioned)."""
-        info = {"mesh": None, "kv_partition": "none", "kv_shards": 1}
+        """Mesh + per-shard KV-pool accounting, in the reference's record
+        shape."""
         if self.cache_mode != "paged":
-            return info
-        info["kv_heads_per_shard"] = self.cfg.num_kv_heads
-        info.update(self.alloc.shard_stats(1))
+            return {"mesh": None, "kv_partition": "none", "kv_shards": 1}
+        mesh = self.mesh
+        shards = self.kv_shards()
+        m = su.axis_size(mesh, self.rctx.shard_axis)
+        # a 1-wide (or absent) shard axis runs the exact single-device
+        # dispatch: report it as unpartitioned, not as a trivial head shard.
+        if shards > 1:
+            partition = "heads"
+        elif m > 1:
+            partition = "sequence"
+        else:
+            partition = "none"
+        info = {
+            "mesh": None if mesh is None else "x".join(
+                str(d) for d in mesh.shape),
+            "axes": None if mesh is None else dict(
+                zip(mesh.mesh_dim_names, mesh.shape)),
+            "kv_partition": partition,
+            "kv_shards": shards,
+            "kv_heads_per_shard": self.cfg.num_kv_heads // shards,
+        }
+        info.update(self.alloc.shard_stats(shards))
         return info
+
+    def shard_banner(self) -> str:
+        """One-line human-readable form of :meth:`shard_info`, with the
+        data plane's backend (the serving entrypoints print it)."""
+        info = self.shard_info()
+        return (f"sharded paged executor: mesh={info['mesh']} "
+                f"kv_partition={info['kv_partition']} "
+                f"shards={info['kv_shards']}"
+                + (f" data_plane={self.data_plane} world={self.world_size}"
+                   if self.data_plane else ""))
 
     def _now(self) -> float:
         return time.perf_counter() - self._t0
@@ -345,6 +601,7 @@ class EngineCore:
         """Hand a request to the engine. ``req.arrival`` is on the engine
         clock: a future arrival is held back, a past/now arrival joins the
         admission queue immediately."""
+        self._require_driver()
         if req.rid in self._reqs:
             raise ValueError(f"duplicate rid {req.rid}")
         # transcripts outlive retirement (serve() exposes them), so recycling
@@ -579,6 +836,7 @@ class EngineCore:
         *previous* round's deferred readback. Returns the events that
         settled during this call; an idle step flushes any in-flight round
         so the final tokens always surface."""
+        self._require_driver()
         paged = self.cache_mode == "paged"
         self._admit()
         if not self._active:
@@ -1221,6 +1479,8 @@ class EngineCore:
         for spec. The sampling nonce advances per dispatch."""
         nonce = self._sample_nonce
         self._sample_nonce += 1
+        if self.mesh is not None and self.is_driver:
+            self._broadcast_dispatch(asm, nonce)
         cfg, dev = self.cfg, self._to_dev
         slots = dev(asm["slots"].reshape(-1).astype(np.int32))
         if asm["kind"] == "decode":
@@ -1230,7 +1490,8 @@ class EngineCore:
                 lengths=dev(asm["lengths"]),
                 block_tables=self._upload_cached(
                     ("decode", asm.get("group", 0)), asm["tables"]),
-                write_slots=slots, sampling=self.sampling, nonce=nonce)
+                write_slots=slots, sampling=self.sampling, nonce=nonce,
+                rctx=self.rctx)
             self.stats.decode_calls += 1
         elif asm["kind"] == "spec":
             self._note_shape(("spec", asm["Rb"], asm["Lb"], asm["nb"]))
@@ -1239,7 +1500,8 @@ class EngineCore:
                 dev(asm["row_pos"]), row_lens=dev(asm["row_lens"]),
                 block_tables=self._upload_cached(
                     ("spec", asm.get("group", 0)), asm["tables"]),
-                write_slots=slots, sampling=self.sampling, nonce=nonce)
+                write_slots=slots, sampling=self.sampling, nonce=nonce,
+                rctx=self.rctx)
             self.stats.spec_calls += 1
         else:
             self._note_shape(("chunk", asm["Rb"], asm["Lb"], asm["nb"]))
@@ -1249,7 +1511,7 @@ class EngineCore:
                 block_tables=self._upload_cached(
                     ("chunk", asm.get("group", 0)), asm["tables"]),
                 write_slots=slots, logits_at=dev(asm["logits_at"]),
-                sampling=self.sampling, nonce=nonce)
+                sampling=self.sampling, nonce=nonce, rctx=self.rctx)
             self.stats.prefill_calls += 1
         self._round_calls += 1
         return toks

@@ -71,7 +71,12 @@ def test_port_imports_no_jax_and_no_reference_module():
                      "repro_torch.train.data",
                      "repro_torch.runtime.compression",
                      "repro_torch.runtime.fault_tolerance",
-                     "repro_torch.launch.train"):
+                     "repro_torch.launch.train",
+                     "repro_torch.launch.mesh",
+                     "repro_torch.launch.sharding",
+                     "repro_torch.launch.local_world",
+                     "repro_torch.kernels.shard_utils",
+                     "repro_torch.runtime.elastic"):
         assert required in mods
 
 
