@@ -193,6 +193,19 @@ prints its seconds):
    finishes, #1/#2 launch 28 x each rank's dispatches (counters read
    through the control plane), the backend, tokens/s, round time beside
    phase 5's and the control plane's cost a dispatch.
+17. sharded training on the one card (``tools/train_sharded_phase.py``;
+   gloo between ranks that share it). (a) Every slice arch's smoke config
+   (fp32) at world 4, mesh ``2x2``: one AdamW step's loss, gradient norm
+   and first moment against the card's world-1 step (the dense archs) or
+   the CPU's world-4 step (the expert-parallel qwen2-moe and jamba), at
+   phase 15's limits; #5/#6/#7 twice a layer on every rank, no plain
+   version forward. (b) Full-width llama3.2-3b (bf16), phase 15's weights
+   and batch, tensor-parallel at mesh ``2``: three steps, the first loss
+   within 1e-2 of phase 15's, #5 56 launches a step on each rank; step
+   time, tokens/s, each rank's peak memory, collectives a step. (c)
+   qwen2-moe-a2.7b at published widths cut to 4 layers, expert-parallel
+   at mesh ``2``: three steps, finite losses, the last below the first;
+   the tokens dropped by capacity and the ``all_to_all`` time a step.
 
 The traces are summarised in one pass over the profiler's raw events;
 each also lists the device time and count of every port kernel in it (the
@@ -1932,7 +1945,9 @@ def router_phase(torch, params, kernels):
     streams of a turn concurrent; under the
     prefix-affine policy, then the same traffic under round-robin. Each
     follow-up must land on the replica that served its conversation unless
-    the router spilled it, the prefix-affine run must hit the directory and
+    the router spilled it (the first turn's spills, which depend on when
+    the pages of the turn's earlier prompts commit, are not counted), the
+    prefix-affine run must hit the directory and
     the replicas' prefix caches, and every pool must be whole after the
     drain. Returns the launches of #1 and #2 by policy and the records."""
     import numpy as np
@@ -1962,6 +1977,7 @@ def router_phase(torch, params, kernels):
             t0 = time.perf_counter()
             first = http_jobs(cli, [(p, out_len, None)
                                     for p in convs + [cold]])
+            spills_first = backend.spills      # the first turn's own
             follow = [multiturn_followup(p, r["tokens"], rng,
                                          cfg.vocab_size, turn_len=64)
                       for p, r in zip(convs, first)]
@@ -1990,10 +2006,11 @@ def router_phase(torch, params, kernels):
         hits = [rep["engine"]["cache_hit_tokens"]
                 for rep in stats["replicas"]]
         if policy == "prefix-affine":
-            if on_holder + rr["spills"] != len(second) or on_holder == 0:
+            spilled = rr["spills"] - spills_first
+            if on_holder + spilled != len(second) or on_holder == 0:
                 raise AssertionError(
                     f"router: {on_holder} follow-ups on their conversation's "
-                    f"replica, {rr['spills']} spilled, of {len(second)}")
+                    f"replica, {spilled} spilled, of {len(second)}")
             if rr["directory"]["hit_lookups"] <= 0 or rr["affine_hits"] <= 0:
                 raise AssertionError(f"router: no directory hit: {rr}")
             for i in set(b for a, b in zip(owners, owners2) if a == b):
@@ -2737,7 +2754,7 @@ def main() -> int:
                "mamba_scan": ms_kernel.mamba_scan}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ph = Phases(16)
+    ph = Phases(17)
 
     ph.start("device")
     dev = device_line()
@@ -2965,6 +2982,14 @@ def main() -> int:
         torch, phase5_round_ms=serving[0]["round_ms"], device_line=dev)
     serving.append({"sharded_serving": sharded})
     for name, counts in sharded_launches.items():
+        by_path[name].update(counts)
+
+    ph.start("sharded training over 2-4 ranks on the card")
+    import train_sharded_phase
+    tsharded, ts_launches = train_sharded_phase.train_sharded_phase(
+        torch, phase15_loss=full_train["losses"][0], device_line=dev)
+    serving.append({"sharded_training": tsharded})
+    for name, counts in ts_launches.items():
         by_path[name].update(counts)
     ph.stop()
 

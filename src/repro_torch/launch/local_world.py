@@ -1,6 +1,7 @@
 """Run one function on a world of ranks on this host, for tests and for
-``chip_smoke.py``'s multi-rank phase (``torchrun`` is the launcher for
-serving itself; see ``launch/serve.py``).
+``chip_smoke.py``'s multi-rank phases (``torchrun`` is the launcher for
+serving and training themselves; see ``launch/serve.py`` and
+``launch/train.py``).
 
 ``spawn_world(fn, world, workdir, ...)`` starts ``world`` processes with
 ``multiprocessing``'s spawn context. Each joins the process group through a

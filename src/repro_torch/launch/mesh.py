@@ -12,7 +12,8 @@ process group and no device.
 * :func:`make_serving_mesh` -- the sharded serving executor's mesh
   (``--mesh`` / ``REPRO_FORCE_MESH``; see ``serving/engine.py``).
 * :func:`make_production_mesh` -- the training launch mesh (pod x data x
-  model), for the training slice.
+  model); :func:`make_train_mesh` resolves the training launcher's
+  ``--mesh`` / ``REPRO_FORCE_MESH`` / ``--multi-pod`` to it.
 
 Meshes are named right-aligned against ``("pod", "data", "model")``:
 ``"4"`` is ``("model",)``, ``"2x4"`` is ``("data", "model")``. The rule
@@ -181,6 +182,22 @@ def make_production_mesh(*, multi_pod: bool = False,
         dims = (2, 16, 16) if multi_pod else (16, 16)
         axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return _device_mesh(dims, axes, device_type or _device_type())
+
+
+def make_train_mesh(spec: Optional[str] = None, *, multi_pod: bool = False,
+                    device_type: Optional[str] = None):
+    """The training launcher's mesh, or ``None`` for one device (the
+    default): ``spec`` (``--mesh``, else ``REPRO_FORCE_MESH``, resolved as
+    serving resolves it) gives its shape, named right-aligned against
+    (pod, data, model); ``multi_pod`` without a spec is the production
+    mesh of two pods. The world size must equal the mesh's size."""
+    spec = serving_mesh_spec(spec)
+    if spec:
+        dims, axes = parse_mesh_spec(spec)
+        return _device_mesh(dims, axes, device_type or _device_type())
+    if multi_pod:
+        return make_production_mesh(multi_pod=True, device_type=device_type)
+    return None
 
 
 def serving_mesh_spec(cli_value: Optional[str] = None) -> Optional[str]:

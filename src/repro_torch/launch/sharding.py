@@ -25,19 +25,27 @@ additionally shard their largest still-replicated dim over the DP axes
 (``zero_shard``).
 
 Serving uses :func:`paged_cache_specs` (each rank allocates its pool at
-:func:`local_shape`); the training slice applies the rest. A mesh here is a
-``DeviceMesh`` or a ``launch.mesh.MeshShape``: the rules read its axis sizes
-only. The reference's ``shardings_of`` (JAX ``ShapeDtypeStruct``s) has no
-counterpart yet.
+:func:`local_shape`); sharded training (``train/train_step.py``) places
+the parameters by :func:`param_specs` and the optimizer state by
+:func:`opt_state_specs`. A mesh here is a ``DeviceMesh`` or a
+``launch.mesh.MeshShape``: the rules read its axis sizes only.
+:func:`shard_tree` (this rank's shards of a whole tree, each leaf at
+:func:`local_shape`) is the counterpart of the reference's
+``shardings_of`` + ``jax.device_put``; :func:`gather_leaf` (every rank
+gets the whole leaf back, for checkpoints) and :func:`gather_tree` (the
+whole tree, for tests and small states) need a ``DeviceMesh``.
 """
 from __future__ import annotations
 
 import re
 from typing import Any, Dict, Optional, Tuple
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import shard_utils as su
 from repro_torch.launch.mesh import axis_sizes, dp_axes, dp_size
-from repro_torch.train.tree import leaves_with_paths, unflatten
+from repro_torch.train.tree import leaves_with_paths, tree_map, unflatten
 
 
 class Spec:
@@ -258,3 +266,42 @@ def batch_spec(mesh, extra_dims: int = 1) -> Spec:
     dp = dp_axes(mesh)
     dpa = dp if len(dp) > 1 else dp[0]
     return Spec(dpa, *([None] * extra_dims))
+
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    return () if entry is None else entry if isinstance(entry, tuple) \
+        else (entry,)
+
+
+def shard_leaf(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """This rank's block of the whole leaf ``x`` under ``spec``: along each
+    sharded dim the block of its coordinate on that dim's axes (row-major
+    over a tuple of axes), as a tensor of its own."""
+    for i, entry in enumerate(spec):
+        ax = su.mesh_axis(mesh, _entry_axes(entry))
+        if ax is not None:
+            x = su.own_slice(x, i, ax)
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def shard_tree(tree: Any, specs: Any, mesh) -> Any:
+    """This rank's shards of a whole tree (``None`` leaves stay ``None``):
+    each leaf at ``local_shape(leaf.shape, spec, mesh)``."""
+    return tree_map(lambda x, s: shard_leaf(x, s, mesh), tree, specs)
+
+
+@torch.no_grad()
+def gather_leaf(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """The whole leaf from every rank's block ``x`` (a collective: every
+    rank of the mesh calls it, and every rank gets the whole leaf)."""
+    for i, entry in enumerate(spec):
+        ax = su.mesh_axis(mesh, _entry_axes(entry))
+        if ax is not None:
+            x = su.all_gather(x, i, ax)
+    return x
+
+
+def gather_tree(tree: Any, specs: Any, mesh) -> Any:
+    """The whole tree from every rank's shards (a collective over the mesh;
+    leaves in flattening order on every rank)."""
+    return tree_map(lambda x, s: gather_leaf(x, s, mesh), tree, specs)

@@ -8,6 +8,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import shard_utils as su
+
 Params = dict  # nested dicts of tensors
 
 
@@ -51,9 +53,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def mlp(params: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
+def mlp(params: Params, x: torch.Tensor, activation: str,
+        tp=None) -> torch.Tensor:
+    """The gated MLP. With ``tp`` (a ``shard_utils.Axis``) the weights are
+    this rank's shards, Megatron-style: ``wi_gate``/``wi_up`` its columns,
+    ``wo`` its rows; the input enters through ``copy_to`` and the output
+    is summed over the axis."""
+    x = su.copy_to(x, tp)
     gate = act_fn(activation)(x @ params["wi_gate"])
-    return (gate * (x @ params["wi_up"])) @ params["wo"]
+    return su.reduce_from((gate * (x @ params["wi_up"])) @ params["wo"], tp)
 
 
 def dense_init(gen: torch.Generator, shape, in_dim: int, dtype,

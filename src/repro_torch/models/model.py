@@ -25,7 +25,8 @@ Ported:
 attention mixers (ATTN, LOCAL_ATTN) on both caches, with the per-head q/k
 norm (qwen3), the post-norms and the embedding scale (gemma2); MLA
 (deepseek-v3), Mamba, mLSTM and sLSTM mixers on the slot cache; dense,
-MoE (single device) or no FFN; the encoder and the decoder's cross
+MoE (masked-dense, or expert-parallel on a mesh) or no FFN; the encoder
+and the decoder's cross
 attention of an encoder-decoder (seamless-m4t), and the patch embeddings
 that replace a prompt's first tokens (internvl2). Every attention over
 contiguous keys (a chunk, a prefill, the encoder, cross attention, every
@@ -39,6 +40,20 @@ as in the reference. The kernels on this path (#5 attention, #6 Mamba, #7
 mLSTM) run forward on the card and are differentiated through their
 ``autograd.Function`` (``kernels/*/ops.py``). ``RunCtx.remat`` wraps one
 repetition of a period (the reference's scan body) in a checkpoint.
+
+Sharded training (``RunCtx.mesh`` a training mesh, the parameters this
+rank's shards as ``launch/sharding.param_specs`` places them): a leaf
+narrower than the config's width is a shard, and the block computes on it
+Megatron-style with the collectives of ``kernels/shard_utils.py`` over the
+``model`` axis: attention on the rank's heads (``_qkv``; a K/V projection
+split inside a head is gathered and the rank's KV heads taken), the
+row-parallel ``wo`` and MLP down projection summed, the Mamba mixer on the
+rank's ``d_inner`` channels (``models/ssm.py``), the embedding and the
+cross-entropy vocab-parallel (``_embed``, ``_block_ce``), the MoE through
+``RunCtx.moe`` (expert parallelism, ``models/moe.py``). A leaf of full
+width is replicated and computed whole on every rank. MLA, MTP, the
+encoder-decoder and patch embeddings are refused on a mesh
+(``check_shardable``).
 """
 from __future__ import annotations
 
@@ -100,28 +115,70 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{', '.join(missing)} yet")
 
 
+def shard_refusals(cfg: ModelConfig) -> list:
+    """Config features that do not train on a mesh yet (empty = all do)."""
+    found = []
+    if any(m == MLA for period, _ in build_stacks(cfg) for m, _ in period):
+        found.append("multi-head latent attention (MLA)")
+    if cfg.mtp_depth:
+        found.append("multi-token prediction (MTP)")
+    if cfg.enc_dec:
+        found.append("encoder-decoder")
+    if cfg.num_patch_tokens:
+        found.append("patch embeddings")
+    return found
+
+
+def check_shardable(cfg: ModelConfig) -> None:
+    """Raise, naming the features, where ``cfg`` has one that the sharded
+    step does not compute (checked before anything is allocated)."""
+    refused = shard_refusals(cfg)
+    if refused:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(refused)} under a mesh is not ported "
+            f"yet (train it without a mesh)")
+
+
 def _moe_pad(cfg: ModelConfig) -> int:
     return M.pad_experts(cfg.num_experts, 16)
 
 
 @dataclasses.dataclass(frozen=True)
 class RunCtx:
-    """The reference's ``RunCtx`` fields the port uses: ``remat`` ("none" |
+    """The reference's ``RunCtx`` fields the port uses: ``moe`` (the MoE
+    routing context: masked-dense or expert-parallel), ``remat`` ("none" |
     "dots" | "full") and ``loss_vocab_blocks`` (the loss's sequence blocks)
-    for training, and ``mesh``/``shard_axis`` for sharded serving: with a
-    mesh, the paged attention ops run their sharded dispatch (KV heads on
-    ``shard_axis`` when they divide it, else the sequence-sharded
-    fallback; ``kernels/shard_utils.py``), and each rank writes only its
-    own heads' K/V into its shard of the pool. ``None`` is the exact
-    single-device dispatch. The reference's ``block_q``/``block_k``/
-    ``mlstm_block``/``unroll_layers`` are XLA tiling controls (the kernels
-    here pick their own tiles); its MoE routing context waits for sharded
-    training."""
+    for training, and ``mesh``/``shard_axis``: the mesh whose shards this
+    rank holds. In sharded serving the paged attention ops run their
+    sharded dispatch (KV heads on ``shard_axis`` when they divide it, else
+    the sequence-sharded fallback; ``kernels/shard_utils.py``), and each
+    rank writes only its own heads' K/V into its shard of the pool; in
+    sharded training the parameters are shards and the blocks compute on
+    them (the module docstring; the reference leaves this to GSPMD and
+    keeps the field for serving). ``None`` is the exact single-device
+    dispatch. The reference's ``block_q``/``block_k``/``mlstm_block``/
+    ``unroll_layers`` are XLA tiling controls (the kernels here pick their
+    own tiles)."""
 
+    moe: M.MoEContext = dataclasses.field(default_factory=M.MoEContext)
     remat: str = "none"          # none | dots | full
     loss_vocab_blocks: int = 8
     mesh: Any = None
     shard_axis: str = "model"
+
+
+def _tp_of(rctx: Optional[RunCtx], local: int, full: int):
+    """The model axis (``shard_utils.Axis``) when a leaf of width ``local``
+    against the config's ``full`` is this rank's shard, else None (a
+    replicated leaf, computed whole)."""
+    if local == full:
+        return None
+    ax = su.mesh_axis(rctx.mesh if rctx else None,
+                      rctx.shard_axis if rctx else "model")
+    if ax is None or local * ax.size != full:
+        raise ValueError(f"a leaf of width {local} is no shard of {full} "
+                         f"on this rank's mesh")
+    return ax
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -253,20 +310,50 @@ def _maybe_post(cfg: ModelConfig, p, y):
         if cfg.post_norm and "post_ln" in p else y
 
 
-def _qkv(cfg: ModelConfig, p, x, positions):
+def _qkv(cfg: ModelConfig, p, x, positions, rctx=None):
+    """q [B, S, Hkv, G, D], k, v [B, S, Hkv, D] of this rank's heads: the
+    head counts come from ``wq``'s width. A ``wq`` narrower than the
+    config's is the rank's query heads ``[h0, h0 + Hl)``, and k/v are the
+    KV heads they read: the rank's own columns of ``wk``/``wv`` when those
+    split on KV-head boundaries; else (fewer KV heads than ranks) the
+    projection, split inside a head, is gathered over the axis and the
+    rank's KV heads taken. Returns (q, k, v, the model axis or None)."""
     B, Sq, _ = x.shape
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(B, Sq, H, Dh)
-    k = (x @ p["wk"]).reshape(B, Sq, Hkv, Dh)
-    v = (x @ p["wv"]).reshape(B, Sq, Hkv, Dh)
+    G = H // Hkv
+    Hl = p["wq"].shape[-1] // Dh
+    tp = _tp_of(rctx, Hl, H)
+    kv0, kv1 = 0, Hkv
+    qn, kn = p.get("q_norm"), p.get("k_norm")
+    if tp is not None:
+        h0 = tp.index * Hl
+        kv0, kv1 = h0 // G, (h0 + Hl - 1) // G + 1
+        if Hl % (kv1 - kv0) or (Hl >= G and h0 % G):
+            raise NotImplementedError(
+                f"{cfg.name}: query heads {h0}..{h0 + Hl - 1} of a rank do "
+                f"not fill whole groups of {G} (model axis {tp.size})")
+        x = su.copy_to(x, tp)
+        if cfg.qk_norm:     # replicated, applied to this rank's heads
+            qn, kn = su.copy_to(qn, tp), su.copy_to(kn, tp)
+
+    def kv_proj(w):
+        if tp is None:
+            return (x @ w).reshape(B, Sq, Hkv, Dh)
+        if Hkv % tp.size == 0:                 # the rank's own KV heads
+            return (x @ w).reshape(B, Sq, kv1 - kv0, Dh)
+        y = su.gather_to_own(x @ w, 2, tp).reshape(B, Sq, Hkv, Dh)
+        return y[:, :, kv0:kv1]
+
+    q = (x @ p["wq"]).reshape(B, Sq, Hl, Dh)
+    k, v = kv_proj(p["wk"]), kv_proj(p["wv"])
     if cfg.qk_norm:     # per head, before RoPE
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q = rms_norm(q, qn, cfg.norm_eps)
+        k = rms_norm(k, kn, cfg.norm_eps)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     # kv-major q layout: query head h belongs to kv head h // G
-    return q.reshape(B, Sq, Hkv, H // Hkv, Dh), k, v
+    return q.reshape(B, Sq, kv1 - kv0, Hl // (kv1 - kv0), Dh), k, v, tp
 
 
 def _attn_scale(cfg: ModelConfig) -> float:
@@ -295,7 +382,8 @@ def attn_block(cfg, p, x, state, *, mode, pos, lengths, window, paged=None,
     block's output."""
     B, Sq, _ = x.shape
     xin = rms_norm(x, p["ln"], cfg.norm_eps)
-    q, k, v = _qkv(cfg, p, xin, _positions(mode, pos, lengths, Sq, x.device))
+    q, k, v, tp = _qkv(cfg, p, xin,
+                       _positions(mode, pos, lengths, Sq, x.device), rctx)
     scale = _attn_scale(cfg)
     cap = cfg.attn_logit_softcap
     if mode in ("paged_chunk", "paged_decode"):
@@ -341,8 +429,8 @@ def attn_block(cfg, p, x, state, *, mode, pos, lengths, window, paged=None,
                                scale=scale, window=window, softcap=cap)
     else:
         raise ValueError(mode)
-    o = o.reshape(B, Sq, cfg.num_heads * cfg.resolved_head_dim)
-    return _maybe_post(cfg, p, o @ p["wo"])
+    o = o.reshape(B, Sq, -1)                 # this rank's heads
+    return _maybe_post(cfg, p, su.reduce_from(o @ p["wo"], tp))
 
 
 def _chunk_attend(cfg, q, k_all, v_all, pos, lengths, window, scale=None):
@@ -443,7 +531,8 @@ def mla_block(cfg, p, x, state, *, mode, pos, lengths, rows=None):
 RECURRENT = (MAMBA, MLSTM, SLSTM)
 
 
-def _recurrent_block(cfg, mixer, p, x, state, *, mode, rows=None):
+def _recurrent_block(cfg, mixer, p, x, state, *, mode, rows=None,
+                     rctx=None):
     """A Mamba, mLSTM or sLSTM block on the slot cache: the mixer of the
     normed input from the layer's state, which it updates in place (a
     prefill as a chunk at 0, from the state it is given). With
@@ -460,7 +549,8 @@ def _recurrent_block(cfg, mixer, p, x, state, *, mode, rows=None):
     if rows is not None:
         xin = xin.index_select(0, rows)
     if mixer == MAMBA:
-        y, _ = S.mamba_mix(p, xin, state[mixer], rows=rows)
+        tp = _tp_of(rctx, p["conv_w"].shape[-1], cfg.mamba_expand * cfg.d_model)
+        y, _ = S.mamba_mix(p, xin, state[mixer], rows=rows, tp=tp)
     else:
         mix = S.mlstm_mix if mixer == MLSTM else S.slstm_mix
         y, _ = mix(p, xin, state[mixer], cfg.num_heads, rows=rows)
@@ -498,21 +588,26 @@ def cross_block(cfg, p, x, enc_out, state, *, mode):
     return o.reshape(B, Sq, H * Dh) @ p["wo"]
 
 
-def _ffn_apply(cfg, slot, x):
+def _ffn_apply(cfg, slot, x, rctx=None):
     """The slot's channel mixer on the normed input: the dense MLP
-    (post-normed where the config says so) or the MoE block. Returns (y,
-    aux): the MoE load-balance loss, a training term (the number 0 for the
-    MLP, so that a dense model's forward adds no kernel for it)."""
+    (post-normed where the config says so; on this rank's columns/rows
+    where its weights are shards) or the MoE block under ``rctx.moe``.
+    Returns (y, aux): the MoE load-balance loss, a training term (the
+    number 0 for the MLP, so that a dense model's forward adds no kernel
+    for it)."""
     if "moe" in slot:
         p = slot["moe"]
         return M.moe_ffn(p, rms_norm(x, p["ln"], cfg.norm_eps),
                          num_real=cfg.num_experts,
                          top_k=cfg.num_experts_per_tok,
                          activation=cfg.activation,
-                         aux_free=cfg.router_aux_free)
+                         aux_free=cfg.router_aux_free,
+                         ctx=rctx.moe if rctx else M.MoEContext(),
+                         shared_d_ff=cfg.shared_expert_d_ff)
     p = slot["ffn"]
+    tp = _tp_of(rctx, p["wi_gate"].shape[-1], cfg.d_ff)
     y = _maybe_post(cfg, p, mlp(p, rms_norm(x, p["ln"], cfg.norm_eps),
-                                cfg.activation))
+                                cfg.activation, tp))
     return y, 0.0
 
 
@@ -528,11 +623,23 @@ def _reps(tree, reps: int) -> list:
     return list(torch.unbind(tree, 0))
 
 
-def _embed(cfg, params, tokens, extra_embeds=None):
+def _embed(cfg, params, tokens, extra_embeds=None, rctx=None):
     """Token embeddings (scaled by sqrt(d) where the config says so); with
     ``extra_embeds`` [B, P, d] on a config with patch tokens, those replace
-    the first P positions (internvl2's image patches)."""
-    x = params["embed"][tokens.long()]
+    the first P positions (internvl2's image patches). An embedding of
+    fewer rows than the vocabulary is this rank's block of it
+    (vocab-parallel): tokens outside the block look up zeros, and the
+    lookups are summed over the model axis."""
+    emb = params["embed"]
+    tp = _tp_of(rctx, emb.shape[0], cfg.vocab_size)
+    if tp is None:
+        x = emb[tokens.long()]
+    else:
+        V = emb.shape[0]
+        t = tokens.long() - tp.index * V
+        own = (t >= 0) & (t < V)
+        x = su.reduce_from(emb[t.clamp(0, V - 1)]
+                           * own[..., None].to(emb.dtype), tp)
     if cfg.embed_scale:     # sqrt(d) rounded to the embedding's dtype first
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
@@ -548,7 +655,7 @@ def _apply_slot(cfg, slot, mixer, x, state, enc_out, *, mode, pos,
     then its FFN. Returns (x, the FFN's aux loss)."""
     if mixer in RECURRENT:
         x = x + _recurrent_block(cfg, mixer, slot[mixer], x, state,
-                                 mode=mode, rows=rows)
+                                 mode=mode, rows=rows, rctx=rctx)
     elif mixer == MLA:
         x = x + mla_block(cfg, slot["mla"], x, state, mode=mode, pos=pos,
                           lengths=lengths, rows=rows)
@@ -562,7 +669,7 @@ def _apply_slot(cfg, slot, mixer, x, state, enc_out, *, mode, pos,
         x = x + cross_block(cfg, slot["cross"], x, enc_out, state, mode=mode)
     if "ffn" not in slot and "moe" not in slot:   # xLSTM blocks have none
         return x, 0.0
-    y, aux = _ffn_apply(cfg, slot, x)
+    y, aux = _ffn_apply(cfg, slot, x, rctx)
     return x + y, aux
 
 
@@ -625,7 +732,7 @@ def forward(cfg: ModelConfig, params, tokens, *, mode: str, cache=None,
     enc_out = None
     if cfg.enc_dec and enc_embeds is not None:
         enc_out = _run_encoder(cfg, params, enc_embeds, rctx)
-    x = _embed(cfg, params, tokens, extra_embeds)
+    x = _embed(cfg, params, tokens, extra_embeds, rctx)
     aux = 0.0
     for i, (period, reps) in enumerate(build_stacks(cfg)):
         x, a = _apply_stack(cfg, params["stacks"][i], period, reps, x,
@@ -705,10 +812,24 @@ def loss_fn(cfg: ModelConfig, params, batch: dict, rctx: RunCtx):
     return loss + 0.01 * aux
 
 
-def _block_ce(cap, xb, lb, mb, w):
-    logits = softcap(xb @ w, cap).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lb[..., None].long())[..., 0]
+def _block_ce(cap, tp, xb, lb, mb, w):
+    """One block's summed cross-entropy. With ``tp`` the head ``w`` is this
+    rank's vocabulary block: the log-sum-exp from a MAX and a SUM over the
+    model axis, the gold logit from the rank that holds it."""
+    if tp is None:
+        logits = softcap(xb @ w, cap).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lb[..., None].long())[..., 0]
+        return torch.sum((lse - gold) * mb)
+    logits = softcap(su.copy_to(xb, tp) @ w, cap).float()      # [B, s, V/M]
+    V = logits.shape[-1]
+    m = su.max_over(logits.amax(dim=-1), tp)
+    se = su.reduce_from(torch.exp(logits - m[..., None]).sum(dim=-1), tp)
+    lse = m + torch.log(se)
+    t = lb.long() - tp.index * V
+    own = (t >= 0) & (t < V)
+    gold = torch.gather(logits, -1, t.clamp(0, V - 1)[..., None])[..., 0]
+    gold = su.reduce_from(torch.where(own, gold, torch.zeros_like(gold)), tp)
     return torch.sum((lse - gold) * mb)
 
 
@@ -717,7 +838,8 @@ def _blocked_ce(cfg, params, x, labels, mask, rctx):
     min(loss_vocab_blocks, S)``, reduced until it divides S), each under
     ``torch.utils.checkpoint``, so the fp32 logits [B, S, V] never exist
     whole (2.1 GB for llama3.2-3b at B 2, S 2048): a block's are recomputed
-    in the backward."""
+    in the backward. A vocab-parallel head keeps only the rank's ``V/M``
+    columns of each block's logits."""
     B, S, _ = x.shape
     nb = min(rctx.loss_vocab_blocks, S)
     while S % nb:
@@ -726,7 +848,8 @@ def _blocked_ce(cfg, params, x, labels, mask, rctx):
     ls = labels.reshape(B, nb, S // nb)
     ms = mask.reshape(B, nb, S // nb)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    ce = functools.partial(_block_ce, cfg.final_logit_softcap)
+    ce = functools.partial(_block_ce, cfg.final_logit_softcap,
+                           _tp_of(rctx, w.shape[-1], cfg.vocab_size))
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(nb):
         args = (xs[:, i], ls[:, i], ms[:, i], w)

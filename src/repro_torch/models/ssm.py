@@ -34,6 +34,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import shard_utils as su
 from repro_torch.kernels.mamba_scan.ops import (mamba_scan_fresh_op,
                                                 mamba_scan_op)
 from repro_torch.kernels.mlstm_chunkwise.ops import (mlstm_chunkwise_fresh_op,
@@ -123,20 +124,26 @@ def init_mamba_state(B: int, d_inner: int, d_state: int, d_conv: int, dtype,
 
 
 def mamba_mix(params, x, state: Optional[dict], *,
-              rows: Optional[torch.Tensor] = None):
+              rows: Optional[torch.Tensor] = None, tp=None):
     """Mamba over a chunk x [B, S, d_model] from the carried state.
 
     state = {"conv": [Bs, K-1, d_inner], "ssm": [Bs, d_inner, d_state]
     f32}, or None for a fresh one; batch row b runs on state row
     ``rows[b]`` (b when None). The state is updated in place; a fresh one
     is returned outside the autograd graph. Returns (out [B, S, d_model],
-    state)."""
+    state). With ``tp`` (a ``shard_utils.Axis``: sharded training, from a
+    fresh state) the layer runs on this rank's ``d_inner`` channels
+    (:func:`_mamba_mix_sharded`)."""
+    if tp is not None:
+        if state is not None:
+            raise ValueError("a sharded Mamba layer runs from a fresh state "
+                             "(training) only")
+        return _mamba_mix_sharded(params, x, tp)
     d_state = params["A_log"].shape[-1]
     dt_rank = params["dt_proj"].shape[0]
     fresh = state is None
 
-    xz = x @ params["in_proj"]
-    xm, z = torch.chunk(xz, 2, dim=-1)
+    xm, z = torch.chunk(x @ params["in_proj"], 2, dim=-1)
     xm, new_conv = _mamba_conv_full(xm, params["conv_w"], params["conv_b"],
                                     None if fresh else
                                     _gather(state["conv"], rows))
@@ -155,6 +162,40 @@ def mamba_mix(params, x, state: Optional[dict], *,
                           rows=rows)
         _put(state["conv"], rows, new_conv)
     return (y * F.silu(z)) @ params["out_proj"], state
+
+
+def _mamba_mix_sharded(params, x, tp):
+    """Mamba from a fresh state on this rank's ``d_inner`` channels ``[lo,
+    lo + dl)``, under the reference's rules: the conv, ``A_log`` and ``D``
+    are the rank's channels, and the projections and ``dt_bias`` are
+    replicated (``proj`` and ``bias`` match the replicated pattern
+    first). The scan (#6) runs on the local channels. ``in_proj``'s product
+    and the dt/B/C projection feed this rank's channels, so they enter
+    through ``copy_to``; the conv's and the scan's channel blocks are
+    gathered for the replicated ``x_proj`` and ``out_proj``. Returns (out
+    [B, S, d_model], the final state of the local channels)."""
+    d_state = params["A_log"].shape[-1]
+    dt_rank = params["dt_proj"].shape[0]
+    dl = params["conv_w"].shape[-1]
+    di = dl * tp.size
+    lo = tp.index * dl
+    if params["x_proj"].shape[-2] != di or params["D"].shape[-1] != dl:
+        raise NotImplementedError("a Mamba layer sharded other than the "
+                                  "conv, A_log and D on d_inner")
+    xz = su.copy_to(x @ params["in_proj"], tp)
+    xm, z = xz[..., lo:lo + dl], xz[..., di + lo:di + lo + dl]
+    xm, new_conv = _mamba_conv_full(xm, params["conv_w"], params["conv_b"],
+                                    None)
+    dbc = su.copy_to(su.gather_from(xm, 2, tp) @ params["x_proj"], tp)
+    Bm = dbc[..., dt_rank:dt_rank + d_state].float()             # [B,S,n]
+    Cm = dbc[..., dt_rank + d_state:].float()
+    v = (dbc[..., :dt_rank] @ su.copy_to(params["dt_proj"], tp)[
+        :, lo:lo + dl]).float() + su.copy_to(params["dt_bias"], tp)[lo:lo + dl]
+    dt = torch.logaddexp(v, v.new_zeros(()))                      # [B,S,dl]
+    A = -torch.exp(params["A_log"])
+    y, h = mamba_scan_fresh_op(xm, dt, Bm, Cm, A, params["D"])
+    out = su.gather_from(y * F.silu(z), 2, tp) @ params["out_proj"]
+    return out, {"conv": new_conv.detach(), "ssm": h}
 
 
 # =============================================================================

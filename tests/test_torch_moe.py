@@ -103,10 +103,3 @@ def test_init_moe_tree_matches_jax(arch):
     assert E == 16 and g["/router"].dtype == torch.float32
     std = float(g["/w_down"].std()) * np.sqrt(tcfg.moe_d_ff)
     assert 0.9 < std < 1.1
-
-
-def test_expert_parallel_route_raises():
-    cfg, _, tp = _setup("qwen2-moe-a2.7b")
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        TMoE.moe_ffn(tp, torch.zeros((1, 2, cfg.d_model)), num_real=4,
-                     top_k=2, activation="silu", aux_free=False, impl="ep")

@@ -435,14 +435,30 @@ def test_launcher_compresses_gradients(capsys):
         > 0.0
 
 
-def test_rctx_is_the_references_training_context():
+@pytest.mark.parametrize("with_mesh", [False, True])
+def test_rctx_is_the_references_training_context(with_mesh):
+    """``launch/steps.make_rctx`` makes the reference's choices for a
+    training step: remat "full", 16 loss blocks, and the MoE context
+    (expert-parallel on a mesh, over its data-parallel axes)."""
     from repro.launch.steps import make_rctx as jmake_rctx
-    want = jmake_rctx(jget_config("llama3.2-3b").smoke(), None,
-                      train=True, seq_len=256)
-    got = LT.make_rctx()
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.steps import make_rctx
+    arch = "qwen2-moe-a2.7b"
+    jmesh = jax.make_mesh((1, 1), ("data", "model")) if with_mesh else None
+    mesh = MeshShape((1, 1), ("data", "model")) if with_mesh else None
+    want = jmake_rctx(jget_config(arch).smoke(), jmesh, train=True,
+                      seq_len=256)
+    got = make_rctx(get_config(arch).smoke(), mesh, train=True, seq_len=256)
     assert (got.remat, got.loss_vocab_blocks) == (want.remat,
                                                   want.loss_vocab_blocks)
-    assert got == RunCtx(remat="full", loss_vocab_blocks=16)
+    for f in ("impl", "dp_axes", "tp_axis", "capacity_factor"):
+        assert getattr(got.moe, f) == getattr(want.moe, f), f
+    assert got.moe.impl == ("ep" if with_mesh else "dense")
+    assert got.mesh is got.moe.mesh is mesh
+    if with_mesh:
+        assert tuple(mesh.mesh_dim_names) == tuple(want.moe.mesh.axis_names)
+    assert make_rctx(get_config(arch).smoke(), None, train=False,
+                     seq_len=256).remat == "none"
 
 
 def test_out_of_memory_is_not_replayed(tmp_path):
