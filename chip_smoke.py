@@ -206,6 +206,18 @@ prints its seconds):
    qwen2-moe-a2.7b at published widths cut to 4 layers, expert-parallel
    at mesh ``2``: three steps, finite losses, the last below the first;
    the tokens dropped by capacity and the ``all_to_all`` time a step.
+18. every arch on a mesh, and the dry run (``tools/mesh_all_phase.py``;
+   gloo between ranks that share the card). (a) World 4: one AdamW step of
+   deepseek-v3 (MLA, MTP, EP), seamless-m4t and internvl2 at ``2x2`` and
+   smoke llama with half a query head a rank at ``4``, against the card's
+   world-1 step at phase 15's limits, #5/#6/#7 twice a layer a rank; every
+   arch's prefill + 8 greedy decode steps at ``2x2`` with the world-1
+   card's tokens. (b) Mesh ``2``: full-width seamless-m4t, one training
+   step (step time, tokens/s, each rank's peak); the 4-layer deepseek-v3
+   cut, prefill 2 x 512 and 32 decode steps (each rank's peak, ms a step,
+   #5 launches, the ``combine_partials`` time). (c) ``launch/dryrun.py``'s
+   cells on this torch, and the roofline's memory and model flops for
+   phase 15 (c)'s step beside its measured peak.
 
 The traces are summarised in one pass over the profiler's raw events;
 each also lists the device time and count of every port kernel in it (the
@@ -386,6 +398,11 @@ def bound(nbytes, flops, dtype_name):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
+def work_bound(work):
+    """``bound`` of a kernel's ``cost(...)`` (``kernels/cost.py``)."""
+    return bound(work.bytes, work.flops, work.dtype)
+
+
 def decode_yardsticks(cs, q, kv, bt, lens_t, need, G, D, window, softcap,
                       iters):
     """A decode case's library time (``scaled_dot_product_attention`` on
@@ -402,13 +419,10 @@ def decode_yardsticks(cs, q, kv, bt, lens_t, need, G, D, window, softcap,
         lib = round(cuda_ms(torch, lambda: sdpa(qs, k, v, attn_mask=mask,
                                                 scale=D ** -0.5), iters), 5)
         del k, v
+    from repro_torch.kernels.paged_attention.kernel import cost
     B, H, _ = q.shape
-    Hkv = H // G
-    elt = q.element_size()
-    nbytes = (2 * q.numel() * elt + sum(need) * PAGE * Hkv * 2 * D * elt
-              + bt.numel() * 4 + B * 4)
-    flops = 4 * D * H * int(lens_t.long().sum())
-    return (lib, *bound(nbytes, flops, str(q.dtype).split(".")[-1]))
+    return (lib, *work_bound(cost(B, H, H // G, D, PAGE, bt.shape[1],
+                                  q.dtype, lens_t.tolist())))
 
 
 @contextlib.contextmanager
@@ -506,7 +520,6 @@ def prefill_yardsticks(cs, q, kv, bt, pos, lens, G, D, window, softcap,
     else None) and its bound: q and out once, each row's live pages once
     per kv head; flops of the (query, key) pairs the masks leave."""
     torch = cs.torch
-    import numpy as np
     R, Sq, Hkv = q.shape[:3]
     n = bt.shape[1]
     pos_t = torch.tensor(pos, dtype=torch.int32, device=DEVICE)
@@ -523,21 +536,9 @@ def prefill_yardsticks(cs, q, kv, bt, pos, lens, G, D, window, softcap,
         lib = round(cuda_ms(torch, lambda: sdpa(qs, k, v, attn_mask=mask,
                                                 scale=D ** -0.5), iters), 5)
         del k, v
-    elt = q.element_size()
-    pn, ln = np.asarray(pos), np.asarray(lens)
-    pages = [min(math.ceil(l_ / PAGE), math.ceil((p_ + Sq) / PAGE), n)
-             for p_, l_ in zip(pn, ln) if l_ > 0]
-    nbytes = (2 * q.numel() * elt + sum(pages) * PAGE * Hkv * 2 * D * elt
-              + bt.numel() * 4 + 2 * R * 4)
-    pairs = 0
-    for p_, l_ in zip(pn, ln):
-        qp = p_ + np.arange(Sq)
-        qp = qp[qp < l_]
-        hi = np.minimum(qp + 1, l_)
-        lo = np.maximum(qp - window + 1, 0) if window > 0 else 0
-        pairs += int(np.maximum(hi - lo, 0).sum())
-    flops = 4 * D * Hkv * G * pairs
-    return (lib, *bound(nbytes, flops, str(q.dtype).split(".")[-1]))
+    from repro_torch.kernels.paged_prefill_attention.kernel import cost
+    return (lib, *work_bound(cost(R, Sq, Hkv, G, D, PAGE, n, q.dtype, pos,
+                                  lens, window)))
 
 
 def prefill_case(cs, name, pos, lens, Sq, dtype, window=0, softcap=0.0, G=3,
@@ -788,20 +789,14 @@ def chunked_case(cs, name, Sq, q_offset, lengths, dtype, causal=True,
         print(f"    scaled_dot_product_attention refused the case: {e}")
         lib = None
     del kr, vr
-    # bytes: q and out once, each row's attended key range once per kv
-    # head; flops: Q.K^T and P.V over the (query, key) pairs the masks leave
-    elt = q.element_size()
-    counts = vis.sum(-1)                                    # [B, Sq]
-    span = [int(x) for x in vis.any(1).sum(-1).tolist()]    # keys per row
-    nbytes = (q.numel() * (D + Dv) // D * elt
-              + sum(span) * Hkv * (D + Dv) * elt + B * 4)
-    flops = 2 * (D + Dv) * H * int(counts.sum())
-    b_ms, b_by = bound(nbytes, flops, dn)
+    work = CK.cost(B, H, Hkv, Sq, Sk, D, Dv, dtype, lengths, q_offset, causal,
+                   window)
+    b_ms, b_by = work_bound(work)
     cs.record({"kernel": "chunked_prefill_attention", "case": name,
                "dtype": dn, "max_abs_err": err, "limit_share": share,
                "ms": ms, "plain_ms": plain, "library_ms": lib,
-               "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
-               "keys_attended": sum(span), "splits": splits,
+               "bound_ms": b_ms, "bound_by": b_by, "flops": work.flops,
+               "keys_attended": int(vis.any(1).sum()), "splits": splits,
                "device_ms": dev, **other})
     if other:
         print(f"    {splits} key splits: {ms:.4f} ms, device {dev:.4f} ms; "
@@ -891,7 +886,7 @@ def mlstm_case(cs, name, B, S, dtype, carried, H=MLSTM_H, D=MLSTM_D,
     torch = cs.torch
     from repro_torch.kernels.mlstm_chunkwise.kernel import mlstm_chunkwise
     from repro_torch.kernels.mlstm_chunkwise.ref import (
-        CHUNK, NEG_INF, mlstm_chunkwise_ref)
+        NEG_INF, mlstm_chunkwise_ref)
     dn = str(dtype).split(".")[-1]
     q = cs.randn((B, S, H * D), dtype).view(B, S, H, D)
     k = (cs.randn((B, S, H * D), dtype) / math.sqrt(D)).view(B, S, H, D)
@@ -935,19 +930,8 @@ def mlstm_case(cs, name, B, S, dtype, carried, H=MLSTM_H, D=MLSTM_D,
     cold = cold_device_ms(torch, run, iters, "mlstm_")
     plain = cuda_ms(torch, lambda: mlstm_chunkwise_ref(
         *args, C_want, n, m, rows=rows_t), 2, warmup=1)
-    # bytes: q, k, v, the gates and h once, the batch's C rows read and
-    # written, n and m read and the new ones written; flops: per (row,
-    # head) and chunk of L tokens, 4*L*D*(L + D) (q.k and s.v over the
-    # chunk, q.C and the k v^T update)
-    elt = q.element_size()
-    nbytes = (4 * B * S * H * D * elt + 2 * B * S * H * 4
-              + 2 * B * H * (D * D + D + 1) * 4)
-    flops = 0
-    for t0 in range(0, S, CHUNK):
-        L = min(CHUNK, S - t0)
-        flops += 4 * L * D * (L + D)
-    flops *= B * H
-    b_ms, b_by = bound(nbytes, flops, dn)
+    from repro_torch.kernels.mlstm_chunkwise.kernel import cost
+    b_ms, b_by = work_bound(cost(B, S, H, D, dtype))
     cs.record({"kernel": "mlstm_chunkwise", "case": name, "dtype": dn,
                "max_abs_err": err, "limit_share": share,
                "C_limit_share": c_share, "ms": ms, "device_ms": dev,
@@ -1041,14 +1025,8 @@ def mamba_case(cs, name, B, S, dtype, carried, d=MAMBA_D, n=MAMBA_N,
     cold = cold_device_ms(torch, run, iters, "mamba_scan")
     plain = cuda_ms(torch, lambda: mamba_scan_ref(*args, A, Dp, h_want,
                                                   rows=rows_t), 2, warmup=1)
-    # bytes: x, dt, Bc, Cc and y once, A and D, the batch's h rows read and
-    # written; flops per (token, channel): 7 per state (dt*A, exp, da*h,
-    # dtx*B, the add, h*C as multiply-add) + 3 (dt*x, D*x and its add), in
-    # fp32 outside the tensor cores whatever x's dtype
-    elt = got.element_size()
-    nbytes = (B * S * d * (2 * elt + 4) + 2 * B * S * n * 4 + d * (n + 1) * 4
-              + 2 * B * d * n * 4)
-    b_ms, b_by = bound(nbytes, B * S * d * (7 * n + 3), "float32")
+    from repro_torch.kernels.mamba_scan.kernel import cost
+    b_ms, b_by = work_bound(cost(B, S, d, n, got.dtype))
     cs.record({"kernel": "mamba_scan", "case": name, "dtype": dn,
                "max_abs_err": err, "limit_share": share,
                "h_limit_share": h_share, "h_bits_equal": h_bits, "ms": ms,
@@ -2445,11 +2423,10 @@ def backward_timings(torch):
                      "backward": "plain version through autograd"}
         if name == "chunked_prefill_attention":
             # forward: QK^T and PV over the S(S+1)/2 causal pairs a head
-            flops = 4 * B * 24 * 128 * S * (S + 1) // 2
-            nbytes = sum(t.numel() * t.element_size() for t in ins) \
-                + y.numel() * y.element_size()
+            from repro_torch.kernels.chunked_prefill_attention.kernel \
+                import cost
             out[name]["forward_bound_ms"], out[name]["forward_bound_by"] = \
-                bound(nbytes, flops, "bfloat16")
+                work_bound(cost(B, 24, 8, S, S, 128, 128, torch.bfloat16))
         print(f"  {name} {shape}: forward (kernel) {fwd_ms:.3f} ms"
               + (f" (bound {out[name]['forward_bound_ms']:.4f} ms, "
                  f"{out[name]['forward_bound_by']})"
@@ -2990,6 +2967,15 @@ def main() -> int:
         torch, phase15_loss=full_train["losses"][0], device_line=dev)
     serving.append({"sharded_training": tsharded})
     for name, counts in ts_launches.items():
+        by_path[name].update(counts)
+
+    ph.start("every arch on a mesh, and the dry run")
+    import mesh_all_phase
+    mesh_all, ma_launches = mesh_all_phase.mesh_all_phase(
+        torch, phase15=dict(full_train, flops=6.0 * full_train["params_b"]
+                            * 1e9 * FULL_B * FULL_S), device_line=dev)
+    serving.append({"mesh_all": mesh_all})
+    for name, counts in ma_launches.items():
         by_path[name].update(counts)
     ph.stop()
 

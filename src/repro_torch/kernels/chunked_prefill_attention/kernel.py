@@ -4,7 +4,9 @@
 engine's prompt chunks (``_chunk_attend`` of ``models/model.py``).
 
 A tensor on the CPU goes to the plain PyTorch version (``ref.py``); a CUDA
-tensor goes to the kernel, or the wrapper raises. Every operand may be a
+tensor goes to the kernel, or the wrapper raises; a tensor that holds no
+data (a fake tensor) gives an empty output and counts :func:`cost`
+(``kernels/cost.py``). Every operand may be a
 strided view whose last axis is contiguous: the kernel reads q, k and v in
 place through their strides. Launches are counted in
 ``chunked_prefill_attention.launches``. The launch geometry (query tokens
@@ -29,6 +31,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import cost as C
 from repro_torch.kernels.chunked_prefill_attention.ref import (
     chunked_prefill_attention_ref)
 from repro_torch.kernels.paged_attention.kernel import DTYPES
@@ -83,6 +86,31 @@ def planned_splits(q, k, v, *, q_offset=0, causal=True, window=0) -> int:
     return split_plan(B, Hkv, info[0], info[1], build.sm_count(q.device))
 
 
+def cost(B, H, Hkv, Sq, Sk, D, Dv, dtype, lengths=None, q_offset=0,
+         causal=True, window=0) -> C.Work:
+    """#5's work (``kernels/cost.py``): q and the output once, each row's
+    visible key range once per KV head; Q.K^T and P.V over the (query,
+    key) pairs that the causal, window and length masks leave (every key
+    of a row valid when ``lengths`` is None)."""
+    import numpy as np
+    lens = np.full(B, Sk) if lengths is None else np.minimum(
+        np.asarray(lengths, dtype=np.int64).reshape(-1), Sk)
+    qp = int(q_offset) + np.arange(Sq, dtype=np.int64)
+    pairs = span = 0
+    for n in lens:
+        hi = np.minimum(qp + 1, n) if causal else np.full(Sq, n)
+        lo = np.maximum(qp - window + 1, 0) if window > 0 else np.zeros(
+            Sq, np.int64)
+        live = hi > lo
+        pairs += int((hi - lo)[live].sum())
+        span += int(hi[live].max() - lo[live].min()) if live.any() else 0
+    elt = torch.empty((), dtype=dtype).element_size()
+    return C.Work(flops=2 * (D + Dv) * H * pairs,
+                  bytes=B * Sq * H * (D + Dv) * elt
+                  + span * Hkv * (D + Dv) * elt + B * 4,
+                  dtype=C.dtype_name(dtype))
+
+
 def _check(q, k, v, lengths) -> None:
     B, H, Sq, D = q.shape
     if k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3] \
@@ -125,6 +153,14 @@ def chunked_prefill_attention(q, k, v, lengths, *, scale, q_offset=0,
     ``q_offset + t`` over k [B, Hkv, Sk, D] and v [B, Hkv, Sk, Dv] with
     valid lengths [B] int32. Returns [B, H, Sq, Dv] in q's dtype (a view of
     a [B, Sq, H, Dv] tensor on the GPU)."""
+    if C.is_fake(q):
+        B, H, Sq, D = q.shape
+        Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
+        C.record(KERNEL, cost(B, H, Hkv, Sq, Sk, D, Dv, q.dtype,
+                              q_offset=q_offset, causal=causal,
+                              window=window))
+        return torch.empty((B, Sq, H, Dv), device=q.device,
+                           dtype=q.dtype).permute(0, 2, 1, 3)
     if q.device.type == "cpu":
         return chunked_prefill_attention_ref(
             q, k, v, lengths, scale=scale, q_offset=q_offset, causal=causal,

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.kernels.autograd import grads_of_plain
 from repro_torch.kernels.chunked_prefill_attention.kernel import (
-    chunked_prefill_attention)
+    chunked_prefill_attention, cost)
 from repro_torch.kernels.chunked_prefill_attention.ref import (
     chunked_prefill_attention_ref)
 
@@ -40,10 +40,15 @@ class ChunkedPrefillAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         q, k, v, lengths = ctx.saved_tensors
+        o = ctx.opts
         grads = grads_of_plain(
             lambda q, k, v: chunked_prefill_attention_ref(
                 q, k, v, lengths, **ctx.opts),
-            (q, k, v), ctx.needs_input_grad[:3], grad_out)
+            (q, k, v), ctx.needs_input_grad[:3], grad_out,
+            "chunked_prefill_attention", cost(
+                *q.shape[:2], k.shape[1], q.shape[2], k.shape[2],
+                q.shape[3], v.shape[3], q.dtype, q_offset=o["q_offset"],
+                causal=o["causal"], window=o["window"]))
         return (*grads, None, None, None, None, None, None)
 
 

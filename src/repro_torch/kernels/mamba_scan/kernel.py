@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import cost as C
 from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
 
 DTYPES = (torch.bfloat16, torch.float32)
@@ -62,11 +63,26 @@ def _check(x, dt, Bc, Cc, A, D, h, rows) -> None:
             raise ValueError(f"{name} needs a contiguous last axis")
 
 
+def cost(B, S, d, n, dtype) -> C.Work:
+    """#6's work (``kernels/cost.py``): x, dt, Bc, Cc and y once, A and D,
+    the batch's h rows read and written; per (token, channel) 7 operations
+    a state (dt*A, exp, da*h, dtx*B, the add, h*C as multiply-add) and 3
+    (dt*x, D*x and its add), in fp32 whatever x's dtype."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    return C.Work(flops=B * S * d * (7 * n + 3),
+                  bytes=B * S * d * (2 * elt + 4) + 2 * B * S * n * 4
+                  + d * (n + 1) * 4 + 2 * B * d * n * 4, dtype="float32")
+
+
 def mamba_scan(x, dt, Bc, Cc, A, D, h, *, rows=None):
     """Selective scan over a chunk: x [B, S, d], dt (softplus'd), Bc, Cc
     fp32, A = -exp(A_log) [d, n], D [d], from the fp32 state h [Bs, d, n]
     at state rows ``rows`` [B] (``0..B-1`` when None; distinct). Updates
     ``h`` in place at those rows and returns y [B, S, d] in x's dtype."""
+    if C.is_fake(x):
+        B, S, d = x.shape
+        C.record("mamba_scan", cost(B, S, d, A.shape[1], x.dtype))
+        return torch.empty((B, S, d), device=x.device, dtype=x.dtype)
     if x.device.type == "cpu":
         return mamba_scan_ref(x, dt, Bc, Cc, A, D, h, rows=rows)
     if x.device.type != "cuda":

@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.autograd import grads_of_plain
-from repro_torch.kernels.mamba_scan.kernel import mamba_scan
+from repro_torch.kernels.mamba_scan.kernel import cost, mamba_scan
 from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
 
 
@@ -53,7 +53,8 @@ class MambaScanFresh(torch.autograd.Function):
         x, A = saved[0], saved[4]
         return tuple(grads_of_plain(
             lambda *a: mamba_scan_ref(*a, _zero_state(x, A)),
-            saved, ctx.needs_input_grad, grad_y))
+            saved, ctx.needs_input_grad, grad_y, "mamba_scan",
+            cost(*x.shape, A.shape[1], x.dtype)))
 
 
 def mamba_scan_fresh_op(x, dt, Bc, Cc, A, D):

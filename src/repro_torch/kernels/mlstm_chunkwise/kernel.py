@@ -24,7 +24,8 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.mlstm_chunkwise.ref import mlstm_chunkwise_ref
+from repro_torch.kernels.cost import Work, dtype_name, is_fake, record
+from repro_torch.kernels.mlstm_chunkwise.ref import CHUNK, mlstm_chunkwise_ref
 
 DTYPES = (torch.bfloat16, torch.float32)
 MAX_D = 1024
@@ -94,12 +95,31 @@ def plan(S: int, D: int, bf16: bool):
     return tuple(info)
 
 
+def cost(B, S, H, D, dtype) -> Work:
+    """#7's work (``kernels/cost.py``): q, k, v, the gates and h once,
+    the batch's C rows read and written, n and m read and the new ones
+    written; per (row, head) and chunk of L tokens, 4*L*D*(L + D) (q.k and
+    s.v over the chunk, q.C and the k v^T update)."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    flops = sum(4 * L * D * (L + D) for L in
+                (min(CHUNK, S - t0) for t0 in range(0, S, CHUNK)))
+    return Work(flops=B * H * flops,
+                bytes=4 * B * S * H * D * elt + 2 * B * S * H * 4
+                + 2 * B * H * (D * D + D + 1) * 4, dtype=dtype_name(dtype))
+
+
 def mlstm_chunkwise(q, k, v, log_i, log_f, C, n, m, *, rows=None):
     """mLSTM over a chunk q/k/v [B, S, H, D] (k already divided by sqrt(D))
     with log gates [B, S, H] fp32, from the fp32 state C [Bs, H, D, D],
     n [Bs, H, D], m [Bs, H] at state rows ``rows`` [B] (``0..B-1`` when
     None; distinct). Updates ``C`` in place at those rows and returns
     (h [B, S, H, D] in q's dtype, n_new [B, H, D], m_new [B, H])."""
+    if is_fake(q):
+        B, S, H, D = q.shape
+        record("mlstm_chunkwise", cost(B, S, H, D, q.dtype))
+        f32 = dict(device=q.device, dtype=torch.float32)
+        return (torch.empty((B, S, H, D), device=q.device, dtype=q.dtype),
+                torch.empty((B, H, D), **f32), torch.empty((B, H), **f32))
     if q.device.type == "cpu":
         return mlstm_chunkwise_ref(q, k, v, log_i, log_f, C, n, m, rows=rows)
     if q.device.type != "cuda":

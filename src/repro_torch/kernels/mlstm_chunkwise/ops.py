@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.autograd import grads_of_plain
-from repro_torch.kernels.mlstm_chunkwise.kernel import mlstm_chunkwise
+from repro_torch.kernels.mlstm_chunkwise.kernel import cost, mlstm_chunkwise
 from repro_torch.kernels.mlstm_chunkwise.ref import (NEG_INF,
                                                      mlstm_chunkwise_ref)
 
@@ -56,7 +56,8 @@ class MlstmChunkwiseFresh(torch.autograd.Function):
         saved = ctx.saved_tensors          # unpacked once (checkpoints)
         return tuple(grads_of_plain(
             lambda *a: mlstm_chunkwise_ref(*a, *_fresh_state(saved[0]))[0],
-            saved, ctx.needs_input_grad, grad_h))
+            saved, ctx.needs_input_grad, grad_h, "mlstm_chunkwise",
+            cost(*saved[0].shape, saved[0].dtype)))
 
 
 def mlstm_chunkwise_fresh_op(q, k, v, log_i, log_f):

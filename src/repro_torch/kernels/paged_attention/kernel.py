@@ -28,6 +28,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import cost as C
 from repro_torch.kernels.paged_attention.ref import (
     paged_attention_fused_ref, paged_attention_partial_ref,
     paged_attention_ref)
@@ -142,12 +143,46 @@ def _split_scratch(q, block_tables, Hkv):
     return n_split, part.data_ptr(), _tickets_for(q.device, B * H).data_ptr()
 
 
+def cost(B, H, Hkv, D, page_size, n, dtype, lengths=None,
+         partial=False) -> C.Work:
+    """#1/#3's work (``kernels/cost.py``): q and the output once (the
+    fp32 state with ``partial``), each row's live pages once per KV head,
+    the block table and lengths; Q.K^T and P.V over each row's keys (a
+    whole table of ``n`` pages a row when ``lengths`` is None)."""
+    lens = [n * page_size] * B if lengths is None else [int(x) for x in
+                                                         lengths]
+    elt = torch.empty((), dtype=dtype).element_size()
+    pages = sum(-(-x // page_size) for x in lens if x > 0)
+    out = B * H * (D * 4 + 8) if partial else B * H * D * elt
+    return C.Work(flops=4 * D * H * sum(lens),
+                  bytes=B * H * D * elt + out
+                  + pages * page_size * Hkv * 2 * D * elt + B * n * 4 + B * 4,
+                  dtype=C.dtype_name(dtype))
+
+
+def _fake(q, Hkv, ps, block_tables, partial):
+    """The outputs of a call on tensors that hold no data, its work
+    counted (``kernels/cost.py``)."""
+    B, H, D = q.shape
+    C.record("paged_attention", cost(B, H, Hkv, D, ps,
+                                     block_tables.shape[1], q.dtype,
+                                     partial=partial))
+    if not partial:
+        return torch.empty((B, H, D), device=q.device, dtype=q.dtype)
+    f32 = dict(device=q.device, dtype=torch.float32)
+    return (torch.empty((B, H, D), **f32), torch.empty((B, H), **f32),
+            torch.empty((B, H), **f32))
+
+
 def paged_attention_fused(q, kv_pages, block_tables, lengths, *, scale,
                           window=0, softcap=0.0, partial=False):
     """Decode attention: q [B, H, D] over kv_pages [Hkv, P, 2, ps, D]
     through block_tables [B, n] int32 with lengths [B] int32 (counting the
     token just written). Returns [B, H, D] in q's dtype, or with
     ``partial=True`` the fp32 state ``(acc [B,H,D], m [B,H], l [B,H])``."""
+    if C.is_fake(q):
+        return _fake(q, kv_pages.shape[0], kv_pages.shape[3], block_tables,
+                     partial)
     if q.device.type == "cpu":
         fn = paged_attention_partial_ref if partial else paged_attention_fused_ref
         return fn(q, kv_pages, block_tables, lengths, scale=scale,
@@ -190,6 +225,9 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *, scale,
     v_pages [Hkv, P, ps, D] through block_tables [B, n] int32 with lengths
     [B] int32 (counting the token just written). Returns [B, H, D] in q's
     dtype."""
+    if C.is_fake(q):
+        return _fake(q, k_pages.shape[0], k_pages.shape[2], block_tables,
+                     False)
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_tables, lengths,
                                    scale=scale, window=window,

@@ -170,14 +170,16 @@ def _axes_group(mesh, axes: Tuple[str, ...]):
     """The process group of this rank over ``axes`` of ``mesh``: the mesh's
     own group for one axis; for several, groups made once per mesh with
     ``new_group`` (every rank makes every coset's group, in one order, as
-    ``new_group`` requires), cached."""
+    ``new_group`` requires), cached by the mesh and the axes (a traced
+    program, such as the dry run's under a fake tensor mode, reads the
+    cache: the rank grid is a tensor, which such a mode cannot read)."""
     if len(axes) == 1:
         return mesh.get_group(axes[0])
     import torch.distributed as dist
-    names = tuple(mesh.mesh_dim_names)
-    ranks = mesh.mesh
-    key = (tuple(ranks.flatten().tolist()), tuple(ranks.shape), names, axes)
+    key = (mesh, axes)
     if key not in _GROUPS:
+        names = tuple(mesh.mesh_dim_names)
+        ranks = mesh.mesh
         order = [names.index(a) for a in names if a not in axes] + \
             [names.index(a) for a in axes]
         cosets = ranks.permute(order).reshape(-1, math.prod(

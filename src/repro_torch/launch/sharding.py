@@ -25,13 +25,16 @@ additionally shard their largest still-replicated dim over the DP axes
 (``zero_shard``).
 
 Serving uses :func:`paged_cache_specs` (each rank allocates its pool at
-:func:`local_shape`); sharded training (``train/train_step.py``) places
+:func:`local_shape`) and the slot path :func:`cache_specs`
+(``models.model.init_cache(..., mesh=)``); sharded training (``train/train_step.py``) places
 the parameters by :func:`param_specs` and the optimizer state by
 :func:`opt_state_specs`. A mesh here is a ``DeviceMesh`` or a
 ``launch.mesh.MeshShape``: the rules read its axis sizes only.
 :func:`shard_tree` (this rank's shards of a whole tree, each leaf at
 :func:`local_shape`) is the counterpart of the reference's
-``shardings_of`` + ``jax.device_put``; :func:`gather_leaf` (every rank
+``shardings_of`` + ``jax.device_put``, and :func:`shardings_of` (this
+rank's empty local tensors of a shape tree) that of ``shardings_of``
+alone, for the dry run; :func:`gather_leaf` (every rank
 gets the whole leaf back, for checkpoints) and :func:`gather_tree` (the
 whole tree, for tests and small states) need a ``DeviceMesh``.
 """
@@ -224,6 +227,18 @@ def cache_specs(cfg: ModelConfig, cache_shape: Any, mesh) -> Any:
     return _map_with_path(one, cache_shape)
 
 
+def with_data_axis(mesh):
+    """``mesh``, or where it has no data-parallel axis (the port's mesh
+    "4") a ``MeshShape`` of its sizes behind a ``data`` axis of 1: the
+    reference's :func:`cache_specs` indexes the first data-parallel axis,
+    and a batch on an axis of 1 is the whole batch. Read the specs and
+    :func:`local_shape` both against what this returns."""
+    from repro_torch.launch.mesh import MeshShape
+    if dp_axes(mesh):
+        return mesh
+    return MeshShape((1, *mesh.shape), ("data", *mesh.mesh_dim_names))
+
+
 def paged_cache_specs(cfg: ModelConfig, cache_shape: Any, mesh,
                       axis: str = "model") -> Any:
     """Specs of the *serving* paged KV pools (``init_paged_cache`` leaves,
@@ -299,6 +314,19 @@ def gather_leaf(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
         if ax is not None:
             x = su.all_gather(x, i, ax)
     return x
+
+
+def shardings_of(shape_tree: Any, specs: Any, mesh, device=None) -> Any:
+    """The counterpart of the reference's ``shardings_of`` (sharded
+    ``ShapeDtypeStruct`` stand-ins): this rank's local tensors of a shape
+    tree (leaves with ``shape`` and ``dtype``, such as a tree on the meta
+    device), each an empty tensor at ``local_shape(leaf.shape, spec,
+    mesh)`` on ``device`` (the leaf's when None). Under a
+    ``FakeTensorMode`` they are fake tensors that hold no memory: the dry
+    run's inputs (``launch/steps.build_cell``)."""
+    return tree_map(lambda x, s: torch.empty(
+        local_shape(x.shape, s, mesh), dtype=x.dtype,
+        device=x.device if device is None else device), shape_tree, specs)
 
 
 def gather_tree(tree: Any, specs: Any, mesh) -> Any:

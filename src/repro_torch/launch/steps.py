@@ -1,23 +1,48 @@
-"""Per-arch step context for the launchers (port of the reference
-``launch/steps.py``'s ``make_rctx``, ``_enc_len`` and ``_dec_len``).
+"""Per-(arch x shape) step builders for the dry run and the launchers (port
+of the reference ``launch/steps.py``).
 
 ``make_rctx`` picks the reference's runtime context for a step: the MoE
 routes expert-parallel on a mesh (masked-dense without one), training
 rematerializes each period repetition ("full"), and the loss runs in 16
-sequence blocks. On a mesh it first refuses the features the sharded step
-does not compute (``models.model.check_shardable``), before anything is
-allocated. The reference's ``build_cell`` (the dry-run's abstract cells
-with sharded stand-ins for every input) comes with the port of the
-dry-run, ``launch/dryrun.py``, in a later slice.
+sequence blocks. Every arch runs on a mesh.
+
+``build_cell`` returns a cell's step function with this rank's stand-ins
+for every input: empty tensors at each leaf's local shape under the
+partition rules (``launch/sharding.shardings_of``), made under the
+caller's ``FakeTensorMode`` so that they hold no memory, and the indices
+of the inputs the step updates in place (the reference's donation):
+
+* ``train_4k``    -> train_step(params, opt_state, batch) (loss + AdamW)
+* ``prefill_32k`` -> prefill_step(params, tokens, cache, extras)
+* ``decode_32k`` / ``long_500k`` -> serve_step(params, cache, tokens, pos)
+
+``fsdp`` (ZeRO-3 parameters) and ``wide_dp`` (the batch over the model
+axis too) are the reference's options that the port's train step does not
+compute: they raise.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+import dataclasses
+from typing import Any, Callable, Optional, Tuple
 
-from repro_torch.configs.base import ModelConfig, ShapeSpec
-from repro_torch.launch.mesh import dp_axes
+import torch
+
+from repro_torch.configs import cell_skip_reason, get_config
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeSpec
+from repro_torch.launch.mesh import dp_axes, dp_size
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.model import RunCtx, check_shardable
+from repro_torch.models.model import RunCtx
+
+
+@dataclasses.dataclass
+class Cell:
+    arch: str
+    shape: ShapeSpec
+    fn: Callable
+    inputs: Tuple[Any, ...]          # this rank's stand-ins
+    donate: Tuple[int, ...]          # inputs the step updates in place
+    cfg: ModelConfig
+    reps_for_roofline: int           # total layer reps (see analysis)
 
 
 def make_rctx(cfg: ModelConfig, mesh: Optional[Any], *, train: bool,
@@ -26,8 +51,6 @@ def make_rctx(cfg: ModelConfig, mesh: Optional[Any], *, train: bool,
     the step's parameters are (the reference's GSPMD needs no such field;
     the reference's ``block_q``/``block_k``/``mlstm_block`` are XLA tiling
     controls, which the port's kernels choose themselves)."""
-    if mesh is not None:
-        check_shardable(cfg)
     moe_ctx = moe_mod.MoEContext(
         impl="ep" if (mesh is not None and cfg.num_experts) else "dense",
         mesh=mesh,
@@ -50,3 +73,107 @@ def _dec_len(cfg: ModelConfig, shape: ShapeSpec) -> int:
     if cfg.enc_dec and shape.kind == "train":
         return shape.seq_len // 2
     return shape.seq_len
+
+
+def build_cell(arch: str, shape_name: str, mesh, check_skip: bool = True,
+               fsdp: bool = False, cfg_override: Optional[ModelConfig] = None,
+               wide_dp: bool = False, device=None) -> Optional[Cell]:
+    """The cell of ``arch`` x ``shape_name`` on ``mesh`` (a ``DeviceMesh``:
+    the step's collectives run over its groups), its inputs this rank's
+    stand-ins on ``device`` (call it under a ``FakeTensorMode``); None for
+    a cell the assignment skips. The batch rule, the grad accumulation (4
+    micro-batches where ``B // n_dp >= 4``), the cache lengths and
+    ``reps_for_roofline`` are the reference's."""
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models.model import (build_stacks, check_cache_layout,
+                                          decode_step, init_cache, prefill)
+    from repro_torch.params import init_params
+    if fsdp or wide_dp:
+        raise NotImplementedError(
+            f"{'fsdp' if fsdp else 'wide_dp'}: the port's train step takes "
+            f"the parameters as tensor-parallel shards and the batch over "
+            f"the data-parallel axes only")
+    cfg = cfg_override or get_config(arch)
+    shape = SHAPES[shape_name]
+    if check_skip and cell_skip_reason(arch, shape):
+        return None
+    train = shape.kind == "train"
+    rctx = make_rctx(cfg, mesh, train=train, seq_len=shape.seq_len)
+
+    params_shape = init_params(cfg, device="meta")
+    pspecs = shd.param_specs(cfg, params_shape, mesh)
+    params_in = shd.shardings_of(params_shape, pspecs, mesh, device)
+    n_dp = dp_size(mesh)
+    reps = sum(r for _, r in build_stacks(cfg))
+
+    B = shape.global_batch
+    b_loc = B // n_dp if B % n_dp == 0 else B     # the reference's bspec
+
+    def frontend_inputs():
+        """Modality-frontend stubs (input_specs provides embeddings)."""
+        extras = {}
+        if cfg.num_patch_tokens:
+            extras["extra_embeds"] = torch.empty(
+                (b_loc, cfg.num_patch_tokens, cfg.d_model), dtype=cfg.dtype,
+                device=device)
+        if cfg.enc_dec:
+            extras["enc_embeds"] = torch.empty(
+                (b_loc, _enc_len(cfg, shape), cfg.d_model), dtype=cfg.dtype,
+                device=device)
+        return extras
+
+    def tokens(n):
+        return torch.empty((b_loc, n), dtype=torch.int32, device=device)
+
+    if train:
+        from repro_torch.train.optimizer import AdamWConfig
+        from repro_torch.train.train_step import (TrainConfig, TrainLayout,
+                                                  init_train_state,
+                                                  make_train_step)
+        # Microbatching: 4 gradient-accumulation steps bound activation
+        # memory (saved layer inputs scale with the microbatch).
+        accum = 4 if B // n_dp >= 4 else 1
+        tcfg = TrainConfig(optimizer=AdamWConfig(), grad_accum=accum)
+        layout = TrainLayout(cfg, mesh)
+        inner_step = make_train_step(cfg, rctx, tcfg, layout)
+
+        def train_step(params, opt_state, batch):
+            new_params, new_state, metrics = inner_step(
+                params, {"opt": opt_state}, batch)
+            return new_params, new_state["opt"], metrics
+
+        opt_in = init_train_state(cfg, params_in, tcfg, layout)["opt"]
+        batch_in = {"tokens": tokens(_dec_len(cfg, shape)),
+                    **frontend_inputs()}
+        return Cell(arch, shape, train_step, (params_in, opt_in, batch_in),
+                    donate=(0, 1), cfg=cfg, reps_for_roofline=reps)
+
+    enc_len = _enc_len(cfg, shape)
+
+    def cache_in(max_len):
+        check_cache_layout(cfg, max_len, enc_len, mesh)
+        whole = init_cache(cfg, B, max_len, device="meta", enc_len=enc_len)
+        return shd.shardings_of(whole, shd.cache_specs(cfg, whole, mesh),
+                                mesh, device)
+
+    if shape.kind == "prefill":
+        def prefill_step(params, tokens, cache, extras):
+            return prefill(cfg, params, tokens, cache, rctx=rctx, **extras)
+
+        dec_prompt = 1 if cfg.enc_dec else shape.seq_len
+        return Cell(arch, shape, prefill_step,
+                    (params_in, tokens(dec_prompt), cache_in(dec_prompt),
+                     frontend_inputs()),
+                    donate=(2,), cfg=cfg, reps_for_roofline=reps)
+
+    # decode shapes: one new token against a cache of seq_len
+    seq = shape.seq_len
+
+    def serve_step(params, cache, tokens, pos):
+        return decode_step(cfg, params, tokens, cache, pos, rctx=rctx)
+
+    # room for the new token, rounded so the seq dim stays shardable
+    max_len = (seq + 8 + 255) // 256 * 256
+    return Cell(arch, shape, serve_step,
+                (params_in, cache_in(max_len), tokens(1), seq),
+                donate=(1,), cfg=cfg, reps_for_roofline=reps)

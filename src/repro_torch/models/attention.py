@@ -3,7 +3,9 @@
 paged KV helpers (``gather_pages``, ``write_pages_fused``), the slot-cache
 writes (``update_kv_cache``, ``update_kv_cache_ragged``),
 ``decode_attention`` and ``mla_decode_attention`` (plain PyTorch, as they
-are plain jnp in the reference). Writes go **in place** where the
+are plain jnp in the reference), and their flash partials over one block
+of a sequence-sharded cache (``decode_attention_partials``,
+``mla_decode_partials``). Writes go **in place** where the
 reference returns a new buffer."""
 from __future__ import annotations
 
@@ -177,3 +179,48 @@ def mla_decode_attention(
     p = p / torch.clamp(torch.sum(p, dim=-1, keepdim=True), min=1e-30)
     out = torch.einsum("bhs,bsr->bhr", p.to(ckv.dtype).float(), ckv.float())
     return out.to(q_lat.dtype)
+
+
+def decode_attention_partials(
+    q: torch.Tensor,        # [B, Hkv, G, Dh]
+    k_cache: torch.Tensor,  # [B, S_loc, Hkv, Dh]: one block of the sequence
+    v_cache: torch.Tensor,  # [B, S_loc, Hkv, Dv]
+    length: torch.Tensor,   # [B]: valid entries of the whole sequence
+    offset: int,            # the block's first position
+    *,
+    scale: float,
+    window: int = 0,
+    softcap: float = 0.0,
+):
+    """:func:`decode_attention` over one block of a sequence-sharded
+    cache, as un-normalized flash partials (``ref_common.decode_partials``:
+    fp32 ``acc`` [B, H, Dv], the row maxima ``m`` and sums ``l`` [B, H])
+    that ``shard_utils.combine_partials`` merges over the blocks. A block
+    whose keys all lie past a row's length holds ``m = -1e30`` there."""
+    B, Hkv, G, D = q.shape
+    s = rc.decode_scores(q.reshape(B, Hkv * G, D), k_cache.permute(0, 2, 1, 3),
+                         scale=scale, softcap=softcap)
+    s = rc.decode_mask(s, length.reshape(-1).expand(B), window=window,
+                       k_pos=offset + torch.arange(k_cache.shape[1],
+                                                   device=q.device))
+    return rc.decode_partials(s, v_cache.permute(0, 2, 1, 3))
+
+
+def mla_decode_partials(q_lat, q_rope, ckv, k_rope, length: torch.Tensor,
+                        offset: int, *, scale: float):
+    """:func:`mla_decode_attention` over one block of the sequence-sharded
+    latents (ckv [B, S_loc, R], k_rope [B, S_loc, Dr], positions from
+    ``offset``), as flash partials: fp32 ``acc`` [B, H, R], ``m`` and
+    ``l`` [B, H]."""
+    S = ckv.shape[1]
+    s = torch.einsum("bhr,bsr->bhs", q_lat.float(), ckv.float())
+    s = s + torch.einsum("bhd,bsd->bhs", q_rope.float(), k_rope.float())
+    s = s * scale
+    k_pos = offset + torch.arange(S, device=ckv.device)[None, None, :]
+    s = torch.where(k_pos < length.to(ckv.device).reshape(-1, 1, 1), s,
+                    torch.full_like(s, rc.NEG_INF))
+    m = torch.amax(s, dim=-1)
+    e = torch.exp(s - m[..., None])
+    l = torch.sum(e, dim=-1)
+    acc = torch.einsum("bhs,bsr->bhr", e.to(ckv.dtype).float(), ckv.float())
+    return acc, m, l

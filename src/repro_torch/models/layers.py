@@ -68,8 +68,12 @@ def dense_init(gen: torch.Generator, shape, in_dim: int, dtype,
                device) -> torch.Tensor:
     """normal * 1/sqrt(in_dim), drawn in fp32 then cast (the reference's
     ``dense_init`` distribution). ``shape`` may carry a leading stack axis;
-    each leading slice is drawn separately to bound the fp32 scratch."""
+    each leading slice is drawn separately to bound the fp32 scratch. On
+    the meta device there is nothing to draw: the empty leaf is its
+    shape."""
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.device.type == "meta":
+        return out
     flat = out.view(-1, *shape[-2:])
     scale = 1.0 / math.sqrt(in_dim)
     for i in range(flat.shape[0]):

@@ -51,9 +51,24 @@ row-parallel ``wo`` and MLP down projection summed, the Mamba mixer on the
 rank's ``d_inner`` channels (``models/ssm.py``), the embedding and the
 cross-entropy vocab-parallel (``_embed``, ``_block_ce``), the MoE through
 ``RunCtx.moe`` (expert parallelism, ``models/moe.py``). A leaf of full
-width is replicated and computed whole on every rank. MLA, MTP, the
-encoder-decoder and patch embeddings are refused on a mesh
-(``check_shardable``).
+width is replicated and computed whole on every rank. Query heads that
+split inside a head (or inside a KV group) are gathered over the axis and
+attended as whole groups, each rank's ``wo`` rows taking their own
+columns of the output (``_qkv``). MLA runs on the rank's heads of
+``wq_b``/``wkv_b``/``wo``; the MTP block and the encoder-decoder's encoder
+and cross attention run as the decoder's blocks do; patch embeddings
+replace the first positions after the vocab-parallel sum.
+
+The slot path on a mesh (``prefill``/``decode_step`` with ``rctx.mesh``,
+the cache this rank's shards, ``init_cache(..., mesh=)``): a K/V cache
+(and the cross cache) holds the rank's KV heads when they divide the
+``model`` axis, else the rank's block of the sequence, as
+``launch/sharding.cache_specs`` places them; MLA's latents are always
+sharded on the sequence. A prefill writes only the rank's sequence range;
+a decode step over a sequence-sharded cache gathers every query head,
+attends over the rank's keys as flash partials and merges them with
+``shard_utils.combine_partials``. Mamba's state is the rank's channels;
+an xLSTM's is the rank's batch rows only.
 """
 from __future__ import annotations
 
@@ -115,30 +130,6 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{', '.join(missing)} yet")
 
 
-def shard_refusals(cfg: ModelConfig) -> list:
-    """Config features that do not train on a mesh yet (empty = all do)."""
-    found = []
-    if any(m == MLA for period, _ in build_stacks(cfg) for m, _ in period):
-        found.append("multi-head latent attention (MLA)")
-    if cfg.mtp_depth:
-        found.append("multi-token prediction (MTP)")
-    if cfg.enc_dec:
-        found.append("encoder-decoder")
-    if cfg.num_patch_tokens:
-        found.append("patch embeddings")
-    return found
-
-
-def check_shardable(cfg: ModelConfig) -> None:
-    """Raise, naming the features, where ``cfg`` has one that the sharded
-    step does not compute (checked before anything is allocated)."""
-    refused = shard_refusals(cfg)
-    if refused:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(refused)} under a mesh is not ported "
-            f"yet (train it without a mesh)")
-
-
 def _moe_pad(cfg: ModelConfig) -> int:
     return M.pad_experts(cfg.num_experts, 16)
 
@@ -153,8 +144,9 @@ class RunCtx:
     sharded dispatch (KV heads on ``shard_axis`` when they divide it, else
     the sequence-sharded fallback; ``kernels/shard_utils.py``), and each
     rank writes only its own heads' K/V into its shard of the pool; in
-    sharded training the parameters are shards and the blocks compute on
-    them (the module docstring; the reference leaves this to GSPMD and
+    sharded training and the slot path on a mesh the parameters are shards
+    and the blocks compute on them, the latter on this rank's cache shards
+    (the module docstring; the reference leaves this to GSPMD and
     keeps the field for serving). ``None`` is the exact single-device
     dispatch. The reference's ``block_q``/``block_k``/``mlstm_block``/
     ``unroll_layers`` are XLA tiling controls (the kernels here pick their
@@ -288,17 +280,60 @@ def _slot_cache(cfg: ModelConfig, mixer: str, reps: int, B: int,
 
 
 def init_cache(cfg: ModelConfig, B: int, max_len: int, dtype=None,
-               device=None, enc_len: int = 0) -> list:
+               device=None, enc_len: int = 0, mesh=None) -> list:
     """The reference's ``init_cache``: per period slot of each stack, zeroed
     contiguous KV rows ``{"k", "v": [reps, B, max_len, Hkv, Dh]}`` for an
     attention mixer, the zeroed latent rows ``{"ckv", "kr"}`` for MLA, or
     the fresh recurrent state (``m = -1e30`` for the
     mLSTM) for a Mamba or xLSTM mixer; one row per engine slot. An
     encoder-decoder's slots also hold zeroed ``{"cross_k", "cross_v":
-    [reps, B, enc_len, Hkv, Dh]}``, which its prefill fills."""
+    [reps, B, enc_len, Hkv, Dh]}``, which its prefill fills.
+
+    With a ``mesh`` (a ``DeviceMesh`` or a ``launch.mesh.MeshShape``) the
+    cache is this rank's shards of that whole cache, each leaf at
+    ``launch/sharding.local_shape`` under ``cache_specs``, filled with its
+    leaf's initial value (the value is the same along every dim). The
+    model places a K/V cache whose heads do not divide the ``model`` axis
+    on the sequence, and MLA's latents always: ``max_len`` and ``enc_len``
+    must then divide it, or this raises."""
     dtype = dtype or cfg.dtype
+    if mesh is not None:
+        return _sharded_cache(cfg, B, max_len, dtype, device, enc_len, mesh)
     return [[_slot_cache(cfg, mixer, reps, B, max_len, dtype, device, enc_len)
              for mixer, _ in period] for period, reps in build_stacks(cfg)]
+
+
+def check_cache_layout(cfg: ModelConfig, max_len: int, enc_len: int,
+                       mesh) -> None:
+    """Raise unless the slot cache's sequence dims divide ``mesh``'s model
+    axis where the model places them on it: a K/V cache (and the cross
+    cache) whose heads do not divide the axis, and MLA's latents."""
+    from repro_torch.launch.sharding import axis_sizes
+    M = axis_sizes(mesh).get("model", 1)
+    mixers = {m for period, _ in build_stacks(cfg) for m, _ in period}
+    kv_seq = M > 1 and bool(cfg.num_kv_heads % M)
+    need = {"max_len": max_len if (kv_seq and mixers & {ATTN, LOCAL_ATTN})
+            or (M > 1 and MLA in mixers) else 0,
+            "enc_len": enc_len if kv_seq and cfg.enc_dec else 0}
+    for name, size in need.items():
+        if size % M:
+            raise ValueError(f"{cfg.name}: the slot cache lies on the "
+                             f"sequence on a model axis of {M}: {name} "
+                             f"{size} must be a multiple of it")
+
+
+def _sharded_cache(cfg, B, max_len, dtype, device, enc_len, mesh) -> list:
+    from repro_torch.launch import sharding as shd
+    from repro_torch.train import tree as T
+    check_cache_layout(cfg, max_len, enc_len, mesh)
+    whole = init_cache(cfg, B, max_len, dtype, "meta", enc_len)
+    mesh = shd.with_data_axis(mesh)
+    specs = shd.cache_specs(cfg, whole, mesh)
+    fills = T.leaves(init_cache(cfg, 1, 1, dtype, "cpu", min(enc_len, 1)))
+    local = [torch.full(shd.local_shape(x.shape, spec, mesh),
+                        float(f.reshape(-1)[0]), dtype=x.dtype, device=device)
+             for x, spec, f in zip(T.leaves(whole), T.leaves(specs), fills)]
+    return T.unflatten(whole, local)
 
 
 # =============================================================================
@@ -310,50 +345,165 @@ def _maybe_post(cfg: ModelConfig, p, y):
         if cfg.post_norm and "post_ln" in p else y
 
 
-def _qkv(cfg: ModelConfig, p, x, positions, rctx=None):
-    """q [B, S, Hkv, G, D], k, v [B, S, Hkv, D] of this rank's heads: the
-    head counts come from ``wq``'s width. A ``wq`` narrower than the
-    config's is the rank's query heads ``[h0, h0 + Hl)``, and k/v are the
-    KV heads they read: the rank's own columns of ``wk``/``wv`` when those
-    split on KV-head boundaries; else (fewer KV heads than ranks) the
-    projection, split inside a head, is gathered over the axis and the
-    rank's KV heads taken. Returns (q, k, v, the model axis or None)."""
+class _Heads(NamedTuple):
+    """A block's projections on this rank: q [B, S, n, G', D] of the query
+    heads ``[h0, h1)`` (kv-major, n KV groups), k/v [B, Sk, Hk, D] of the
+    KV heads this rank holds, ``kv`` the slice of k/v's heads that q
+    reads, ``cols`` the columns of the output [B, S, (h1 - h0) * D] that
+    this rank's ``wo`` rows take, ``tp`` the model axis (None: the block's
+    weights are whole)."""
+
+    q: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+    kv: slice
+    cols: slice
+    tp: Any
+
+
+def _whole_groups(h0: int, n: int, G: int) -> bool:
+    """Whether query heads ``[h0, h0 + n)`` read whole KV groups of ``G``,
+    or lie inside one (every head of the rank then reads one KV head)."""
+    kv0, kv1 = h0 // G, (h0 + n - 1) // G + 1
+    return not (n % (kv1 - kv0) or (n >= G and h0 % G))
+
+
+def _heads(cfg: ModelConfig, p, x, kv_x=None, rctx=None, *, q_all=False,
+           kv_all=False, with_kv=True) -> _Heads:
+    """The q, k and v projections of an attention block (queries of ``x``,
+    keys and values of ``kv_x``, ``x`` when None) on this rank's heads.
+
+    A ``wq`` narrower than the config's is the rank's columns ``[c0, c0 +
+    wl)``. When they are whole query heads that fill whole KV groups (or
+    lie inside one), q is the rank's own product. Otherwise (a head split
+    inside, or heads that straddle groups) the q projection is gathered
+    over the axis and q is the whole groups that cover the columns; the
+    output's ``cols`` are then the rank's columns for its ``wo`` rows.
+    ``q_all`` gathers every query head (a sequence-sharded decode attends
+    them all). K/V are the rank's own heads where its columns of
+    ``wk``/``wv`` hold the groups q reads, else the projection gathered
+    (``kv_all``: every KV head, for a sequence-sharded cache's writes).
+    ``with_kv=False`` projects q alone (k and v None: a step that reads
+    its keys from a cache)."""
     B, Sq, _ = x.shape
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     G = H // Hkv
-    Hl = p["wq"].shape[-1] // Dh
-    tp = _tp_of(rctx, Hl, H)
-    kv0, kv1 = 0, Hkv
-    qn, kn = p.get("q_norm"), p.get("k_norm")
-    if tp is not None:
-        h0 = tp.index * Hl
-        kv0, kv1 = h0 // G, (h0 + Hl - 1) // G + 1
-        if Hl % (kv1 - kv0) or (Hl >= G and h0 % G):
-            raise NotImplementedError(
-                f"{cfg.name}: query heads {h0}..{h0 + Hl - 1} of a rank do "
-                f"not fill whole groups of {G} (model axis {tp.size})")
+    wl = p["wq"].shape[-1]
+    tp = _tp_of(rctx, wl, H * Dh)
+    cols = slice(None)
+    if tp is None:
+        kv_x = x if kv_x is None else kv_x
+        h0, h1 = 0, H
+        q = (x @ p["wq"]).reshape(B, Sq, H, Dh)
+    else:
         x = su.copy_to(x, tp)
-        if cfg.qk_norm:     # replicated, applied to this rank's heads
-            qn, kn = su.copy_to(qn, tp), su.copy_to(kn, tp)
+        kv_x = x if kv_x is None else su.copy_to(kv_x, tp)
+        c0 = tp.index * wl
+        if not q_all and wl % Dh == 0 and _whole_groups(c0 // Dh, wl // Dh,
+                                                        G):
+            h0, h1 = c0 // Dh, (c0 + wl) // Dh
+            q = (x @ p["wq"]).reshape(B, Sq, h1 - h0, Dh)
+        else:
+            h0, h1 = (0, H) if q_all else (
+                c0 // Dh // G * G, -(-(-(-(c0 + wl) // Dh)) // G) * G)
+            q = su.gather_to_own(x @ p["wq"], 2, tp)[..., h0 * Dh:h1 * Dh]
+            q = q.reshape(B, Sq, h1 - h0, Dh)
+            cols = slice(c0 - h0 * Dh, c0 + wl - h0 * Dh)
+    kv0, kv1 = h0 // G, (h1 - 1) // G + 1
+    Sk = kv_x.shape[1]
 
     def kv_proj(w):
-        if tp is None:
-            return (x @ w).reshape(B, Sq, Hkv, Dh)
-        if Hkv % tp.size == 0:                 # the rank's own KV heads
-            return (x @ w).reshape(B, Sq, kv1 - kv0, Dh)
-        y = su.gather_to_own(x @ w, 2, tp).reshape(B, Sq, Hkv, Dh)
-        return y[:, :, kv0:kv1]
+        ktp = _tp_of(rctx, w.shape[-1], Hkv * Dh)
+        if ktp is None:      # replicated: every head, on every rank
+            return (kv_x @ su.copy_to(w, tp)).reshape(B, Sk, Hkv, Dh), 0
+        n = w.shape[-1] // Dh
+        k0 = ktp.index * n
+        if not kv_all and w.shape[-1] % Dh == 0 and k0 <= kv0 \
+                and kv1 <= k0 + n:                # the rank's own KV heads
+            return (kv_x @ w).reshape(B, Sk, n, Dh), k0
+        y = su.gather_to_own(kv_x @ w, 2, ktp)
+        return y.reshape(B, Sk, Hkv, Dh), 0
 
-    q = (x @ p["wq"]).reshape(B, Sq, Hl, Dh)
-    k, v = kv_proj(p["wk"]), kv_proj(p["wv"])
+    q = q.reshape(B, Sq, kv1 - kv0, (h1 - h0) // (kv1 - kv0), Dh)
+    if not with_kv:
+        return _Heads(q, None, None, slice(kv0, kv1), cols, tp)
+    (k, k0), (v, _) = kv_proj(p["wk"]), kv_proj(p["wv"])
+    return _Heads(q, k, v, slice(kv0 - k0, kv1 - k0), cols, tp)
+
+
+def _qkv(cfg: ModelConfig, p, x, positions, rctx=None, *, q_all=False,
+         kv_all=False) -> _Heads:
+    """:func:`_heads` of a self-attention block, with the per-head q/k
+    norm (replicated, applied to the rank's heads) and RoPE."""
+    h = _heads(cfg, p, x, rctx=rctx, q_all=q_all, kv_all=kv_all)
+    q, k = h.q, h.k
     if cfg.qk_norm:     # per head, before RoPE
-        q = rms_norm(q, qn, cfg.norm_eps)
-        k = rms_norm(k, kn, cfg.norm_eps)
+        q = rms_norm(q, su.copy_to(p["q_norm"], h.tp), cfg.norm_eps)
+        k = rms_norm(k, su.copy_to(p["k_norm"], h.tp), cfg.norm_eps)
     if cfg.use_rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
+        B, Sq, n, G, Dh = q.shape
+        q = apply_rope(q.reshape(B, Sq, n * G, Dh), positions,
+                       cfg.rope_theta).reshape(q.shape)
         k = apply_rope(k, positions, cfg.rope_theta)
-    # kv-major q layout: query head h belongs to kv head h // G
-    return q.reshape(B, Sq, kv1 - kv0, Hl // (kv1 - kv0), Dh), k, v, tp
+    return h._replace(q=q, k=k)
+
+
+def _slot_layout(cfg: ModelConfig, rctx, n_kv: int):
+    """How a slot-cache leaf of ``n_kv`` heads (0: MLA's latents) lies on
+    the model axis (``launch/sharding.cache_specs``' rule): (None, None)
+    without a mesh or a model axis, ("heads", axis) when ``n_kv`` divides
+    the axis, else ("seq", axis): the rank's block of the sequence."""
+    ax = su.mesh_axis(rctx.mesh, rctx.shard_axis) \
+        if rctx is not None and rctx.mesh is not None else None
+    if ax is None:
+        return None, None
+    return ("heads" if n_kv and n_kv % ax.size == 0 else "seq"), ax
+
+
+def _write_seq(cache, new, start, ax, rows=None):
+    """Write ``new`` [B, n, ...] at global positions ``start ..`` into this
+    rank's block of a sequence-sharded cache [B, S_loc, ...] (the rank
+    holds ``[ax.index * S_loc, (ax.index + 1) * S_loc)``), in place: the
+    part of the range that falls in the block. ``start`` is an integer, or
+    per-row starts [B] of a single token (a ragged decode; ``rows`` limits
+    the rows written)."""
+    S = cache.shape[1]
+    off = ax.index * S
+    if torch.is_tensor(start) and start.dim():
+        loc = start.to(cache.device).long() - off
+        keep = (loc >= 0) & (loc < S)
+        if rows is not None:
+            keep &= torch.zeros_like(keep).index_fill_(0, rows, True)
+        sel = keep.nonzero()[:, 0]
+        cache[sel, loc[sel]] = new[sel, 0].to(cache.dtype)
+        return cache
+    start = int(start)
+    lo, hi = max(start, off), min(start + new.shape[1], off + S)
+    if lo < hi:
+        cache[:, lo - off:hi - off] = new[:, lo - start:hi - start].to(
+            cache.dtype)
+    return cache
+
+
+def _lengths_of(lengths, B: int, device) -> torch.Tensor:
+    """``lengths`` as an int32 [B] tensor (a lockstep integer broadcast)."""
+    if torch.is_tensor(lengths) and lengths.dim():
+        return lengths.to(device=device, dtype=torch.int32)
+    return torch.full((B,), int(lengths), dtype=torch.int32, device=device)
+
+
+def _attend_seq_shard(q, k_loc, v_loc, lengths, ax, rctx, *, scale, window,
+                      softcap):
+    """One query token of every head, q [B, Hkv, G, D], over this rank's
+    block of a sequence-sharded cache k_loc/v_loc [B, S_loc, Hkv, D] (key
+    positions from ``ax.index * S_loc``), as flash partials merged over the
+    axis (``shard_utils.combine_partials``). Returns [B, Hkv * G, Dv]."""
+    B, S = k_loc.shape[:2]
+    acc, m, l = A.decode_attention_partials(
+        q, k_loc, v_loc, _lengths_of(lengths, B, q.device), ax.index * S,
+        scale=scale, window=window, softcap=softcap)
+    return su.combine_partials(acc, m, l, q.dtype, rctx.mesh,
+                               rctx.shard_axis)
 
 
 def _attn_scale(cfg: ModelConfig) -> float:
@@ -366,7 +516,7 @@ def _positions(mode, pos, lengths, Sq, device):
         return (lengths.long() - 1)[:, None]                 # [B, 1]
     if torch.is_tensor(pos) and pos.dim():                   # [B] offsets
         return pos.long()[:, None] + torch.arange(Sq, device=device)[None, :]
-    return (int(pos) + torch.arange(Sq, device=device))[None, :]  # [1, Sq]
+    return (int(pos) + torch.arange(Sq, device=device)[None, :])  # [1, Sq]
 
 
 def attn_block(cfg, p, x, state, *, mode, pos, lengths, window, paged=None,
@@ -375,15 +525,27 @@ def attn_block(cfg, p, x, state, *, mode, pos, lengths, window, paged=None,
     first, then attend (decode ``lengths`` count the token being written).
     ``rows`` limits a slot decode's writes to the rows really decoding.
     With ``rctx.mesh`` the paged modes write this rank's KV heads into its
-    shard of the pool and attend through the sharded dispatch.
+    shard of the pool and attend through the sharded dispatch; the slot
+    modes write and read this rank's shard of the slot cache
+    (``_slot_layout``): its KV heads, or its block of the sequence, which a
+    prefill fills from the call's keys of every head and a decode step
+    attends as partials of every query head.
     "prefill" attends over the call's own keys (causal, the window) and
     writes them at 0; "train" attends the same way without a cache;
     "encode" attends over them without a mask or a cache. Returns the
     block's output."""
     B, Sq, _ = x.shape
     xin = rms_norm(x, p["ln"], cfg.norm_eps)
-    q, k, v, tp = _qkv(cfg, p, xin,
-                       _positions(mode, pos, lengths, Sq, x.device), rctx)
+    layout, ax = (_slot_layout(cfg, rctx, cfg.num_kv_heads)
+                  if mode in ("prefill", "chunk", "decode") else (None, None))
+    seq = layout == "seq"
+    if seq and mode == "chunk":
+        raise NotImplementedError("a chunk over a sequence-sharded slot "
+                                  "cache is not ported (the slot engine "
+                                  "runs without a mesh)")
+    h = _qkv(cfg, p, xin, _positions(mode, pos, lengths, Sq, x.device), rctx,
+             q_all=seq and mode == "decode", kv_all=seq)
+    q, k, v, tp = h.q, h.k[:, :, h.kv], h.v[:, :, h.kv], h.tp
     scale = _attn_scale(cfg)
     cap = cfg.attn_logit_softcap
     if mode in ("paged_chunk", "paged_decode"):
@@ -411,25 +573,38 @@ def attn_block(cfg, p, x, state, *, mode, pos, lengths, window, paged=None,
     elif mode == "prefill":
         o = A.blockwise_attention(q, k, v, scale=scale, causal=True,
                                   window=window, softcap=cap)
-        A.update_kv_cache(state["k"], k, 0)
-        A.update_kv_cache(state["v"], v, 0)
+        if seq:
+            _write_seq(state["k"], h.k, 0, ax)
+            _write_seq(state["v"], h.v, 0, ax)
+        else:
+            A.update_kv_cache(state["k"], k, 0)
+            A.update_kv_cache(state["v"], v, 0)
     elif mode == "chunk":
         A.update_kv_cache(state["k"], k, pos)
         A.update_kv_cache(state["v"], v, pos)
         o = _chunk_attend(cfg, q, state["k"], state["v"], pos, lengths,
                           window)
     elif mode == "decode":
-        if torch.is_tensor(lengths) and lengths.dim():
-            A.update_kv_cache_ragged(state["k"], k, lengths - 1, rows)
-            A.update_kv_cache_ragged(state["v"], v, lengths - 1, rows)
+        ragged = torch.is_tensor(lengths) and lengths.dim()
+        if seq:
+            start = lengths - 1 if ragged else pos
+            _write_seq(state["k"], h.k, start, ax, rows)
+            _write_seq(state["v"], h.v, start, ax, rows)
+            o = _attend_seq_shard(q[:, 0], state["k"], state["v"], lengths,
+                                  ax, rctx, scale=scale, window=window,
+                                  softcap=cap)
         else:
-            A.update_kv_cache(state["k"], k, pos)
-            A.update_kv_cache(state["v"], v, pos)
-        o = A.decode_attention(q[:, 0], state["k"], state["v"], lengths,
-                               scale=scale, window=window, softcap=cap)
+            if ragged:
+                A.update_kv_cache_ragged(state["k"], k, lengths - 1, rows)
+                A.update_kv_cache_ragged(state["v"], v, lengths - 1, rows)
+            else:
+                A.update_kv_cache(state["k"], k, pos)
+                A.update_kv_cache(state["v"], v, pos)
+            o = A.decode_attention(q[:, 0], state["k"], state["v"], lengths,
+                                   scale=scale, window=window, softcap=cap)
     else:
         raise ValueError(mode)
-    o = o.reshape(B, Sq, -1)                 # this rank's heads
+    o = o.reshape(B, Sq, -1)[..., h.cols]     # this rank's wo rows
     return _maybe_post(cfg, p, su.reduce_from(o @ p["wo"], tp))
 
 
@@ -453,7 +628,8 @@ def _chunk_attend(cfg, q, k_all, v_all, pos, lengths, window, scale=None):
         q_offset=pos, kv_valid_len=lengths)
 
 
-def mla_block(cfg, p, x, state, *, mode, pos, lengths, rows=None):
+def mla_block(cfg, p, x, state, *, mode, pos, lengths, rows=None,
+              rctx=None):
     """DeepSeek-v3's multi-head latent attention on the slot cache (the
     reference's ``mla_block`` in modes "chunk", "decode", "prefill" and,
     without a cache, "train"): q through the
@@ -472,34 +648,53 @@ def mla_block(cfg, p, x, state, *, mode, pos, lengths, rows=None):
     ``blockwise_attention`` and writes the latents at 0; "train" does the
     same without writing. A decode step
     takes the weight-absorbed path: ``q_nope . w_uk`` against the latents
-    (``mla_decode_attention``), then ``. w_uv``. Returns the block's
-    output."""
+    (``mla_decode_attention``), then ``. w_uv``.
+
+    On a mesh ``wq_b``'s columns, ``wkv_b``'s heads and ``wo``'s rows are
+    the rank's heads' (``wq_a``, ``wkv_a`` and the norms are replicated;
+    the latents enter the rank's heads through ``copy_to``), and the
+    output is summed over the axis. The latent cache holds the rank's
+    block of the sequence: a prefill writes the part of the call that
+    falls in it, and a decode step gathers every head's absorbed query,
+    attends over the block as partials, merges them
+    (``combine_partials``) and expands the rank's heads. Returns the
+    block's output."""
     if mode not in ("prefill", "chunk", "decode", "train"):
         raise ValueError(f"MLA runs on the slot cache only (and in "
                          f"training), not in mode {mode!r}")
     B, Sq, _ = x.shape
-    H = cfg.num_heads
     dn, dr, dv, kvr = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
                        cfg.v_head_dim, cfg.kv_lora_rank)
+    H = p["wq_b"].shape[-1] // (dn + dr)       # this rank's heads
+    tp = _tp_of(rctx, H, cfg.num_heads)
+    _, ax = _slot_layout(cfg, rctx, 0) if mode != "train" else (None, None)
+    if ax is not None and mode == "chunk":
+        raise NotImplementedError("an MLA chunk over the sequence-sharded "
+                                  "latents is not ported (the slot engine "
+                                  "runs without a mesh)")
     eps, theta = cfg.norm_eps, cfg.rope_theta
     xin = rms_norm(x, p["ln"], eps)
     positions = _positions(mode, pos, lengths, Sq, x.device)
     scale = 1.0 / math.sqrt(dn + dr)
-    qf = (rms_norm(xin @ p["wq_a"], p["q_ln"], eps) @ p["wq_b"]).reshape(
-        B, Sq, H, dn + dr)
+    qa = su.copy_to(rms_norm(xin @ p["wq_a"], p["q_ln"], eps), tp)
+    qf = (qa @ p["wq_b"]).reshape(B, Sq, H, dn + dr)
     q_nope = qf[..., :dn]
     q_rope = apply_rope(qf[..., dn:], positions, theta)
     kv = xin @ p["wkv_a"]
     ckv = rms_norm(kv[..., :kvr], p["kv_ln"], eps)
     k_rope = apply_rope(kv[..., kvr:][:, :, None, :], positions, theta)[:, :, 0]
+    ckv_h, k_rope_h = su.copy_to(ckv, tp), su.copy_to(k_rope, tp)
     if mode in ("prefill", "train"):
-        kvb = (ckv @ p["wkv_b"]).view(B, Sq, H, dn + dv)
-        k = torch.cat([kvb[..., :dn], k_rope[:, :, None].expand(
+        kvb = (ckv_h @ p["wkv_b"]).view(B, Sq, H, dn + dv)
+        k = torch.cat([kvb[..., :dn], k_rope_h[:, :, None].expand(
             B, Sq, H, dr)], dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)[:, :, :, None, :]   # G 1
         o = A.blockwise_attention(q, k, kvb[..., dn:], scale=scale,
                                   causal=True).reshape(B, Sq, H * dv)
-        if mode == "prefill":
+        if mode == "prefill" and ax is not None:
+            _write_seq(state["ckv"], ckv, 0, ax)
+            _write_seq(state["kr"], k_rope, 0, ax)
+        elif mode == "prefill":
             A.update_kv_cache(state["ckv"], ckv, 0)
             A.update_kv_cache(state["kr"], k_rope, 0)
     elif mode == "chunk":
@@ -513,7 +708,12 @@ def mla_block(cfg, p, x, state, *, mode, pos, lengths, rows=None):
         o = _chunk_attend(cfg, q, k_full, kvb[..., dn:], pos, lengths, 0,
                           scale=scale).reshape(B, Sq, H * dv)
     else:
-        if torch.is_tensor(lengths) and lengths.dim():
+        ragged = torch.is_tensor(lengths) and lengths.dim()
+        if ax is not None:
+            start = lengths - 1 if ragged else pos
+            _write_seq(state["ckv"], ckv, start, ax, rows)
+            _write_seq(state["kr"], k_rope, start, ax, rows)
+        elif ragged:
             A.update_kv_cache_ragged(state["ckv"], ckv, lengths - 1, rows)
             A.update_kv_cache_ragged(state["kr"], k_rope, lengths - 1, rows)
         else:
@@ -521,11 +721,23 @@ def mla_block(cfg, p, x, state, *, mode, pos, lengths, rows=None):
             A.update_kv_cache(state["kr"], k_rope, pos)
         wkv_b = p["wkv_b"].reshape(kvr, H, dn + dv)
         q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], wkv_b[..., :dn])
-        o_lat = A.mla_decode_attention(q_lat, q_rope[:, 0], state["ckv"],
-                                       state["kr"], lengths, scale=scale)
+        if ax is None:
+            o_lat = A.mla_decode_attention(q_lat, q_rope[:, 0], state["ckv"],
+                                           state["kr"], lengths, scale=scale)
+        else:       # every head over the rank's block of the sequence
+            S_loc = state["ckv"].shape[1]
+            acc, m, l = A.mla_decode_partials(
+                su.gather_from(q_lat, 1, tp),
+                su.gather_from(q_rope[:, 0], 1, tp), state["ckv"],
+                state["kr"], _lengths_of(lengths, B, x.device),
+                ax.index * S_loc, scale=scale)
+            o_lat = su.combine_partials(acc, m, l, q_lat.dtype, rctx.mesh,
+                                        rctx.shard_axis)
+            h0 = tp.index * H if tp is not None else 0
+            o_lat = o_lat[:, h0:h0 + H]
         o = torch.einsum("bhr,rhd->bhd", o_lat, wkv_b[..., dn:]).reshape(
             B, 1, H * dv)
-    return o @ p["wo"]
+    return su.reduce_from(o @ p["wo"], tp)
 
 
 RECURRENT = (MAMBA, MLSTM, SLSTM)
@@ -550,7 +762,8 @@ def _recurrent_block(cfg, mixer, p, x, state, *, mode, rows=None,
         xin = xin.index_select(0, rows)
     if mixer == MAMBA:
         tp = _tp_of(rctx, p["conv_w"].shape[-1], cfg.mamba_expand * cfg.d_model)
-        y, _ = S.mamba_mix(p, xin, state[mixer], rows=rows, tp=tp)
+        y, _ = S.mamba_mix(p, xin, state[mixer], rows=rows, tp=tp)   # the
+        # rank's channels of the state, on a mesh
     else:
         mix = S.mlstm_mix if mixer == MLSTM else S.slstm_mix
         y, _ = mix(p, xin, state[mixer], cfg.num_heads, rows=rows)
@@ -559,33 +772,59 @@ def _recurrent_block(cfg, mixer, p, x, state, *, mode, rows=None,
     return torch.zeros_like(x).index_copy_(0, rows, y)
 
 
-def cross_block(cfg, p, x, enc_out, state, *, mode):
+def cross_block(cfg, p, x, enc_out, state, *, mode, rctx=None):
     """An encoder-decoder's cross attention: queries of the decoder's normed
     ``x`` (no RoPE) over every encoder position, without a mask. At
     "prefill" the keys and values come from ``enc_out`` and are written to
     the slot's ``cross_k``/``cross_v`` cache (cast to its dtype) while the
     block attends with the uncast ones, as the reference does; "train"
     takes them from ``enc_out`` without a cache; a decode or chunk step
-    reads the cache. Returns the block's output."""
+    reads the cache. On a mesh the block runs on the rank's heads
+    (``_heads``: ``wq``/``wk``/``wv`` columns, ``wo`` rows, the output
+    summed), and the cross cache is placed as the self-attention cache is
+    (``_slot_layout``): the rank's KV heads, or its block of the encoder
+    positions, which a decode step attends as partials of every query
+    head. Returns the block's output."""
     B, Sq, _ = x.shape
-    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     xin = rms_norm(x, p["ln"], cfg.norm_eps)
-    q = (xin @ p["wq"]).reshape(B, Sq, Hkv, H // Hkv, Dh)
-    if mode in ("prefill", "train"):
-        k = (enc_out @ p["wk"]).reshape(B, -1, Hkv, Dh)
-        v = (enc_out @ p["wv"]).reshape(B, -1, Hkv, Dh)
+    layout, ax = (_slot_layout(cfg, rctx, cfg.num_kv_heads)
+                  if mode in ("prefill", "chunk", "decode") else (None, None))
+    seq = layout == "seq"
+    fresh = mode in ("prefill", "train")
+    h = _heads(cfg, p, xin, enc_out if fresh else None, rctx,
+               q_all=seq and not fresh, kv_all=seq, with_kv=fresh)
+    q, tp = h.q, h.tp
+    scale = _attn_scale(cfg)
+    if fresh:
+        k, v = h.k[:, :, h.kv], h.v[:, :, h.kv]
     if mode == "prefill":
-        if k.shape != state["cross_k"].shape:
+        have = h.k if seq else k
+        want = (have.shape[0], have.shape[1] // (ax.size if seq else 1),
+                *have.shape[2:])
+        if tuple(state["cross_k"].shape) != want:
             raise ValueError(
                 f"the cross cache holds {tuple(state['cross_k'].shape)}, the "
-                f"encoder gave {tuple(k.shape)}: build it with "
-                f"init_cache(..., enc_len={k.shape[1]})")
-        state["cross_k"].copy_(k)
-        state["cross_v"].copy_(v)
+                f"encoder gave {tuple(have.shape)}: build it with "
+                f"init_cache(..., enc_len={have.shape[1]})")
+        if seq:
+            _write_seq(state["cross_k"], h.k, 0, ax)
+            _write_seq(state["cross_v"], h.v, 0, ax)
+        else:
+            state["cross_k"].copy_(k)
+            state["cross_v"].copy_(v)
     elif mode != "train":
         k, v = state["cross_k"], state["cross_v"]
-    o = A.blockwise_attention(q, k, v, scale=_attn_scale(cfg), causal=False)
-    return o.reshape(B, Sq, H * Dh) @ p["wo"]
+    if seq and not fresh:
+        if Sq != 1:
+            raise NotImplementedError("a chunk over a sequence-sharded "
+                                      "cross cache is not ported")
+        S_loc = k.shape[1]
+        o = _attend_seq_shard(q[:, 0], k, v, S_loc * ax.size, ax, rctx,
+                              scale=scale, window=0, softcap=0.0)
+    else:
+        o = A.blockwise_attention(q, k, v, scale=scale, causal=False)
+    o = o.reshape(B, Sq, -1)[..., h.cols]
+    return su.reduce_from(o @ p["wo"], tp)
 
 
 def _ffn_apply(cfg, slot, x, rctx=None):
@@ -658,7 +897,7 @@ def _apply_slot(cfg, slot, mixer, x, state, enc_out, *, mode, pos,
                                  mode=mode, rows=rows, rctx=rctx)
     elif mixer == MLA:
         x = x + mla_block(cfg, slot["mla"], x, state, mode=mode, pos=pos,
-                          lengths=lengths, rows=rows)
+                          lengths=lengths, rows=rows, rctx=rctx)
     else:
         window = cfg.sliding_window if mixer == LOCAL_ATTN else 0
         x = x + attn_block(cfg, slot["attn"], x, state, mode=mode, pos=pos,
@@ -666,7 +905,8 @@ def _apply_slot(cfg, slot, mixer, x, state, enc_out, *, mode, pos,
                            rows=rows, rctx=rctx)
     if "cross" in slot and (enc_out is not None
                             or mode in ("decode", "chunk")):
-        x = x + cross_block(cfg, slot["cross"], x, enc_out, state, mode=mode)
+        x = x + cross_block(cfg, slot["cross"], x, enc_out, state, mode=mode,
+                            rctx=rctx)
     if "ffn" not in slot and "moe" not in slot:   # xLSTM blocks have none
         return x, 0.0
     y, aux = _ffn_apply(cfg, slot, x, rctx)
@@ -746,9 +986,13 @@ def forward(cfg: ModelConfig, params, tokens, *, mode: str, cache=None,
 
 
 # ---- sampling ---------------------------------------------------------------
-def _head(cfg, params, x):
+def _head(cfg, params, x, rctx=None):
+    """The logits of ``x``; a vocab-parallel head's blocks are gathered
+    over the model axis (every rank gets the whole vocabulary)."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return softcap(x @ w, cfg.final_logit_softcap)
+    tp = _tp_of(rctx, w.shape[-1], cfg.vocab_size)
+    logits = softcap(su.copy_to(x, tp) @ w, cfg.final_logit_softcap)
+    return su.gather_from(logits, logits.dim() - 1, tp)
 
 
 def _greedy_sample(cfg: ModelConfig, params, hidden) -> torch.Tensor:
@@ -863,7 +1107,8 @@ def _mtp_loss(cfg, params, hidden, tokens, rctx):
     token t+2 from the final hidden state and the embedding of t+1 (labels
     rolled by two, the last two positions masked)."""
     mtp = params["mtp"]
-    emb_next = _embed(cfg, params, torch.roll(tokens, -1, dims=1))
+    emb_next = _embed(cfg, params, torch.roll(tokens, -1, dims=1),
+                      rctx=rctx)
     h = torch.cat([rms_norm(hidden, mtp["ln"], cfg.norm_eps), emb_next],
                   dim=-1) @ mtp["proj"]
     h, _ = _apply_stack(cfg, mtp["block"], ((cfg.layer_pattern[0], DENSE),),
@@ -933,32 +1178,35 @@ def paged_spec_step(cfg: ModelConfig, params, tokens, cache, row_pos, *,
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache, *, extra_embeds=None,
-            enc_embeds=None):
+            enc_embeds=None, rctx: Optional[RunCtx] = None):
     """Full prefill of ``tokens`` [B, S] from an empty slot cache (written
     at 0), with an encoder-decoder's ``enc_embeds`` [B, enc_len, d] (the
-    cache built with ``enc_len``) and internvl2's ``extra_embeds``. Returns
-    (the last position's logits [B, V], cache)."""
+    cache built with ``enc_len``) and internvl2's ``extra_embeds``. With
+    ``rctx.mesh`` the parameters are this rank's shards, the cache its
+    shards (``init_cache(..., mesh=)``) and the batch its data-parallel
+    rows. Returns (the last position's logits [B, V], cache)."""
     x, cache = forward(cfg, params, tokens, cache=cache, mode="prefill",
                        pos=0, extra_embeds=extra_embeds,
-                       enc_embeds=enc_embeds)
-    return _head(cfg, params, x[:, -1]), cache
+                       enc_embeds=enc_embeds, rctx=rctx)
+    return _head(cfg, params, x[:, -1], rctx), cache
 
 
 def decode_step(cfg: ModelConfig, params, tokens, cache, pos, *,
-                lengths=None, write_rows=None):
+                lengths=None, write_rows=None,
+                rctx: Optional[RunCtx] = None):
     """One decode step over the slot cache. ``tokens`` [B, 1]; ``pos`` a
     lockstep offset, or ``lengths`` [B] each row's length *including* the
     token being written. ``write_rows`` limits the cache writes to those
     rows (the slot engine's decoding rows; every row when None): the KV of
     the other rows and their recurrent state stay bit-identical, and a
     recurrent block runs only the written rows. An encoder-decoder's cross
-    attention reads the cross cache that its prefill wrote. Returns (logits
-    [B, V], cache)."""
+    attention reads the cross cache that its prefill wrote. ``rctx`` as
+    :func:`prefill`'s. Returns (logits [B, V], cache)."""
     if lengths is None:
         lengths = pos + 1
     x, cache = forward(cfg, params, tokens, cache=cache, mode="decode",
-                       pos=pos, lengths=lengths, rows=write_rows)
-    return _head(cfg, params, x[:, -1]), cache
+                       pos=pos, lengths=lengths, rows=write_rows, rctx=rctx)
+    return _head(cfg, params, x[:, -1], rctx), cache
 
 
 def chunk_prefill_step(cfg: ModelConfig, params, tokens, cache, pos, *,

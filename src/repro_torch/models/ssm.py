@@ -34,6 +34,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import cost as C
 from repro_torch.kernels import shard_utils as su
 from repro_torch.kernels.mamba_scan.ops import (mamba_scan_fresh_op,
                                                 mamba_scan_op)
@@ -131,14 +132,11 @@ def mamba_mix(params, x, state: Optional[dict], *,
     f32}, or None for a fresh one; batch row b runs on state row
     ``rows[b]`` (b when None). The state is updated in place; a fresh one
     is returned outside the autograd graph. Returns (out [B, S, d_model],
-    state). With ``tp`` (a ``shard_utils.Axis``: sharded training, from a
-    fresh state) the layer runs on this rank's ``d_inner`` channels
-    (:func:`_mamba_mix_sharded`)."""
+    state). With ``tp`` (a ``shard_utils.Axis``: the parameters are this
+    rank's shards) the layer runs on this rank's ``d_inner`` channels
+    (:func:`_mamba_mix_sharded`), and so does the state."""
     if tp is not None:
-        if state is not None:
-            raise ValueError("a sharded Mamba layer runs from a fresh state "
-                             "(training) only")
-        return _mamba_mix_sharded(params, x, tp)
+        return _mamba_mix_sharded(params, x, tp, state, rows)
     d_state = params["A_log"].shape[-1]
     dt_rank = params["dt_proj"].shape[0]
     fresh = state is None
@@ -164,16 +162,19 @@ def mamba_mix(params, x, state: Optional[dict], *,
     return (y * F.silu(z)) @ params["out_proj"], state
 
 
-def _mamba_mix_sharded(params, x, tp):
-    """Mamba from a fresh state on this rank's ``d_inner`` channels ``[lo,
-    lo + dl)``, under the reference's rules: the conv, ``A_log`` and ``D``
-    are the rank's channels, and the projections and ``dt_bias`` are
-    replicated (``proj`` and ``bias`` match the replicated pattern
-    first). The scan (#6) runs on the local channels. ``in_proj``'s product
-    and the dt/B/C projection feed this rank's channels, so they enter
-    through ``copy_to``; the conv's and the scan's channel blocks are
-    gathered for the replicated ``x_proj`` and ``out_proj``. Returns (out
-    [B, S, d_model], the final state of the local channels)."""
+def _mamba_mix_sharded(params, x, tp, state=None, rows=None):
+    """Mamba on this rank's ``d_inner`` channels ``[lo, lo + dl)``, under
+    the reference's rules: the conv, ``A_log`` and ``D`` are the rank's
+    channels, and the projections and ``dt_bias`` are replicated (``proj``
+    and ``bias`` match the replicated pattern first). The scan (#6) runs on
+    the local channels, from a fresh state (training) or from ``state``,
+    the rank's channels of the carried one (``conv`` [Bs, K-1, dl], ``ssm``
+    [Bs, dl, n], as ``cache_specs`` places them), updated in place.
+    ``in_proj``'s product and the dt/B/C projection feed this rank's
+    channels, so they enter through ``copy_to``; the conv's and the scan's
+    channel blocks are gathered for the replicated ``x_proj`` and
+    ``out_proj``. Returns (out [B, S, d_model], the state of the local
+    channels)."""
     d_state = params["A_log"].shape[-1]
     dt_rank = params["dt_proj"].shape[0]
     dl = params["conv_w"].shape[-1]
@@ -182,10 +183,12 @@ def _mamba_mix_sharded(params, x, tp):
     if params["x_proj"].shape[-2] != di or params["D"].shape[-1] != dl:
         raise NotImplementedError("a Mamba layer sharded other than the "
                                   "conv, A_log and D on d_inner")
+    fresh = state is None
     xz = su.copy_to(x @ params["in_proj"], tp)
     xm, z = xz[..., lo:lo + dl], xz[..., di + lo:di + lo + dl]
     xm, new_conv = _mamba_conv_full(xm, params["conv_w"], params["conv_b"],
-                                    None)
+                                    None if fresh else
+                                    _gather(state["conv"], rows))
     dbc = su.copy_to(su.gather_from(xm, 2, tp) @ params["x_proj"], tp)
     Bm = dbc[..., dt_rank:dt_rank + d_state].float()             # [B,S,n]
     Cm = dbc[..., dt_rank + d_state:].float()
@@ -193,9 +196,15 @@ def _mamba_mix_sharded(params, x, tp):
         :, lo:lo + dl]).float() + su.copy_to(params["dt_bias"], tp)[lo:lo + dl]
     dt = torch.logaddexp(v, v.new_zeros(()))                      # [B,S,dl]
     A = -torch.exp(params["A_log"])
-    y, h = mamba_scan_fresh_op(xm, dt, Bm, Cm, A, params["D"])
+    if fresh:
+        y, h = mamba_scan_fresh_op(xm, dt, Bm, Cm, A, params["D"])
+        state = {"conv": new_conv.detach(), "ssm": h}
+    else:
+        y = mamba_scan_op(xm, dt, Bm, Cm, A, params["D"], state["ssm"],
+                          rows=rows)
+        _put(state["conv"], rows, new_conv)
     out = su.gather_from(y * F.silu(z), 2, tp) @ params["out_proj"]
-    return out, {"conv": new_conv.detach(), "ssm": h}
+    return out, state
 
 
 # =============================================================================
@@ -319,6 +328,68 @@ def init_slstm_state(B: int, d_model: int, num_heads: int, dtype=None,
                               device=device) for name in ("c", "n", "h", "m")}
 
 
+def _slstm_loop(gx, R, c, n, h, m):
+    """The sLSTM's loop over time: gate inputs gx [B, S, 4, H, Dh] fp32,
+    the recurrent weights R [H, Dh, 4 Dh] fp32, from the state (c, n, h,
+    m). Returns (h of every step [B, S, H, Dh], and the final c, n, h,
+    m)."""
+    B, S, _, H, Dh = gx.shape
+    ys = []
+    for t in range(S):
+        gr = torch.bmm(h.transpose(0, 1), R).transpose(0, 1)     # [B,H,4Dh]
+        g = gx[:, t] + gr.reshape(B, H, 4, Dh).transpose(1, 2)   # [B,4,H,Dh]
+        z_t = torch.tanh(g[:, 0])
+        i_t = g[:, 1]
+        f_t = F.logsigmoid(g[:, 2])
+        o_t = torch.sigmoid(g[:, 3])
+        m_new = torch.maximum(f_t + m, i_t)
+        i_p = torch.exp(i_t - m_new)
+        f_p = torch.exp(f_t + m - m_new)
+        c = f_p * c + i_p * z_t
+        n = f_p * n + i_p
+        h = o_t * (c / torch.clamp(n, min=1e-6))
+        m = m_new
+        ys.append(h)
+    return torch.stack(ys, dim=1), c, n, h, m
+
+
+def slstm_cost(B: int, S: int, H: int, Dh: int, backward: bool = False
+               ) -> C.Work:
+    """The work of :func:`_slstm_loop` (fp32): a step's ``h @ R`` (8 B H
+    Dh^2) and about 22 elementwise operations an element of the state;
+    each step reads R, its gate inputs and the state and writes the state
+    and h. The backward counts twice the forward."""
+    flops = S * (8 * B * H * Dh * Dh + 22 * B * H * Dh)
+    nbytes = S * 4 * (4 * H * Dh * Dh + 4 * B * H * Dh + B * H * Dh
+                      + 8 * B * H * Dh)
+    k = 2 if backward else 1
+    return C.Work(flops=k * flops, bytes=k * nbytes, dtype="float32")
+
+
+class _SlstmLoopNoData(torch.autograd.Function):
+    """:func:`_slstm_loop` on tensors that hold no data (a traced program,
+    such as the dry run's): empty outputs of its shapes, its work counted
+    (``kernels/cost.py``) forward and backward, as a kernel's is. Tracing
+    the loop step by step would take the dry run's tracer about an hour
+    at xlstm-125m's 4096 steps."""
+
+    @staticmethod
+    def forward(ctx, gx, R, c, n, h, m):
+        B, S, _, H, Dh = gx.shape
+        ctx.dims = (B, S, H, Dh)
+        C.record("slstm_loop", slstm_cost(B, S, H, Dh))
+        return (gx.new_empty((B, S, H, Dh)), *(torch.empty_like(t)
+                                               for t in (c, n, h, m)))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        C.record("slstm_loop", slstm_cost(*ctx.dims, backward=True))
+        g = grads[0]
+        B, S, H, Dh = ctx.dims
+        return (g.new_empty((B, S, 4, H, Dh)), g.new_empty((H, Dh, 4 * Dh)),
+                *(g.new_empty((B, H, Dh)) for _ in range(4)))
+
+
 def slstm_mix(params, x, state: Optional[dict], num_heads: int, *,
               rows: Optional[torch.Tensor] = None):
     """sLSTM over x [B, S, d]: a loop over time (recurrent gate feedback).
@@ -336,29 +407,15 @@ def slstm_mix(params, x, state: Optional[dict], num_heads: int, *,
     gx = gx.reshape(B, S, 4, H, Dh)
     c, n, h, m = (_gather(state[k], rows) for k in ("c", "n", "h", "m"))
     R = params["r_gates"].float()                                # [H,Dh,4Dh]
-    ys = []
-    for t in range(S):
-        gr = torch.bmm(h.transpose(0, 1), R).transpose(0, 1)     # [B,H,4Dh]
-        g = gx[:, t] + gr.reshape(B, H, 4, Dh).transpose(1, 2)   # [B,4,H,Dh]
-        z_t = torch.tanh(g[:, 0])
-        i_t = g[:, 1]
-        f_t = F.logsigmoid(g[:, 2])
-        o_t = torch.sigmoid(g[:, 3])
-        m_new = torch.maximum(f_t + m, i_t)
-        i_p = torch.exp(i_t - m_new)
-        f_p = torch.exp(f_t + m - m_new)
-        c = f_p * c + i_p * z_t
-        n = f_p * n + i_p
-        h = o_t * (c / torch.clamp(n, min=1e-6))
-        m = m_new
-        ys.append(h)
+    loop = _SlstmLoopNoData.apply if C.is_fake(gx) else _slstm_loop
+    ys, c, n, h, m = loop(gx, R, c, n, h, m)
     if fresh:
         state = {"c": c.detach(), "n": n.detach(), "h": h.detach(),
                  "m": m.detach()}
     else:
         for name, val in (("c", c), ("n", n), ("h", h), ("m", m)):
             _put(state[name], rows, val)
-    y = torch.stack(ys, dim=1).reshape(B, S, d).to(x.dtype)
+    y = ys.reshape(B, S, d).to(x.dtype)
     y = _group_norm_heads(y, params["gn_scale"], H)
     a, b = torch.chunk(y @ params["up_proj"], 2, dim=-1)
     return (F.gelu(a, approximate="tanh") * b) @ params["down_proj"], state

@@ -34,7 +34,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import shard_utils as su
 from repro_torch.launch import sharding as shd
 from repro_torch.launch.mesh import dp_axes
-from repro_torch.models.model import RunCtx, check_shardable, loss_fn
+from repro_torch.models.model import RunCtx, loss_fn
 from repro_torch.runtime import compression
 from repro_torch.train import tree as T
 from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
@@ -182,7 +182,6 @@ def make_train_step(cfg: ModelConfig, rctx: RunCtx, train_cfg: TrainConfig,
     state its slices (``layout``, built from ``rctx.mesh`` when not
     given)."""
     if rctx.mesh is not None:
-        check_shardable(cfg)
         layout = layout or TrainLayout(cfg, rctx.mesh)
 
     def value_and_grad(params, batch):

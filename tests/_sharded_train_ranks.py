@@ -34,6 +34,37 @@ def batches(case, vocab):
             for _ in range(case["steps"])]
 
 
+def model_key(case):
+    """The name of the case's model: its arch, or the arch with the
+    config changes ``case["changes"]`` (such as a 2-head llama)."""
+    ch = case.get("changes")
+    return case["arch"] if not ch else case["arch"] + " " + " ".join(
+        f"{k}={v}" for k, v in sorted(ch.items()))
+
+
+def case_config(case, get_config):
+    """The case's smoke config (``get_config`` of either package), with
+    ``case["changes"]`` applied."""
+    return dataclasses.replace(get_config(case["arch"]).smoke(),
+                               **case.get("changes", {}))
+
+
+def frontend(case, cfg):
+    """The batch's modality inputs, the same every step (float32 numpy,
+    from the case's name): patch embeddings [B, P, d] for a config with
+    patch tokens, encoder frames [B, S // 2, d] for an encoder-decoder
+    (``steps._enc_len`` of a train shape)."""
+    rng = np.random.default_rng(zlib.crc32(case["name"].encode()) + 1)
+    out = {}
+    if cfg.num_patch_tokens:
+        out["extra_embeds"] = rng.normal(size=(
+            case["B"], cfg.num_patch_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.enc_dec:
+        out["enc_embeds"] = rng.normal(size=(
+            case["B"], case["S"] // 2, cfg.d_model)).astype(np.float32)
+    return out
+
+
 def moe_inputs(S):
     """The MoE block's parameters (the reference's tree, fp32) and x [B,
     S, d]; S 8 splits over a model axis of 4, S 7 takes the replicated
@@ -73,7 +104,7 @@ def _setup(case, params_np):
     from repro_torch.launch.steps import make_rctx
     from repro_torch.params import from_jax_numpy
     from repro_torch.train.train_step import TrainLayout
-    cfg = get_config(case["arch"]).smoke()
+    cfg = case_config(case, get_config)
     mesh = make_train_mesh(case["mesh"], device_type="cpu")
     rctx = dataclasses.replace(make_rctx(cfg, mesh, train=True,
                                          seq_len=case["S"]),
@@ -107,6 +138,8 @@ def train_case(case, params_np):
     state = init_train_state(cfg, params, tcfg, layout)
     step = make_train_step(cfg, rctx, tcfg, layout)
     rows = _rows(layout.dp, case["B"])
+    extra = {k: torch.from_numpy(np.ascontiguousarray(a[rows]))
+             for k, a in frontend(case, cfg).items()}
     out = {"loss": [], "shapes_ok": all(
         x is None or tuple(x.shape) == shd.local_shape(full, spec, mesh)
         for part in ("m", "v", "master")
@@ -115,7 +148,7 @@ def train_case(case, params_np):
             T.flatten_up_to(params, layout.ospecs[part]), layout.shapes))}
     for i, toks in enumerate(batches(case, cfg.vocab_size)):
         batch = {"tokens": torch.from_numpy(np.ascontiguousarray(
-            toks[rows]))}
+            toks[rows])), **extra}
         params, state, m = step(params, state, batch)
         out["loss"].append(float(m["loss"]))
         if i == 0:
@@ -253,7 +286,7 @@ def cases(rank, world, cases, params_path, ckpt=None):
     under "checkpoints"."""
     with open(params_path, "rb") as f:
         params = pickle.load(f)
-    out = {c["name"]: train_case(c, params[c["arch"]])
+    out = {c["name"]: train_case(c, params[model_key(c)])
            if c.get("kind", "train") == "train" else moe_case(c)
            for c in cases}
     if ckpt is not None:

@@ -71,7 +71,7 @@ def _leaves(tree):
 
 
 def train(case, params):
-    cfg = get_config(case["arch"]).smoke()
+    cfg = W.case_config(case, get_config)
     mesh = make_mesh(case["mesh"])
     rctx = dataclasses.replace(make_rctx(cfg, mesh, train=True,
                                          seq_len=case["S"]),
@@ -103,9 +103,12 @@ def train(case, params):
     placed = jax.tree.map(lambda x: x.sharding, (params, state))
     step = jax.jit(make_train_step(cfg, rctx, tcfg))
     out = {"loss": []}
+    extra = {k: jax.device_put(jnp.asarray(a), NamedSharding(
+        mesh, P(bspec, None, None))) for k, a in W.frontend(case, cfg).items()}
     for i, t in enumerate(W.batches(case, cfg.vocab_size)):
         batch = {"tokens": jax.device_put(jnp.asarray(t),
-                                          NamedSharding(mesh, P(bspec, None)))}
+                                          NamedSharding(mesh, P(bspec, None))),
+                 **extra}
         params, state, m = step(params, state, batch)
         params, state = jax.device_put((params, state), placed)
         out["loss"].append(float(m["loss"]))
@@ -135,16 +138,18 @@ def moe(case):
 def main():
     cases = json.load(open(sys.argv[1]))
     out = sys.argv[2]
-    params = {a: init_params(get_config(a).smoke(), jax.random.PRNGKey(0))
-              for a in sorted({c["arch"] for c in cases
-                               if c.get("kind", "train") == "train"})}
+    train_cases = {W.model_key(c): c for c in cases
+                   if c.get("kind", "train") == "train"}
+    params = {k: init_params(W.case_config(c, get_config),
+                             jax.random.PRNGKey(0))
+              for k, c in sorted(train_cases.items())}
     with open(out + ".tmp", "wb") as f:     # the port starts from these
         pickle.dump(jax.tree.map(np.asarray, params), f)
     os.rename(out + ".tmp", out + ".params")
 
     def run(c):
         if c.get("kind", "train") == "train":
-            return train(c, params[c["arch"]])
+            return train(c, params[W.model_key(c)])
         return moe(c)
     # two cases at a time: XLA's compilation, most of the time, runs
     # outside the GIL (the results are those of one at a time)

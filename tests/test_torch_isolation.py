@@ -1,6 +1,7 @@
-"""PyTorch port: neither it nor ``chip_smoke.py`` imports JAX or the JAX
-package, and its verbatim copies of the reference's pure-Python modules
-have not drifted."""
+"""PyTorch port: neither it (the dry run and its analysis among its
+modules) nor ``chip_smoke.py`` and its multi-rank phase tools imports JAX
+or the JAX package, and its verbatim copies of the reference's pure-Python
+modules have not drifted."""
 import ast
 import json
 import os
@@ -76,7 +77,12 @@ def test_port_imports_no_jax_and_no_reference_module():
                      "repro_torch.launch.sharding",
                      "repro_torch.launch.local_world",
                      "repro_torch.kernels.shard_utils",
-                     "repro_torch.runtime.elastic"):
+                     "repro_torch.runtime.elastic",
+                     "repro_torch.kernels.cost",
+                     "repro_torch.launch.steps",
+                     "repro_torch.launch.dryrun",
+                     "repro_torch.analysis.roofline",
+                     "repro_torch.analysis.extrapolate"):
         assert required in mods
 
 
@@ -111,6 +117,14 @@ def _forbidden(name: str) -> bool:
 
 def test_chip_smoke_imports_no_jax_and_no_reference_module():
     names = _imported_modules(ROOT / "chip_smoke.py")
+    assert any(n.startswith("repro_torch") for n in names)
+    assert [n for n in names if _forbidden(n)] == []
+
+
+@pytest.mark.parametrize("tool", ["mesh_all_phase.py", "sharded_phase.py",
+                                  "train_sharded_phase.py"])
+def test_chip_tools_import_no_jax_and_no_reference_module(tool):
+    names = _imported_modules(ROOT / "tools" / tool)
     assert any(n.startswith("repro_torch") for n in names)
     assert [n for n in names if _forbidden(n)] == []
 

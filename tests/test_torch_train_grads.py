@@ -157,10 +157,19 @@ def _loss_and_grads(cfg, params, batch, remat):
                                               allow_unused=True)
 
 
+# jamba's smoke config holds 14 Mamba layers, whose plain backward is a
+# Python loop over time: three passes at the shared batch took 284 s of a
+# tier-1 run. Its batch is cut to one row of REMAT_S tokens: whether remat
+# changes a gradient depends on neither.
+REMAT_S = {"jamba-1.5-large-398b": 4}
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_remat_gives_the_same_gradients(arch):
     cfg = get_config(arch).smoke()
     batch = {k: torch.from_numpy(v) for k, v in batch_of(cfg, 5).items()}
+    if arch in REMAT_S:
+        batch["tokens"] = batch["tokens"][:1, :REMAT_S[arch]].contiguous()
     params = TP.init_params(cfg, seed=0, device="cpu")
     loss0, g0 = _loss_and_grads(cfg, params, batch, "none")
     for remat in ("full", "dots"):

@@ -21,10 +21,15 @@ take the same batches and block their loss alike (``W.LOSS_BLOCKS``).
   the second step's loss within 1e-5 relative; every rank's m/v/master at
   ``opt_state_specs``' local shape. The expert-parallel archs are held in
   ``tests/test_torch_moe_ep.py``.
-* Refusals: MLA and MTP (deepseek-v3), the encoder-decoder (seamless-m4t)
-  and patch embeddings (internvl2) raise under a mesh with the feature's
-  name before anything is allocated; a mesh without a process group
-  raises.
+* The features that no mesh refuses any longer, held the same way:
+  deepseek-v3 at ``2x2`` (MLA on the rank's heads, the vocab-parallel MTP
+  loss, the MoE through expert parallelism), seamless-m4t at ``2x2`` (the
+  encoder's blocks and cross attention on the rank's heads; encoder
+  frames from the batch), internvl2 at ``2x2`` (patch embeddings from the
+  batch) and smoke llama with 2 query heads over 1 KV head at ``4`` (half
+  a head a rank: the q projection gathered, each rank's ``wo`` rows on
+  its own columns). ``make_rctx`` takes every arch on a mesh; a mesh
+  without a process group raises.
 * Checkpoints (in the same world, after the cases): a step at ``2x2``
   saved one whole leaf at a time, restored at world 1 (and by the JAX
   package) and at ``1x4``, bit-equal after gathering; a world-1
@@ -49,19 +54,23 @@ import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
 import _sharded_train_ranks as W  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.launch.mesh import MeshShape, make_train_mesh  # noqa: E402
 from repro_torch.launch.steps import make_rctx  # noqa: E402
-from repro_torch.models.model import RunCtx  # noqa: E402
-from repro_torch.train.train_step import TrainConfig, make_train_step  # noqa: E402
+from repro_torch.train.train_step import make_train_step  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def train_case_spec(arch, mesh, grad_accum=1, compress=False, name=None):
+def train_case_spec(arch, mesh, grad_accum=1, compress=False, name=None,
+                    changes=None):
     return {"name": name or f"{arch} {mesh}", "kind": "train", "arch": arch,
             "mesh": mesh, "B": 4, "S": 32, "grad_accum": grad_accum,
-            "compress": compress, "steps": 2}
+            "compress": compress, "steps": 2, "changes": changes or {}}
+
+
+# smoke llama with half a query head a rank at mesh "4"
+TWO_HEADS = {"num_heads": 2, "num_kv_heads": 1}
 
 
 def _assert_moments(got, want, compressed):
@@ -115,7 +124,11 @@ CASES = ([train_case_spec("llama3.2-3b", m)
             train_case_spec("llama3.2-3b", "2x2", compress=True,
                             name="llama3.2-3b 2x2 compress_grads")]
          + [train_case_spec(a, "2x2") for a in ("gemma2-2b", "gemma2-27b",
-                                                "qwen3-1.7b", "xlstm-125m")])
+                                                "qwen3-1.7b", "xlstm-125m")]
+         + [train_case_spec(a, "2x2") for a in (
+             "deepseek-v3-671b", "seamless-m4t-large-v2", "internvl2-26b")]
+         + [train_case_spec("llama3.2-3b", "4", changes=TWO_HEADS,
+                            name="llama3.2-3b 2 heads 4")])
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -160,20 +173,13 @@ def both(reference, port):
     return W.reference_results(reference), port["ranks"]
 
 
-# ---- refusals ---------------------------------------------------------------------
-@pytest.mark.parametrize("arch,feature", [
-    ("deepseek-v3-671b", "multi-head latent attention (MLA)"),
-    ("deepseek-v3-671b", "multi-token prediction (MTP)"),
-    ("seamless-m4t-large-v2", "encoder-decoder"),
-    ("internvl2-26b", "patch embeddings")])
-def test_refused_feature_raises_with_its_name(arch, feature):
-    """Before anything is allocated: the rules need only a mesh's sizes."""
+# ---- every arch on a mesh --------------------------------------------------------
+@pytest.mark.parametrize("arch", ARCHS)
+def test_make_rctx_takes_every_arch_on_a_mesh(arch):
+    """No feature is refused on a mesh: the context needs only its sizes."""
     cfg = get_config(arch).smoke()
     mesh = MeshShape((2, 2), ("data", "model"))
-    with pytest.raises(NotImplementedError, match=re.escape(feature)):
-        make_rctx(cfg, mesh, train=True, seq_len=32)
-    with pytest.raises(NotImplementedError, match=re.escape(feature)):
-        make_train_step(cfg, RunCtx(remat="full", mesh=mesh), TrainConfig())
+    assert make_rctx(cfg, mesh, train=True, seq_len=32).mesh is mesh
     assert make_rctx(cfg, None, train=True, seq_len=32).mesh is None
 
 
