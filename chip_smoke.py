@@ -218,6 +218,26 @@ prints its seconds):
    #5 launches, the ``combine_partials`` time). (c) ``launch/dryrun.py``'s
    cells on this torch, and the roofline's memory and model flops for
    phase 15 (c)'s step beside its measured peak.
+19. ZeRO-3 parameters (``fsdp``) and the wide data-parallel batch
+   (``wide_dp``) (``tools/fsdp_phase.py``; gloo between ranks that share
+   the card). (a) World 4, mesh ``2x2``, fp32 smoke configs, one AdamW
+   step each: llama3.2-3b, jamba and deepseek-v3 with the parameters and
+   AdamW's state at ``param_specs(..., fsdp=True)``'s slices, against the
+   card's world-1 step (llama) or the CPU's world-4 step (the
+   expert-parallel archs) at phase 15's limits, every leaf still at its
+   local shape after the step, #5/#6/#7 twice a layer a rank; xlstm-125m
+   with a row a rank on ``("data", "model")`` against world 1; llama and
+   jamba under ``fsdp``: prefill + 8 greedy decode steps with the world-1
+   card's tokens. (b) Full-width llama3.2-3b (bf16) at mesh ``2x1`` under
+   ``fsdp``, phase 15's weights and batch, a row a rank, each rank capped
+   at half the card: three steps, the first loss within 1e-2 of phase
+   15's, #5 56 launches a step a rank; step time, tokens/s, each rank's
+   peak beside a ZeRO-1 step's (or its out-of-memory error), the
+   all-gather and reduce-scatter time a step. (c) The dry run with
+   ``--fsdp`` for deepseek-v3 ``train_4k`` at 16x16: the traced peak and
+   ``analytic_memory_bytes`` beside the figures without it. The dry runs
+   of phases 18 (c) and 19 (c) need only the host: each runs in a process
+   of its own from phase 16 on, beside the phases that use the card.
 
 The traces are summarised in one pass over the profiler's raw events;
 each also lists the device time and count of every port kernel in it (the
@@ -230,6 +250,7 @@ to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import asyncio
+import atexit
 import contextlib
 import gc
 import json
@@ -2731,7 +2752,7 @@ def main() -> int:
                "mamba_scan": ms_kernel.mamba_scan}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ph = Phases(17)
+    ph = Phases(20)
 
     ph.start("device")
     dev = device_line()
@@ -2952,8 +2973,20 @@ def main() -> int:
         by_path[name]["smoke training (forward + recompute)"] = \
             smoke_train[name]
 
-    ph.start("sharded paged serving over 1-4 ranks on the card")
+    # the dry runs of phases 18 (c) and 19 (c) need only the host: each
+    # runs in a process of its own from here on, beside the card's phases
     sys.path.insert(0, str(ROOT / "tools"))
+    import fsdp_phase
+    import mesh_all_phase
+    phase15 = {"peak_mem_gb": full_train["peak_mem_gb"],
+               "flops": 6.0 * full_train["params_b"] * 1e9 * FULL_B * FULL_S}
+    dry18 = mesh_all_phase.start_dryrun(dev, phase15)
+    dry19 = fsdp_phase.start_dryrun(dev)
+    for proc, _ in (dry18, dry19):
+        atexit.register(lambda p=proc: p.poll() is None and (p.kill(),
+                                                             p.wait()))
+
+    ph.start("sharded paged serving over 1-4 ranks on the card")
     import sharded_phase
     sharded, sharded_launches = sharded_phase.sharded_phase(
         torch, phase5_round_ms=serving[0]["round_ms"], device_line=dev)
@@ -2970,12 +3003,19 @@ def main() -> int:
         by_path[name].update(counts)
 
     ph.start("every arch on a mesh, and the dry run")
-    import mesh_all_phase
     mesh_all, ma_launches = mesh_all_phase.mesh_all_phase(
-        torch, phase15=dict(full_train, flops=6.0 * full_train["params_b"]
-                            * 1e9 * FULL_B * FULL_S), device_line=dev)
+        torch, phase15=phase15, device_line=dev, dryrun=dry18)
     serving.append({"mesh_all": mesh_all})
     for name, counts in ma_launches.items():
+        by_path[name].update(counts)
+
+    ph.start("ZeRO-3 parameters and the wide batch, and the dry run with "
+             "them")
+    fsdp, fs_launches = fsdp_phase.fsdp_phase(
+        torch, phase15_loss=full_train["losses"][0],
+        phase18=mesh_all["dryrun"], device_line=dev, dryrun=dry19)
+    serving.append({"fsdp": fsdp})
+    for name, counts in fs_launches.items():
         by_path[name].update(counts)
     ph.stop()
 

@@ -26,6 +26,31 @@ from repro_torch.analysis import roofline as rl
 from repro_torch.configs import get_config
 
 
+def _probe_fsdp(cfg, mesh, fsdp: bool):
+    """The probes' ZeRO-3 placement: the full model's (``fsdp_dims``), so
+    that a probe's stacked leaf is not sliced along a repetition dim that
+    the full model's is not (a leaf whose only free dim is its stack of 2
+    would be at R = 2, and not at R = 1 or at an odd R). A leaf that the
+    full model slices along its repetitions is left whole in both probes
+    (R = 1 cannot be sliced): its one gather of the whole leaf a step is
+    then missing from the estimate. False without ``fsdp``."""
+    if not fsdp:
+        return False
+    from repro_torch.launch.sharding import fsdp_dims
+    from repro_torch.params import init_params
+    dims = fsdp_dims(cfg, init_params(cfg, device="meta"), mesh)
+
+    def walk(d, stacked):
+        if isinstance(d, dict):
+            return {k: walk(v, stacked or k in ("stacks", "block"))
+                    for k, v in d.items()}
+        if isinstance(d, list):
+            return [walk(v, stacked) for v in d]
+        return None if stacked and d == 0 else d
+
+    return walk(dims, False)
+
+
 def _probe_cfg(cfg, reps: int):
     """A config with ``reps`` repetitions of the main-stack period."""
     layers = cfg.first_k_dense + cfg.period * reps
@@ -35,7 +60,7 @@ def _probe_cfg(cfg, reps: int):
     return dataclasses.replace(cfg, **changes)
 
 
-def _probe_cost(arch: str, shape_name: str, mesh, cfg, fsdp: bool,
+def _probe_cost(arch: str, shape_name: str, mesh, cfg, fsdp,
                 wide_dp: bool = False, device=None) -> Dict:
     """One traced probe (call under a ``FakeTensorMode``)."""
     from repro_torch.launch import steps
@@ -53,9 +78,10 @@ def extrapolated_cost(arch: str, shape_name: str, mesh, fsdp: bool = False,
     call under a ``FakeTensorMode``."""
     cfg = cfg or get_config(arch)
     main_reps = cfg.num_pattern_reps
-    c1 = _probe_cost(arch, shape_name, mesh, _probe_cfg(cfg, 1), fsdp,
+    dims = _probe_fsdp(cfg, mesh, fsdp)
+    c1 = _probe_cost(arch, shape_name, mesh, _probe_cfg(cfg, 1), dims,
                      wide_dp, device)
-    c2 = _probe_cost(arch, shape_name, mesh, _probe_cfg(cfg, 2), fsdp,
+    c2 = _probe_cost(arch, shape_name, mesh, _probe_cfg(cfg, 2), dims,
                      wide_dp, device)
     out = {}
     for k in ("flops", "bytes", "coll"):

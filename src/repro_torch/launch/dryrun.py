@@ -117,7 +117,10 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
              fsdp: bool = False):
     """One cell's row. ``roofline`` is the reference's flag to unroll the
     layer scans for exact counts: the port's trace runs every repetition
-    anyway, so it changes nothing."""
+    anyway, so it changes nothing. ``fsdp``: the parameters and the
+    optimizer state at ZeRO-3 slices (``build_cell``), each leaf gathered
+    over the DP axes at use in the traced program (its all-gathers, and a
+    train step's reduce-scatters, among the collectives)."""
     mesh_name = "2x16x16" if multi_pod else "16x16"
     skip = cell_skip_reason(arch, SHAPES[shape_name])
     if skip:
@@ -182,7 +185,8 @@ def main(argv=None) -> int:
                          "counts every repetition anyway)")
     ap.add_argument("--fsdp", action="store_true",
                     help="ZeRO-3 parameter sharding over the DP axes "
-                         "(not ported: the cell fails)")
+                         "(gathered a layer at a time: the all-gathers "
+                         "count as collectives)")
     ap.add_argument("--out", default=None, help="append CSV rows here")
     args = ap.parse_args(argv)
 

@@ -134,6 +134,82 @@ def param_specs(cfg: ModelConfig, params_shape: Any, mesh,
     return _map_with_path(one, params_shape)
 
 
+def fsdp_dims(cfg: ModelConfig, params_shape: Any, mesh) -> Any:
+    """Per parameter leaf, the dim that ``param_specs(..., fsdp=True)``
+    shards over the DP axes beyond ``param_specs(...)`` (ZeRO-3: the
+    model gathers it over those axes at use), or None where it found none;
+    a tree shaped like the parameters. All None on a mesh without a DP
+    axis (nothing to shard over; the reference's ``zero_shard`` raises
+    there)."""
+    if not dp_axes(mesh):
+        return tree_map(lambda _: None, params_shape)
+    plain = param_specs(cfg, params_shape, mesh)
+    full = param_specs(cfg, params_shape, mesh, fsdp=True)
+
+    def one(a: Spec, b: Spec):
+        dims = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+        return dims[0] if dims else None
+
+    return tree_map(one, plain, full)
+
+
+def fsdp_of(cfg: ModelConfig, fsdp, mesh, params_shape: Any = None) -> Any:
+    """The :func:`fsdp_dims` tree that an ``fsdp`` argument names: None
+    for False (or None), the parameters' own dims for True (of
+    ``params_shape``, the config's shapes on the meta device when None),
+    else ``fsdp`` itself, a tree of dims."""
+    if fsdp is True:
+        if params_shape is None:
+            from repro_torch.params import init_params
+            params_shape = init_params(cfg, device="meta")
+        return fsdp_dims(cfg, params_shape, mesh)
+    return fsdp or None
+
+
+def with_fsdp(specs: Any, dims: Any, mesh) -> Any:
+    """``param_specs``' specs with each leaf's FSDP dim of ``dims`` (a
+    :func:`fsdp_dims` tree) on the DP axes: ``param_specs(...,
+    fsdp=True)`` when ``dims`` are the same parameters' own."""
+    dp = dp_axes(mesh)
+    entry = dp if len(dp) > 1 else dp[0] if dp else None
+
+    def one(spec: Spec, d):
+        if d is None:
+            return spec
+        parts = list(spec)
+        parts[d] = entry
+        return Spec(*parts)
+
+    return tree_map(one, specs, dims)
+
+
+def batch_axes(mesh, B: int, wide_dp: bool = False) -> Tuple[str, ...]:
+    """The mesh axes that a global batch of ``B`` rows lies on, as the
+    reference's ``build_cell`` places it: the DP axes where their size
+    divides ``B`` (else none: every rank holds the whole batch), and with
+    ``wide_dp`` the DP axes and ``model`` where their product divides
+    ``B`` (every rank its own rows)."""
+    dp = dp_axes(mesh)
+    sizes = axis_sizes(mesh)
+    if wide_dp and "model" in sizes and B % (dp_size(mesh)
+                                              * sizes["model"]) == 0:
+        return dp + ("model",)
+    return dp if B % dp_size(mesh) == 0 else ()
+
+
+def blocks_replicated(cfg: ModelConfig, params_shape: Any, mesh) -> bool:
+    """Whether ``param_specs`` leaves every leaf but the vocab-parallel
+    embedding and LM head whole on the ``model`` axis (xlstm-125m): a wide
+    batch's rows then run on each rank as its own."""
+    for path, spec in leaves_with_paths(param_specs(cfg, params_shape,
+                                                    mesh)):
+        if path in ("['embed']", "['lm_head']"):
+            continue
+        if any("model" in _entry_axes(e) for e in spec):
+            return False
+    return True
+
+
 def _validated(spec: Spec, shape, mesh) -> Spec:
     """Drop shardings that do not divide evenly (avoid padded-shard blowup)."""
     sizes = axis_sizes(mesh)

@@ -16,20 +16,24 @@ of the inputs the step updates in place (the reference's donation):
 * ``prefill_32k`` -> prefill_step(params, tokens, cache, extras)
 * ``decode_32k`` / ``long_500k`` -> serve_step(params, cache, tokens, pos)
 
-``fsdp`` (ZeRO-3 parameters) and ``wide_dp`` (the batch over the model
-axis too) are the reference's options that the port's train step does not
-compute: they raise.
+``fsdp`` (ZeRO-3: the parameters at ``param_specs(..., fsdp=True)``'s
+slices, gathered over the data-parallel axes at use) and ``wide_dp`` (the
+batch over the model axis too) are the reference's options. The
+reference gets both from GSPMD's resharding; the port has explicit
+collectives (``models/model.py`` ``RunCtx.fsdp``,
+``train/train_step.TrainLayout``).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Optional, Tuple
 
 import torch
 
 from repro_torch.configs import cell_skip_reason, get_config
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeSpec
-from repro_torch.launch.mesh import dp_axes, dp_size
+from repro_torch.launch.mesh import axis_sizes, dp_axes, dp_size
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.model import RunCtx
 
@@ -46,19 +50,24 @@ class Cell:
 
 
 def make_rctx(cfg: ModelConfig, mesh: Optional[Any], *, train: bool,
-              seq_len: int) -> RunCtx:
+              seq_len: int, fsdp: Any = False) -> RunCtx:
     """The reference's choices, plus ``RunCtx.mesh``: the mesh whose shards
     the step's parameters are (the reference's GSPMD needs no such field;
     the reference's ``block_q``/``block_k``/``mlstm_block`` are XLA tiling
-    controls, which the port's kernels choose themselves)."""
+    controls, which the port's kernels choose themselves). ``fsdp``: True
+    for the parameters at ZeRO-3 slices (``RunCtx.fsdp`` from
+    ``launch/sharding.fsdp_dims``), or such a tree of dims itself."""
     moe_ctx = moe_mod.MoEContext(
         impl="ep" if (mesh is not None and cfg.num_experts) else "dense",
         mesh=mesh,
         dp_axes=dp_axes(mesh) if mesh is not None else (),
         tp_axis="model",
     )
+    from repro_torch.launch.sharding import fsdp_of
+    dims = fsdp_of(cfg, fsdp, mesh)
     return RunCtx(moe=moe_ctx, remat="full" if train else "none",
-                  loss_vocab_blocks=16, mesh=mesh)
+                  loss_vocab_blocks=16, mesh=mesh, fsdp=dims,
+                  dp_axes=dp_axes(mesh) if dims is not None else ())
 
 
 def _enc_len(cfg: ModelConfig, shape: ShapeSpec) -> int:
@@ -76,38 +85,59 @@ def _dec_len(cfg: ModelConfig, shape: ShapeSpec) -> int:
 
 
 def build_cell(arch: str, shape_name: str, mesh, check_skip: bool = True,
-               fsdp: bool = False, cfg_override: Optional[ModelConfig] = None,
+               fsdp: Any = False, cfg_override: Optional[ModelConfig] = None,
                wide_dp: bool = False, device=None) -> Optional[Cell]:
     """The cell of ``arch`` x ``shape_name`` on ``mesh`` (a ``DeviceMesh``:
     the step's collectives run over its groups), its inputs this rank's
     stand-ins on ``device`` (call it under a ``FakeTensorMode``); None for
     a cell the assignment skips. The batch rule, the grad accumulation (4
     micro-batches where ``B // n_dp >= 4``), the cache lengths and
-    ``reps_for_roofline`` are the reference's."""
+    ``reps_for_roofline`` are the reference's.
+
+    ``fsdp``: the parameters (and the optimizer state) at ZeRO-3 slices,
+    which the step gathers a repetition at a time; True for
+    ``param_specs(..., fsdp=True)``'s, or a ``fsdp_dims`` tree (the
+    extrapolation's probes take the full model's). ``wide_dp``: where the
+    data-parallel axes and ``model`` divide the global batch, its rows lie
+    on all of them (and ``grad_accum`` is 1), as in the reference. Where
+    the blocks are whole on ``model`` (xlstm-125m) each rank trains on
+    its own rows; otherwise, and in the prefill and decode cells (whose
+    caches keep the reference's ``cache_specs``, the batch on the
+    data-parallel axes), the step gathers the rows over ``model`` at its
+    entry and then computes what the data-parallel cell computes, as
+    GSPMD's resharding does in the reference."""
+    from repro_torch.kernels import shard_utils as su
     from repro_torch.launch import sharding as shd
     from repro_torch.models.model import (build_stacks, check_cache_layout,
                                           decode_step, init_cache, prefill)
     from repro_torch.params import init_params
-    if fsdp or wide_dp:
-        raise NotImplementedError(
-            f"{'fsdp' if fsdp else 'wide_dp'}: the port's train step takes "
-            f"the parameters as tensor-parallel shards and the batch over "
-            f"the data-parallel axes only")
     cfg = cfg_override or get_config(arch)
     shape = SHAPES[shape_name]
     if check_skip and cell_skip_reason(arch, shape):
         return None
     train = shape.kind == "train"
-    rctx = make_rctx(cfg, mesh, train=train, seq_len=shape.seq_len)
-
     params_shape = init_params(cfg, device="meta")
+    dims = shd.fsdp_of(cfg, fsdp, mesh, params_shape)
+    rctx = make_rctx(cfg, mesh, train=train, seq_len=shape.seq_len,
+                     fsdp=dims)
+
     pspecs = shd.param_specs(cfg, params_shape, mesh)
+    if dims is not None:
+        pspecs = shd.with_fsdp(pspecs, dims, mesh)
     params_in = shd.shardings_of(params_shape, pspecs, mesh, device)
     n_dp = dp_size(mesh)
     reps = sum(r for _, r in build_stacks(cfg))
 
     B = shape.global_batch
-    b_loc = B // n_dp if B % n_dp == 0 else B     # the reference's bspec
+    rows = shd.batch_axes(mesh, B, wide_dp)       # the reference's bspec
+    wide = "model" in rows
+    b_loc = B // math.prod(axis_sizes(mesh)[a] for a in rows)
+    tp = su.mesh_axis(mesh, "model")
+
+    def entry(batch):
+        """The rows of a wide batch gathered over ``model``."""
+        return {k: su.all_gather(v, 0, tp) for k, v in batch.items()} \
+            if wide and tp is not None else batch
 
     def frontend_inputs():
         """Modality-frontend stubs (input_specs provides embeddings)."""
@@ -132,9 +162,9 @@ def build_cell(arch: str, shape_name: str, mesh, check_skip: bool = True,
                                                   make_train_step)
         # Microbatching: 4 gradient-accumulation steps bound activation
         # memory (saved layer inputs scale with the microbatch).
-        accum = 4 if B // n_dp >= 4 else 1
+        accum = 4 if B // n_dp >= 4 and not wide else 1
         tcfg = TrainConfig(optimizer=AdamWConfig(), grad_accum=accum)
-        layout = TrainLayout(cfg, mesh)
+        layout = TrainLayout(cfg, mesh, fsdp=dims, wide_dp=wide)
         inner_step = make_train_step(cfg, rctx, tcfg, layout)
 
         def train_step(params, opt_state, batch):
@@ -158,7 +188,9 @@ def build_cell(arch: str, shape_name: str, mesh, check_skip: bool = True,
 
     if shape.kind == "prefill":
         def prefill_step(params, tokens, cache, extras):
-            return prefill(cfg, params, tokens, cache, rctx=rctx, **extras)
+            got = entry({"tokens": tokens, **extras})
+            tokens = got.pop("tokens")
+            return prefill(cfg, params, tokens, cache, rctx=rctx, **got)
 
         dec_prompt = 1 if cfg.enc_dec else shape.seq_len
         return Cell(arch, shape, prefill_step,
@@ -170,6 +202,7 @@ def build_cell(arch: str, shape_name: str, mesh, check_skip: bool = True,
     seq = shape.seq_len
 
     def serve_step(params, cache, tokens, pos):
+        tokens = entry({"tokens": tokens})["tokens"]
         return decode_step(cfg, params, tokens, cache, pos, rctx=rctx)
 
     # room for the new token, rounded so the seq dim stays shardable

@@ -150,13 +150,24 @@ class RunCtx:
     keeps the field for serving). ``None`` is the exact single-device
     dispatch. The reference's ``block_q``/``block_k``/``mlstm_block``/
     ``unroll_layers`` are XLA tiling controls (the kernels here pick their
-    own tiles)."""
+    own tiles).
+
+    ``fsdp`` (ZeRO-3; a tree shaped like the parameters, from
+    ``launch/sharding.fsdp_dims``) names each leaf's dim that is sliced
+    over the data-parallel axes ``dp_axes``: the leaf is gathered over
+    them at use (``_gathered_outer``, and per repetition in
+    ``_apply_stack``). ``vocab_whole``: the vocab-parallel embedding and
+    LM head are gathered whole over the model axis at use, for a wide
+    batch whose rows differ between the model axis's ranks."""
 
     moe: M.MoEContext = dataclasses.field(default_factory=M.MoEContext)
     remat: str = "none"          # none | dots | full
     loss_vocab_blocks: int = 8
     mesh: Any = None
     shard_axis: str = "model"
+    fsdp: Any = None
+    dp_axes: tuple = ()
+    vocab_whole: bool = False
 
 
 def _tp_of(rctx: Optional[RunCtx], local: int, full: int):
@@ -862,6 +873,90 @@ def _reps(tree, reps: int) -> list:
     return list(torch.unbind(tree, 0))
 
 
+# ---- ZeRO-3: parameters gathered at use ----------------------------------------
+def _dp_of(rctx: Optional[RunCtx]):
+    """The data-parallel axis that FSDP slices lie on, or None."""
+    if rctx is None or rctx.fsdp is None:
+        return None
+    return su.mesh_axis(rctx.mesh, rctx.dp_axes)
+
+
+def _dims_at(rctx: Optional[RunCtx], *path):
+    """The part of ``rctx.fsdp`` at ``path`` (None without FSDP)."""
+    d = rctx.fsdp if rctx is not None else None
+    for k in path:
+        if d is None:
+            return None
+        d = d[k]
+    return d
+
+
+def _gather(x, dim, ax):
+    """Leaf ``x`` whole along its FSDP ``dim`` over ``ax``: all-gather
+    forward, reduce-scatter backward (each data-parallel rank's gradient
+    of the gathered weight comes from its own rows, so the ranks' parts
+    are summed into each one's slice)."""
+    return x if dim is None or ax is None else su.gather_to_own(x, dim, ax)
+
+
+def _map_pair(fn, p, d):
+    """``fn(leaf, dim) -> (leaf', dim')`` over a dict tree ``p`` and its
+    dims ``d`` (None: none for any leaf); returns the two new trees."""
+    if isinstance(p, dict):
+        out = {k: _map_pair(fn, v, None if d is None else d[k])
+               for k, v in p.items()}
+        return ({k: v[0] for k, v in out.items()},
+                {k: v[1] for k, v in out.items()})
+    return fn(p, d)
+
+
+def _gathered_outer(cfg, params, rctx: Optional[RunCtx]):
+    """(params, rctx) with the leaves outside the stacks (the embedding,
+    the LM head, the final norms, the MTP module's projection and norm)
+    gathered whole over the data-parallel axes where ``rctx.fsdp`` slices
+    them, and over the model axis where ``rctx.vocab_whole`` asks for the
+    embedding and LM head whole; the returned context's dims for them are
+    None (a second call gathers nothing). The stacks stay sliced: they are
+    gathered a repetition at a time (:func:`_apply_stack`)."""
+    if rctx is None or (rctx.fsdp is None and not rctx.vocab_whole):
+        return params, rctx
+    ax = _dp_of(rctx)
+    params, dims = _map_pair(
+        lambda p, d: (p, d) if isinstance(p, list)     # a stack
+        else (_gather(p, d, ax), None), params, rctx.fsdp)
+    if rctx.vocab_whole:
+        params = dict(params)
+        for k, dim in (("embed", 0), ("lm_head", 1)):
+            if k in params:
+                w = params[k]
+                tp = _tp_of(rctx, w.shape[dim], cfg.vocab_size)
+                params[k] = su.gather_to_own(w, dim, tp) if tp else w
+    return params, dataclasses.replace(
+        rctx, fsdp=dims if rctx.fsdp is not None else None,
+        vocab_whole=False)
+
+
+def _gathered_stack(stack_params, dims, ax):
+    """A stack's slots with the leaves that FSDP slices along their
+    repetitions gathered whole (a rank then holds fewer repetitions than
+    the stack has), and the per-repetition dims of the others (the leaf's
+    dim less the stack's)."""
+    def one(p, d):
+        if d == 0:
+            return _gather(p, 0, ax), None
+        return p, None if d is None else d - 1
+
+    pairs = [_map_pair(one, p, d) for p, d in zip(stack_params, dims)]
+    return [p for p, _ in pairs], [d for _, d in pairs]
+
+
+def _gathered_slot(slot, dims, ax):
+    """One repetition's slot with every FSDP-sliced leaf gathered."""
+    if isinstance(slot, dict):
+        return {k: _gathered_slot(v, dims[k], ax) for k, v in slot.items()}
+    return _gather(slot, dims, ax)
+
+
 def _embed(cfg, params, tokens, extra_embeds=None, rctx=None):
     """Token embeddings (scaled by sqrt(d) where the config says so); with
     ``extra_embeds`` [B, P, d] on a config with patch tokens, those replace
@@ -914,20 +1009,30 @@ def _apply_slot(cfg, slot, mixer, x, state, enc_out, *, mode, pos,
 
 
 def _apply_stack(cfg, stack_params, period, reps, x, cache, enc_out, *,
-                 mode, pos, lengths, paged=None, rows=None, rctx=None):
+                 mode, pos, lengths, paged=None, rows=None, rctx=None,
+                 dims=None):
     """The stack's repetitions in order (the reference's ``lax.scan``), one
     repetition of the period under ``rctx``'s rematerialization (the
     reference's scan body). ``cache`` is None for the encoder and in
-    training. Returns (x, the summed aux loss: summed in "train" only, the
-    number 0 in serving, which adds no kernel for it)."""
+    training. ``dims``: the stack's part of ``rctx.fsdp``; each
+    repetition's sliced leaves are gathered inside the rematerialized
+    body, so that under remat "full" the backward gathers them again
+    instead of keeping whole weights. Returns (x, the summed aux loss:
+    summed in "train" only, the number 0 in serving, which adds no kernel
+    for it)."""
     rctx = rctx or RunCtx()
+    ax = _dp_of(rctx) if dims is not None else None
+    if ax is not None:
+        stack_params, dims = _gathered_stack(stack_params, dims, ax)
 
     slots = [_reps(p, reps) for p in stack_params]
     states = [_reps(c, reps) for c in cache] if cache is not None else None
 
     def body(r, x, aux):
         for j, (mixer, _) in enumerate(period):
-            x, a = _apply_slot(cfg, slots[j][r], mixer, x,
+            slot = slots[j][r] if ax is None else _gathered_slot(
+                slots[j][r], dims[j], ax)
+            x, a = _apply_slot(cfg, slot, mixer, x,
                                None if states is None else states[j][r],
                                enc_out, mode=mode, pos=pos, lengths=lengths,
                                paged=paged, rows=rows, rctx=rctx)
@@ -946,11 +1051,13 @@ def _run_encoder(cfg, params, enc_embeds, rctx=None):
     RoPE at positions 0 .. S_enc-1 where the config uses it) and its own
     final norm. The frames are cast to the parameters' dtype (PyTorch does
     not promote a product of two dtypes as JAX does)."""
+    params, rctx = _gathered_outer(cfg, params, rctx)
     enc = params["encoder"]
     x = enc_embeds.to(enc["final_norm"].dtype)
     x, _ = _apply_stack(cfg, enc["stacks"][0], ((ATTN, DENSE),),
                         cfg.num_encoder_layers, x, None, None, mode="encode",
-                        pos=0, lengths=None, rctx=rctx)
+                        pos=0, lengths=None, rctx=rctx,
+                        dims=_dims_at(rctx, "encoder", "stacks", 0))
     return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
@@ -966,8 +1073,10 @@ def forward(cfg: ModelConfig, params, tokens, *, mode: str, cache=None,
     encoder first, whose output the decoder's cross attention reads.
     Returns (final-normed hidden [B, S, d], cache updated in place), or in
     "train" (hidden, the MoE layers' summed aux loss: an fp32 scalar
-    tensor, or the number 0 without MoE layers)."""
+    tensor, or the number 0 without MoE layers). Under ``rctx.fsdp`` the
+    parameters are this rank's slices, gathered at use."""
     check_supported(cfg)
+    params, rctx = _gathered_outer(cfg, params, rctx)
     train = mode == "train"
     enc_out = None
     if cfg.enc_dec and enc_embeds is not None:
@@ -978,7 +1087,7 @@ def forward(cfg: ModelConfig, params, tokens, *, mode: str, cache=None,
         x, a = _apply_stack(cfg, params["stacks"][i], period, reps, x,
                             None if train else cache[i], enc_out, mode=mode,
                             pos=pos, lengths=lengths, paged=paged, rows=rows,
-                            rctx=rctx)
+                            rctx=rctx, dims=_dims_at(rctx, "stacks", i))
         if train:
             aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -1044,6 +1153,7 @@ def loss_fn(cfg: ModelConfig, params, batch: dict, rctx: RunCtx):
     ``batch``: "tokens" [B, S] (+ "extra_embeds" / "enc_embeds"). The
     labels are the tokens rolled by one, the last position masked."""
     tokens = batch["tokens"]
+    params, rctx = _gathered_outer(cfg, params, rctx)
     x, aux = forward(cfg, params, tokens, mode="train", pos=0, rctx=rctx,
                      extra_embeds=batch.get("extra_embeds"),
                      enc_embeds=batch.get("enc_embeds"))
@@ -1113,7 +1223,7 @@ def _mtp_loss(cfg, params, hidden, tokens, rctx):
                   dim=-1) @ mtp["proj"]
     h, _ = _apply_stack(cfg, mtp["block"], ((cfg.layer_pattern[0], DENSE),),
                         1, h, None, None, mode="train", pos=0, lengths=None,
-                        rctx=rctx)
+                        rctx=rctx, dims=_dims_at(rctx, "mtp", "block"))
     labels2 = torch.roll(tokens, -2, dims=1)
     mask = torch.ones(labels2.shape, dtype=torch.float32, device=h.device)
     mask[:, -2:] = 0.0
@@ -1185,6 +1295,7 @@ def prefill(cfg: ModelConfig, params, tokens, cache, *, extra_embeds=None,
     ``rctx.mesh`` the parameters are this rank's shards, the cache its
     shards (``init_cache(..., mesh=)``) and the batch its data-parallel
     rows. Returns (the last position's logits [B, V], cache)."""
+    params, rctx = _gathered_outer(cfg, params, rctx)
     x, cache = forward(cfg, params, tokens, cache=cache, mode="prefill",
                        pos=0, extra_embeds=extra_embeds,
                        enc_embeds=enc_embeds, rctx=rctx)
@@ -1204,6 +1315,7 @@ def decode_step(cfg: ModelConfig, params, tokens, cache, pos, *,
     :func:`prefill`'s. Returns (logits [B, V], cache)."""
     if lengths is None:
         lengths = pos + 1
+    params, rctx = _gathered_outer(cfg, params, rctx)
     x, cache = forward(cfg, params, tokens, cache=cache, mode="decode",
                        pos=pos, lengths=lengths, rows=write_rows, rctx=rctx)
     return _head(cfg, params, x[:, -1], rctx), cache

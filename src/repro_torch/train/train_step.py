@@ -22,6 +22,23 @@ ZeRO slice where ``opt_state_specs`` cuts the leaf over them (else
 all-reduced); compression and AdamW work on the slices, and the new
 parameter shards are gathered over the data-parallel axes. The loss it
 reports is the mean over those axes.
+
+ZeRO-3 (``TrainLayout(..., fsdp=True)``, the reference's ``fsdp``): the
+parameters live at ``param_specs(..., fsdp=True)``'s slices, and the
+optimizer state at the same slices (``opt_state_specs`` adds nothing to
+a spec that has a data-parallel axis). The model gathers each slice at
+use (``RunCtx.fsdp``), and the gather's backward reduce-scatters the
+gradient: it arrives summed over the data-parallel axes at the rank's
+slice, so the step only divides it (a leaf that FSDP leaves whole is
+all-reduced as before), and AdamW updates the slices in place with
+nothing gathered after it. The wide batch (``wide_dp=True``, the
+reference's ``wide_dp``: the rows over the data-parallel axes and
+``model``): where the blocks are whole on the model axis (xlstm-125m)
+each rank computes its own rows, with the vocab-parallel embedding and
+head gathered whole over ``model`` (``RunCtx.vocab_whole``), and the
+gradients and the loss are averaged over both; otherwise the step
+gathers the rows over ``model`` at its entry and computes what the
+data-parallel batch computes.
 """
 from __future__ import annotations
 
@@ -53,14 +70,27 @@ class TrainLayout:
     the whole shapes, and per parameter leaf the dim its ZeRO slice cuts
     over the data-parallel axes (None where ``zero_shard`` found none).
     Built from the config alone (shapes on the meta device); ``mesh`` a
-    ``DeviceMesh``."""
+    ``DeviceMesh``. ``fsdp``: the parameters at ZeRO-3 slices, True for
+    ``param_specs(..., fsdp=True)``'s, or a ``fsdp_dims`` tree (the tree
+    ``RunCtx.fsdp`` takes). ``wide_dp``: the batch's rows lie on the
+    model axis too (the caller has checked that the axes divide it);
+    ``rows_own`` says whether each rank then computes its own rows (blocks
+    whole on the model axis), else ``gather_rows`` is the axis the step
+    gathers them over first."""
 
-    def __init__(self, cfg: ModelConfig, mesh):
+    def __init__(self, cfg: ModelConfig, mesh, fsdp=False,
+                 wide_dp: bool = False):
         from repro_torch.params import init_params
         self.mesh = mesh
         shapes = init_params(cfg, device="meta")
         self.shapes = [tuple(x.shape) for x in T.leaves(shapes)]
+        self.fsdp_dims = shd.fsdp_of(cfg, fsdp, mesh, shapes)
+        if self.fsdp_dims is not None and not dp_axes(mesh):
+            raise ValueError("fsdp slices the parameters over the "
+                             "data-parallel axes: the mesh has none")
         self.pspecs = shd.param_specs(cfg, shapes, mesh)
+        if self.fsdp_dims is not None:
+            self.pspecs = shd.with_fsdp(self.pspecs, self.fsdp_dims, mesh)
         opt = adamw_init(shapes)
         if dp_axes(mesh):
             self.ospecs = shd.opt_state_specs(cfg, opt, self.pspecs, mesh)
@@ -77,6 +107,27 @@ class TrainLayout:
             dims = [i for i, (a, b) in enumerate(zip(
                 tuple(os_), tuple(ps) + (None,) * len(os_))) if a != b]
             self.dp_dims.append(dims[0] if dims and self.dp else None)
+        # the leaves whose gradient the FSDP gather's backward has summed
+        # over the data-parallel axes already
+        self._fsdp_summed = [d is not None for d in T.flatten_up_to(
+            shapes, self.fsdp_dims)]
+        self.tp = su.mesh_axis(mesh, "model")
+        self.rows_own = wide_dp and shd.blocks_replicated(cfg, shapes, mesh)
+        self.gather_rows = self.tp if wide_dp and not self.rows_own \
+            else None
+        # rows on the model axis: the blocks' gradients are summed over it
+        # (the vocab-parallel leaves, gathered whole over it at use, have
+        # theirs summed by the gather's backward)
+        self._model_sum = [self.rows_own and self.tp is not None and not any(
+            "model" in shd._entry_axes(e) for e in ps) for ps in self._ps]
+        self.rows = su.mesh_axis(mesh, dp_axes(mesh) + (
+            ("model",) if self.rows_own else ()))
+
+    def rctx(self, rctx: RunCtx) -> RunCtx:
+        """``rctx`` with this layout's ZeRO-3 dims and row placement."""
+        return dataclasses.replace(
+            rctx, fsdp=self.fsdp_dims, dp_axes=dp_axes(self.mesh),
+            vocab_whole=self.rows_own)
 
     # ---- the tree's placement ------------------------------------------------
     def state_specs(self, state) -> dict:
@@ -100,21 +151,28 @@ class TrainLayout:
             p.copy_(su.all_gather(own, d, self.dp))
 
     def reduce_grads(self, grads) -> list:
-        """The mean over the data-parallel axes of each rank's gradient, at
-        the rank's ZeRO slice."""
+        """The mean over the batch's axes (the data-parallel ones, and the
+        model axis for a wide batch's own rows) of each rank's gradient, at
+        the rank's ZeRO slice. An FSDP slice's gradient comes summed over
+        the data-parallel axes already."""
         out = []
-        for g, d in zip(T.leaves(grads), self.dp_dims):
-            if self.dp is not None:
+        for g, d, fs, ms in zip(T.leaves(grads), self.dp_dims,
+                                self._fsdp_summed, self._model_sum):
+            if ms:
+                g = su.all_reduce(g, self.tp)
+            if self.dp is not None and not fs:
                 g = (su.all_reduce(g, self.dp) if d is None
                      else su.reduce_scatter(g, d, self.dp))
-                g = g / self.dp.size
+            if self.rows is not None:
+                g = g / self.rows.size
             out.append(g)
         return out
 
     def dp_mean(self, x: torch.Tensor) -> torch.Tensor:
-        if self.dp is None:
+        """The mean of ``x`` over the batch's axes."""
+        if self.rows is None:
             return x
-        return su.all_reduce(x, self.dp) / self.dp.size
+        return su.all_reduce(x, self.rows) / self.rows.size
 
     # ---- sums over the mesh ----------------------------------------------------
     def _holder(self, spec) -> bool:
@@ -183,6 +241,7 @@ def make_train_step(cfg: ModelConfig, rctx: RunCtx, train_cfg: TrainConfig,
     given)."""
     if rctx.mesh is not None:
         layout = layout or TrainLayout(cfg, rctx.mesh)
+        rctx = layout.rctx(rctx)
 
     def value_and_grad(params, batch):
         leaves = [p.requires_grad_() for p in T.leaves(params)]
@@ -215,6 +274,9 @@ def make_train_step(cfg: ModelConfig, rctx: RunCtx, train_cfg: TrainConfig,
         return loss_sum * inv, [a.mul_(inv) for a in acc]
 
     def train_step(params, state, batch):
+        if layout is not None and layout.gather_rows is not None:
+            batch = {k: su.all_gather(v, 0, layout.gather_rows)
+                     for k, v in batch.items()}
         loss, grads = compute_grads(params, batch)
         if layout is not None:
             grads = layout.reduce_grads(grads)

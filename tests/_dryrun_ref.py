@@ -4,8 +4,10 @@ JAX starts):
 
     python tests/_dryrun_ref.py OUT.json
 
-For each of the reference test's four cells, ``steps.build_cell`` on a
-mesh of host devices with Auto axes, and ``analytic_memory_bytes`` of its
+For each of the reference test's four cells, and for llama3.2-3b
+``decode_32k`` and xlstm-125m ``train_4k`` at ``2x4`` under ``fsdp`` and
+xlstm-125m ``train_4k`` under ``wide_dp``, ``steps.build_cell`` on a mesh
+of host devices with Auto axes, and ``analytic_memory_bytes`` of its
 inputs: ``eval_shape`` and shardings only, nothing is compiled (JAX 0.9
 fails to compile these cells on the CPU)."""
 import json
@@ -27,16 +29,20 @@ from repro.launch.steps import build_cell  # noqa: E402
 CELLS = [("llama3.2-3b", "decode_32k", "2x4"),
          ("qwen2-moe-a2.7b", "decode_32k", "2x4"),
          ("xlstm-125m", "train_4k", "2x4"),
-         ("gemma2-2b", "decode_32k", "2x2x4")]
+         ("gemma2-2b", "decode_32k", "2x2x4"),
+         ("llama3.2-3b", "decode_32k", "2x4 fsdp"),
+         ("xlstm-125m", "train_4k", "2x4 fsdp"),
+         ("xlstm-125m", "train_4k", "2x4 wide_dp")]
 
 
 def main(out_path):
     out = {}
     for arch, shape, spec in CELLS:
-        dims, axes = parse_mesh_spec(spec)
+        dims, axes = parse_mesh_spec(spec.split()[0])
         mesh = jax.make_mesh(dims, axes, axis_types=(AxisType.Auto,) * len(
             dims), devices=jax.devices()[:int(np.prod(dims))])
-        cell = build_cell(arch, shape, mesh)
+        option = {o: True for o in spec.split()[1:]}
+        cell = build_cell(arch, shape, mesh, **option)
         a = rl.analytic_memory_bytes(cell.inputs, cell.cfg, cell.shape,
                                      dp_size(mesh), accum=4)
         out[f"{arch} {shape} {spec}"] = a["args_bytes"]

@@ -96,8 +96,21 @@ def _rows(layout_dp, B):
     return slice(layout_dp.index * n, (layout_dp.index + 1) * n)
 
 
+def _case_rows(case, mesh):
+    """This rank's rows of the case's batch: over the data-parallel axes,
+    and over ``model`` too for a ``wide_dp`` case whose axes divide it
+    (``launch/sharding.batch_axes``)."""
+    from repro_torch.kernels import shard_utils as su
+    from repro_torch.launch import sharding as shd
+    axes = shd.batch_axes(mesh, case["B"], case.get("wide_dp", False))
+    return _rows(su.mesh_axis(mesh, axes), case["B"]) if axes \
+        else slice(None)
+
+
 def _setup(case, params_np):
-    """(cfg, mesh, rctx, layout, this rank's parameter shards)."""
+    """(cfg, mesh, rctx, layout, this rank's parameter shards); a case's
+    ``"fsdp"`` and ``"wide_dp"`` go to the layout (ZeRO-3 slices, the
+    wide batch)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import sharding as shd
     from repro_torch.launch.mesh import make_train_mesh
@@ -109,7 +122,10 @@ def _setup(case, params_np):
     rctx = dataclasses.replace(make_rctx(cfg, mesh, train=True,
                                          seq_len=case["S"]),
                                loss_vocab_blocks=LOSS_BLOCKS)
-    layout = TrainLayout(cfg, mesh)
+    wide = "model" in shd.batch_axes(mesh, case["B"],
+                                     case.get("wide_dp", False))
+    layout = TrainLayout(cfg, mesh, fsdp=case.get("fsdp", False),
+                         wide_dp=wide)
     params = shd.shard_tree(from_jax_numpy(cfg, params_np), layout.pspecs,
                             mesh)
     return cfg, mesh, rctx, layout, params
@@ -125,9 +141,10 @@ def _train_config(case):
 
 def train_case(case, params_np):
     """One train case on this rank: every step's loss, the first step's
-    gradient norm, the first moment after it (gathered, on rank 0), and
+    gradient norm, the first moment after it (gathered, on rank 0),
     whether this rank's m/v/master have ``opt_state_specs``' local
-    shapes."""
+    shapes before the steps, and whether its parameters and m/v/master
+    still have their local shapes after them."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch import sharding as shd
@@ -137,15 +154,20 @@ def train_case(case, params_np):
     tcfg = _train_config(case)
     state = init_train_state(cfg, params, tcfg, layout)
     step = make_train_step(cfg, rctx, tcfg, layout)
-    rows = _rows(layout.dp, case["B"])
+    rows = _case_rows(case, mesh)
     extra = {k: torch.from_numpy(np.ascontiguousarray(a[rows]))
              for k, a in frontend(case, cfg).items()}
-    out = {"loss": [], "shapes_ok": all(
-        x is None or tuple(x.shape) == shd.local_shape(full, spec, mesh)
-        for part in ("m", "v", "master")
-        for x, spec, full in zip(
-            T.flatten_up_to(params, state["opt"][part]),
-            T.flatten_up_to(params, layout.ospecs[part]), layout.shapes))}
+
+    def local_shapes_ok(with_params):
+        trees = [(T.flatten_up_to(params, state["opt"][part]),
+                  T.flatten_up_to(params, layout.ospecs[part]))
+                 for part in ("m", "v", "master")]
+        if with_params:
+            trees.append((T.leaves(params), T.leaves(layout.pspecs)))
+        return all(x is None or tuple(x.shape) == shd.local_shape(
+            full, spec, mesh) for xs, specs in trees
+            for x, spec, full in zip(xs, specs, layout.shapes))
+    out = {"loss": [], "shapes_ok": local_shapes_ok(False)}
     for i, toks in enumerate(batches(case, cfg.vocab_size)):
         batch = {"tokens": torch.from_numpy(np.ascontiguousarray(
             toks[rows])), **extra}
@@ -157,6 +179,7 @@ def train_case(case, params_np):
                                    mesh)
             if dist.get_rank() == 0:
                 out["m"] = _np(full)
+    out["shapes_after_ok"] = local_shapes_ok(True)
     return out
 
 
@@ -281,14 +304,17 @@ def reference_results(ref, timeout=900.0):
 
 
 def cases(rank, world, cases, params_path, ckpt=None):
-    """Every case of ``cases`` (``kind`` "train" or "moe") on this rank,
-    then, with ``ckpt`` (:func:`checkpoints`' keywords), the checkpoints
-    under "checkpoints"."""
+    """Every case of ``cases`` (``kind`` "train", "moe" or "slot": the slot
+    path's steps of ``_slot_sharded_ranks.slot_case``) on this rank, then,
+    with ``ckpt`` (:func:`checkpoints`' keywords), the checkpoints under
+    "checkpoints"."""
+    import _slot_sharded_ranks as R
     with open(params_path, "rb") as f:
         params = pickle.load(f)
-    out = {c["name"]: train_case(c, params[model_key(c)])
-           if c.get("kind", "train") == "train" else moe_case(c)
-           for c in cases}
+    run = {"train": lambda c: train_case(c, params[model_key(c)]),
+           "moe": moe_case,
+           "slot": lambda c: R.slot_case(c, params[model_key(c)])}
+    out = {c["name"]: run[c.get("kind", "train")](c) for c in cases}
     if ckpt is not None:
         out["checkpoints"] = checkpoints(params[CKPT_CASE["arch"]], **ckpt)
     return out

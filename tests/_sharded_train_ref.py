@@ -5,7 +5,8 @@ JAX starts):
 
     python tests/_sharded_train_ref.py CASES.json OUT.pkl
 
-``CASES.json`` is a list of cases. It first writes ``OUT.pkl.params``,
+``CASES.json`` is a list of cases ("slot" cases are skipped: they carry
+only the port's side). It first writes ``OUT.pkl.params``,
 ``{arch: init_params(smoke config, PRNGKey(0))}`` as numpy for the train
 cases' archs (the port's weights too). A "train" case (``{"name", "arch",
 "mesh", "B", "S", "grad_accum", "compress", "steps"}``) runs the smoke
@@ -14,7 +15,10 @@ config from those parameters through the reference's own
 block it), ``param_specs``, ``opt_state_specs`` and
 ``make_train_step``, the batch split over the data-parallel axes as
 ``steps.build_cell`` splits it; it gives every step's loss, the first
-step's gradient norm and the first moment after it, by key path. A "moe"
+step's gradient norm and the first moment after it, by key path. A case
+with ``"fsdp"`` places the parameters by ``param_specs(..., fsdp=True)``
+(ZeRO-3), one with ``"wide_dp"`` the batch on the data-parallel axes and
+``model``, as ``build_cell``'s ``fsdp``/``wide_dp`` do. A "moe"
 case (``{"name", "mesh", "S"}``) runs ``moe_ffn`` with
 ``MoEContext(impl="ep")`` on ``_sharded_train_ranks.moe_inputs(S)`` and
 gives y, aux and the gradients of sum(y^2) with respect to x and the
@@ -85,7 +89,8 @@ def train(case, params):
         return jax.device_put(tree, jax.tree.map(
             lambda s: NamedSharding(mesh, s), specs))
 
-    pspecs = shd.param_specs(cfg, jax.eval_shape(lambda: params), mesh)
+    pspecs = shd.param_specs(cfg, jax.eval_shape(lambda: params), mesh,
+                             fsdp=case.get("fsdp", False))
     params = put(params, pspecs)
     # the moments and masters ZeRO-sharded as build_cell shards them (the
     # reference's zero_shard needs a data-parallel axis: without one they
@@ -98,6 +103,9 @@ def train(case, params):
     dpa = dp_axes(mesh)
     bspec = (dpa if len(dpa) > 1 else dpa[0]) \
         if dpa and case["B"] % dp_size(mesh) == 0 else None
+    if case.get("wide_dp") and case["B"] % (dp_size(mesh)
+                                            * mesh.shape["model"]) == 0:
+        bspec = dpa + ("model",)
     # the step's outputs are put back on the inputs' shardings, so that
     # the second step reuses the first one's compilation
     placed = jax.tree.map(lambda x: x.sharding, (params, state))
@@ -152,9 +160,11 @@ def main():
             return train(c, params[W.model_key(c)])
         return moe(c)
     # two cases at a time: XLA's compilation, most of the time, runs
-    # outside the GIL (the results are those of one at a time)
+    # outside the GIL (the results are those of one at a time); "slot"
+    # cases are the port's alone (their reference runs in the test)
+    ours = [c for c in cases if c.get("kind", "train") != "slot"]
     with ThreadPoolExecutor(2) as ex:
-        res = dict(zip([c["name"] for c in cases], ex.map(run, cases)))
+        res = dict(zip([c["name"] for c in ours], ex.map(run, ours)))
     with open(out, "wb") as f:
         pickle.dump(res, f)
 

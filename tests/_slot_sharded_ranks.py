@@ -41,7 +41,9 @@ def decode_args(i):
 def slot_case(case, params_np):
     """The case on this rank: the logits of its batch rows after the
     prefill and after each decode step, the greedy tokens, and whether
-    every cache leaf has ``cache_specs``' local shape."""
+    every cache leaf has ``cache_specs``' local shape. A case with
+    ``"fsdp"`` holds the parameters at ``param_specs(..., fsdp=True)``'s
+    slices (ZeRO-3), gathered at use."""
     import torch
 
     from repro_torch.configs import get_config
@@ -54,14 +56,16 @@ def slot_case(case, params_np):
     from repro_torch.train import tree as T
     cfg = W.case_config(case, get_config)
     mesh = make_train_mesh(case["mesh"], device_type="cpu")
-    rctx = make_rctx(cfg, mesh, train=False, seq_len=MAX_LEN)
+    fsdp = case.get("fsdp", False)
+    rctx = make_rctx(cfg, mesh, train=False, seq_len=MAX_LEN, fsdp=fsdp)
     if cfg.num_experts:
         # a capacity that drops no token (cap >= T * top_k): the
         # single-device reference routes every token densely
         rctx = dataclasses.replace(rctx, moe=dataclasses.replace(
             rctx.moe, capacity_factor=float(TM._moe_pad(cfg))))
     full = from_jax_numpy(cfg, params_np)
-    params = shd.shard_tree(full, shd.param_specs(cfg, full, mesh), mesh)
+    params = shd.shard_tree(full, shd.param_specs(cfg, full, mesh,
+                                                  fsdp=fsdp), mesh)
     enc_len = ENC_LEN if cfg.enc_dec else 0
     cache = TM.init_cache(cfg, B, MAX_LEN, enc_len=enc_len, mesh=mesh)
     whole = TM.init_cache(cfg, B, MAX_LEN, device="meta", enc_len=enc_len)

@@ -16,12 +16,21 @@ devices with Auto axes, ``eval_shape`` and shardings only).
   row-parallel sums after attention and the MLP, the vocab-parallel
   embedding's sum (bf16 [64, 1, 3072] each), and the logits gathered over
   the model axis ([64, 128256] bf16).
+* ``fsdp`` (ZeRO-3) and ``wide_dp``: llama3.2-3b ``decode_32k`` at ``2x4``
+  under ``fsdp`` traces, its ``args_bytes`` the reference's, and its
+  collectives are that hand count plus one all-gather a leaf and layer
+  over the data axis (the leaf's tensor-parallel shard, from
+  ``param_specs``: the bytes of its result, the roofline's convention);
+  xlstm-125m ``train_4k``'s ``args_bytes`` under ``fsdp`` and under
+  ``wide_dp`` (the batch on ``("data", "model")``) are the reference's.
 * ``model_flops_estimate`` equals the reference's for every arch x shape.
 * ``extrapolated_cost`` equals the full trace's flops, bytes and
   collective bytes on a smoke llama of 3 repetitions (``decode_32k`` at
-  ``2x4``).
+  ``2x4``, and under ``fsdp``: the probes take the full model's
+  placement).
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -33,7 +42,9 @@ torch = pytest.importorskip("torch")
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(os.path.dirname(HERE), "src")
 CELLS = ["llama3.2-3b decode_32k 2x4", "qwen2-moe-a2.7b decode_32k 2x4",
-         "xlstm-125m train_4k 2x4", "gemma2-2b decode_32k 2x2x4"]
+         "xlstm-125m train_4k 2x4", "gemma2-2b decode_32k 2x2x4",
+         "llama3.2-3b decode_32k 2x4 fsdp"]
+BUILT = ["xlstm-125m train_4k 2x4 fsdp", "xlstm-125m train_4k 2x4 wide_dp"]
 
 
 def _start(script, out):
@@ -78,16 +89,60 @@ def test_reference_cells_trace(runs, cell):
     assert got["args_bytes"] == ref[cell]
 
 
+@pytest.mark.parametrize("cell", BUILT)
+def test_fsdp_and_wide_dp_cells_hold_the_reference_args(runs, cell):
+    port, ref = runs
+    assert port["cells"][cell]["args_bytes"] == ref[cell]
+
+
+def _hand_count(rows, d, V, layers):
+    """llama3.2-3b ``decode_32k``'s collectives at ``2x4``: (bytes by
+    kind, ops)."""
+    bf16 = 2
+    summed = (2 * layers + 1) * rows * d * bf16
+    return {"all-reduce": summed, "all-gather": rows * V * bf16}, \
+        2 * layers + 2
+
+
 def test_collectives_at_1x1_and_the_hand_count_at_2x4(runs):
     port, _ = runs
     assert port["cells"]["llama3.2-3b decode_32k 1x1"]["coll"] == 0
     got = port["cells"]["llama3.2-3b decode_32k 2x4"]
-    rows, d, V, layers = 128 // 2, 3072, 128256, 28
-    bf16 = 2
-    summed = (2 * layers + 1) * rows * d * bf16
-    assert got["coll_by_kind"] == {"all-reduce": summed,
-                                   "all-gather": rows * V * bf16}
-    assert got["coll_ops"] == 2 * layers + 2
+    by_kind, ops = _hand_count(128 // 2, 3072, 128256, 28)
+    assert got["coll_by_kind"] == by_kind
+    assert got["coll_ops"] == ops
+
+
+def test_fsdp_decode_adds_a_gather_a_leaf_and_layer(runs):
+    """Under ``fsdp`` every leaf that ``param_specs(..., fsdp=True)``
+    slices over the data axis is gathered at use: a stacked leaf once a
+    layer (its shard without the stack dim), the others once a step. Each
+    all-gather counts its result, the leaf's tensor-parallel shard."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.params import init_params
+    from repro_torch.train import tree as T
+    port, _ = runs
+    cfg = get_config("llama3.2-3b")
+    mesh = MeshShape((2, 4), ("data", "model"))
+    shapes = init_params(cfg, device="meta")
+    specs = shd.param_specs(cfg, shapes, mesh)
+    dims = T.flatten_up_to(shapes, shd.fsdp_dims(cfg, shapes, mesh))
+    gathered = gathers = 0
+    for (path, x), spec, d in zip(T.leaves_with_paths(shapes),
+                                  T.leaves(specs), dims):
+        if d is None:
+            continue
+        local = shd.local_shape(x.shape, spec, mesh)
+        gathered += math.prod(local) * x.element_size()
+        gathers += local[0] if path.startswith("['stacks']") else 1
+    assert gathers > cfg.num_layers        # every layer gathers
+    by_kind, ops = _hand_count(128 // 2, 3072, 128256, cfg.num_layers)
+    by_kind["all-gather"] += gathered
+    got = port["cells"]["llama3.2-3b decode_32k 2x4 fsdp"]
+    assert got["coll_by_kind"] == by_kind
+    assert got["coll_ops"] == ops + gathers
 
 
 def test_model_flops_estimate_matches_jax():
@@ -104,8 +159,9 @@ def test_model_flops_estimate_matches_jax():
                                                                      name)
 
 
-def test_extrapolated_cost_equals_the_full_trace(runs):
+@pytest.mark.parametrize("cell", ["decode_32k", "decode_32k fsdp"])
+def test_extrapolated_cost_equals_the_full_trace(runs, cell):
     port, _ = runs
-    got = port["extrapolated"]["decode_32k"]
+    got = port["extrapolated"][cell]
     assert got["reps"] == 3
     assert got["est"] == got["full"]

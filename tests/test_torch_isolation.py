@@ -121,7 +121,8 @@ def test_chip_smoke_imports_no_jax_and_no_reference_module():
     assert [n for n in names if _forbidden(n)] == []
 
 
-@pytest.mark.parametrize("tool", ["mesh_all_phase.py", "sharded_phase.py",
+@pytest.mark.parametrize("tool", ["fsdp_phase.py", "mesh_all_phase.py",
+                                  "sharded_phase.py",
                                   "train_sharded_phase.py"])
 def test_chip_tools_import_no_jax_and_no_reference_module(tool):
     names = _imported_modules(ROOT / "tools" / tool)

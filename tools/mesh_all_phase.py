@@ -36,14 +36,19 @@ copies CUDA tensors through the host. TF32 is off in every rank.
     and the roofline's ``analytic_memory_bytes`` and
     ``model_flops_estimate`` for phase 15 (c)'s step (llama3.2-3b, B 2 x
     S 2048, world 1) beside that phase's measured peak and 6 N tokens (when
-    run inside ``chip_smoke.py``). Printed, not gated.
+    run inside ``chip_smoke.py``). Printed, not gated. ``chip_smoke.py``
+    runs (c) in a process of its own (:func:`start_host_part`; the fake
+    process group is process-wide, and the dry run needs only the host)
+    from phase 16 on, beside the phases that use the card.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import math
 import os
+import subprocess
 import sys
 import tempfile
 import time
@@ -162,24 +167,25 @@ def train_step(torch, cfg, device, mesh, seed):
 
 
 # ---- (a) slot steps ----------------------------------------------------------
-def slot_run(torch, cfg, device, mesh, seed):
+def slot_run(torch, cfg, device, mesh, seed, fsdp=False):
     """``prefill`` of SLOT_B x SLOT_PROMPT tokens and SLOT_STEPS greedy
     ``decode_step``s (weights from seed 0 on the CPU, the cache this rank's
-    shards on ``mesh``). Returns this rank's rows' logits and tokens, its
-    kernel launches, and whether its cache leaves have ``cache_specs``'
-    local shapes."""
+    shards on ``mesh``; ``fsdp``: the parameters at ZeRO-3 slices, gathered
+    at use). Returns this rank's rows' logits and tokens, its kernel
+    launches, and whether its cache leaves have ``cache_specs``' local
+    shapes."""
     import numpy as np
     from repro_torch.launch import sharding as shd
     from repro_torch.launch.steps import make_rctx
     from repro_torch.models import model as TM
     from repro_torch.params import init_params
     from repro_torch.train import tree as T
-    rctx = _no_drop(make_rctx(cfg, mesh, train=False, seq_len=SLOT_LEN),
-                    cfg) if mesh is not None else None
+    rctx = _no_drop(make_rctx(cfg, mesh, train=False, seq_len=SLOT_LEN,
+                              fsdp=fsdp), cfg) if mesh is not None else None
     params = init_params(cfg, seed=0, device="cpu")
     if mesh is not None:
-        params = shd.shard_tree(params, shd.param_specs(cfg, params, mesh),
-                                mesh)
+        params = shd.shard_tree(params, shd.param_specs(cfg, params, mesh,
+                                                        fsdp=fsdp), mesh)
     params = T.tree_map(lambda x: x.to(device), params)
     enc = SLOT_ENC if cfg.enc_dec else 0
     cache = TM.init_cache(cfg, SLOT_B, SLOT_LEN, enc_len=enc, device=device,
@@ -617,9 +623,45 @@ def dryrun_part(device_line, phase15=None):
     return rows
 
 
-def mesh_all_phase(torch, phase15=None, device_line=None):
+def start_host_part(script, device_line, *args, env=None):
+    """``script --dry-run-only OUT --device-line LINE *args`` in a process
+    of its own: a dry run, which needs only the host. Returns (the
+    process, OUT)."""
+    fd, out = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    proc = subprocess.Popen([sys.executable, str(script), "--dry-run-only",
+                             out, "--device-line", device_line, *args],
+                            env=env)
+    return proc, out
+
+
+def finish_host_part(proc, out, what):
+    """The rows that a :func:`start_host_part` process wrote, once it has
+    ended; raises if it failed."""
+    try:
+        code = proc.wait(timeout=1200)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if code != 0:
+        raise RuntimeError(f"{what}: the dry run exited {code}")
+    with open(out) as f:
+        rows = json.load(f)
+    os.unlink(out)
+    return rows
+
+
+def start_dryrun(device_line, phase15=None):
+    """(c) in a process of its own (:func:`start_host_part`)."""
+    return start_host_part(Path(__file__).resolve(), device_line,
+                           "--phase15", json.dumps(phase15 or {}))
+
+
+def mesh_all_phase(torch, phase15=None, device_line=None, dryrun=None):
     """Phase 18 (see the module docstring). Returns its record and the
-    launches of its main paths by kernel."""
+    launches of its main paths by kernel. ``dryrun``: (c) already started
+    (:func:`start_dryrun`); its rows are read after (b)."""
     device_line = device_line or cs.device_line()
     cs.release(torch)
     t0 = time.perf_counter()
@@ -627,7 +669,8 @@ def mesh_all_phase(torch, phase15=None, device_line=None):
     t1 = time.perf_counter()
     b = full_part(torch, cs.DEVICE, device_line)
     t2 = time.perf_counter()
-    c = dryrun_part(device_line, phase15)
+    c = (dryrun_part(device_line, phase15) if dryrun is None
+         else finish_host_part(*dryrun, "phase 18 (c)"))
     rec = {"device": device_line, "world4": a, "full": b, "dryrun": c,
            "seconds": {"a": t1 - t0, "b": t2 - t1,
                        "c": time.perf_counter() - t2}}
@@ -652,6 +695,18 @@ def mesh_all_phase(torch, phase15=None, device_line=None):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dry-run-only", metavar="OUT",
+                    help="(c) alone, its rows as JSON into OUT")
+    ap.add_argument("--device-line", help="the card's name and power limit")
+    ap.add_argument("--phase15", default="{}",
+                    help="phase 15 (c)'s peak_mem_gb and flops, as JSON")
+    args = ap.parse_args()
+    if args.dry_run_only:
+        rows = dryrun_part(args.device_line, json.loads(args.phase15))
+        with open(args.dry_run_only, "w") as f:
+            json.dump(rows, f)
+        return 0
     import torch
     if not torch.cuda.is_available():
         print("mesh_all_phase: torch.cuda.is_available() is false",
