@@ -238,6 +238,22 @@ prints its seconds):
    ``analytic_memory_bytes`` beside the figures without it. The dry runs
    of phases 18 (c) and 19 (c) need only the host: each runs in a process
    of its own from phase 16 on, beside the phases that use the card.
+20. the port's serving examples (``tools/examples_phase.py``): (a) in
+   process at their smoke sizes (fp32), each under its example's checks
+   (the reference's assertions): ``examples/serve_streaming_torch.py``'s
+   streaming demo paged and slot, ``--shared-prefix``, ``--spec-k 4``
+   greedy and sampled, and ``examples/serve_slo_engine_torch.py``; the
+   demo, shared-prefix and greedy speculation streams equal the CPU's;
+   #1/#2 (#5 in slot mode) launch once a layer a dispatch. (b) The demo,
+   ``--shared-prefix`` and ``--spec-k 4`` at mesh ``2`` over two ranks
+   sharing the card (gloo): (a)'s streams, every check, each rank's
+   launches. (c) ``examples/router_smoke_torch.py`` as a subprocess,
+   beside (a) and (b): its five checks and exit code 0. (d) Full-width
+   llama3.2-3b (bf16, phase 5's seed-0 weights): the demo and the
+   shared-prefix scenario, with what bf16 leaves intact (one readback a
+   round, no leaked page, the cancelled stream aborted, prefix hits and
+   fewer prefill tokens computed) and the cache-on/off stream agreement
+   printed as a count.
 
 The traces are summarised in one pass over the profiler's raw events;
 each also lists the device time and count of every port kernel in it (the
@@ -3016,6 +3032,15 @@ def main() -> int:
         phase18=mesh_all["dryrun"], device_line=dev, dryrun=dry19)
     serving.append({"fsdp": fsdp})
     for name, counts in fs_launches.items():
+        by_path[name].update(counts)
+
+    ph.start("the serving examples: streaming, shared prefix, speculation, "
+             "a mesh, the router, the SLO engine driver")
+    import examples_phase
+    examples, ex_launches = examples_phase.examples_phase(torch,
+                                                          device_line=dev)
+    serving.append({"examples": examples})
+    for name, counts in ex_launches.items():
         by_path[name].update(counts)
     ph.stop()
 

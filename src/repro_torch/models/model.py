@@ -963,14 +963,16 @@ def _embed(cfg, params, tokens, extra_embeds=None, rctx=None):
     the first P positions (internvl2's image patches). An embedding of
     fewer rows than the vocabulary is this rank's block of it
     (vocab-parallel): tokens outside the block look up zeros, and the
-    lookups are summed over the model axis."""
+    lookups are summed over the model axis. An id past the vocabulary
+    reads its last row, as the reference's gather clamps it."""
     emb = params["embed"]
     tp = _tp_of(rctx, emb.shape[0], cfg.vocab_size)
+    ids = tokens.long().clamp(max=cfg.vocab_size - 1)
     if tp is None:
-        x = emb[tokens.long()]
+        x = emb[ids]
     else:
         V = emb.shape[0]
-        t = tokens.long() - tp.index * V
+        t = ids - tp.index * V
         own = (t >= 0) & (t < V)
         x = su.reduce_from(emb[t.clamp(0, V - 1)]
                            * own[..., None].to(emb.dtype), tp)

@@ -9,7 +9,11 @@
   MoE router) stay fp32. Large weights are drawn one matrix at a time (each
   expert of an MoE layer too), so the fp32 scratch stays one matrix. This
   is how the full-width model gets its weights on the card; the numbers
-  differ from JAX's for the same seed.
+  differ from JAX's for the same seed, and a card's generator draws
+  other numbers than the CPU's.
+* ``init_params_on_host(cfg, seed, device)`` draws them on the CPU and
+  moves them to ``device``: the same numbers on every device, so a smoke
+  run on the card serves the CPU's weights (the examples do).
 * ``from_jax_numpy(cfg, tree)`` carries the reference's ``init_params``
   pytree (or a cache: paged from ``init_paged_cache``, or slot from
   ``init_cache`` with its KV rows and recurrent state, possibly already
@@ -78,6 +82,13 @@ def from_jax_numpy(cfg: ModelConfig, tree, device="cpu"):
         _check_reps(cfg, [out["mtp"]["block"]],
                     [(((cfg.layer_pattern[0], DENSE),), 1)])
     return out
+
+
+def init_params_on_host(cfg: ModelConfig, seed: int = 0, device="cuda"):
+    """:func:`init_params` drawn by the CPU's generator, then moved to
+    ``device``: the same values on every device."""
+    from repro_torch.train.tree import tree_map
+    return tree_map(lambda x: x.to(device), init_params(cfg, seed, "cpu"))
 
 
 def _check_reps(cfg: ModelConfig, stacks, built) -> None:

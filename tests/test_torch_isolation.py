@@ -1,7 +1,8 @@
 """PyTorch port: neither it (the dry run and its analysis among its
-modules) nor ``chip_smoke.py`` and its multi-rank phase tools imports JAX
-or the JAX package, and its verbatim copies of the reference's pure-Python
-modules have not drifted."""
+modules) nor ``chip_smoke.py``, its multi-rank phase tools and the port's
+examples (``examples/*_torch.py``) imports JAX or the JAX package, and its
+verbatim copies of the reference's pure-Python modules have not
+drifted."""
 import ast
 import json
 import os
@@ -121,13 +122,35 @@ def test_chip_smoke_imports_no_jax_and_no_reference_module():
     assert [n for n in names if _forbidden(n)] == []
 
 
-@pytest.mark.parametrize("tool", ["fsdp_phase.py", "mesh_all_phase.py",
+@pytest.mark.parametrize("tool", ["examples_phase.py", "fsdp_phase.py",
+                                  "mesh_all_phase.py",
                                   "sharded_phase.py",
                                   "train_sharded_phase.py"])
 def test_chip_tools_import_no_jax_and_no_reference_module(tool):
     names = _imported_modules(ROOT / "tools" / tool)
     assert any(n.startswith("repro_torch") for n in names)
     assert [n for n in names if _forbidden(n)] == []
+
+
+@pytest.mark.parametrize("example", sorted(
+    p.name for p in (ROOT / "examples").glob("*_torch.py")))
+def test_examples_import_no_jax_and_no_reference_module(example):
+    """The port's examples import torch, numpy and the port only."""
+    names = _imported_modules(ROOT / "examples" / example)
+    assert any(n.startswith("repro_torch") for n in names)
+    assert [n for n in names if _forbidden(n)] == []
+
+
+def test_every_reference_example_it_ports_has_a_counterpart():
+    """Each reference example that serves or trains a model has a port
+    beside it (the two that run only the simulator and the cost model,
+    verbatim copies here, have none)."""
+    ported = {p.name[:-len("_torch.py")] + ".py"
+              for p in (ROOT / "examples").glob("*_torch.py")}
+    reference = {p.name for p in (ROOT / "examples").glob("*.py")
+                 if not p.name.endswith("_torch.py")}
+    assert reference - ported == {"quickstart.py", "cluster_simulation.py"}
+    assert ported <= reference
 
 
 @pytest.mark.parametrize("source,bad", [
