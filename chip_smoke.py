@@ -42,10 +42,14 @@ prints its seconds):
    case whose plan splits is also checked and timed at one split and
    checked again after the timing loops; decode also at G 8, G 12 (two
    head groups), head_dim 48 and gemma2-2b's heads (G 2, head_dim 256,
-   window 4096, softcap 50). bf16 prefill runs on the tensor cores;
-   each chunked case whose plan splits the keys (split-K) prints its split
-   count and is also checked and timed with one split, and three more
-   short deep chunks are split-K cases. The split-pool decode and
+   window 4096, softcap 50). bf16 prefill runs on the tensor cores
+   (wgmma fed by TMA); each paged and chunked prefill case prints its split
+   count and its time from CUDA events and from a profiler trace, and
+   records its kernel's registers, spills, shared memory and blocks an SM;
+   a case whose plan splits the keys (split-K) is also checked and timed
+   with one split (a paged case is checked again after its timing loops,
+   which would catch a split-merge ticket left set), and three more short
+   deep chunks are split-K cases. The split-pool decode and
    prefill kernels at llama3.2-3b shapes, each also against the fused
    kernel on the same keys (whether the two are bit-identical is printed;
    the split prefill must be, in bf16 and fp32: the bf16 pair shares its
@@ -476,22 +480,24 @@ def fixed_splits(module, plan, n):
         setattr(module, plan, saved)
 
 
-def decode_timings(cs, name, run, want, dn, splits, iters):
-    """A decode case's time a call with CUDA events around the wrapper
+def split_timings(cs, name, run, want, dn, splits, iters, module,
+                  mask=None):
+    """A split-K case's time a call with CUDA events around the wrapper
     calls (``ms``) and from a profiler trace (``device_ms``), the same at
-    one split when the plan splits the keys (checked first), and a check
-    after the timing loops (the split merge's tickets must be left zero)."""
+    one split when the plan splits the keys (checked first; the plan is
+    ``module.planned_splits``), and a check after the timing loops (a
+    split merge's tickets must be left zero); ``mask`` picks the checked
+    outputs."""
     torch = cs.torch
-    from repro_torch.kernels.paged_attention import kernel as PK
     t = {"splits": splits, "ms": cuda_ms(torch, run, iters),
          "device_ms": device_ms(torch, run, iters)}
     if splits > 1:
-        with fixed_splits(PK, "planned_splits", 1):
-            check(f"{name}: 1 split", run(), want, vec_limit(want, dn))
+        with fixed_splits(module, "planned_splits", 1):
+            check(f"{name}: 1 split", run(), want, vec_limit(want, dn), mask)
             t.update(ms_other=cuda_ms(torch, run, iters),
                      device_ms_other=device_ms(torch, run, iters),
                      splits_other=1)
-    check(f"{name}: after timing", run(), want, vec_limit(want, dn))
+    check(f"{name}: after timing", run(), want, vec_limit(want, dn), mask)
     other = (f"; 1 split: {t['ms_other']:.4f} ms, device "
              f"{t['device_ms_other']:.4f} ms" if splits > 1 else "")
     print(f"    {splits} key splits: {t['ms']:.4f} ms, device "
@@ -502,6 +508,7 @@ def decode_timings(cs, name, run, want, dn, splits, iters):
 def decode_case(cs, name, B, lens, dtype, window=0, softcap=0.0, G=3, Hkv=8,
                 D=128, iters=20):
     torch = cs.torch
+    from repro_torch.kernels.paged_attention import kernel as PK
     from repro_torch.kernels.paged_attention.kernel import (
         paged_attention_fused, planned_splits)
     from repro_torch.kernels.paged_attention.ref import (
@@ -537,9 +544,9 @@ def decode_case(cs, name, B, lens, dtype, window=0, softcap=0.0, G=3, Hkv=8,
         check(f"decode {name}: partial combine",
               rc.combine_partials([p1, p2], q.dtype), want,
               vec_limit(want, dn))
-    t = decode_timings(cs, f"decode {name}",
-                       lambda: paged_attention_fused(q, kv, bt, lens_t, **kw),
-                       want, dn, planned_splits(q, bt, Hkv), iters)
+    t = split_timings(cs, f"decode {name}",
+                      lambda: paged_attention_fused(q, kv, bt, lens_t, **kw),
+                      want, dn, planned_splits(q, bt, Hkv), iters, PK)
     plain = cuda_ms(torch, lambda: paged_attention_fused_ref(
         q, kv, bt, lens_t, **kw), 3, warmup=1)
     lib, b_ms, b_by = decode_yardsticks(cs, q, kv, bt, lens_t, need, G, D,
@@ -548,6 +555,18 @@ def decode_case(cs, name, B, lens, dtype, window=0, softcap=0.0, G=3, Hkv=8,
                "max_abs_err": err, "limit_share": share, **t,
                "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
                "bound_by": b_by})
+
+
+def mma_info(kernel, dtype, D, Dv=None):
+    """A bf16 case's kernel attributes (``build.mma_attributes``: registers,
+    spill bytes, shared memory, resident blocks an SM); none for fp32."""
+    import torch
+    if dtype != torch.bfloat16:
+        return {}
+    from repro_torch.kernels import build
+    a = build.mma_attributes(kernel, D, Dv)
+    return {k: a[k] for k in ("registers", "spill_bytes", "smem_bytes",
+                              "blocks_per_sm")}
 
 
 def prefill_yardsticks(cs, q, kv, bt, pos, lens, G, D, window, softcap,
@@ -581,6 +600,7 @@ def prefill_yardsticks(cs, q, kv, bt, pos, lens, G, D, window, softcap,
 def prefill_case(cs, name, pos, lens, Sq, dtype, window=0, softcap=0.0, G=3,
                  Hkv=8, D=128, iters=10, partial_split=False):
     torch = cs.torch
+    from repro_torch.kernels.paged_prefill_attention import kernel as PPK
     from repro_torch.kernels.paged_prefill_attention.kernel import (
         paged_prefill_attention_fused)
     from repro_torch.kernels.paged_prefill_attention.ref import (
@@ -628,16 +648,20 @@ def prefill_case(cs, name, pos, lens, Sq, dtype, window=0, softcap=0.0, G=3,
         check(f"prefill {name}: combine",
               rc.combine_partials([p1, (k_acc, k_m, k_l)], q.dtype), want,
               vec_limit(want, dn), valid)
-    ms = cuda_ms(torch, lambda: paged_prefill_attention_fused(
-        q, kv, bt, pos_t, lens_t, **kw), iters)
+    t = split_timings(cs, f"prefill {name}", lambda:
+                      paged_prefill_attention_fused(q, kv, bt, pos_t, lens_t,
+                                                    **kw),
+                      want, dn, PPK.planned_splits(q, bt, PAGE), iters, PPK,
+                      valid)
     plain = cuda_ms(torch, lambda: paged_prefill_attention_fused_ref(
         q, kv, bt, pos_t, lens_t, **kw), 2, warmup=1)
     lib, b_ms, b_by = prefill_yardsticks(cs, q, kv, bt, pos, lens, G, D,
                                          window, softcap, iters)
     cs.record({"kernel": "paged_prefill_attention_fused", "case": name,
-               "dtype": dn, "max_abs_err": err, "limit_share": share,
-               "ms": ms, "plain_ms": plain,
-               "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
+               "dtype": dn, "max_abs_err": err, "limit_share": share, **t,
+               "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+               "bound_by": b_by,
+               **mma_info("paged_prefill_attention", dtype, D)})
 
 
 def split_pools(kv):
@@ -653,6 +677,7 @@ def split_decode_case(cs, name, B, lens, dtype, window=0, softcap=0.0, G=3,
     """#3: decode over split K and V pools, against its plain version and
     against the fused kernel on the same keys (the pool split in two)."""
     torch = cs.torch
+    from repro_torch.kernels.paged_attention import kernel as PK
     from repro_torch.kernels.paged_attention.kernel import (
         paged_attention, paged_attention_fused, planned_splits)
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
@@ -668,9 +693,9 @@ def split_decode_case(cs, name, B, lens, dtype, window=0, softcap=0.0, G=3,
     fused = paged_attention_fused(q, kv, bt, lens_t, **kw)
     torch.cuda.synchronize()
     err, share = check(f"split decode {name}", got, want, vec_limit(want, dn))
-    t = decode_timings(cs, f"split decode {name}",
-                       lambda: paged_attention(q, kp, vp, bt, lens_t, **kw),
-                       want, dn, planned_splits(q, bt, Hkv), iters)
+    t = split_timings(cs, f"split decode {name}",
+                      lambda: paged_attention(q, kp, vp, bt, lens_t, **kw),
+                      want, dn, planned_splits(q, bt, Hkv), iters, PK)
     plain = cuda_ms(torch, lambda: paged_attention_ref(
         q, kp, vp, bt, lens_t, **kw), 3, warmup=1)
     lib, b_ms, b_by = decode_yardsticks(cs, q, kv, bt, lens_t, need, G, D,
@@ -687,6 +712,7 @@ def split_prefill_case(cs, name, pos, lens, Sq, dtype, window=0, softcap=0.0,
     """#4: prefill over split K and V pools (any Sq), against its plain
     version and against the fused kernel on the same keys."""
     torch = cs.torch
+    from repro_torch.kernels.paged_prefill_attention import kernel as PPK
     from repro_torch.kernels.paged_prefill_attention.kernel import (
         paged_prefill_attention, paged_prefill_attention_fused)
     from repro_torch.kernels.paged_prefill_attention.ref import (
@@ -714,15 +740,18 @@ def split_prefill_case(cs, name, pos, lens, Sq, dtype, window=0, softcap=0.0,
     if not torch.equal(got, fused):
         raise AssertionError(f"split prefill {name}: not bit-identical to the "
                              f"fused kernel on the same keys")
-    ms = cuda_ms(torch, lambda: paged_prefill_attention(*args, **kw), iters)
+    t = split_timings(cs, f"split prefill {name}",
+                      lambda: paged_prefill_attention(*args, **kw), want, dn,
+                      PPK.planned_splits(q, bt, PAGE), iters, PPK, valid)
     plain = cuda_ms(torch, lambda: paged_prefill_attention_ref(*args, **kw), 2,
                     warmup=1)
     lib, b_ms, b_by = prefill_yardsticks(cs, q, kv, bt, pos, lens, G, D,
                                          window, softcap, iters)
     cs.record({"kernel": "paged_prefill_attention", "case": name, "dtype": dn,
-               "max_abs_err": err, "limit_share": share, "ms": ms,
+               "max_abs_err": err, "limit_share": share, **t,
                "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
-               "bound_by": b_by, "same_as_fused": bool(torch.equal(got, fused))})
+               "bound_by": b_by, "same_as_fused": bool(torch.equal(got, fused)),
+               **mma_info("paged_prefill_attention", dtype, D)})
     print(f"    bit-identical to the fused kernel: {cs.rows[-1]['same_as_fused']}")
 
 
@@ -834,7 +863,8 @@ def chunked_case(cs, name, Sq, q_offset, lengths, dtype, causal=True,
                "ms": ms, "plain_ms": plain, "library_ms": lib,
                "bound_ms": b_ms, "bound_by": b_by, "flops": work.flops,
                "keys_attended": int(vis.any(1).sum()), "splits": splits,
-               "device_ms": dev, **other})
+               "device_ms": dev, **other,
+               **mma_info("chunked_prefill_attention", dtype, D, Dv)})
     if other:
         print(f"    {splits} key splits: {ms:.4f} ms, device {dev:.4f} ms; "
               f"{n_other} splits: {other['ms_other']:.4f} ms, device "
@@ -3078,7 +3108,10 @@ def main() -> int:
                  "bound_by": row["bound_by"],
                  "library_ms": row["library_ms"], "shape": case,
                  "launches_by_path": by_path.get(name, {}),
-                 "parity_launches": parity_launches[name]}
+                 "parity_launches": parity_launches[name],
+                 **{k: row[k] for k in ("device_ms", "splits", "registers",
+                                        "spill_bytes", "smem_bytes",
+                                        "blocks_per_sm") if k in row}}
         if name in backward:
             entry["train_backward"] = backward[name]
         if name == "chunked_prefill_attention":

@@ -16,9 +16,10 @@
 // does about 4*Sq*G*D flops per key against 4*D bytes of K and V (bf16):
 // Sq*G flops per byte, above the 295 where HBM stops being the limit for
 // Sq >= 128. So bf16 (the serving dtype) runs on the tensor cores: the tile
-// loop of attend_mma.cuh (mma.sync bf16 products, a cp.async ring of K/V
-// tiles, 128 query rows t*G + g a block, 64 at Dv > 128), for the (D, Dv)
-// pairs that mma_launch names below. fp32 keeps the scalar fp32 FMA loop
+// loop of attend_wgmma.cuh (wgmma products fed by a TMA producer warp
+// through an mbarrier ring, two consumer warpgroups, 128 query rows t*G + g
+// a block, tiles of 128 keys, 64 at Dv 256), for the (D, Dv) pairs that
+// mma_launch names below. fp32 keeps the scalar fp32 FMA loop
 // of paged_common.cuh on purpose, for any D and Dv that are multiples of 8
 // up to 256: its limit (2e-5 + 2e-5|ref|) rules out bf16 and TF32
 // operands. Both prune: each (batch row, kv head, q tile) loops only over
@@ -41,10 +42,14 @@
 // Every operand is addressed through the strides the wrapper passes (unit
 // last stride), so the slot cache [B, Smax, Hkv, D] and the kv-major q
 // [B, Sq, Hkv, G, D] are read without a copy (and MLA's values, the second
-// half of each head's expanded [k_nope | v] row, in place too).
+// half of each head's expanded [k_nope | v] row, in place too). In bf16, K
+// and V go through TMA tensor maps of those strides, encoded on the host
+// (cuTensorMapEncodeTiled) and cached by pointer, shape and strides, so
+// their bases and strides must be multiples of 16 bytes (the wrapper
+// raises otherwise).
 #include <algorithm>
 
-#include "attend_mma.cuh"
+#include "attend_wgmma.cuh"
 #include "paged_common.cuh"
 
 namespace {
@@ -81,63 +86,66 @@ chunked_prefill_attention_kernel(
       scale, softcap, lo, hi, tile_keys, false);
 }
 
-// The bf16 chunk attention on the tensor cores: one block of 4 warps, 32
-// query rows each (16 at Dv > 128), per (batch row, kv head, tile of rows /
-// G tokens, key split), through attend_mma.cuh. Two row blocks a warp use
-// each K and V fragment twice: on an H100 this shape walked jamba's long
-// G 8 chunks faster than eight warps of one row block; the short chunks
-// that it walks more slowly are split.
+// The bf16 chunk attention on the tensor cores: one block of attend_wgmma.cuh
+// (a TMA producer warp, two consumer warpgroups of 64 query rows t*G + g)
+// per (tile of 128 / G tokens x key split, kv head, batch row) = blockIdx;
+// K and V are read in place through 4-D tensor maps of the operands' own
+// strides.
 // Split sp of n_split covers key tiles [sp*key_tiles / n_split,
 // (sp+1)*key_tiles / n_split) from key_base; with n_split > 1 the block
 // writes its partial state to part_acc [n_split, B, Sq, H, Dv] and part_m,
 // part_l [n_split, B, Sq, H], else out directly.
 template <int D, int Dv>
-using ChunkGeo = mma::Geometry<D, 4, 2, Dv>;
+using ChunkGeo = wg::Geometry<D, Dv>;
 
 template <int D, int Dv>
-__global__ void __launch_bounds__(ChunkGeo<D, Dv>::kThreads,
-                                  ChunkGeo<D, Dv>::kMinBlocks)
-chunked_prefill_attention_mma_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
-    __nv_bfloat16* __restrict__ out, float* __restrict__ part_acc,
-    float* __restrict__ part_m, float* __restrict__ part_l, Strides qs,
-    Strides ks, Strides vs, Strides os, int B, int Sq, int Sk, int G,
-    int q_offset, int causal, int window, float scale, float softcap,
+__global__ void __launch_bounds__(wg::kThreads, 1)
+chunked_prefill_attention_wgmma_kernel(
+    const __nv_bfloat16* __restrict__ q,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, int k_slots, int v_slots,
+    const int* __restrict__ lengths, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ part_acc, float* __restrict__ part_m,
+    float* __restrict__ part_l, Strides qs, Strides os, int B, int Sq, int Sk,
+    int G, int q_offset, int causal, int window, float scale, float softcap,
     int block_q, int n_split, int key_base, int key_tiles) {
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int qi = blockIdx.z / n_split, sp = blockIdx.z % n_split;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  using Geo = ChunkGeo<D, Dv>;
+  constexpr int KT = Geo::KT;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int qi = blockIdx.x / n_split, sp = blockIdx.x % n_split;
   const int q0 = qi * block_q;
   const int nt = min(block_q, Sq - q0);        // tokens in this q tile
   const int length = lengths[b];
   int hi = min(length, Sk);
   if (causal) hi = min(hi, q_offset + q0 + nt);
   int lo = window > 0 ? max(q_offset + q0 - window + 1, 0) : 0;
-  using Geo = ChunkGeo<D, Dv>;
-  constexpr int KT = Geo::KT;
   if (n_split > 1) {
     lo = max(lo, key_base + (int)((long)sp * key_tiles / n_split) * KT);
     hi = min(hi, key_base + (int)((long)(sp + 1) * key_tiles / n_split) * KT);
   }
   lo = min(lo, max(hi, 0));
+  const wg::Ring<Geo> rg(wg::aligned_smem(smem_raw), nt * G, lo, hi);
+  rg.init();
+  if (threadIdx.x < 128) {
+    wg::producer_regs();
+    wg::produce(rg, wg::StridedTiles{&k_map, &v_map, k_slots, v_slots, b, h,
+                                     lo});
+    return;
+  }
+  wg::consumer_regs();
   const long qh0 = (long)h * G;                // first query head of block
   const int H = gridDim.y * G;
-  const mma::StridedRows src{k + b * ks.b + h * ks.h, v + b * vs.b + h * vs.h,
-                             ks.s, vs.s};
-  const __nv_bfloat16* qb = q + b * qs.b + qh0 * qs.h + q0 * qs.s;
-  if (n_split > 1) {
-    const long row0 = ((long)sp * B + b) * Sq + q0;   // (split, b, token q0)
-    mma::attend_rows<Geo>(
-        qb, qs.s, qs.h, part_acc + (row0 * H + qh0) * Dv, (long)H * Dv, Dv,
-        part_m + row0 * H + qh0, part_l + row0 * H + qh0, H, src, G, nt * G,
-        q_offset + q0, length, causal != 0, window, scale, softcap, lo, hi,
-        true);
-  } else {
-    mma::attend_rows<Geo>(
-        qb, qs.s, qs.h, out + b * os.b + qh0 * os.h + q0 * os.s, os.s, os.h,
-        nullptr, nullptr, 0, src, G, nt * G, q_offset + q0, length,
-        causal != 0, window, scale, softcap, lo, hi, false);
-  }
+  const bool split = n_split > 1;
+  const long row0 = ((long)sp * B + b) * Sq + q0;   // (split, b, token q0)
+  void* o = split ? (void*)(part_acc + (row0 * H + qh0) * Dv)
+                  : (void*)(out + b * os.b + qh0 * os.h + q0 * os.s);
+  wg::consume(rg, q + b * qs.b + qh0 * qs.h + q0 * qs.s, qs.s, qs.h, o,
+              split ? (long)H * Dv : os.s, split ? Dv : os.h,
+              split ? part_m + row0 * H + qh0 : nullptr,
+              split ? part_l + row0 * H + qh0 : nullptr, H, G, nt * G,
+              q_offset + q0, length, causal != 0, window, scale, softcap, lo,
+              hi, split);
 }
 
 // Merge of the key splits: one thread per 4 elements of an output row
@@ -152,7 +160,7 @@ __global__ void __launch_bounds__(256) chunked_prefill_attention_combine(
   const long row = i / (Dv / 4);               // (b * Sq + t) * H + h
   const int c = (int)(i % (Dv / 4)) * 4;
   const int h = (int)(row % H), t = (int)(row / H % Sq), b = (int)(row / H / Sq);
-  float m = mma::kNegInf;
+  float m = wg::kNegInf;
   for (int s = 0; s < n_split; ++s) m = fmaxf(m, part_m[s * rows + row]);
   float l = 0.f;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -168,8 +176,8 @@ __global__ void __launch_bounds__(256) chunked_prefill_attention_combine(
   }
   const float d = fmaxf(l, 1e-30f);
   __nv_bfloat16* dst = out + b * os.b + h * os.h + t * os.s + c;
-  *reinterpret_cast<uint32_t*>(dst) = mma::pack_bf16(acc.x / d, acc.y / d);
-  *reinterpret_cast<uint32_t*>(dst + 2) = mma::pack_bf16(acc.z / d, acc.w / d);
+  *reinterpret_cast<uint32_t*>(dst) = wg::pack_bf16(acc.x / d, acc.y / d);
+  *reinterpret_cast<uint32_t*>(dst + 2) = wg::pack_bf16(acc.z / d, acc.w / d);
 }
 
 // Query tokens per block: as many as fit the block's rows (t*G + g), at
@@ -202,21 +210,22 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
   return (int)cudaGetLastError();
 }
 
-using MmaKernel = decltype(&chunked_prefill_attention_mma_kernel<128, 128>);
+using MmaKernel =
+    decltype(&chunked_prefill_attention_wgmma_kernel<128, 128>);
 
 // The tensor-core kernel at key width D and value width Dv, and its block
 // shape.
 struct MmaLaunch {
   MmaKernel kernel;   // null for a pair it is not instantiated for
-  int rows, threads, key_tile;
+  int rows, key_tile;
   size_t smem;
 };
 
 template <int D, int Dv>
 MmaLaunch mma_launch() {
   using Geo = ChunkGeo<D, Dv>;
-  return {chunked_prefill_attention_mma_kernel<D, Dv>, Geo::kRows,
-          Geo::kThreads, Geo::KT, Geo::kSmem};
+  return {chunked_prefill_attention_wgmma_kernel<D, Dv>, wg::kRows, Geo::KT,
+          Geo::kSmem};
 }
 
 // The (D, Dv) pairs the tensor-core kernel is instantiated for: attention
@@ -227,7 +236,7 @@ MmaLaunch mma_launch(int D, int Dv) {
          : D == 128 && Dv == 128 ? mma_launch<128, 128>()
          : D == 256 && Dv == 256 ? mma_launch<256, 256>()
          : D == 192 && Dv == 128 ? mma_launch<192, 128>()
-                                 : MmaLaunch{nullptr, 0, 0, 0, 0};
+                                 : MmaLaunch{nullptr, 0, 0, 0};
 }
 
 // The launch shape at (D, Dv), its shared memory reserved; err is
@@ -261,10 +270,11 @@ Plan plan(const MmaLaunch& m, int Sq, int Sk, int G, int q_offset,
 }
 
 // The tensor-core launch: rows / G tokens a block, n_split key splits (cut
-// to at most key_tiles / 2, so a split has two tiles or more) and, when
-// there is more than one, the combine; cudaErrorInvalidValue for more query
-// heads per kv head than rows, a (D, Dv) pair without a kernel, or splits
-// without scratch.
+// to at most key_tiles, so no split is empty by construction) and, when
+// there is more than one, the combine; K and V through tensor maps of their
+// strides (cached by pointer, shape and strides). cudaErrorInvalidValue for
+// more query heads per kv head than rows, a (D, Dv) pair without a kernel,
+// splits without scratch, or an operand cuTensorMapEncodeTiled refuses.
 int launch_mma(const void* q, const void* k, const void* v,
                const int* lengths, void* out, float* part_acc, float* part_m,
                float* part_l, Strides qs, Strides ks, Strides vs, Strides os,
@@ -277,16 +287,26 @@ int launch_mma(const void* q, const void* k, const void* v,
   if (G < 1 || G > m.rows) return (int)cudaErrorInvalidValue;
   const Plan p = plan(m, Sq, Sk, G, q_offset, causal, window);
   if (B == 0 || Hkv == 0 || p.q_tiles == 0) return 0;
-  n_split = std::max(1, std::min(n_split, p.key_tiles / 2));
+  n_split = std::max(1, std::min(n_split, p.key_tiles));
   if (n_split > 1 && !(part_acc && part_m && part_l))
     return (int)cudaErrorInvalidValue;
+  CUtensorMap k_map, v_map;
+  int k_slots, v_slots;
+  err = wg::strided_map(k, B, Hkv, Sk, D, ks.b, ks.h, ks.s, m.key_tile,
+                        &k_map, &k_slots);
+  if (err == cudaSuccess)
+    err = wg::strided_map(v, B, Hkv, Sk, Dv, vs.b, vs.h, vs.s, m.key_tile,
+                          &v_map, &v_slots);
+  if (err != cudaSuccess) return (int)err;
   __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(out);
-  m.kernel<<<dim3(B, Hkv, p.q_tiles * n_split), m.threads, m.smem, stream>>>(
-      reinterpret_cast<const __nv_bfloat16*>(q),
-      reinterpret_cast<const __nv_bfloat16*>(k),
-      reinterpret_cast<const __nv_bfloat16*>(v), lengths, o, part_acc,
-      part_m, part_l, qs, ks, vs, os, B, Sq, Sk, G, q_offset, causal, window,
-      scale, softcap, p.block_q, n_split, p.key_base, p.key_tiles);
+  // q tiles (and their splits) fastest: the blocks that read one (batch
+  // row, kv head)'s keys run together, and its K/V stay in the L2
+  m.kernel<<<dim3(p.q_tiles * n_split, Hkv, B), wg::kThreads, m.smem,
+             stream>>>(
+      reinterpret_cast<const __nv_bfloat16*>(q), k_map, v_map, k_slots,
+      v_slots, lengths, o, part_acc, part_m, part_l, qs, os, B, Sq, Sk, G,
+      q_offset, causal, window, scale, softcap, p.block_q, n_split,
+      p.key_base, p.key_tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return (int)err;
   const long threads = (long)B * Sq * Hkv * G * (Dv / 4);
@@ -356,7 +376,7 @@ int chunked_prefill_attention_mma_attributes(int D, int Dv, int* info) {
   if (err != cudaSuccess) return (int)err;
   info[4] = m.rows;
   info[5] = m.key_tile;
-  return mma::attributes(m.kernel, m.threads, m.smem, info);
+  return wg::attributes(m.kernel, m.smem, info);
 }
 
 const char* chunked_prefill_attention_error_string(int code) {

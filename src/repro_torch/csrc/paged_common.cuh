@@ -2,7 +2,7 @@
 // (paged_prefill_attention.cu: ragged prefill and speculative-verify rows,
 // each over the fused page pool or over split K and V pools;
 // chunked_prefill_attention.cu: a query chunk over contiguous K/V rows; in
-// bf16 the fused-pool and chunked kernels take attend_mma.cuh instead).
+// bf16 both take attend_wgmma.cuh instead).
 // The decode kernels (paged_attention.cu) have their own split-K block and
 // use only floordiv, the dtype conversions and reserve_smem from here.
 //

@@ -51,18 +51,20 @@ SIGNATURES = {
         "paged_prefill_attention_fused_launch": [
             _P, _P, _P, _P, _P,          # q, kv_pages, bt, row_pos, lengths
             _P, _P, _P,                  # out, m_out, l_out
+            _P, _P,                      # split scratch, tickets (or null)
             _I, _I, _I, _I, _I, _I, _I, _I,  # R, Sq, Hkv, G, D, P, ps, n
             _F, _I, _F,                  # scale, window, softcap
-            _I, _I, _P],                 # partial, is_bf16, stream
+            _I, _I, _I, _P],             # partial, n_split, is_bf16, stream
         "paged_prefill_attention_mma_attributes": [
             _I, _I, _P],                 # D, Dv, info[6]
         "paged_prefill_attention_split_launch": [
             _P, _P, _P, _P, _P, _P,      # q, k_pages, v_pages, bt, row_pos,
                                          # lengths
             _P,                          # out
+            _P, _P,                      # split scratch, tickets (or null)
             _I, _I, _I, _I, _I, _I, _I, _I,  # R, Sq, Hkv, G, D, P, ps, n
             _F, _I, _F,                  # scale, window, softcap
-            _I, _P]},                    # is_bf16, stream
+            _I, _I, _P]},                # n_split, is_bf16, stream
     "chunked_prefill_attention": {
         "chunked_prefill_attention_launch": [
             _P, _P, _P, _P, _P,          # q, k, v, lengths, out
@@ -186,8 +188,8 @@ def mma_attributes(name: str, D: int, Dv: Optional[int] = None
     tensor-core kernel at key width ``D`` and value width ``Dv`` (``D``
     when None), as the library and the CUDA runtime report them (needs a
     card). The instantiated pairs and the block's shape are the library's
-    own (``mma_launch`` in its source, ``mma::Geometry`` in
-    ``csrc/attend_mma.cuh``): nothing in Python repeats them. Raises
+    own (``mma_launch`` in its source, ``wg::Geometry`` in
+    ``csrc/attend_wgmma.cuh``): nothing in Python repeats them. Raises
     ValueError for a pair that has no tensor-core kernel."""
     Dv = D if Dv is None else Dv
     info = (ctypes.c_int * len(MMA_ATTRIBUTES))()

@@ -14,19 +14,22 @@ per block, keys per tile, shared memory) is chosen by the C launcher.
 
 The values may be narrower than the keys (v [B, Hkv, Sk, Dv], Dv <= D;
 deepseek-v3's MLA attends with keys of 192 and values of 128). In bf16 the
-kernel runs on the tensor cores, at the (D, Dv) pairs that the C source
-names (``mma_launch``: attention's head dims and MLA's pair), and
-may split the key range (split-K): ``split_plan`` chooses the number of
-splits from the grid and the card's SM count, the wrapper allocates the
-fp32 partial state of the splits as scratch, and a second kernel,
-``chunked_prefill_attention_combine``, merges them; its launches are
-counted in ``chunked_prefill_attention.combine_launches``. fp32 keeps the
-scalar loop (any D and Dv that are multiples of 8 up to 256) and never
+kernel runs on the tensor cores (wgmma fed by TMA,
+``csrc/attend_wgmma.cuh``), at the (D, Dv) pairs that the C source names
+(``mma_launch``: attention's head dims and MLA's pair), reading K and V
+through tensor maps of their strides (bases and strides multiples of 16
+bytes), and may split the key range (split-K): ``split_plan`` chooses the
+number of splits from the grid and the card's SM count, the wrapper
+allocates the fp32 partial state of the splits as scratch, and a second
+kernel, ``chunked_prefill_attention_combine``, merges them; its launches
+are counted in ``chunked_prefill_attention.combine_launches``. fp32 keeps
+the scalar loop (any D and Dv that are multiples of 8 up to 256) and never
 splits.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -38,36 +41,56 @@ from repro_torch.kernels.paged_attention.kernel import DTYPES
 
 KERNEL = "chunked_prefill_attention"
 
-# Key tiles a split walks, at least. Two would do for correctness (the
-# launcher cuts to key_tiles // 2); on an H100 a chunk whose keys fill only
-# a few tiles (Sq128 at offset 0, 4 tiles) ran slower split than whole.
-MIN_SPLIT_TILES = 4
+# The split plan (bf16). A block of the tensor-core kernel fills an SM
+# alone, so a grid of `blocks` blocks runs in ceil(blocks / sms) waves, each
+# as long as its blocks' key walks. split_plan takes the count of splits
+# whose modelled time is least: waves x (key tiles a split + a split's own
+# cost, SPLIT_OVERHEAD_TILES: its Q tile, its ring's first tiles, its
+# partial state) + the combine's COMBINE_TILES when split, in key tiles'
+# worth of a block's time.
+SPLIT_OVERHEAD_TILES = 2
+COMBINE_TILES = 4
+# Key tiles a split walks, at least.
+MIN_SPLIT_TILES = 2
 # Key tiles a chunk must see before it is split at all. A split call costs
 # the host more (the scratch, the combine's launch), which a short key walk
 # does not earn back on a host-bound path such as llama3.2-3b's slot
-# serving, where Sq512 at offset 0 (16 tiles of 32 keys, 104 blocks) is the
-# first chunk of every long prompt. On an H100 (chip_smoke.py) that chunk
-# took 0.085 ms a call whole against 0.100 ms in three splits, although
-# its device time was 0.050 against 0.042 ms; at offset 3584 (128 tiles,
-# the same grid) the split won both ways (0.277 against 0.353 ms a call).
-SPLIT_FROM_TILES = 32
+# serving, where a 512-token chunk at offset 0 (4 tiles of 128 keys) is the
+# first chunk of every long prompt.
+SPLIT_FROM_TILES = 8
 
 
+@functools.lru_cache(maxsize=4096)
 def split_plan(B, Hkv, q_tiles, key_tiles, sms) -> int:
     """Key splits of a bf16 launch of B x Hkv x q_tiles blocks whose chunk
-    sees key_tiles key tiles: 1 when the grid already gives every SM a
-    block or the chunk sees fewer than SPLIT_FROM_TILES tiles, else enough
-    splits for about two blocks per SM (two blocks of the tensor-core
-    kernel fit an SM), at most key_tiles // MIN_SPLIT_TILES (the launcher
-    cuts split s at tile s * key_tiles // n, so every split walks that many
-    tiles or more and none is empty by construction). On an H100 a grid of
-    more blocks than SMs ran slower split, and one of a few dozen blocks
-    over a deep key range far faster (``chip_smoke.py`` times each split
-    case with one split too)."""
+    sees key_tiles key tiles, on a card of ``sms`` SMs: 1 when the grid
+    already gives every SM a block or the chunk sees fewer than
+    SPLIT_FROM_TILES tiles, else the count from 1 to key_tiles //
+    MIN_SPLIT_TILES that the wave model above gives the least time (the
+    fewest on a tie), so that blocks x splits fills whole waves of the
+    card. The launcher cuts split s at tile s * key_tiles // n, so every
+    split walks MIN_SPLIT_TILES tiles or more and none is empty by
+    construction."""
     blocks = B * Hkv * q_tiles
     if blocks <= 0 or blocks >= sms or key_tiles < SPLIT_FROM_TILES:
         return 1
-    return max(1, min(-(-2 * sms // blocks), key_tiles // MIN_SPLIT_TILES))
+
+    def model(n):
+        waves = -(-blocks * n // sms)
+        return (waves * (key_tiles / n + SPLIT_OVERHEAD_TILES)
+                + (COMBINE_TILES if n > 1 else 0))
+    return min(range(1, key_tiles // MIN_SPLIT_TILES + 1),
+               key=lambda n: (model(n), n))
+
+
+@functools.lru_cache(maxsize=4096)
+def _grid(Sq, Sk, G, D, Dv, q_offset, causal, window):
+    """(q tiles, key tiles) of a bf16 launch, as the library computes them
+    (``chunked_prefill_attention_mma_plan``), cached per shape."""
+    info = (ctypes.c_int * 2)()
+    build.check(KERNEL, build.library(KERNEL).chunked_prefill_attention_mma_plan(
+        Sq, Sk, G, D, Dv, q_offset, causal, window, info))
+    return info[0], info[1]
 
 
 def planned_splits(q, k, v, *, q_offset=0, causal=True, window=0) -> int:
@@ -79,11 +102,9 @@ def planned_splits(q, k, v, *, q_offset=0, causal=True, window=0) -> int:
         return 1
     B, H, Sq, D = q.shape
     Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
-    info = (ctypes.c_int * 2)()
-    build.check(KERNEL, build.library(KERNEL).chunked_prefill_attention_mma_plan(
-        Sq, Sk, H // Hkv, D, Dv, int(q_offset), int(causal), int(window),
-        info))
-    return split_plan(B, Hkv, info[0], info[1], build.sm_count(q.device))
+    q_tiles, key_tiles = _grid(Sq, Sk, H // Hkv, D, Dv, int(q_offset),
+                               int(causal), int(window))
+    return split_plan(B, Hkv, q_tiles, key_tiles, build.sm_count(q.device))
 
 
 def cost(B, H, Hkv, Sq, Sk, D, Dv, dtype, lengths=None, q_offset=0,
@@ -144,7 +165,9 @@ def _check(q, k, v, lengths) -> None:
             raise ValueError(f"{name} needs a contiguous last axis")
         if t.data_ptr() % 16 or any(s % vec for s in t.stride()[:3]):
             raise ValueError(f"{name} must be 16-byte aligned, with strides "
-                             f"that are multiples of {vec} elements")
+                             f"that are multiples of {vec} elements (16 "
+                             f"bytes: the cp.async rows of q, the TMA "
+                             f"tensor maps of k and v)")
 
 
 def chunked_prefill_attention(q, k, v, lengths, *, scale, q_offset=0,

@@ -73,9 +73,11 @@ def planned_splits(q, block_tables, Hkv) -> int:
 _tickets = {}
 
 
-def _tickets_for(device, count):
+def tickets_for(device, count):
     """At least ``count`` zeroed int32 tickets on ``device``; one buffer a
-    device, grown when a launch needs more, which the kernel leaves zero."""
+    device, grown when a launch needs more, which the kernels that merge
+    their splits in the launch (this decode kernel, the paged prefill
+    kernel) leave zero."""
     t = _tickets.get(device)
     if t is None or t.numel() < count:
         size = max(count, 0 if t is None else 2 * t.numel())
@@ -140,7 +142,7 @@ def _split_scratch(q, block_tables, Hkv):
                        dtype=torch.float32)
     # freeing `part` on return is safe: the caching allocator hands its
     # block only to work queued later on this stream
-    return n_split, part.data_ptr(), _tickets_for(q.device, B * H).data_ptr()
+    return n_split, part.data_ptr(), tickets_for(q.device, B * H).data_ptr()
 
 
 def cost(B, H, Hkv, D, page_size, n, dtype, lengths=None,

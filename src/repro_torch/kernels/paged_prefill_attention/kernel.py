@@ -6,22 +6,129 @@ ragged prefill rows and its speculative-verify rows) and
 
 A tensor on the CPU goes to the plain PyTorch version (``ref.py``); a CUDA
 tensor goes to the kernel, or the wrapper raises. Launches are counted in
-``<wrapper>.launches``. In bf16 both kernels run on the tensor cores (one
-tile loop, one block shape: the split-pool kernel gives the fused one's
-bits on the same keys) and take head_dim 64, 128 or 256 and at most a
-block's rows of query heads per kv head (``build.check_mma_geometry`` asks
-the library); fp32 keeps the scalar loop.
+``<wrapper>.launches``. In bf16 both pool layouts run one kernel on the
+tensor cores (wgmma fed by TMA, ``csrc/attend_wgmma.cuh``; the split pools
+give the fused pool's bits on the same keys) and take head_dim 64, 128 or
+256, at most a block's rows of query heads per kv head
+(``build.check_mma_geometry`` asks the library) and a page size that is a
+multiple of 8 dividing the key tile; fp32 keeps the scalar loop.
+
+bf16 splits the keys when the grid of rows x kv heads x q tiles is short
+of the card: ``split_plan`` chooses the number of splits from shapes alone
+(never ``lengths`` or ``row_pos``, which stay on the card), each block cuts
+its q tile's page range on the device, and the last block of each (row,
+kv head, q tile) merges the splits in the same launch, through fp32 scratch
+that the wrapper allocates and the per-device tickets of the decode kernel
+(``paged_attention.kernel``), which the kernel leaves zero. A call stays
+one launch, and ``partial=True`` returns the merged state.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import cost as C
-from repro_torch.kernels.paged_attention.kernel import check_operands
+from repro_torch.kernels.paged_attention.kernel import (check_operands,
+                                                        tickets_for)
 from repro_torch.kernels.paged_prefill_attention.ref import (
     paged_prefill_attention_fused_ref, paged_prefill_attention_partial_ref,
     paged_prefill_attention_ref)
+
+KERNEL = "paged_prefill_attention"
+
+# The split plan, from shapes alone: a block of the tensor-core kernel fills
+# an SM alone, so a grid of `blocks` blocks runs in ceil(blocks / sms)
+# waves, each as long as its blocks' key walks, and a q tile walks at most
+# the table's n * ps keys. split_plan takes the count of splits whose
+# modelled time is least: waves x (key tiles a split + a split's own cost,
+# SPLIT_OVERHEAD_TILES: its Q tile, its ring's first tiles, its partial
+# state and the merge), in key tiles' worth of a block's time. A table of
+# fewer than SPLIT_FROM_TILES key tiles is never split (the split blocks'
+# fixed costs outweigh a short walk), a split covers MIN_SPLIT_PAGES table
+# columns or more, and the merge keeps a weight a split and query row in
+# shared memory, so at most MAX_SPLITS.
+SPLIT_OVERHEAD_TILES = 2
+SPLIT_FROM_TILES = 12
+MIN_SPLIT_PAGES = 8
+MAX_SPLITS = 64
+
+
+def split_plan(R, Hkv, q_tiles, n, ps, key_tile, sms) -> int:
+    """Key splits of a bf16 launch over R rows, Hkv kv heads and q_tiles q
+    tiles a row, through block tables n columns of ps keys wide, with key
+    tiles of key_tile keys, on a card of ``sms`` SMs: 1 when the grid
+    already gives every SM a block or the table holds fewer than
+    SPLIT_FROM_TILES key tiles, else the count from 1 to n //
+    MIN_SPLIT_PAGES (and MAX_SPLITS) that the wave model above gives the
+    least time (the fewest on a tie). Shapes only: a q tile whose pages are
+    fewer than the splits leaves some of them empty, and they cost a block
+    that exits early."""
+    blocks = R * Hkv * q_tiles
+    tiles = -(-n * ps // key_tile)
+    if blocks <= 0 or blocks >= sms or tiles < SPLIT_FROM_TILES:
+        return 1
+
+    def model(k):
+        return -(-blocks * k // sms) * (tiles / k + SPLIT_OVERHEAD_TILES)
+    return min(range(1, max(1, min(n // MIN_SPLIT_PAGES, MAX_SPLITS)) + 1),
+               key=lambda k: (model(k), k))
+
+
+def q_tiles(Sq, G, D) -> int:
+    """q tiles a row of a bf16 launch: the block's rows (the library's) //
+    G tokens each."""
+    return -(-Sq // (build.mma_attributes(KERNEL, D)["rows"] // G))
+
+
+@functools.lru_cache(maxsize=None)
+def _planned(device, R, Sq, Hkv, G, D, n, ps) -> int:
+    return split_plan(R, Hkv, q_tiles(Sq, G, D), n, ps,
+                      build.mma_attributes(KERNEL, D)["key_tile"],
+                      build.sm_count(device))
+
+
+def planned_splits(q, block_tables, page_size) -> int:
+    """The key splits the wrappers launch for q [R, Sq, Hkv, G, D] through
+    ``block_tables`` [R, n] over pages of ``page_size`` keys on q's card: 1
+    for fp32 (cached per shape)."""
+    if q.dtype != torch.bfloat16:
+        return 1
+    R, Sq, Hkv, G, D = q.shape
+    return _planned(q.device, R, Sq, Hkv, G, D, block_tables.shape[1],
+                    page_size)
+
+
+@functools.lru_cache(maxsize=None)
+def _check_bf16(G, D, ps) -> None:
+    """Raise ValueError for a bf16 launch the tensor-core kernel does not
+    take: the head dim, G, or a page size that is not a multiple of 8
+    dividing the key tile (a page is one TMA box of the tile)."""
+    build.check_mma_geometry(KERNEL, G, D)
+    kt = build.mma_attributes(KERNEL, D)["key_tile"]
+    if ps % 8 or kt % ps:
+        raise ValueError(f"{KERNEL}: bf16 takes a page size that is a "
+                         f"multiple of 8 dividing {kt} at head_dim {D}, got "
+                         f"{ps}")
+
+
+def _split_scratch(q, block_tables, page_size):
+    """(n_split, scratch pointer, tickets pointer) of a launch: with more
+    than one split, the fp32 partial state of every split (acc [S, rows,
+    D], then m and l [S, rows], rows = R*Sq*Hkv*G; one allocation) and the
+    device's tickets, one for each (row, kv head, q tile)."""
+    n_split = planned_splits(q, block_tables, page_size)
+    if n_split == 1:
+        return 1, None, None
+    R, Sq, Hkv, G, D = q.shape
+    rows = R * Sq * Hkv * G
+    part = torch.empty(n_split * rows * (D + 2), device=q.device,
+                       dtype=torch.float32)
+    # freeing `part` on return is safe: the caching allocator hands its
+    # block only to work queued later on this stream
+    tickets = tickets_for(q.device, R * Hkv * q_tiles(Sq, G, D))
+    return n_split, part.data_ptr(), tickets.data_ptr()
 
 
 def _prefill_dims(q, Hkv, block_tables, row_pos, lengths):
@@ -101,25 +208,26 @@ def paged_prefill_attention_fused(q, kv_pages, block_tables, row_pos,
     Hkv, P, _, ps, _ = kv_pages.shape
     R, Sq, G, D, n = _prefill_dims(q, Hkv, block_tables, row_pos, lengths)
     if q.dtype == torch.bfloat16:
-        build.check_mma_geometry("paged_prefill_attention", G, D)
+        _check_bf16(G, D, ps)
     out = torch.empty(q.shape, device=q.device,
                       dtype=torch.float32 if partial else q.dtype)
     m = l = None
     if partial:
         m = torch.empty((R, Sq, Hkv, G), device=q.device, dtype=torch.float32)
         l = torch.empty((R, Sq, Hkv, G), device=q.device, dtype=torch.float32)
-    lib = build.library("paged_prefill_attention")
+    lib = build.library(KERNEL)
     with torch.cuda.device(q.device):
+        n_split, part, tickets = _split_scratch(q, block_tables, ps)
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.paged_prefill_attention_fused_launch(
             q.data_ptr(), kv_pages.data_ptr(), block_tables.data_ptr(),
             row_pos.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             m.data_ptr() if partial else None,
-            l.data_ptr() if partial else None,
+            l.data_ptr() if partial else None, part, tickets,
             R, Sq, Hkv, G, D, P, ps, n, float(scale), int(window),
-            float(softcap), int(partial), int(q.dtype == torch.bfloat16),
-            stream)
-    build.check("paged_prefill_attention", code)
+            float(softcap), int(partial), n_split,
+            int(q.dtype == torch.bfloat16), stream)
+    build.check(KERNEL, code)
     paged_prefill_attention_fused.launches += 1
     return (out, m, l) if partial else out
 
@@ -147,18 +255,19 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, row_pos,
     Hkv, P, ps, _ = k_pages.shape
     R, Sq, G, D, n = _prefill_dims(q, Hkv, block_tables, row_pos, lengths)
     if q.dtype == torch.bfloat16:
-        build.check_mma_geometry("paged_prefill_attention", G, D)
+        _check_bf16(G, D, ps)
     out = torch.empty(q.shape, device=q.device, dtype=q.dtype)
-    lib = build.library("paged_prefill_attention")
+    lib = build.library(KERNEL)
     with torch.cuda.device(q.device):
+        n_split, part, tickets = _split_scratch(q, block_tables, ps)
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.paged_prefill_attention_split_launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), row_pos.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), R, Sq, Hkv, G, D, P, ps, n, float(scale),
-            int(window), float(softcap), int(q.dtype == torch.bfloat16),
-            stream)
-    build.check("paged_prefill_attention", code)
+            out.data_ptr(), part, tickets, R, Sq, Hkv, G, D, P, ps, n,
+            float(scale), int(window), float(softcap), n_split,
+            int(q.dtype == torch.bfloat16), stream)
+    build.check(KERNEL, code)
     paged_prefill_attention.launches += 1
     return out
 

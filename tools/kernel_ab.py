@@ -21,11 +21,13 @@ fixed seeds, the same in both checkouts). A checkout
 whose chunked kernel splits the keys also times each split case with one
 split (``splits_other``, ``ms_other``), and gives the chunked cases' device
 times (``device_ms``, ``device_ms_other``); so does one whose decode
-kernels split the keys for the decode cases. Every decode and split-pool
-decode case and every mLSTM and Mamba case gives its device time on
-either checkout (``device_ms``, timed here where the checkout's case does
-not time it; the Mamba cases also with the L2 flushed, ``device_ms_cold``);
-a decode case
+kernels split the keys for the decode cases, and one whose paged prefill
+kernel splits the keys for the prefill cases of ``PREFILL_CASES``
+(llama3.2-3b's, jamba's G 8 and gemma2-2b's D 256). Every decode, prefill
+and split-pool case and every mLSTM and Mamba case gives its device time
+on either checkout (``device_ms``, timed here where the checkout's case
+does not time it; the Mamba cases also with the L2 flushed,
+``device_ms_cold``); a decode case
 that fails its check on a checkout is recorded with its ``error``. Prints
 one JSON line ``{"root": ..., "rows": [...]}``.
 """
@@ -155,6 +157,52 @@ def decode_device_ms(cs, cases, row, B, lens, dtype, split=False, window=0,
             q, kv, bt, lens_t, **kw), iters)
 
 
+def prefill_device_ms(cs, cases, row, pos, lens, Sq, dtype, split=False,
+                      window=0, softcap=0.0, G=3, Hkv=8, D=128, iters=10):
+    """Give ``row`` (a #2 or #4 case just recorded by the checkout under
+    test) its device time, where the checkout's case did not: the same
+    shapes through that checkout's wrapper, timed from a profiler trace."""
+    if "device_ms" in row:
+        return
+    torch = cases.torch
+    from repro_torch.kernels.paged_prefill_attention import kernel as PPK
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    n = 1 << max(math.ceil(max(lens) / cs.PAGE) - 1, 0).bit_length()
+    kv, bt, _ = cases.pool_and_tables(lens, n, Hkv, D, dtype)
+    q = cases.randn((len(pos), Sq, Hkv, G, D), dtype)
+    kw = dict(scale=D ** -0.5, window=window, softcap=softcap)
+    if split:
+        kp, vp = cs.split_pools(kv)
+        row["device_ms"] = cs.device_ms(
+            torch, lambda: PPK.paged_prefill_attention(
+                q, kp, vp, bt, pos_t, lens_t, **kw), iters)
+    else:
+        row["device_ms"] = cs.device_ms(
+            torch, lambda: PPK.paged_prefill_attention_fused(
+                q, kv, bt, pos_t, lens_t, **kw), iters)
+
+
+# (name, row_pos, lengths, Sq, keywords) of the #2 cases timed on either
+# checkout: llama3.2-3b's shapes (G 3), jamba's G 8 and gemma2-2b's (G 2,
+# D 256, window 4096, softcap 50)
+PREFILL_CASES = [
+    ("R1 Sq512 bf16", [37], [549], 512, {}),
+    ("R1 Sq2048 bf16", [37], [2085], 2048, {"iters": 5}),
+    ("R4 Sq512 bf16", [0, 1000, 1029, 0], [512, 1509, 1541, 0], 512, {}),
+    ("R4 Sq2048 bf16", [0, 1000, 4101, 0], [2048, 3045, 6149, 0], 2048,
+     {"iters": 5}),
+    ("R2 Sq4 verify-rows bf16", [1500, 700], [1504, 702], 4, {}),
+    ("R4 Sq512 G8 bf16", [0, 1000, 1029, 0], [512, 1509, 1541, 0], 512,
+     {"G": 8}),
+    ("gemma2-2b R2 Sq512 D256 window4096 softcap50 bf16", [4000, 100],
+     [4512, 612], 512, dict(window=4096, softcap=50.0, G=2, Hkv=4, D=256)),
+    ("gemma2-2b R4 Sq256 ctx<=6144 D256 window4096 softcap50 bf16",
+     [5888, 4200, 0, 1000], [6144, 4456, 256, 1200], 256,
+     dict(window=4096, softcap=50.0, G=2, Hkv=4, D=256)),
+]
+
+
 def main(root: str) -> int:
     path = str(Path(root).resolve())
     sys.path.insert(0, path)
@@ -192,20 +240,15 @@ def main(root: str) -> int:
                                "case": name, "error": str(err)})
             continue
         decode_device_ms(cs, cases, cases.rows[-1], B, lens, dtype, **kw)
-    for R, Sq in ((1, 512), (1, 2048), (4, 512), (4, 2048)):
-        if R == 1:
-            pos, lens = [37], [37 + Sq]
-        else:
-            pos = [0, 1000, 2 * Sq + 5, 0]
-            lens = [Sq, 1000 + Sq - 3, 3 * Sq + 5, 0]
-        cs.prefill_case(cases, f"R{R} Sq{Sq} bf16", pos, lens, Sq, bf,
-                        iters=5 if Sq == 2048 else 10)
-    cs.prefill_case(cases, "R2 Sq4 verify-rows bf16", [1500, 700],
-                    [1504, 702], 4, bf)
-    cs.prefill_case(cases, "R4 Sq512 G8 bf16", [0, 1000, 1029, 0],
-                    [512, 1509, 1541, 0], 512, bf, G=8)
-    cs.prefill_case(cases, "R4 Sq128 fp32", [0, 1000, 261, 0],
-                    [128, 1125, 389, 0], 128, torch.float32)
+    for name, pos, lens, Sq, kw in PREFILL_CASES + [
+            ("R4 Sq128 fp32", [0, 1000, 261, 0], [128, 1125, 389, 0], 128,
+             {"dtype": torch.float32})]:
+        kw = dict(kw)
+        dtype = kw.pop("dtype", bf)
+        cs.prefill_case(cases, name, pos, lens, Sq, dtype, **kw)
+        kw.pop("iters", None)
+        prefill_device_ms(cs, cases, cases.rows[-1], pos, lens, Sq, dtype,
+                          **kw)
     if hasattr(cs, "chunked_case"):      # checkouts with the slot kernel
         for Sq, off in ((16, 4080), (128, 3968), (512, 0), (512, 3584),
                         (2048, 2048)):
@@ -235,6 +278,14 @@ def main(root: str) -> int:
                     "B8 serving-like ctx bf16":
                 decode_device_ms(cs, cases, row, 8, main_lens, bf,
                                  split=True)
+            if row["kernel"] == "paged_prefill_attention" and \
+                    row["case"] == "R4 Sq512 bf16":
+                prefill_device_ms(cs, cases, row, [0, 1000, 1029, 0],
+                                  [512, 1509, 1541, 0], 512, bf, split=True)
+            if row["kernel"] == "paged_prefill_attention" and \
+                    row["case"] == "R2 Sq100 bf16":
+                prefill_device_ms(cs, cases, row, [37, 700], [137, 790], 100,
+                                  bf, split=True)
     if hasattr(cs, "mamba_case"):        # checkouts with the Mamba scan
         for name, B, S, dn, carried, d, rows in MAMBA_CASES:
             dtype = getattr(torch, dn)
@@ -244,7 +295,9 @@ def main(root: str) -> int:
     rows = [{k: r[k] for k in ("kernel", "case", "ms", "limit_share",
                                "error", "splits", "device_ms",
                                "device_ms_cold", "h_bits_equal",
-                               "splits_other", "ms_other", "device_ms_other")
+                               "splits_other", "ms_other", "device_ms_other",
+                               "registers", "spill_bytes", "smem_bytes",
+                               "blocks_per_sm")
              if k in r}
             for r in cases.rows]
     print(json.dumps({"root": root, "device": cs.device_line(),
