@@ -42,7 +42,10 @@ prints its seconds):
    case whose plan splits is also checked and timed at one split and
    checked again after the timing loops; decode also at G 8, G 12 (two
    head groups), head_dim 48 and gemma2-2b's heads (G 2, head_dim 256,
-   window 4096, softcap 50). bf16 prefill runs on the tensor cores
+   window 4096, softcap 50). bf16 decode at head_dim 64, 128 or 256 over
+   16-key pages runs the tensor-core block; the scalar block's bf16 cases
+   (head_dim 48, head_dim 32 in two head groups, and llama3.2-3b's heads
+   over 128-key pages) must record that they ran it. bf16 prefill runs on the tensor cores
    (wgmma fed by TMA); each paged and chunked prefill case prints its split
    count and its time from CUDA events and from a profiler trace, and
    records its kernel's registers, spills, shared memory and blocks an SM;
@@ -104,15 +107,17 @@ prints its seconds):
    counters are set to 0 just before and read just after; the
    chunked-prefill kernel must have launched 28 x the chunk dispatches;
    the launches of its split-K combine kernel (one for each wrapper call
-   whose plan splits the keys) are printed. A second run repeats it under
-   ``torch.profiler``.
+   whose plan splits the keys) are printed. A second run repeats
+   ``cut_workload``'s part of it (4 requests, a quarter of their output
+   tokens) under ``torch.profiler``.
 7. full-width xlstm-125m slot serving: 12 layers (6 mLSTM, 6 sLSTM),
    d_model 768, 4 heads, random weights from a seed, bf16, the same
    requests over 8 slots; the mLSTM chunkwise wrapper must have been
    called 6 x (chunk + decode dispatches); its calls, the CUDA kernels
    they launched (one for a decode step, three passes for a bf16 chunk)
    and its decode and chunk calls are printed apart. A second run repeats
-   it under ``torch.profiler`` and prints #7's kernels in the trace.
+   ``cut_workload``'s part of it under ``torch.profiler`` and prints
+   #7's kernels in the trace.
 8. full-width jamba-1.5-large-398b slot serving, cut in depth to one
    8-layer period (``jamba_cut``: every published width, 7 Mamba layers
    and one attention layer, the last FFN MoE; 18.06 B parameters), random
@@ -124,9 +129,10 @@ prints its seconds):
 9. full-width gemma2-2b paged serving (26 layers, d_model 2304, every
    published width, bf16), 8 requests of which 4 have prompts of 4097-6144
    tokens, past the local layers' 4096-key window, at spec_k 0 and 4 and
-   a traced repeat, checked as phase 5.
+   a traced repeat of ``cut_workload``'s part, checked as phase 5.
 10. full-width qwen3-1.7b paged serving (28 layers, per-head q/k norm,
-   nothing cut), phase 5's requests at spec_k 0 and a traced repeat.
+   nothing cut), phase 5's requests at spec_k 0 and a traced repeat of
+   ``cut_workload``'s part.
 11. full-width deepseek-v3-671b slot serving, cut in depth to 4 layers
    (``deepseek_cut``: the 3 first_k_dense layers and 1 MoE layer of 256
    experts, every published width, and the MTP module, which serving does
@@ -193,10 +199,11 @@ prints its seconds):
    (sequence, ``partial=True``) against the plain version at phase 3's
    limit, an empty shard's state (0, -1e30, 0), the kernel's time alone,
    the collectives' alone and the whole op's. (c) Full-width llama3.2-3b
-   with phase 5's requests and pool at worlds 2 and 3: every request
+   with ``cut_workload``'s part of phase 5's requests and its pool at
+   worlds 2 and 3: every request
    finishes, #1/#2 launch 28 x each rank's dispatches (counters read
-   through the control plane), the backend, tokens/s, round time beside
-   phase 5's and the control plane's cost a dispatch.
+   through the control plane), the backend, tokens/s, round time and the
+   control plane's cost a dispatch.
 17. sharded training on the one card (``tools/train_sharded_phase.py``;
    gloo between ranks that share it). (a) Every slice arch's smoke config
    (fp32) at world 4, mesh ``2x2``: one AdamW step's loss, gradient norm
@@ -204,18 +211,18 @@ prints its seconds):
    the CPU's world-4 step (the expert-parallel qwen2-moe and jamba), at
    phase 15's limits; #5/#6/#7 twice a layer on every rank, no plain
    version forward. (b) Full-width llama3.2-3b (bf16), phase 15's weights
-   and batch, tensor-parallel at mesh ``2``: three steps, the first loss
+   and batch, tensor-parallel at mesh ``2``: one step, its loss
    within 1e-2 of phase 15's, #5 56 launches a step on each rank; step
    time, tokens/s, each rank's peak memory, collectives a step. (c)
    qwen2-moe-a2.7b at published widths cut to 4 layers, expert-parallel
-   at mesh ``2``: three steps, finite losses, the last below the first;
+   at mesh ``2``: two steps, finite losses, the last below the first;
    the tokens dropped by capacity and the ``all_to_all`` time a step.
 18. every arch on a mesh, and the dry run (``tools/mesh_all_phase.py``;
    gloo between ranks that share the card). (a) World 4: one AdamW step of
    deepseek-v3 (MLA, MTP, EP), seamless-m4t and internvl2 at ``2x2`` and
    smoke llama with half a query head a rank at ``4``, against the card's
    world-1 step at phase 15's limits, #5/#6/#7 twice a layer a rank; every
-   arch's prefill + 8 greedy decode steps at ``2x2`` with the world-1
+   arch's prefill + 4 greedy decode steps at ``2x2`` with the world-1
    card's tokens. (b) Mesh ``2``: full-width seamless-m4t, one training
    step (step time, tokens/s, each rank's peak); the 4-layer deepseek-v3
    cut, prefill 2 x 512 and 32 decode steps (each rank's peak, ms a step,
@@ -231,10 +238,10 @@ prints its seconds):
    expert-parallel archs) at phase 15's limits, every leaf still at its
    local shape after the step, #5/#6/#7 twice a layer a rank; xlstm-125m
    with a row a rank on ``("data", "model")`` against world 1; llama and
-   jamba under ``fsdp``: prefill + 8 greedy decode steps with the world-1
+   jamba under ``fsdp``: prefill + 4 greedy decode steps with the world-1
    card's tokens. (b) Full-width llama3.2-3b (bf16) at mesh ``2x1`` under
    ``fsdp``, phase 15's weights and batch, a row a rank, each rank capped
-   at half the card: three steps, the first loss within 1e-2 of phase
+   at half the card: one step, its loss within 1e-2 of phase
    15's, #5 56 launches a step a rank; step time, tokens/s, each rank's
    peak beside a ZeRO-1 step's (or its out-of-memory error), the
    all-gather and reduce-scatter time a step. (c) The dry run with
@@ -401,11 +408,12 @@ class Cases:
         return self.torch.randn(shape, generator=self.gen, device=DEVICE,
                                 dtype=self.torch.float32).to(dtype)
 
-    def pool_and_tables(self, lens, n, Hkv, D, dtype):
-        """A pool holding every row's pages at random places, and tables
-        zero-padded past each row's last page, as the engine builds them."""
+    def pool_and_tables(self, lens, n, Hkv, D, dtype, ps=PAGE):
+        """A pool of ps-key pages holding every row's pages at random
+        places, and tables zero-padded past each row's last page, as the
+        engine builds them."""
         torch = self.torch
-        need = [max(math.ceil(int(x) / PAGE), 0) for x in lens]
+        need = [max(math.ceil(int(x) / ps), 0) for x in lens]
         P = max(sum(need), 1) + 1
         perm = torch.randperm(P, generator=self.gen, device=DEVICE)
         bt = torch.zeros((len(lens), n), dtype=torch.int32, device=DEVICE)
@@ -413,7 +421,7 @@ class Cases:
         for i, k in enumerate(need):
             bt[i, :k] = perm[off:off + k].to(torch.int32)
             off += k
-        kv = self.randn((Hkv, P, 2, PAGE, D), dtype)
+        kv = self.randn((Hkv, P, 2, ps, D), dtype)
         return kv, bt, need
 
     def record(self, row):
@@ -462,7 +470,7 @@ def decode_yardsticks(cs, q, kv, bt, lens_t, need, G, D, window, softcap,
         del k, v
     from repro_torch.kernels.paged_attention.kernel import cost
     B, H, _ = q.shape
-    return (lib, *work_bound(cost(B, H, H // G, D, PAGE, bt.shape[1],
+    return (lib, *work_bound(cost(B, H, H // G, D, kv.shape[3], bt.shape[1],
                                   q.dtype, lens_t.tolist())))
 
 
@@ -506,7 +514,7 @@ def split_timings(cs, name, run, want, dn, splits, iters, module,
 
 
 def decode_case(cs, name, B, lens, dtype, window=0, softcap=0.0, G=3, Hkv=8,
-                D=128, iters=20):
+                D=128, iters=20, ps=PAGE):
     torch = cs.torch
     from repro_torch.kernels.paged_attention import kernel as PK
     from repro_torch.kernels.paged_attention.kernel import (
@@ -516,8 +524,8 @@ def decode_case(cs, name, B, lens, dtype, window=0, softcap=0.0, G=3, Hkv=8,
     from repro_torch.kernels import ref_common as rc
     dn = str(dtype).split(".")[-1]
     lens_t = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
-    n = 1 << max(math.ceil(max(lens) / PAGE) - 1, 0).bit_length()
-    kv, bt, need = cs.pool_and_tables(lens, n, Hkv, D, dtype)
+    n = 1 << max(math.ceil(max(lens) / ps) - 1, 0).bit_length()
+    kv, bt, need = cs.pool_and_tables(lens, n, Hkv, D, dtype, ps)
     q = cs.randn((B, Hkv * G, D), dtype)
     kw = dict(scale=D ** -0.5, window=window, softcap=softcap)
     got = paged_attention_fused(q, kv, bt, lens_t, **kw)
@@ -540,13 +548,13 @@ def decode_case(cs, name, B, lens, dtype, window=0, softcap=0.0, G=3, Hkv=8,
         p1 = paged_attention_fused(q, kv, bt[:, :h].contiguous(), lens_t,
                                    partial=True, **kw)
         p2 = paged_attention_fused(q, kv, bt[:, h:].contiguous(),
-                                   lens_t - h * PAGE, partial=True, **kw)
+                                   lens_t - h * ps, partial=True, **kw)
         check(f"decode {name}: partial combine",
               rc.combine_partials([p1, p2], q.dtype), want,
               vec_limit(want, dn))
     t = split_timings(cs, f"decode {name}",
                       lambda: paged_attention_fused(q, kv, bt, lens_t, **kw),
-                      want, dn, planned_splits(q, bt, Hkv), iters, PK)
+                      want, dn, planned_splits(q, bt, Hkv, ps), iters, PK)
     plain = cuda_ms(torch, lambda: paged_attention_fused_ref(
         q, kv, bt, lens_t, **kw), 3, warmup=1)
     lib, b_ms, b_by = decode_yardsticks(cs, q, kv, bt, lens_t, need, G, D,
@@ -554,7 +562,28 @@ def decode_case(cs, name, B, lens, dtype, window=0, softcap=0.0, G=3, Hkv=8,
     cs.record({"kernel": "paged_attention_fused", "case": name, "dtype": dn,
                "max_abs_err": err, "limit_share": share, **t,
                "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
-               "bound_by": b_by})
+               "bound_by": b_by, "page_size": ps,
+               **decode_block(dtype, D, ps)})
+
+
+def expect_block(cs, block):
+    """Raise unless the last recorded decode case ran ``block``."""
+    row = cs.rows[-1]
+    if row["block"] != block:
+        raise AssertionError(f"decode {row['case']}: ran the {row['block']} "
+                             f"block, not the {block} one")
+
+
+def decode_block(dtype, D, ps):
+    """Which block of the decode library a case ran ("wgmma": the
+    tensor-core block, with its attributes; "scalar" otherwise), as the
+    launcher chooses it from the shapes."""
+    from repro_torch.kernels.paged_attention import kernel as PK
+    attr = PK.wgmma_attributes(dtype, D, ps)
+    if attr is None:
+        return {"block": "scalar"}
+    return {"block": "wgmma", **{k: attr[k] for k in (
+        "registers", "spill_bytes", "smem_bytes", "blocks_per_sm")}}
 
 
 def mma_info(kernel, dtype, D, Dv=None):
@@ -673,7 +702,7 @@ def split_pools(kv):
 
 
 def split_decode_case(cs, name, B, lens, dtype, window=0, softcap=0.0, G=3,
-                      Hkv=8, D=128, iters=20):
+                      Hkv=8, D=128, iters=20, ps=PAGE):
     """#3: decode over split K and V pools, against its plain version and
     against the fused kernel on the same keys (the pool split in two)."""
     torch = cs.torch
@@ -683,8 +712,8 @@ def split_decode_case(cs, name, B, lens, dtype, window=0, softcap=0.0, G=3,
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     dn = str(dtype).split(".")[-1]
     lens_t = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
-    n = 1 << max(math.ceil(max(lens) / PAGE) - 1, 0).bit_length()
-    kv, bt, need = cs.pool_and_tables(lens, n, Hkv, D, dtype)
+    n = 1 << max(math.ceil(max(lens) / ps) - 1, 0).bit_length()
+    kv, bt, need = cs.pool_and_tables(lens, n, Hkv, D, dtype, ps)
     kp, vp = split_pools(kv)
     q = cs.randn((B, Hkv * G, D), dtype)
     kw = dict(scale=D ** -0.5, window=window, softcap=softcap)
@@ -695,7 +724,7 @@ def split_decode_case(cs, name, B, lens, dtype, window=0, softcap=0.0, G=3,
     err, share = check(f"split decode {name}", got, want, vec_limit(want, dn))
     t = split_timings(cs, f"split decode {name}",
                       lambda: paged_attention(q, kp, vp, bt, lens_t, **kw),
-                      want, dn, planned_splits(q, bt, Hkv), iters, PK)
+                      want, dn, planned_splits(q, bt, Hkv, ps), iters, PK)
     plain = cuda_ms(torch, lambda: paged_attention_ref(
         q, kp, vp, bt, lens_t, **kw), 3, warmup=1)
     lib, b_ms, b_by = decode_yardsticks(cs, q, kv, bt, lens_t, need, G, D,
@@ -703,8 +732,12 @@ def split_decode_case(cs, name, B, lens, dtype, window=0, softcap=0.0, G=3,
     cs.record({"kernel": "paged_attention", "case": name, "dtype": dn,
                "max_abs_err": err, "limit_share": share, **t,
                "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
-               "bound_by": b_by, "same_as_fused": bool(torch.equal(got, fused))})
+               "bound_by": b_by, "same_as_fused": bool(torch.equal(got, fused)),
+               "page_size": ps, **decode_block(dtype, D, ps)})
     print(f"    bit-identical to the fused kernel: {cs.rows[-1]['same_as_fused']}")
+    if not cs.rows[-1]["same_as_fused"]:
+        raise AssertionError(f"split decode {name}: not bit-identical to the "
+                             f"fused kernel on the same keys")
 
 
 def split_prefill_case(cs, name, pos, lens, Sq, dtype, window=0, softcap=0.0,
@@ -757,14 +790,18 @@ def split_prefill_case(cs, name, pos, lens, Sq, dtype, window=0, softcap=0.0,
 
 def split_cases(cs, main_lens):
     """#3/#4 at the llama3.2-3b shapes: the serving-like decode batch and the
-    R4 Sq512 prefill in bf16, window + softcap in fp32, and a chunk length
-    the TPU kernel's q tiling would refuse (Sq 100)."""
+    R4 Sq512 prefill in bf16, window + softcap in fp32, decode on the scalar
+    block in bf16 (head_dim 48), and a chunk length the TPU kernel's q
+    tiling would refuse (Sq 100)."""
     torch = cs.torch
     bf, f32 = torch.bfloat16, torch.float32
     split_decode_case(cs, "B8 serving-like ctx bf16", 8, main_lens, bf)
     split_decode_case(cs, "B8 window1000 softcap30 fp32", 8,
                       [4096, PAGE, PAGE - 3, 4096 - PAGE // 2, 2500, 900,
                        1700, 3333], f32, window=1000, softcap=30.0)
+    split_decode_case(cs, "B3 D48 bf16", 3, [500, 16, 33], bf, G=2, Hkv=4,
+                      D=48)
+    expect_block(cs, "scalar")
     split_prefill_case(cs, "R4 Sq512 bf16", [0, 1000, 1029, 0],
                        [512, 1509, 1541, 0], 512, bf)
     split_prefill_case(cs, "R4 Sq128 window300 softcap30 fp32",
@@ -1146,6 +1183,15 @@ def kernel_phase(torch):
     decode_case(cs, "B2 G12 D64 window300 bf16", 2, [1000, 77], bf, G=12,
                 Hkv=2, D=64, window=300)
     decode_case(cs, "B3 D48 fp32", 3, [500, 16, 33], f32, G=2, Hkv=4, D=48)
+    # the scalar block in bf16: head dims without a tensor-core
+    # instantiation (48; 32 in two head groups), and pages of 128 keys,
+    # which do not divide the tensor-core block's 64-key tile
+    decode_case(cs, "B3 D48 bf16", 3, [500, 16, 33], bf, G=2, Hkv=4, D=48)
+    expect_block(cs, "scalar")
+    decode_case(cs, "B2 G12 D32 bf16", 2, [1000, 77], bf, G=12, Hkv=2, D=32)
+    expect_block(cs, "scalar")
+    decode_case(cs, "B8 serving-like ps128 bf16", 8, main, bf, ps=128)
+    expect_block(cs, "scalar")
     decode_case(cs, "gemma2-2b B2 D256 window4096 softcap50 bf16", 2,
                 [6000, 300], bf, G=2, Hkv=4, D=256, window=4096,
                 softcap=50.0)
@@ -1358,6 +1404,23 @@ def long_workload(cfg):
     return prompts, outputs
 
 
+# The traced repeats of phases 6, 7, 9 and 10 (not phase 5's, whose trace
+# holds the paged path's kernels over the whole workload) and phase 16's
+# sharded worlds serve the first CUT_REQUESTS requests with a quarter of
+# their output tokens: the traces held 1.1-3.5 million events over the
+# whole workload, whose summary took longer than the runs, and a round
+# takes 2.3x (world 2) and 5.9x (world 3) phase 5's in the sharded worlds.
+# A round's events and time hardly depend on its batch, so the output
+# tokens (the decode rounds) are what is cut most.
+CUT_REQUESTS = 4
+CUT_OUTPUT_SHARE = 4
+
+
+def cut_workload(prompts, outputs):
+    """The part of a workload that a cut repeat serves."""
+    return (prompts[:CUT_REQUESTS],
+            [max(1, o // CUT_OUTPUT_SHARE) for o in outputs[:CUT_REQUESTS]])
+
 # (spec_k, traced) of the paged serving runs; a traced run repeats an
 # untraced one under torch.profiler, for the host/device breakdown (its
 # wall time includes the tracing cost)
@@ -1365,10 +1428,11 @@ PAGED_RUNS = ((0, False), (4, False), (0, True))
 
 
 def serving_phase(torch, params, kernels, cfg=None, workload=None,
-                  runs=PAGED_RUNS):
+                  runs=PAGED_RUNS, cut_trace=False):
     """Full-width ``cfg`` (llama3.2-3b by default) through the streaming
     server over the paged cache, one run per (spec_k, traced) of ``runs``,
-    on ``workload``'s requests (``serving_workload``'s by default). The
+    on ``workload``'s requests (``serving_workload``'s by default; with
+    ``cut_trace``, a traced run serves ``cut_workload``'s part). The
     counters are set to 0 just before the first run and read just after
     the last. Returns the path's launch counts, the records and the first
     spec_k 0 token streams."""
@@ -1378,8 +1442,7 @@ def serving_phase(torch, params, kernels, cfg=None, workload=None,
     from repro_torch.serving.engine import EngineCore
     from repro_torch.serving.server import InferenceServer
     cfg = cfg or get_config("llama3.2-3b")
-    prompts, outputs = (workload or serving_workload)(cfg)
-    prompt_lens = [len(p) for p in prompts]
+    all_prompts, all_outputs = (workload or serving_workload)(cfg)
     layers = cfg.num_layers
     pa_fn = kernels["paged_attention_fused"]
     ppa_fn = kernels["paged_prefill_attention_fused"]
@@ -1387,6 +1450,10 @@ def serving_phase(torch, params, kernels, cfg=None, workload=None,
     results = []
     streams = None
     for spec_k, traced in runs:
+        prompts, outputs = (cut_workload(all_prompts, all_outputs)
+                            if traced and cut_trace
+                            else (all_prompts, all_outputs))
+        prompt_lens = [len(p) for p in prompts]
         pa0 = pa_fn.launches
         ppa0 = ppa_fn.launches
         core = EngineCore(cfg, SlidingServeScheduler(max_budget=512,
@@ -1482,9 +1549,10 @@ def serving_phase(torch, params, kernels, cfg=None, workload=None,
 
 
 def slot_serving_phase(torch, cfg, params, kernels, expected,
-                       paged_streams=None):
+                       paged_streams=None, cut_trace=False):
     """Full-width ``cfg`` through the streaming server over the slot cache
-    (8 slots of 4096 tokens); a second run repeats it under torch.profiler.
+    (8 slots of 4096 tokens); a second run repeats it under torch.profiler
+    (``cut_workload``'s part of it with ``cut_trace``).
     ``expected`` maps a kernel's name to its launches as a function of the
     engine's stats (a per-layer kernel: layers x the dispatches it serves);
     the counters are set to 0 just before a run and read just after. With
@@ -1495,9 +1563,12 @@ def slot_serving_phase(torch, cfg, params, kernels, expected,
     from repro_torch.serving.engine import EngineCore
     from repro_torch.serving.server import InferenceServer
     arch = cfg.name
-    prompts, outputs = serving_workload(cfg)
+    all_prompts, all_outputs = serving_workload(cfg)
     results, first_launches = [], None
     for traced in (False, True):
+        prompts, outputs = (cut_workload(all_prompts, all_outputs)
+                            if traced and cut_trace
+                            else (all_prompts, all_outputs))
         core = EngineCore(cfg, SlidingServeScheduler(max_budget=512,
                                                      max_iter_time=2.0),
                           cache_mode="slot", max_slots=8, max_len=SLOT_LEN,
@@ -2812,8 +2883,18 @@ def main() -> int:
           flush=True)
     for name, (_, log) in report.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "Function" in line:
+            if any(w in line for w in ("registers", "spill", "Function",
+                                       "warning")):
                 print(f"  {name}: {line.strip()}")
+    # the decode library's tensor-core block (bf16 at these head dims; the
+    # scalar block takes every other launch): no spill
+    for D in (64, 128, 256):
+        attrs = build.mma_attributes("paged_attention", D)
+        print(f"  paged_attention bf16 tensor-core kernel, D {D}: {attrs}",
+              flush=True)
+        if attrs["spill_bytes"]:
+            raise AssertionError(f"paged_attention D {D}: ptxas spilled "
+                                 f"{attrs['spill_bytes']} bytes")
     for name in ("paged_prefill_attention", "chunked_prefill_attention"):
         for D in (64, 128, 256):
             attrs = build.mma_attributes(name, D)
@@ -2883,7 +2964,7 @@ def main() -> int:
     slot_launches, slot_recs = slot_serving_phase(
         torch, cfg, params, kernels,
         {"chunked_prefill_attention": lambda st: layers * st.prefill_calls},
-        paged_streams=streams)
+        paged_streams=streams, cut_trace=True)
     serving += slot_recs
     launches["chunked_prefill_attention"] = \
         slot_launches["chunked_prefill_attention"]
@@ -2901,7 +2982,8 @@ def main() -> int:
     x_launches, x_recs = slot_serving_phase(
         torch, xcfg, xparams, kernels,
         {"mlstm_chunkwise":
-             lambda st: mlstm_layers * (st.prefill_calls + st.decode_calls)})
+             lambda st: mlstm_layers * (st.prefill_calls + st.decode_calls)},
+        cut_trace=True)
     serving += x_recs
     launches["mlstm_chunkwise"] = x_launches["mlstm_chunkwise"]
     by_path["mlstm_chunkwise"] = {"xlstm-125m slot":
@@ -2944,7 +3026,7 @@ def main() -> int:
         aparams = load_params(torch, acfg)
         a_launches, a_recs, _ = serving_phase(torch, aparams, kernels,
                                               cfg=acfg, workload=workload,
-                                              runs=runs)
+                                              runs=runs, cut_trace=True)
         serving += a_recs
         for name in ("paged_attention_fused",
                      "paged_prefill_attention_fused"):
@@ -3035,7 +3117,7 @@ def main() -> int:
     ph.start("sharded paged serving over 1-4 ranks on the card")
     import sharded_phase
     sharded, sharded_launches = sharded_phase.sharded_phase(
-        torch, phase5_round_ms=serving[0]["round_ms"], device_line=dev)
+        torch, device_line=dev)
     serving.append({"sharded_serving": sharded})
     for name, counts in sharded_launches.items():
         by_path[name].update(counts)
@@ -3133,6 +3215,12 @@ def main() -> int:
                              "library_ms", "bound_ms", "bound_by", "flops",
                              "max_abs_err", "ms_other", "device_ms_other",
                              "splits_other")})
+        if name in ("paged_attention_fused", "paged_attention"):
+            # which block of the decode library each case ran (the
+            # launcher's choice from the shapes), with its device time
+            entry["cases"] = [{k: r.get(k) for k in (
+                "case", "block", "page_size", "device_ms", "ms", "bound_ms",
+                "splits", "max_abs_err")} for r in rows if r["kernel"] == name]
         if name in ("paged_attention", "paged_prefill_attention"):
             entry["note"] = ("serves no path, here or in the reference: "
                              "launched only by the parity phase")

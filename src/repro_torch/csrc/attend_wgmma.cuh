@@ -794,15 +794,17 @@ __device__ __forceinline__ void consume(
 }
 
 // info[0..3] = registers, local (spill) bytes, dynamic shared memory and
-// resident blocks per SM of a kernel launched with `smem` bytes.
+// resident blocks per SM of a kernel launched with `smem` bytes and
+// `threads` threads a block.
 template <typename Kernel>
-inline int attributes(Kernel kernel, size_t smem, int* info) {
+inline int attributes(Kernel kernel, size_t smem, int* info,
+                      int threads = kThreads) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   int blocks = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                        kThreads, smem);
+                                                        threads, smem);
   if (err != cudaSuccess) return (int)err;
   info[0] = attr.numRegs;
   info[1] = (int)attr.localSizeBytes;

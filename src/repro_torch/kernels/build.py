@@ -40,6 +40,8 @@ SIGNATURES = {
             _I, _I, _I, _I, _I, _I, _I,  # B, Hkv, G, D, P, ps, n
             _F, _I, _F,                  # scale, window, softcap
             _I, _I, _I, _P],             # partial, n_split, is_bf16, stream
+        "paged_attention_mma_attributes": [
+            _I, _I, _P],                 # D, Dv, info[6]
         "paged_attention_split_launch": [
             _P, _P, _P, _P, _P,          # q, k_pages, v_pages, bt, lengths
             _P,                          # out

@@ -10,16 +10,21 @@ PyTorch version (``ref.py``); a CUDA tensor goes to the kernel, or the
 wrapper raises. Each wrapper allocates the outputs, launches on the current
 stream and counts its launches in ``<wrapper>.launches``.
 
-Both launch one kernel, split-K over each row's live pages, so the split
-pools give the fused pool's output bit for bit on the same keys.
-``split_plan`` chooses the number of splits from shapes alone (never
-``lengths``, which stay on the card); each block cuts its row's page range
-on the device, and the last block of each (row, head group) merges the
-splits in the same launch, through fp32 scratch that the wrapper allocates
-and a per-device buffer of tickets that the kernel leaves zero (so calls
-on one stream share it). The block's geometry (warps, lanes a key row,
-keys a chunk, heads a block) is the C launcher's; any number of query
-heads per kv head is taken.
+The library holds two blocks and the launcher picks one from the shapes:
+bf16 at head_dim 64, 128 or 256 over pages of a multiple of 8 keys dividing
+the key tile runs the tensor-core block (scores and P.V on ``wgmma`` with
+the keys as the M rows, K/V tiles by TMA through an ``mbarrier`` ring;
+``wgmma_attributes`` gives its geometry), everything else the scalar block
+(``cp.async`` rings, fp32 FMAs). Both launch one kernel,
+split-K over each row's live pages, so the split pools give the fused
+pool's output bit for bit on the same keys. The split plan reads shapes
+alone (never ``lengths``, which stay on the card): ``wgmma_split_plan`` by
+waves of the tensor-core block's occupancy, ``split_plan`` for the scalar
+block. Each block cuts its row's page range on the device, and the last
+block of each (row, head group) merges the splits in the same launch,
+through fp32 scratch that the wrapper allocates and a per-device buffer of
+tickets that the kernel leaves zero (so calls on one stream share it). Any
+number of query heads per kv head is taken, HEADS_PER_BLOCK a block.
 """
 from __future__ import annotations
 
@@ -33,24 +38,47 @@ from repro_torch.kernels.paged_attention.ref import (
     paged_attention_fused_ref, paged_attention_partial_ref,
     paged_attention_ref)
 
+KERNEL = "paged_attention"
 DTYPES = (torch.bfloat16, torch.float32)
 
-# The split plan: blocks an SM the grid aims at, the fewest table columns a
-# split may cover (one page for each of the block's kWarps warps), and the
-# query heads one block holds (kHeadsPerBlock; more heads take more head
-# groups of the grid), as in csrc/paged_attention.cu.
+# The query heads one block holds (kHeadsPerBlock, the N of the tensor-core
+# block's products; more heads take more head groups of the grid), as in
+# csrc/paged_attention.cu.
+HEADS_PER_BLOCK = 8
+
+# The scalar block's split plan: blocks an SM the grid aims at and the
+# fewest table columns a split may cover (one page for each of the block's
+# kWarps warps). It keeps this plan, tuned for its 8 cp.async warps, rather
+# than wgmma_split_plan's waves: its fp32 code is unchanged, and a wave
+# plan for it would need its occupancy from the card and a re-tune of the
+# fp32 cases against these constants.
 SPLIT_BLOCKS_PER_SM = 2
 MIN_SPLIT_PAGES = 8
-HEADS_PER_BLOCK = 8
+
+# The tensor-core block's split plan, from shapes alone: blocks_per_sm of
+# them run on an SM at once, so a grid of `blocks` blocks runs in
+# ceil(blocks / (sms * blocks_per_sm)) waves, each as long as its blocks'
+# key walks, and a block walks at most the table's n * ps keys a row.
+# wgmma_split_plan takes the count of splits whose modelled time is least:
+# waves x (key tiles a split + a split's own cost, SPLIT_OVERHEAD_TILES: its
+# ring's first tiles, its partial state and the merge), in key tiles' worth
+# of a block's time. A split covers a key tile or more, and at most
+# MAX_SPLITS: the last block of a (row, head group) reads every split's
+# state behind the slowest one, eight at a time (on an H100, llama3.2-3b's
+# B1 over 4093 keys took 0.0105 ms of device time in 16 splits against
+# 0.0128 in 33).
+SPLIT_OVERHEAD_TILES = 2
+MAX_SPLITS = 16
 
 
 def split_plan(B, Hkv, G, n, sms) -> int:
-    """Key splits of a decode launch over B rows, Hkv kv heads with G query
-    heads each, through block tables n columns wide, on a card of ``sms``
-    SMs: 1 when the grid of B x Hkv x head groups blocks already gives every
-    SM SPLIT_BLOCKS_PER_SM blocks, else enough splits for that, at most
-    n // MIN_SPLIT_PAGES. Shapes only: a row shorter than the splits leaves
-    some of them empty, and they cost a block that exits early."""
+    """Key splits of a scalar-block launch over B rows, Hkv kv heads with G
+    query heads each, through block tables n columns wide, on a card of
+    ``sms`` SMs: 1 when the grid of B x Hkv x head groups blocks already
+    gives every SM SPLIT_BLOCKS_PER_SM blocks, else enough splits for that,
+    at most n // MIN_SPLIT_PAGES. Shapes only: a row shorter than the
+    splits leaves some of them empty, and they cost a block that exits
+    early."""
     blocks = B * Hkv * -(-G // HEADS_PER_BLOCK)
     want = SPLIT_BLOCKS_PER_SM * sms
     if blocks <= 0 or blocks >= want:
@@ -58,16 +86,59 @@ def split_plan(B, Hkv, G, n, sms) -> int:
     return max(1, min(-(-want // blocks), n // MIN_SPLIT_PAGES))
 
 
+def wgmma_split_plan(B, Hkv, G, n, ps, key_tile, blocks_per_sm, sms) -> int:
+    """Key splits of a tensor-core launch over B rows, Hkv kv heads with G
+    query heads each, through block tables n columns of ps keys wide, with
+    key tiles of key_tile keys and blocks_per_sm resident blocks on each of
+    ``sms`` SMs: 1 when the grid fills every SM's blocks already, else the
+    count from 1 to the table's key tiles (and MAX_SPLITS) that the wave
+    model above gives the least time (the fewest on a tie)."""
+    blocks = B * Hkv * -(-G // HEADS_PER_BLOCK)
+    slots = sms * blocks_per_sm
+    tiles = -(-n * ps // key_tile)
+    if blocks <= 0 or blocks >= slots:
+        return 1
+
+    def model(k):
+        return -(-blocks * k // slots) * (tiles / k + SPLIT_OVERHEAD_TILES)
+    return min(range(1, max(1, min(tiles, MAX_SPLITS)) + 1),
+               key=lambda k: (model(k), k))
+
+
 @functools.lru_cache(maxsize=None)
-def _planned(device, B, Hkv, G, n) -> int:
-    return split_plan(B, Hkv, G, n, build.sm_count(device))
+def wgmma_attributes(dtype, D, ps):
+    """``build.mma_attributes`` of the tensor-core block a launch in
+    ``dtype`` at head_dim D over pages of ps keys runs (needs a card), or
+    None where the launch takes the scalar block (fp32, a head dim the
+    library has no tensor-core instantiation for, or pages that are not a
+    multiple of 8 keys dividing the key tile, as the launcher's
+    takes_wgmma)."""
+    if dtype != torch.bfloat16 or ps % 8:
+        return None
+    try:
+        attr = build.mma_attributes(KERNEL, D)
+    except ValueError:
+        return None
+    return None if attr["key_tile"] % ps else attr
 
 
-def planned_splits(q, block_tables, Hkv) -> int:
+@functools.lru_cache(maxsize=None)
+def _planned(device, dtype, B, Hkv, G, D, n, ps) -> int:
+    sms = build.sm_count(device)
+    attr = wgmma_attributes(dtype, D, ps)
+    if attr is None:
+        return split_plan(B, Hkv, G, n, sms)
+    return wgmma_split_plan(B, Hkv, G, n, ps, attr["key_tile"],
+                            attr["blocks_per_sm"], sms)
+
+
+def planned_splits(q, block_tables, Hkv, page_size) -> int:
     """The key splits the wrappers launch for q [B, H, D] over Hkv kv heads
-    through ``block_tables`` [B, n] on q's card (cached per shape)."""
-    B, H = q.shape[:2]
-    return _planned(q.device, B, Hkv, H // Hkv, block_tables.shape[1])
+    through ``block_tables`` [B, n] over pages of ``page_size`` keys on q's
+    card (cached per shape)."""
+    B, H, D = q.shape
+    return _planned(q.device, q.dtype, B, Hkv, H // Hkv, D,
+                    block_tables.shape[1], page_size)
 
 
 _tickets = {}
@@ -130,11 +201,11 @@ def _decode_dims(q, Hkv, block_tables, lengths):
     return B, H, D, H // Hkv, block_tables.shape[1]
 
 
-def _split_scratch(q, block_tables, Hkv):
+def _split_scratch(q, block_tables, Hkv, page_size):
     """(n_split, scratch pointer, tickets pointer) of a launch: with more
     than one split, the fp32 partial state of every split (acc [S, B*H, D],
     then m and l [S, B*H]; one allocation) and the device's tickets."""
-    n_split = planned_splits(q, block_tables, Hkv)
+    n_split = planned_splits(q, block_tables, Hkv, page_size)
     if n_split == 1:
         return 1, None, None
     B, H, D = q.shape
@@ -201,8 +272,8 @@ def paged_attention_fused(q, kv_pages, block_tables, lengths, *, scale,
     if partial:
         m = torch.empty((B, H), device=q.device, dtype=torch.float32)
         l = torch.empty((B, H), device=q.device, dtype=torch.float32)
-    n_split, part, tickets = _split_scratch(q, block_tables, Hkv)
-    lib = build.library("paged_attention")
+    n_split, part, tickets = _split_scratch(q, block_tables, Hkv, ps)
+    lib = build.library(KERNEL)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.paged_attention_fused_launch(
@@ -213,7 +284,7 @@ def paged_attention_fused(q, kv_pages, block_tables, lengths, *, scale,
             B, Hkv, G, D, P, ps, n, float(scale), int(window),
             float(softcap), int(partial), n_split,
             int(q.dtype == torch.bfloat16), stream)
-    build.check("paged_attention", code)
+    build.check(KERNEL, code)
     paged_attention_fused.launches += 1
     return (out, m, l) if partial else out
 
@@ -241,8 +312,8 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *, scale,
     Hkv, P, ps, _ = k_pages.shape
     B, H, D, G, n = _decode_dims(q, Hkv, block_tables, lengths)
     out = torch.empty((B, H, D), device=q.device, dtype=q.dtype)
-    n_split, part, tickets = _split_scratch(q, block_tables, Hkv)
-    lib = build.library("paged_attention")
+    n_split, part, tickets = _split_scratch(q, block_tables, Hkv, ps)
+    lib = build.library(KERNEL)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.paged_attention_split_launch(
@@ -251,7 +322,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *, scale,
             part, tickets, B, Hkv, G, D, P, ps, n, float(scale),
             int(window), float(softcap), n_split,
             int(q.dtype == torch.bfloat16), stream)
-    build.check("paged_attention", code)
+    build.check(KERNEL, code)
     paged_attention.launches += 1
     return out
 

@@ -1,18 +1,29 @@
-"""PyTorch port: a torch mirror of the split-K paged decode block
+"""PyTorch port: a torch mirror of the split-K paged decode blocks
 (``csrc/paged_attention.cu``, behind ``paged_attention_fused`` and
 ``paged_attention``) against the JAX reference
 (``repro.kernels.paged_attention.ref``) and the port's plain versions.
 
-The mirror keeps the kernel's geometry and order of work: the shape-only
-split plan (``split_plan``), each row's live page range cut into ``S``
-near-equal parts, a block of ``WARPS`` warps taking chunks ``w, w + WARPS,
-...`` of its split (a chunk is up to ``KC`` keys of one page), one fp32
-online-softmax step a chunk with ``l`` summed from the unrounded ``p`` and
-``p`` rounded to V's dtype before P.V, the warps merged at the end and the
-splits merged in order, as the last block of a (row, head group) does.
+The mirror keeps each block's geometry and order of work, and picks the
+block as the launcher does: bf16 at head_dim 64, 128 or 256 over pages of
+a multiple of 8 keys dividing KEY_TILE takes the tensor-core block,
+everything else the scalar one. Both share the
+shape-only split plans (``split_plan``, ``wgmma_split_plan``), each row's
+live page range cut into ``S`` near-equal parts, and the splits merged in
+order, as the last block of a (row, head group) does.
+- The tensor-core block walks its split in key tiles of ``KEY_TILE`` keys
+  (whole pages; pages past the split's range in its last tile are its last
+  page again, masked), consumer warpgroup ``c`` of ``CONSUMERS`` taking
+  tiles ``c, c + CONSUMERS, ...``: one fp32 online-softmax step a tile
+  (one running max over the tile's keys, ``l`` summed from the unrounded
+  ``p``, ``p`` rounded to bf16 against that max before P.V), the
+  warpgroups merged at the end. Query heads are padded with zero rows to
+  ``HEADS_PER_BLOCK``; the padding changes no value.
+- The scalar block's ``WARPS`` warps take chunks ``w, w + WARPS, ...`` of
+  the split (a chunk is up to ``KC`` keys of one page), one fp32 online-
+  softmax step a chunk, the warps merged at the end.
 ``test_mirror_geometry_follows_the_source`` ties these constants to the
-source. The CUDA kernel itself runs only on the GPU (``chip_smoke.py``
-holds it against the same plain versions there).
+source. The CUDA kernels themselves run only on the GPU (``chip_smoke.py``
+holds them against the same plain versions there).
 
 Tolerances as in ``tests/test_torch_kernels.py``: fp32 2e-5, bf16 2e-2."""
 import re
@@ -34,11 +45,22 @@ RNG = np.random.default_rng(16)
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
-# The block's geometry, as csrc/paged_attention.cu has it
+# The blocks' geometry, as csrc/paged_attention.cu has it: the scalar
+# block's
 WARPS = 8            # kWarps
 STAGES = 3           # kStages: chunks in flight a warp (no effect on values)
 STEPS = 4            # kSteps: key steps of 32 / L keys a chunk (bf16)
 CHUNK_BYTES = 4096   # what kSteps makes a chunk's K and V, at most
+# and the tensor-core block's
+WGMMA_HEAD_DIMS = (64, 128, 256)   # bf16 head dims it takes
+KEY_TILE = 64        # kKeyTile: keys a tile, the M rows of its products
+CONSUMERS = 1        # kConsumers: consumer warpgroups a block
+
+
+def wgmma_block(dtype, D, ps):
+    """Whether the launcher takes the tensor-core block (takes_wgmma)."""
+    return (dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS
+            and ps % 8 == 0 and KEY_TILE % ps == 0)
 
 
 def lanes_per_key(D):
@@ -129,6 +151,42 @@ def mirror_block(qg, rows, length, window, scale, cap, p_lo, p_hi, ps, kc_max):
     return _merge(warps)
 
 
+def mirror_wgmma_block(qg, rows, length, window, scale, cap, p_lo, p_hi, ps):
+    """One tensor-core block's state (acc [gn, D], m [gn], l [gn]): its
+    consumer warpgroups walk the key tiles of pages [p_lo, p_hi) round
+    robin, one running max a tile, then merge."""
+    gn, D = qg.shape
+    ppt = KEY_TILE // ps
+    n_tiles = -(-(p_hi - p_lo) * ps // KEY_TILE)
+    hi = min(p_hi * ps, length)
+    states = []
+    for c in range(CONSUMERS):
+        m = torch.full((gn,), rc.NEG_INF)
+        l = torch.zeros(gn)
+        acc = torch.zeros(gn, D)
+        for j in range(c, n_tiles, CONSUMERS):
+            kv = [rows(min(p_lo + j * ppt + pg, p_hi - 1), 0, ps)
+                  for pg in range(ppt)]
+            k = torch.cat([x[0] for x in kv])
+            v = torch.cat([x[1] for x in kv])
+            s = (qg.float() @ k.float().T) * scale
+            if cap > 0:
+                s = cap * torch.tanh(s / cap)
+            kp = p_lo * ps + j * KEY_TILE + torch.arange(KEY_TILE)
+            ok = kp < hi
+            if window > 0:
+                ok &= length - 1 - kp < window
+            s = torch.where(ok[None], s, torch.full_like(s, rc.NEG_INF))
+            mx = torch.maximum(m, s.amax(dim=1))
+            corr = torch.exp(m - mx)
+            p = torch.exp(s - mx[:, None])
+            l = l * corr + p.sum(dim=1)
+            acc = acc * corr[:, None] + p.to(v.dtype).float() @ v.float()
+            m = mx
+        states.append((acc, m, l))
+    return _merge(states)
+
+
 def mirror_decode(q, pools, bt, lens, *, scale, window=0, softcap=0.0,
                   S=1, partial=False):
     """The kernel's output over the fused pool (``pools = (kv,)``) or split
@@ -156,10 +214,17 @@ def mirror_decode(q, pools, bt, lens, *, scale, window=0, softcap=0.0,
             for hg in range(groups):
                 g0 = hg * group
                 heads = slice(h * G + g0, h * G + min(g0 + group, G))
-                parts = [mirror_block(
-                    q[b, heads], rows, length, window, scale, softcap,
-                    *split_pages(length, ps, n, window, sp, S), ps, kc_max)
-                    for sp in range(S)]
+                if wgmma_block(q.dtype, D, ps):
+                    parts = [mirror_wgmma_block(
+                        q[b, heads], rows, length, window, scale, softcap,
+                        *split_pages(length, ps, n, window, sp, S), ps)
+                        for sp in range(S)]
+                else:
+                    parts = [mirror_block(
+                        q[b, heads], rows, length, window, scale, softcap,
+                        *split_pages(length, ps, n, window, sp, S), ps,
+                        kc_max)
+                        for sp in range(S)]
                 acc[b, heads], m[b, heads], l[b, heads] = (
                     _merge(parts) if S > 1 else parts[0])
     if partial:
@@ -220,43 +285,87 @@ def _split(kv):
 # ---------------------------------------------------------------------------
 # the split plan and the page ranges
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("B,Hkv,G,n,sms,want", [
-    (1, 8, 3, 256, 132, 32),     # B1 ctx 4093: 8 blocks -> fill the card
-    (8, 8, 3, 256, 132, 5),      # B8 serving-like: 64 blocks
-    (64, 8, 3, 256, 132, 1),     # 512 blocks: no split
-    (33, 8, 3, 256, 132, 1),     # 264 blocks, two an SM already
-    (32, 8, 3, 256, 132, 2),
-    (1, 8, 3, 16, 132, 2),       # capped at n // MIN_SPLIT_PAGES
-    (1, 8, 3, 2, 132, 1),        # too narrow a table to split
-    (1, 8, 16, 256, 132, 17),    # G 16: two head groups, 16 blocks
-    (2, 2, 1, 32, 132, 4),
-    (0, 8, 3, 256, 132, 1),      # no rows
+# (block, B, Hkv, G, n, sms, want): the tensor-core block's plan at its
+# blocks an SM (2 at D 128, 1 at D 256, 3 at D 64) over 64-key tiles of
+# 16-key pages, and the scalar block's (ids as before the tensor-core block)
+def _plan_case(block, B, Hkv, G, n, sms, want):
+    ids = [B, Hkv, G, n, sms, want]
+    if block != "scalar":
+        ids = ["wgmma", block[1]] + ids
+    return pytest.param(block, B, Hkv, G, n, sms, want,
+                        id="-".join(str(x) for x in ids))
+
+
+@pytest.mark.parametrize("block,B,Hkv,G,n,sms,want", [
+    _plan_case(("wgmma", 128, 2), 8, 8, 3, 256, 132, 4),   # B8 serving-like
+    _plan_case(("wgmma", 128, 2), 1, 8, 3, 256, 132, 16),  # B1: capped
+    _plan_case(("wgmma", 128, 2), 64, 8, 3, 256, 132, 1),  # 512: no split
+    _plan_case(("wgmma", 128, 2), 33, 8, 3, 256, 132, 1),  # the card's slots
+    _plan_case(("wgmma", 128, 2), 4, 8, 8, 256, 132, 8),   # B4 G8
+    _plan_case(("wgmma", 128, 2), 1, 8, 16, 256, 132, 16),  # two head groups
+    _plan_case(("wgmma", 128, 2), 1, 8, 3, 2, 132, 1),     # one key tile
+    _plan_case(("wgmma", 128, 2), 0, 8, 3, 256, 132, 1),   # no rows
+    _plan_case(("wgmma", 256, 1), 8, 4, 2, 512, 132, 4),   # gemma2-2b B8
+    _plan_case(("wgmma", 64, 3), 2, 2, 12, 64, 132, 16),   # the key tiles
+    _plan_case("scalar", 1, 8, 3, 256, 132, 32),   # B1 ctx 4093: 8 blocks
+    _plan_case("scalar", 8, 8, 3, 256, 132, 5),    # B8 serving-like
+    _plan_case("scalar", 64, 8, 3, 256, 132, 1),   # 512 blocks: no split
+    _plan_case("scalar", 33, 8, 3, 256, 132, 1),   # 264, two an SM already
+    _plan_case("scalar", 32, 8, 3, 256, 132, 2),
+    _plan_case("scalar", 1, 8, 3, 16, 132, 2),     # n // MIN_SPLIT_PAGES
+    _plan_case("scalar", 1, 8, 3, 2, 132, 1),      # too narrow to split
+    _plan_case("scalar", 1, 8, 16, 256, 132, 17),  # G 16: two head groups
+    _plan_case("scalar", 2, 2, 1, 32, 132, 4),
+    _plan_case("scalar", 0, 8, 3, 256, 132, 1),    # no rows
 ])
-def test_split_plan_from_shapes(B, Hkv, G, n, sms, want):
-    S = PK.split_plan(B, Hkv, G, n, sms)
-    assert S == want
+def test_split_plan_from_shapes(block, B, Hkv, G, n, sms, want):
     blocks = B * Hkv * -(-G // PK.HEADS_PER_BLOCK)
-    if S > 1:   # the grid reaches about two blocks an SM, or the cap
-        assert blocks * S >= PK.SPLIT_BLOCKS_PER_SM * sms \
-            or S == n // PK.MIN_SPLIT_PAGES
-        assert blocks * (S - 1) < PK.SPLIT_BLOCKS_PER_SM * sms
+    if block == "scalar":
+        S = PK.split_plan(B, Hkv, G, n, sms)
+        assert S == want
+        if S > 1:   # the grid reaches about two blocks an SM, or the cap
+            assert blocks * S >= PK.SPLIT_BLOCKS_PER_SM * sms \
+                or S == n // PK.MIN_SPLIT_PAGES
+            assert blocks * (S - 1) < PK.SPLIT_BLOCKS_PER_SM * sms
+        return
+    _, D, per_sm = block
+    S = PK.wgmma_split_plan(B, Hkv, G, n, 16, KEY_TILE, per_sm, sms)
+    assert S == want
+    tiles = -(-n * 16 // KEY_TILE)
+    assert 1 <= S <= max(1, min(tiles, PK.MAX_SPLITS))
+    if S > 1:   # the split grid fits the card's resident blocks at once
+        assert blocks * S <= per_sm * sms
 
 
 def test_planned_splits_reads_only_shapes(monkeypatch):
-    """The wrappers' plan takes q's and the table's shapes and the card's
-    SM count, nothing of ``lengths``: the engine's one readback a round
-    stays its only one."""
+    """The wrappers' plan takes q's and the table's shapes, the page size,
+    q's dtype, the card's SM count and the tensor-core block's occupancy,
+    nothing of ``lengths``: the engine's one readback a round stays its
+    only one."""
     class Shaped:
-        def __init__(self, shape):
+        def __init__(self, shape, dtype=torch.int32):
             self.shape = shape
+            self.dtype = dtype
             self.device = torch.device("cuda", 0)
     monkeypatch.setattr(build, "sm_count", lambda device: 132)
+    monkeypatch.setattr(PK, "wgmma_attributes", lambda dtype, D, ps: {
+        "key_tile": KEY_TILE, "blocks_per_sm": 2}
+        if wgmma_block(dtype, D, ps) else None)
     PK._planned.cache_clear()
     try:
-        assert PK.planned_splits(Shaped((8, 24, 128)), Shaped((8, 256)),
-                                 8) == 5
-        assert PK.planned_splits(Shaped((1, 24, 128)), Shaped((1, 256)),
-                                 8) == 32
+        bf, f32 = torch.bfloat16, torch.float32
+        assert PK.planned_splits(Shaped((8, 24, 128), bf), Shaped((8, 256)),
+                                 8, 16) == 4
+        assert PK.planned_splits(Shaped((1, 24, 128), bf), Shaped((1, 256)),
+                                 8, 16) == 16
+        assert PK.planned_splits(Shaped((8, 24, 128), f32),
+                                 Shaped((8, 256)), 8, 16) == 5
+        assert PK.planned_splits(Shaped((1, 24, 48), bf), Shaped((1, 256)),
+                                 8, 16) == 32
+        # pages that are not whole boxes of the key tile: the scalar plan
+        for ps in (128, 12):
+            assert PK.planned_splits(Shaped((8, 24, 128), bf),
+                                     Shaped((8, 256)), 8, ps) == 5
     finally:
         PK._planned.cache_clear()
 
@@ -395,6 +504,82 @@ def test_window_starting_inside_a_split(window, name):
     np.testing.assert_allclose(_np(got), _np(want), **_tol(name))
 
 
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 3, 8])
+def test_wgmma_block_heads_and_head_dims(G, D):
+    """The tensor-core block at each head dim it takes, with G query heads
+    padded to HEADS_PER_BLOCK zero rows (G 1 and 3) or none (G 8): the
+    mirror against the JAX reference in bf16, whole and in 3 splits, and
+    its partial state against the plain version's."""
+    assert wgmma_block(torch.bfloat16, D, 16)
+    case = (3, 2, G, D, 16, 24, 8, 0, 0.0, [128, 37, 90])
+    (jq, jkv, jbt, jlens), (q, kv, bt, lens), kw = _inputs(case, "bfloat16")
+    want = JPA.paged_attention_fused_ref(jq, jkv, jbt, jlens, **kw)
+    for S in (1, 3):
+        got = mirror_decode(q, (kv,), bt, lens, S=S, **kw)
+        np.testing.assert_allclose(_np(got), _np(want), **_tol("bfloat16"))
+    acc, m, l = mirror_decode(q, (kv,), bt, lens, S=3, partial=True, **kw)
+    racc, rm, rl = TPA.paged_attention_partial_ref(q, kv, bt, lens, **kw)
+    np.testing.assert_allclose(m.numpy(), rm.numpy(), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(l.numpy(), rl.numpy(), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(acc.numpy(), racc.float().numpy(),
+                               **_tol("bfloat16"))
+
+
+@pytest.mark.parametrize("ps", [8, 16, 32])
+@pytest.mark.parametrize("S", [1, 2, 3, 7])
+def test_key_tile_ending_inside_a_page_range(ps, S):
+    """Splits whose page count is not a multiple of KEY_TILE // ps: the
+    last tile holds the split's last pages and then that last page again,
+    whose keys lie past the split (or the row) and are masked; with a
+    window, the first tile starts inside a page. bf16 at D 128 against
+    the JAX reference, and the splits' partial states merged against the
+    plain version's."""
+    lens = [5 * ps + 3, 11 * ps, 3 * ps - 1, 13 * ps + 7]
+    n = 16
+    for window in (0, 2 * ps + 5):
+        case = (4, 2, 3, 128, ps, 64, n, window, 0.0, lens)
+        (jq, jkv, jbt, jlens), (q, kv, bt, lens_t), kw = _inputs(
+            case, "bfloat16")
+        mid_tile = False
+        for length in lens:
+            assert live_pages(length, ps, n, window)[2] > 0
+            mid_tile |= any(
+                (hi - lo) * ps % KEY_TILE for lo, hi in (
+                    split_pages(length, ps, n, window, sp, S)
+                    for sp in range(S)))
+        assert mid_tile
+        got = mirror_decode(q, (kv,), bt, lens_t, S=S, **kw)
+        want = JPA.paged_attention_fused_ref(jq, jkv, jbt, jlens, **kw)
+        np.testing.assert_allclose(_np(got), _np(want), **_tol("bfloat16"))
+        acc, m, l = mirror_decode(q, (kv,), bt, lens_t, S=S, partial=True,
+                                  **kw)
+        racc, rm, rl = TPA.paged_attention_partial_ref(q, kv, bt, lens_t,
+                                                       **kw)
+        np.testing.assert_allclose(m.numpy(), rm.numpy(), atol=1e-5,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(l.numpy(), rl.numpy(), atol=1e-4,
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("ps", [12, 24, 128])
+@pytest.mark.parametrize("D", [64, 128])
+def test_pages_the_tensor_core_block_does_not_take(D, ps):
+    """bf16 at a tensor-core head dim over pages that are not a multiple of
+    8 keys dividing KEY_TILE takes the scalar block: its mirror against the
+    JAX reference, whole and in 3 splits, with the split pools giving the
+    fused pool's bits."""
+    assert not wgmma_block(torch.bfloat16, D, ps)
+    case = (3, 2, 3, D, ps, 24, 4, 0, 0.0, [4 * ps, 37, 2 * ps + 5])
+    (jq, jkv, jbt, jlens), (q, kv, bt, lens), kw = _inputs(case, "bfloat16")
+    want = JPA.paged_attention_fused_ref(jq, jkv, jbt, jlens, **kw)
+    k, v = _split(kv)
+    for S in (1, 3):
+        got = mirror_decode(q, (kv,), bt, lens, S=S, **kw)
+        np.testing.assert_allclose(_np(got), _np(want), **_tol("bfloat16"))
+        assert torch.equal(got, mirror_decode(q, (k, v), bt, lens, S=S, **kw))
+
+
 @pytest.mark.parametrize("case", [CASES[i] for i in (0, 1, 5)])
 @pytest.mark.parametrize("S", [1, 4])
 def test_partial_negative_shard_local_lengths(case, S):
@@ -420,10 +605,11 @@ def test_partial_negative_shard_local_lengths(case, S):
 
 
 def test_mirror_geometry_follows_the_source():
-    """WARPS, STAGES, STEPS, lanes_per_key, the chunk's key count and the
-    plan's HEADS_PER_BLOCK and MIN_SPLIT_PAGES are the
-    source's, so a change to either side fails here rather than letting
-    the mirror drift."""
+    """WARPS, STAGES, STEPS, lanes_per_key, the chunk's key count, the
+    tensor-core block's head dims, KEY_TILE, CONSUMERS, its tiles, page
+    clamp and masks, and the plan's HEADS_PER_BLOCK and MIN_SPLIT_PAGES
+    are the source's, so a change to either side fails here rather than
+    letting the mirror drift."""
     src = (build.CSRC / "paged_attention.cu").read_text()
 
     def const(name):
@@ -434,6 +620,25 @@ def test_mirror_geometry_follows_the_source():
     assert const("kStages") == STAGES
     assert const("kSteps") == STEPS
     assert const("kHeadsPerBlock") == PK.HEADS_PER_BLOCK
+    assert const("kKeyTile") == KEY_TILE
+    assert const("kConsumers") == CONSUMERS
+    for rule in ("return (D == 64 || D == 128 || D == 256) && ps % 8 == 0 "
+                 "&&\n         kKeyTile % ps == 0;",
+                 "if (takes_wgmma(a.D, a.ps)) return launch_wgmma(a, stream);",
+                 "if (!takes_wgmma(a.D, a.ps) || a.n_split > w.max_splits)",
+                 "const int n_tiles = ((p_hi - p_lo) * ps + Geo::KT - 1) / "
+                 "Geo::KT;",
+                 "const DecodeMask dm{p_lo * ps, min(p_hi * ps, length), "
+                 "length, a.window,",
+                 "const int kp = dm.kp0 + j * kKeyTile + 16 * w + gq + 8 * "
+                 "(x >> 1);",
+                 "const bool ok = kp < dm.hi &&",
+                 "(dm.window <= 0 || dm.length - 1 - kp < dm.window);",
+                 "j = c + kConsumers * i;",
+                 "s[x] = expf(s[x] - m[x & 1]);",
+                 "__float2bfloat16_rn(s[x]);"):
+        assert rule in src, rule
+    assert "? bt_row[min(p_lo + j * ppt + pg, p_hi - 1)] : 0;" in src
     for rule in ("int L = 8;",
                  "while (L < 32 && L * 8 < D) L *= 2;",
                  "a.head_groups = (a.G + kHeadsPerBlock - 1) / kHeadsPerBlock;",

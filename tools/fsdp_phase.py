@@ -27,12 +27,12 @@ here are gloo's, not NCCL's between cards. TF32 is off in every rank.
       rank): the same against the card's world-1 step, #7 twice a layer a
       rank;
     - llama3.2-3b and jamba under ``fsdp``: ``prefill`` of 2 x 20 tokens
-      and 8 greedy ``decode_step``s (``mesh_all_phase.slot_run``) give the
+      and 4 greedy ``decode_step``s (``mesh_all_phase.slot_run``) give the
       card's world-1 tokens.
 (b) Full-width llama3.2-3b (bf16, phase 15's weights from seed 0 and its
     batch, B2 x S2048, a row a rank) at mesh ``2x1`` (data 2) under
     ``fsdp``, each rank capped at half the card
-    (``set_per_process_memory_fraction(0.5)``): three AdamW steps, the
+    (``set_per_process_memory_fraction(0.5)``): two AdamW steps, the
     first loss within 1e-2 of phase 15's (a one-rank forward here when
     run alone), #5 56 launches a step on each rank; each step's time
     (CUDA events), tokens/s, each rank's peak memory, and the all-gather
@@ -80,7 +80,7 @@ EP_ARCHS = ("jamba-1.5-large-398b", "deepseek-v3-671b")
 WIDE_ARCH = "xlstm-125m"
 SLOT_ARCHS = ("llama3.2-3b", "jamba-1.5-large-398b")
 B, S = 4, 32
-FULL_STEPS = 3
+FULL_STEPS = 2
 DRY_ARCHS = ("deepseek-v3-671b",)
 KERNELS = ma.KERNELS
 

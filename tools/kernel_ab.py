@@ -13,7 +13,9 @@ chunked-prefill cases (llama3.2-3b's and jamba's heads, and the short deep
 chunks that split-K cuts; and deepseek-v3's MLA shapes where the chunked
 kernel takes a value width of its own), the mLSTM chunkwise cases of
 ``MLSTM_CASES``
-(the xlstm-125m shapes of the parity phase), its split-pool decode and
+(the xlstm-125m shapes of the parity phase), its decode cases at
+llama3.2-3b's heads, jamba's G 8, G 12 at D 64 and gemma2-2b's serving
+batch, its split-pool decode and
 prefill cases and the Mamba
 selective-scan cases of ``MAMBA_CASES`` (jamba's shapes, and the smoke
 config's d_inner 128) where it has those kernels (CUDA events; inputs from
@@ -217,6 +219,7 @@ def main(root: str) -> int:
     build.build()
     cases = cs.Cases(torch)
     rng = np.random.default_rng(7)
+    g_rng = np.random.default_rng(11)
     bf = torch.bfloat16
     main_lens = [int(x) + 40 for x in rng.integers(128, 2049, 8)]
     edges = [4096, 16, 13, 4088]
@@ -229,7 +232,17 @@ def main(root: str) -> int:
                edges + [int(x) for x in rng.integers(1, 4097, 60)], bf, {}),
               ("B8 window1000 softcap30 bf16", 8,
                edges + [int(x) for x in rng.integers(1, 4097, 4)], bf,
-               dict(window=1000, softcap=30.0))]
+               dict(window=1000, softcap=30.0)),
+              # jamba's G 8, two head groups at D 64, and gemma2-2b's
+              # serving batch (D 256, window 4096, softcap 50; lengths of
+              # their own generator, so the cases above keep theirs)
+              ("B4 G8 bf16", 4, [2000, 1, 700, 4096], bf, dict(G=8)),
+              ("B2 G12 D64 window300 bf16", 2, [1000, 77], bf,
+               dict(G=12, Hkv=2, D=64, window=300)),
+              ("gemma2-2b B8 ctx 4097-6144 D256 window4096 softcap50 bf16",
+               8, [int(x) for x in g_rng.integers(4097, 6145, 4)]
+               + [int(x) for x in g_rng.integers(128, 2049, 4)], bf,
+               dict(G=2, Hkv=4, D=256, window=4096, softcap=50.0))]
     for name, B, lens, dtype, kw in decode:
         try:
             cs.decode_case(cases, name, B, lens, dtype, **kw)
@@ -297,7 +310,8 @@ def main(root: str) -> int:
                                "device_ms_cold", "h_bits_equal",
                                "splits_other", "ms_other", "device_ms_other",
                                "registers", "spill_bytes", "smem_bytes",
-                               "blocks_per_sm")
+                               "blocks_per_sm", "block", "bound_ms",
+                               "same_as_fused")
              if k in r}
             for r in cases.rows]
     print(json.dumps({"root": root, "device": cs.device_line(),

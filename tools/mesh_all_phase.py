@@ -18,7 +18,7 @@ copies CUDA tensors through the host. TF32 is off in every rank.
       gradient norm 2e-5 + 2e-5 |ref|, each leaf of the first moment 1e-4
       max |m_ref|); on every rank #5/#6/#7 launch twice a layer (forward
       and recompute) and their plain versions run in the backward only;
-    - every arch's ``prefill`` of 2 x 20 tokens and 8 greedy
+    - every arch's ``prefill`` of 2 x 20 tokens and 4 greedy
       ``decode_step``s at ``2x2`` (and the 2-head llama at ``4``), the
       cache this rank's shards: the greedy tokens equal the card's world-1
       tokens, and the largest logit difference is reported.
@@ -65,7 +65,7 @@ TRAIN_CASES = (("deepseek-v3-671b", "2x2", None),
                ("seamless-m4t-large-v2", "2x2", None),
                ("internvl2-26b", "2x2", None),
                ("llama3.2-3b", "4", {"num_heads": 2, "num_kv_heads": 1}))
-SLOT_B, SLOT_PROMPT, SLOT_STEPS, SLOT_LEN, SLOT_ENC = 2, 20, 8, 32, 8
+SLOT_B, SLOT_PROMPT, SLOT_STEPS, SLOT_LEN, SLOT_ENC = 2, 20, 4, 32, 8
 SEAMLESS_S = 512
 DS_B, DS_PROMPT, DS_STEPS, DS_LEN = 2, 512, 32, 1024
 DRY_CELLS = (("llama3.2-3b", "decode_32k", "2x4", False),

@@ -35,12 +35,13 @@ fails its world, and the phase raises.
     the one card: they are the collectives' time on the card's clock, not
     device time of a collective kernel (gloo reduces on the host).
 (c) Full-width llama3.2-3b (bf16, 28 layers, random weights from seed 0)
-    with phase 5's 8 requests and 65536-token KV pool at world 2 (heads)
-    and world 3 (sequence): every request finishes, each rank's #1/#2
-    counters (set to 0 just before, read through the control plane just
-    after) equal 28 x that rank's dispatches of each kind, the driver's
-    readbacks equal its rounds. Prints the backend, tokens/s, the mean
-    round time beside phase 5's and the control plane's cost a dispatch.
+    with ``chip_smoke.cut_workload``'s part of phase 5's requests (4 of
+    8, a quarter of their output tokens) and its 65536-token KV pool at
+    world 2 (heads) and world 3 (sequence): every request finishes, each
+    rank's #1/#2 counters (set to 0 just before, read through the control
+    plane just after) equal 28 x that rank's dispatches of each kind, the
+    driver's readbacks equal its rounds. Prints the backend, tokens/s, the mean
+    round time and the control plane's cost a dispatch.
 """
 from __future__ import annotations
 
@@ -335,7 +336,7 @@ def full_part(world, mesh, rank):
     from repro_torch.serving.engine import EngineCore
     cfg = get_config("llama3.2-3b")
     params = init_params(cfg, seed=0, device=cs.DEVICE)
-    prompts, outputs = cs.serving_workload(cfg)
+    prompts, outputs = cs.cut_workload(*cs.serving_workload(cfg))
     core = EngineCore(cfg, SlidingServeScheduler(max_budget=512,
                                                  max_iter_time=2.0),
                       kv_capacity_tokens=65536, params=params, device=cs.DEVICE,
@@ -397,7 +398,7 @@ def _check_driver(what, rec, world, layers=None):
                     f"chunk {c['prefill_calls']}, spec {c['spec_calls']}")
 
 
-def sharded_phase(torch, phase5_round_ms=None, device_line=None):
+def sharded_phase(torch, device_line=None):
     """Phase 16 (see the module docstring). Returns its record, with the
     launches of (c) by world and rank."""
     from repro_torch.launch.local_world import spawn_world
@@ -471,7 +472,6 @@ def sharded_phase(torch, phase5_round_ms=None, device_line=None):
             full = {"banner": res["banner"], "wall_s": res["wall_s"],
                     "iterations": res["iterations"],
                     "round_ms": 1e3 * res["wall_s"] / res["iterations"],
-                    "phase5_round_ms": phase5_round_ms,
                     "output_tok_per_s": n_out / res["wall_s"],
                     "total_tok_per_s": (n_out + res["prompt_tokens"])
                     / res["wall_s"],
@@ -486,15 +486,13 @@ def sharded_phase(torch, phase5_round_ms=None, device_line=None):
                           "paged_prefill_attention_fused"):
                     launches.setdefault(k, {})[
                         f"llama3.2-3b sharded w{world} rank {r}"] = c[k]
-            p5 = (f" (phase 5, one rank: {phase5_round_ms:.2f} ms)"
-                  if phase5_round_ms else "")
             print(f"  {what}: {res['banner']}; {len(res['outputs'])} "
                   f"requests, {res['prompt_tokens']} prompt + {n_out} output "
                   f"tokens in {res['wall_s']:.3f}s: "
                   f"{full['output_tok_per_s']:.1f} output tok/s, "
                   f"{full['total_tok_per_s']:.1f} total tok/s; "
                   f"{res['iterations']} rounds of {full['round_ms']:.2f} ms"
-                  f"{p5}; control plane {full['control_ms_per_dispatch']:.3f}"
+                  f"; control plane {full['control_ms_per_dispatch']:.3f}"
                   f" ms a dispatch over {dispatches} dispatches; launches "
                   f"by rank {[(c['paged_attention_fused'], c['paged_prefill_attention_fused']) for c in cnt]} "
                   f"= {LAYERS} x dispatches [{device_line}]", flush=True)

@@ -24,7 +24,7 @@ collectives, not NCCL between cards. TF32 is off in every rank.
 (b) Full-width llama3.2-3b (bf16, 28 layers, weights from seed 0 as phase
     15's, its batch: ``PackedSyntheticData`` B2 x S2048) at world 2, mesh
     ``2`` (``model`` 2: 12 q / 4 kv heads a rank, #5 at G 3; the MLP, the
-    embedding and the loss's vocabulary halved), three AdamW steps (phase
+    embedding and the loss's vocabulary halved), two AdamW steps (phase
     15's rate): the first loss within 1e-2 relative of the one-rank loss
     on the same weights and batch (phase 15's when given, else a no-grad
     forward here), #5 56 launches a step on each rank. Reports each
@@ -33,7 +33,7 @@ collectives, not NCCL between cards. TF32 is off in every rank.
 (c) qwen2-moe-a2.7b at every published width, ``num_layers`` 24 -> 4
     (what two ranks sharing the card hold with AdamW's state; 3.04 B
     parameters, 24 GB of state a rank), expert-parallel at world 2, mesh
-    ``2`` (32 of the 64 padded experts a rank), the same batch, three
+    ``2`` (32 of the 64 padded experts a rank), the same batch, two
     steps: every loss finite, the last below the first. Reports the
     tokens dropped by capacity and the ``all_to_all`` time a step.
 """
@@ -59,7 +59,7 @@ SMOKE_ARCHS = ("llama3.2-3b", "gemma2-2b", "gemma2-27b", "qwen3-1.7b",
                "qwen2-moe-a2.7b", "jamba-1.5-large-398b", "xlstm-125m")
 EP_ARCHS = ("qwen2-moe-a2.7b", "jamba-1.5-large-398b")
 SMOKE_B, SMOKE_S, SMOKE_LR = 4, 32, 1e-3
-FULL_STEPS = 3
+FULL_STEPS = 2
 MOE_LAYERS, MOE_LR = 4, 1e-4
 MOE_REDUCED = ["num_layers 24 -> 4 (MoE layers 24 -> 4)"]
 KERNELS = ("chunked_prefill_attention", "mamba_scan", "mlstm_chunkwise")
