@@ -58,9 +58,14 @@ prints its seconds):
    the split prefill must be, in bf16 and fp32: the bf16 pair shares its
    tensor-core tile loop).
    The mLSTM chunkwise kernels at xlstm-125m shapes (4 heads, head_dim 384,
-   bf16): fresh state at S 2048 and S 1000 (a ragged last chunk), carried
-   states at S 37 and S 512, the decode of 8 of 10 and 4 of 6 state rows,
-   fp32, and the smoke config's head_dim 32; each with its device time.
+   bf16): fresh state at S 2048 and S 1000 (a ragged last chunk) and a
+   batch of 4 at S 300, carried states at S 37, S 200, S 512 and S 512 at
+   head_dim 96, the decode of 8 of 10 and 4 of 6 state rows, fp32, and the
+   smoke config's head_dim 32; each with its device time, a bf16 chunk's
+   also pass by pass (gates, states, outputs) from the trace; before them
+   the registers, spills, shared memory and blocks an SM of the three bf16
+   passes at both chunk lengths (128 tokens at S 2048, 64 at S 200), none
+   of which may spill.
    The Mamba selective scan at jamba's shapes (d_inner 16384, d_state 16,
    bf16): fresh chunks of 2048 and 1000 steps, a carried chunk of 37, the
    decode of 8 of 10 state rows, fp32, and the smoke config's d_inner 128;
@@ -117,7 +122,8 @@ prints its seconds):
    they launched (one for a decode step, three passes for a bf16 chunk)
    and its decode and chunk calls are printed apart. A second run repeats
    ``cut_workload``'s part of it under ``torch.profiler`` and prints
-   #7's kernels in the trace.
+   #7's kernels in the trace, the chunk passes and the decode kernel
+   apart.
 8. full-width jamba-1.5-large-398b slot serving, cut in depth to one
    8-layer period (``jamba_cut``: every published width, 7 Mamba layers
    and one attention layer, the last FFN MoE; 18.06 B parameters), random
@@ -353,6 +359,27 @@ def cold_device_ms(torch, fn, iters, match):
     ns = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
              if e.device_type() == DeviceType.CUDA and match in e.name())
     return ns / iters / 1e6
+
+
+def kernel_device_ms(torch, fn, iters, match):
+    """Device time per call of each kernel of ``fn`` whose name holds
+    ``match`` (a profiler trace of ``iters`` calls), by the kernel's name
+    without its namespace, template arguments and parameters: the time of
+    each pass of a launch that runs several kernels."""
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    with profiler(torch) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and match in e.name():
+            name = e.name().replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0].split()[-1]
+            out[name] = out.get(name, 0.0) + e.duration_ns() / iters / 1e6
+    return out
 
 
 def vec_limit(want, dtype_name):
@@ -985,8 +1012,9 @@ def mlstm_case(cs, name, B, S, dtype, carried, H=MLSTM_H, D=MLSTM_D,
     fresh state (C 0, n 0, m -1e30) or the state a random prefix leaves;
     ``rows`` maps batch rows to the rows of a larger state, as a slot
     decode does. Timed with CUDA events around the wrapper calls (``ms``)
-    and as device time (``device_ms``, the passes' kernels summed), also
-    with the L2 flushed before each call (``device_ms_cold``)."""
+    and as device time (``device_ms``, the passes' kernels summed; each
+    kernel's in ``pass_ms``), also with the L2 flushed before each call
+    (``device_ms_cold``)."""
     torch = cs.torch
     from repro_torch.kernels.mlstm_chunkwise.kernel import mlstm_chunkwise
     from repro_torch.kernels.mlstm_chunkwise.ref import (
@@ -1032,31 +1060,55 @@ def mlstm_case(cs, name, B, S, dtype, carried, H=MLSTM_H, D=MLSTM_D,
     ms = cuda_ms(torch, run, iters)
     dev = device_ms(torch, run, iters)
     cold = cold_device_ms(torch, run, iters, "mlstm_")
+    passes = kernel_device_ms(torch, run, iters, "mlstm_")
     plain = cuda_ms(torch, lambda: mlstm_chunkwise_ref(
         *args, C_want, n, m, rows=rows_t), 2, warmup=1)
-    from repro_torch.kernels.mlstm_chunkwise.kernel import cost
+    from repro_torch.kernels.mlstm_chunkwise.kernel import cost, plan
+    from repro_torch.kernels.mlstm_chunkwise.ref import chunk_length
     b_ms, b_by = work_bound(cost(B, S, H, D, dtype))
     cs.record({"kernel": "mlstm_chunkwise", "case": name, "dtype": dn,
                "max_abs_err": err, "limit_share": share,
                "C_limit_share": c_share, "ms": ms, "device_ms": dev,
-               "device_ms_cold": cold, "plain_ms": plain, "library_ms": None,
+               "device_ms_cold": cold, "pass_ms": passes,
+               "kernels_a_call": plan(S, D, dtype == torch.bfloat16)[0],
+               "chunk": chunk_length(dtype, S) if S > 1 else None,
+               "plain_ms": plain, "library_ms": None,
                "bound_ms": b_ms, "bound_by": b_by})
     print(f"    device {dev:.4f} ms, with the L2 flushed {cold:.4f} ms; C at "
-          f"{c_share:.3f} of its limit")
+          f"{c_share:.3f} of its limit; "
+          + ", ".join(f"{k} {v:.4f}" for k, v in passes.items()))
 
 
 def mlstm_cases(cs):
     """#7 at the xlstm-125m shapes (H 4, D 384): the engine's fresh first
-    chunks (S 2048; S 1000, whose last 64-token chunk is ragged), chunks
-    from a carried state (S 37, S 512), the decode of 8 of 10 slots and of
-    4 of 6 (S 1, state rows permuted; the others must not change), fp32,
-    and the smoke config's D 32."""
+    chunks (S 2048 and S 1000 in 128-token chunks, the last of S 1000
+    ragged), a batch of 4 fresh rows as the training forward passes them
+    (S 300, in 64-token chunks as every S up to 512), chunks from a carried
+    state (S 37, S 200 and S 512; S 200 and S 37 end inside a chunk; S 512
+    also at D 96, a column box cut inside a swizzle atom), the decode of 8 of 10 slots and of 4 of 6 (S
+    1, state rows permuted; the others must not change), fp32, and the
+    smoke config's D 32."""
     torch = cs.torch
+    from repro_torch.kernels.mlstm_chunkwise.kernel import pass_attributes
     bf, f32 = torch.bfloat16, torch.float32
+    # the bf16 passes at both chunk lengths (S 2048: 128 tokens, S 200:
+    # 64) at xlstm-125m's head dim: no spill
+    for S in (2048, 200):
+        for name, attrs in pass_attributes(S, MLSTM_D).items():
+            print(f"  mlstm_chunkwise {name} pass, S {S} D {MLSTM_D}: "
+                  f"{attrs}", flush=True)
+            if attrs["spill_bytes"]:
+                raise AssertionError(f"mlstm_chunkwise {name} pass (S {S}): "
+                                     f"ptxas spilled {attrs['spill_bytes']} "
+                                     f"bytes")
     mlstm_case(cs, "B1 S2048 fresh bf16", 1, 2048, bf, False, iters=5)
     mlstm_case(cs, "B1 S1000 fresh bf16", 1, 1000, bf, False, iters=5)
     mlstm_case(cs, "B1 S37 carried bf16", 1, 37, bf, True)
     mlstm_case(cs, "B1 S512 carried bf16", 1, 512, bf, True)
+    mlstm_case(cs, "B4 S300 fresh bf16", 4, 300, bf, False, iters=5)
+    mlstm_case(cs, "B1 S200 carried bf16", 1, 200, bf, True, iters=5)
+    mlstm_case(cs, "B1 S512 carried bf16 D96", 1, 512, bf, True, D=96,
+               iters=5)
     mlstm_case(cs, "B8 S1 decode carried bf16", 8, 1, bf, True,
                rows=[3, 0, 7, 1, 6, 2, 9, 4], iters=20)
     mlstm_case(cs, "B4 S1 decode carried bf16", 4, 1, bf, True,
@@ -1662,9 +1714,23 @@ def slot_serving_phase(torch, cfg, params, kernels, expected,
                       if "mlstm_" in k["name"]]
                 rec["mlstm"]["traced_kernels"] = sum(k["count"] for k in mk)
                 rec["mlstm"]["traced_ms"] = sum(k["ms"] for k in mk)
-                print(f"  #7 in the trace: {rec['mlstm']['traced_kernels']} "
-                      f"kernels, {rec['mlstm']['traced_ms']:.2f} ms (the "
-                      f"wrapper counted {rec['mlstm']['kernel_launches']})")
+                # the chunk passes and the decode kernel apart
+                for part, key in (("chunk", ("mlstm_gate", "mlstm_state",
+                                             "mlstm_output")),
+                                  ("decode", ("mlstm_decode",))):
+                    pk = [k for k in mk if any(x in k["name"] for x in key)]
+                    rec["mlstm"][f"traced_{part}_kernels"] = sum(
+                        k["count"] for k in pk)
+                    rec["mlstm"][f"traced_{part}_ms"] = sum(
+                        k["ms"] for k in pk)
+                ml = rec["mlstm"]
+                print(f"  #7 in the trace: {ml['traced_kernels']} kernels, "
+                      f"{ml['traced_ms']:.2f} ms (the wrapper counted "
+                      f"{ml['kernel_launches']}): chunk passes "
+                      f"{ml['traced_chunk_ms']:.2f} ms over "
+                      f"{ml['traced_chunk_kernels']}, decode kernel "
+                      f"{ml['traced_decode_ms']:.2f} ms over "
+                      f"{ml['traced_decode_kernels']}")
             if "mamba" in rec:
                 # #6's device time in the trace, by kernel: prompt chunks
                 # and decode steps
@@ -2989,6 +3055,7 @@ def main() -> int:
     by_path["mlstm_chunkwise"] = {"xlstm-125m slot":
                                   x_launches["mlstm_chunkwise"]}
     x_mlstm = x_recs[0]["mlstm"]
+    x_traced = next((r["mlstm"] for r in x_recs if r.get("traced")), {})
     del xparams
     release(torch)
 
@@ -3232,9 +3299,17 @@ def main() -> int:
             entry.update(
                 device_ms=row["device_ms"],
                 device_ms_cold=row["device_ms_cold"],
+                pass_ms=row["pass_ms"], chunk=row["chunk"],
+                pass_attributes=ml_kernel.pass_attributes(2048, MLSTM_D),
+                cases=[{k: r.get(k) for k in (
+                    "case", "chunk", "device_ms", "pass_ms", "ms",
+                    "bound_ms", "max_abs_err", "C_limit_share")}
+                    for r in rows if r["kernel"] == name],
                 kernel_launches=x_mlstm["kernel_launches"],
                 decode_calls=x_mlstm["decode_calls"],
                 chunk_calls=x_mlstm["chunk_calls"],
+                traced={k: v for k, v in x_traced.items()
+                        if k.startswith("traced_")},
                 decode={"shape": dec["case"], "ms": dec["ms"],
                         "device_ms": dec["device_ms"],
                         "device_ms_cold": dec["device_ms_cold"],

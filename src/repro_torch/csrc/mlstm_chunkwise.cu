@@ -1,12 +1,13 @@
 // mLSTM chunkwise recurrence with a carried state, for Hopper (sm_90a).
 // Serves every mLSTM call of the slot engine (models/ssm.py mlstm_mix):
-// prompt chunks of any length S >= 1 and decode steps (S = 1).
+// prompt chunks of any length S >= 1 and decode steps (S = 1), and the
+// training forward from a fresh state (kernels/mlstm_chunkwise/ops.py).
 //
 // Replaces the TPU kernel mlstm_chunkwise
 // (src/repro/kernels/mlstm_chunkwise/kernel.py, _kernel), and reads and
 // writes the state it keeps in VMEM scratch. Per (batch row b, head h),
-// chunk by chunk of kChunk tokens, with b_t the inclusive cumulative sum of
-// log_f inside the chunk and (C, n, m) the state carried in:
+// chunk by chunk, with b_t the inclusive cumulative sum of log_f inside
+// the chunk and (C, n, m) the state carried in:
 //   m_t   = max(b_t + m, max_{s<=t} (b_t - b_s + log_i_s))
 //   s_ts  = (q_t . k_s) * exp(b_t - b_s + log_i_s - m_t)       (s <= t)
 //   g_t   = exp(b_t + m - m_t)
@@ -17,7 +18,9 @@
 // C' = exp(b_last + m - m') C + sum_s w_s k_s v_s^T, n' likewise with k_s.
 // Masked pairs count zero (the reference's -1e30 logits); s stays fp32 in
 // s.v, as in the reference mlstm_mix, which this matches. The exponents
-// are formed in the reference's order of operations.
+// are formed in the reference's order of operations. The exact m_t is the
+// running maximum over all past tokens, so the result does not depend on
+// the chunk length but for rounding.
 //
 // Three paths, chosen by the launcher:
 //
@@ -30,36 +33,53 @@
 //    writes decay*C_ij + (k_i w) v_j back in the same pass; the partials
 //    of the row groups are summed in shared memory. One launch.
 //
-// 2. Chunks in bf16, S > 1: the chunkwise-parallel form, three launches.
-//    a. Gate pass, a block a (chunk, b, h), all in parallel: the in-chunk
-//       cumulative sums b_t, each token's row max over the chunk (max_s
-//       of b_t - b_s + log_i_s) and the chunk's raw scores Q K^T on the
-//       tensor cores (64 x 64 over D in slices of 64), once a chunk and
-//       head, into fp32 scratch.
-//    b. State pass, a block a (b, h, 64 rows x 64 columns of C), 4 warps:
-//       the scalar m chain across chunks (one thread, from each chunk's b
-//       and row max at its last token), then the chunks in order with the
-//       C tile in mma accumulators: write the chunk's starting C to
-//       scratch as two bf16 planes (hi, lo: see below) and its n (the
-//       column-0 tiles; n is C's extra column with v = 1, an n-block of
-//       ones), then C <- decay*C + (k w)^T V on the tensor cores. Only
-//       this product is on the serial chain: the next chunk's k*w (w from
-//       the chain) is formed while it runs, and K and V stream in through
-//       a three-stage cp.async ring, one __syncthreads a chunk. C, n_out
-//       and m_out are written at the end.
-//    c. Output pass, a block a (chunk, b, h, 64 columns of h), all in
-//       parallel: the m chain up to the chunk, m_t and g_t, the raw scores
-//       decayed and masked in registers and kept as hi/lo bf16 planes with
-//       their row sums; then Q C_c over D in slices of 64 (C_c's hi and lo
-//       planes through a two-stage cp.async ring; q.n on the side), and
-//       h = (g * Q C_c + S V) / den in bf16.
+// 2. Chunks in bf16, S > 1: the chunkwise-parallel form, three launches,
+//    in chunks of LC = 128 tokens (kChunk, the TPU kernel's own) or, up to
+//    kShortS tokens, of 64 (chunk_for). The work is about 4*L*D*(L + D)
+//    flops a chunk of L tokens and (row, head); by the bytes of q, k, v
+//    and h alone the card would take 0.0089 ms at B1 S2048 for
+//    xlstm-125m's 4 heads of 384. What the design pays beyond that: the
+//    state pass walks the chunks in order (nc steps on one SM a tile of
+//    C), each step's product is a split (two wgmma) read from shared
+//    memory, and the chunk-start states go out to device memory and come
+//    back (nc x 2 x D*D bf16 a (row, head)). So the state pass keeps only
+//    the products and C += P on its chain and does everything else beside
+//    them in warps of its own; the other two passes run every chunk in
+//    parallel. Every product is a wgmma.mma_async fed by TMA
+//    (cp.async.bulk.tensor, 128-byte swizzle, mbarrier rings with a full
+//    and an empty barrier a stage), q, k and v read in place through 4-D
+//    tensor maps of their strides (rows past S and columns past D filled
+//    with zeros by the copy):
+//    a. Gate pass, grid (chunk, b*h): the chunk's gates (the in-chunk sums
+//       b_t, one thread's serial sum in the reference's order; each
+//       token's row max over the chunk; its carry exponent b_last - b_t +
+//       log_i_t; the chunk's (b_last, row max) for the m chain) while the
+//       first slices load, then the raw scores Q K^T (one m64nLCk16 a
+//       warpgroup of 64 tokens and k-step) into fp32 scratch.
+//    b. State pass, grid (b*h, 64 rows of C, kStateN columns),
+//       warp-specialized: a producer lane loads each chunk's k and V, 8
+//       transform warps form its k*w planes (w = exp(a_t - m'), hi in
+//       place of the k box, lo beside it) and n's update from their column
+//       sums, two consumer warpgroups keep the 64 x 128 tile of C in
+//       registers and issue each chunk's product P = (k w)^T V into a
+//       second set (A M-major, B N-major), staging the chunk's starting C
+//       as hi/lo planes while the other warpgroup's products run, and a
+//       storer lane writes the staged planes to scratch by TMA (shared ->
+//       global). On the chain: the products, their wait and C += P.
+//    c. Output pass, grid (chunk, b*h, kOutN columns of h): the m chain up
+//       to the chunk, m_t and g_t, the gate pass's raw scores decayed and
+//       masked in registers and split into the hi/lo A fragments of s.V;
+//       then Q C_c over D in slices of 64 (C_c's hi and lo planes loaded by
+//       TMA from scratch, two wgmma into one accumulator; q.n on the side,
+//       fp32), g * Q C_c + s V with s from registers, and h = that / den.
 //    Scratch, allocated by the wrapper: the chunk-start states, nc x 2 x
-//    D*D bf16 and nc x D fp32 a (row, head) (75.5 MB at B1 S2048 D 384),
-//    and the gate pass's per-token values and raw scores (3 x 64 + 2 +
-//    4096 floats a chunk).
+//    D*D bf16 and nc x D fp32 a (row, head) (37.7 MB at B1 S2048 D 384),
+//    and the gate pass's per-token values and raw scores (4 x LC + 2 +
+//    LC^2 floats a chunk).
 //
 // 3. Chunks in fp32, S > 1 (the smoke configs and the parity cases, on no
-//    serving path at full width): a scalar loop.
+//    serving path at full width): a scalar loop over chunks of kLoopChunk
+//    = 64 tokens (128 would not fit its shared memory at D 1024).
 //    A block owns (b, h, DV value columns), keeps its D x DV slice of C
 //    in shared memory for the walk over the chunks, and recomputes the
 //    score tile in every value tile, with scalar fp32 FMA. Its limit
@@ -68,22 +88,28 @@
 // Precision of the bf16 chunk path. q, k and v are exact in bf16, so Q K^T
 // and the products with V take bf16 operands as they are (exact products,
 // fp32 sums). The operands that are fp32 take an error-compensated split,
-// x = hi + lo with hi = bf16(x), lo = bf16(x - hi), and two mma.sync into
+// x = hi + lo with hi = bf16(x), lo = bf16(x - hi), and two wgmma into
 // one fp32 accumulator (relative error about 2^-16 of each product): k*w
 // in the state update, C_c in q.C_c and the decayed scores s in s.v. Plain
 // bf16 (2^-8) or TF32 (2^-11) in the C update would miss the state's limit
-// (1e-5 + 1e-4|ref|). q.n is an fp32 FMA dot product.
+// (1e-5 + 1e-4|ref|). q.n and n's update are fp32 sums.
 #include <algorithm>
 
-#include "attend_mma.cuh"
+#include "attend_wgmma.cuh"
 #include "paged_common.cuh"
 
 // Diagnostic cuts (tools/mlstm_variants.py builds the source with
-// -DMLSTM_CUT=1 or 2): 1 issues none of the streamed loads of the decode,
-// state and output passes, 2 none of their products; the results are then
-// wrong and only the times mean anything.
+// -DMLSTM_CUT=1 or 2): 1 issues none of the streamed loads of the decode
+// kernel nor any TMA copy of the passes (their barriers still complete),
+// 2 none of the decode kernel's products and no wgmma of the passes; the
+// results are then wrong and only the times mean anything. MLSTM_CHUNK
+// (64 or 128) forces the passes' chunk length for every S; 0 chooses it
+// by S (chunk_for).
 #ifndef MLSTM_CUT
 #define MLSTM_CUT 0
+#endif
+#ifndef MLSTM_CHUNK
+#define MLSTM_CHUNK 0
 #endif
 
 namespace {
@@ -92,7 +118,9 @@ using bf16 = __nv_bfloat16;
 constexpr bool kLoads = MLSTM_CUT != 1;
 constexpr bool kCompute = MLSTM_CUT != 2;
 
-constexpr int kChunk = 64;      // tokens per chunk, every path
+constexpr int kChunk = 128;     // tokens per chunk of the bf16 passes
+static_assert(MLSTM_CHUNK == 0 || MLSTM_CHUNK == 64 || MLSTM_CHUNK == 128,
+              "MLSTM_CHUNK is 0, 64 or 128");
 
 struct Strides {   // elements per step of (batch row, token, head)
   long b, s, h;
@@ -212,32 +240,58 @@ mlstm_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 // 2. the bf16 chunk passes
 // ---------------------------------------------------------------------------
-// bf16 tiles of 64 rows in shared memory, rows padded by 16 bytes so that
-// ldmatrix is conflict-free (the pitch of attend_mma.cuh)
-constexpr int kTile = 64;
-constexpr int kPitch = kTile + 8;
-constexpr int kTileElems = kTile * kPitch;
+// The passes are instantiated at two chunk lengths LC: 128 tokens (kChunk,
+// the TPU kernel's: half the steps of the state chain and half the
+// chunk-start states of 64) and 64 (kShortChunk), which a launch of S <=
+// kShortS tokens takes: up to there, the 64-token chunks' twice as many
+// gate and output blocks (and no padding of a short prompt chunk to 128
+// rows) outweigh the longer state chain (tools/mlstm_variants.py's A/B,
+// "chunk 64" against "chunk 128"). -DMLSTM_CHUNK=64 or 128 forces one
+// length for every S.
+constexpr int kShortChunk = 64;
+constexpr int kShortS = 512;
 
-// Scratch of the gate pass, per (b, h), in floats: kTokenFields arrays of
-// Sp = nc * kChunk per-token values (zero past S), each chunk's b and row
-// max at its last token (padded to 4 floats), and each chunk's raw scores
-// Q K^T [kChunk][kChunk]. Every (b, h) starts 16-byte aligned.
-enum TokenField { kB = 0, kLi = 1, kX = 2, kTokenFields = 3 };
-
-__host__ __device__ inline long gate_floats(int nc) {
-  return (long)kTokenFields * nc * kChunk + ((2 * nc + 3) & ~3) +
-         (long)nc * kChunk * kChunk;
+__host__ __device__ constexpr int chunk_for(int S) {
+  return MLSTM_CHUNK ? MLSTM_CHUNK : S <= kShortS ? kShortChunk : kChunk;
 }
 
+template <int LC>
+struct Tok {                           // the geometry a chunk length sets
+  static_assert(LC == 64 || LC == 128, "chunks of 64 or 128 tokens");
+  static constexpr int WG = LC / 64;   // warpgroups over a chunk's tokens
+  static constexpr int THREADS = 128 * WG + 32;   // + the producer warp
+  static constexpr int BOX = LC * 128;            // a [LC tokens, 64 col] box
+};
+constexpr int kAtomBytes = 64 * 128;   // a [64 rows, 64 col] box
+constexpr int kStateN = 128;           // C columns a state block
+constexpr int kStateWG = kStateN / 64; // its warpgroups, 64 columns each
+constexpr int kStateThreads = 128 * kStateWG + 256 + 32;   // + 8 + 1 warps
+constexpr int kOutN = 128;             // h columns an output block
+constexpr float kNoWeight = -3.402823466e38f;   // exp(kNoWeight - m') = 0
+constexpr unsigned kFull = 0xffffffffu;
+
+// Scratch of the gate pass, per (b, h), in floats: kTokenFields arrays of
+// Sp = nc * LC per-token values (b_t, log_i, the row max x_t and the carry
+// exponent a_t = b_last - b_t + log_i_t, kNoWeight past S), each chunk's b
+// and row max at its last token (padded to 4 floats), and each chunk's raw
+// scores Q K^T [LC][LC]. Every (b, h) starts 16-byte aligned.
+enum TokenField { kB = 0, kLi = 1, kX = 2, kA = 3, kTokenFields = 4 };
+
+__host__ __device__ inline long gate_floats(int nc, int LC) {
+  return (long)kTokenFields * nc * LC + ((2 * nc + 3) & ~3) +
+         (long)nc * LC * LC;
+}
+
+template <int LC>
 struct GateView {            // one (b, h) of the gate scratch
   float* tok;                // [kTokenFields][Sp]
   float* last;               // [nc][2]: b, row max at the chunk's last token
-  float* scores;             // [nc][kChunk][kChunk]
+  float* scores;             // [nc][LC][LC]
   int Sp;
 
   __device__ GateView(float* gates, int bh, int nc) {
-    Sp = nc * kChunk;
-    tok = gates + (long)bh * gate_floats(nc);
+    Sp = nc * LC;
+    tok = gates + (long)bh * gate_floats(nc, LC);
     last = tok + (long)kTokenFields * Sp;
     scores = last + ((2 * nc + 3) & ~3);
   }
@@ -255,610 +309,901 @@ __device__ __forceinline__ void m_chain(const float* last_s, float m, int nc,
   m_s[nc] = m;
 }
 
-// Rows [r0, r0 + 64) x columns [c0, c0 + 64) of a bf16 matrix (row i at
-// src + i * stride) -> tile; rows >= r_hi and columns >= c_hi zero-filled.
-// 16-byte copies: stride, c0 and the source 8-element aligned.
-template <int kThreadsT>
-__device__ __forceinline__ void load_tile(bf16* tile, const bf16* src,
-                                          long stride, int r0, int r_hi,
-                                          int c0, int c_hi) {
-#pragma unroll
-  for (int i = threadIdx.x; i < kTile * (kTile / 8); i += kThreadsT) {
-    const int r = i / (kTile / 8), c = (i % (kTile / 8)) * 8;
-    const bool live = r0 + r < r_hi && c0 + c < c_hi;
-    const bf16* p = live ? src + (long)(r0 + r) * stride + c0 + c : src;
-    if (kLoads) mma::cp_async16(tile + r * kPitch + c, p, live ? 16 : 0);
-  }
-}
-
-// n floats (a multiple of 4, 16-byte aligned) -> shared memory
-template <int kThreadsT>
-__device__ __forceinline__ void load_floats(float* dst, const float* src,
-                                            int n) {
-  for (int i = 4 * threadIdx.x; i < n; i += 4 * kThreadsT)
-    if (kLoads) mma::cp_async16(dst + i, src + i, 16);
-}
-
 // x = hi + lo, both bf16, packed in pairs (the first in the low half)
 __device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
                                        uint32_t& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
   hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = mma::pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+  lo = wg::pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
 }
 
-// 8 warps over a 64-row tile: warp w owns rows 16 * (w % 4) and columns
-// 32 * (w / 4) of a 64 x 64 product, four n-blocks of 8.
-constexpr int kWideThreads = 256;
+// ---- TMA and bulk copies (one thread issues each)
+// Box [64 columns, LC tokens] of q, k or v at column col, tokens [t0, t0 +
+// LC) of (batch row b, head h), through a 4-D map (boxes of LC tokens)
+// whose axes sit at `slots` (wg::strided_map).
+__device__ __forceinline__ void load_tokens(uint32_t dst, const CUtensorMap* m,
+                                            int slots, uint32_t bar, int col,
+                                            int t0, int h, int b) {
+  using wg::StridedTiles;
+  wg::tma_load_4d(dst, m, bar, col, StridedTiles::coord(slots, 1, t0, h, b),
+                  StridedTiles::coord(slots, 2, t0, h, b),
+                  StridedTiles::coord(slots, 3, t0, h, b));
+}
 
-// acc[4][4] += A B for one 64-deep step: A [64][64] row-major (rows = the
-// tile's tokens), B either row-major [n][k] (K of Q K^T, ldmatrix) or
-// [k][n] (C's rows or V, ldmatrix.trans); B2, when given, a second B
-// plane into the same accumulators (the lo half of a split).
-template <bool kTrans>
-__device__ __forceinline__ void mma_step(float (&acc)[4][4], const bf16* a,
-                                         const bf16* b, const bf16* b2) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int rb = warp % 4, ch = warp / 4;
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-    uint32_t af[4];
-    mma::ldmatrix_x4(af, a + (16 * rb + (lane & 15)) * kPitch + kk * 16 +
-                             (lane >> 4) * 8);
-#pragma unroll
-    for (int nb = 0; nb < 4; nb += 2) {
-      const int off =
-          kTrans ? (kk * 16 + (lane & 15)) * kPitch + 32 * ch + nb * 8 +
-                       (lane >> 4) * 8
-                 : (32 * ch + nb * 8 + (lane & 7) + ((lane >> 4) << 3)) *
-                           kPitch +
-                       kk * 16 + ((lane >> 3) & 1) * 8;
-      uint32_t bf[4];
-      if (kTrans)
-        mma::ldmatrix_x4_trans(bf, b + off);
-      else
-        mma::ldmatrix_x4(bf, b + off);
-      mma::mma_bf16(acc[nb], af, bf[0], bf[1]);
-      mma::mma_bf16(acc[nb + 1], af, bf[2], bf[3]);
-      if (b2) {
-        uint32_t bl[4];
-        mma::ldmatrix_x4_trans(bl, b2 + off);
-        mma::mma_bf16(acc[nb], af, bl[0], bl[1]);
-        mma::mma_bf16(acc[nb + 1], af, bl[2], bl[3]);
-      }
-    }
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* m,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* m,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(m)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// the committed stores have read their shared memory / are complete
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// the generic-proxy writes of this thread to shared memory, before an
+// asynchronous-proxy read (wgmma, a TMA store)
+__device__ __forceinline__ void proxy_fence() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (+)= A.B for one warpgroup, m64nNk16, bf16 operands, fp32 accumulators
+// (N / 2 a thread, the m16n8 layout repeated over N / 8 column blocks):
+// ss() both operands from shared memory (kTransA: A M-major, kTransB: B
+// N-major; scale_d 0 overwrites d), rs() A from registers (the m16n8k16 A
+// fragments) and B N-major. Nothing is issued with -DMLSTM_CUT=2.
+template <int N>
+struct Mma;
+
+template <>
+struct Mma<64> {
+  template <int kTransA, int kTransB>
+  __device__ __forceinline__ static void ss(float (&d)[32], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    if (!kCompute) return;
+    asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
   }
-}
-
-struct GateSmem {
-  bf16 ring[2][2][kTileElems];     // Q and K slices, two stages
-  float b[kChunk], li[kChunk];
+  __device__ __forceinline__ static void rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    if (!kCompute) return;
+    asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
 };
 
-// 2a. grid (nc, B*H), all chunks in parallel: the chunk's in-chunk sums
-// b_t (one lane's serial sum, as the reference's order), each token's row
-// max over the chunk, and the raw scores Q K^T on the tensor cores over D
-// in slices of 64.
-__global__ void __launch_bounds__(kWideThreads)
-mlstm_gate_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const float* __restrict__ log_i,
-                  const float* __restrict__ log_f, Strides qs, Strides ks,
-                  Strides is, Strides fs, float* __restrict__ gates, int S,
-                  int H, int D, int nc) {
+template <>
+struct Mma<128> {
+  template <int kTransA, int kTransB>
+  __device__ __forceinline__ static void ss(float (&d)[64], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    if (!kCompute) return;
+    asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+  }
+  __device__ __forceinline__ static void rs(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    if (!kCompute) return;
+    asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// ---- 2a. the gate pass
+// Shared memory (1024-aligned base): [stages x (Q box, K box)][full[S],
+// empty[S]][b, log_i: LC floats each].
+template <int LC>
+struct GateGeo {
+  static constexpr int STAGE = 2 * Tok<LC>::BOX;
+  static constexpr int kStages = 3;
+  static constexpr int BAR = kStages * STAGE;
+  static constexpr int F_OFF = BAR + 16 * kStages;
+  static constexpr size_t kSmem = wg::kAlign + F_OFF + 2 * LC * 4;
+};
+
+// Grid (nc, B*H), all chunks in parallel. First the chunk's gates, while
+// the first slices load: b_t (one thread's serial sum, the reference's
+// order), each token's row max and its carry exponent; then warpgroup g of
+// the consumers takes the chunk's tokens [64g, 64g + 64) as the M rows of S
+// = Q K^T (N = the chunk's LC keys), over D in k-steps of 16 from the ring
+// of 64-column slices. The warp after them is the producer.
+template <int LC>
+__global__ void __launch_bounds__(Tok<LC>::THREADS, 1)
+mlstm_gate_kernel(const __grid_constant__ CUtensorMap q_map,
+                  const __grid_constant__ CUtensorMap k_map, int q_slots,
+                  int k_slots, const float* __restrict__ log_i,
+                  const float* __restrict__ log_f, Strides is, Strides fs,
+                  float* __restrict__ gates, int S, int H, int D, int nc) {
+  using G = GateGeo<LC>;
+  constexpr int SG = G::kStages, kWG = Tok<LC>::WG, kBox = Tok<LC>::BOX;
   const int c = blockIdx.x, bh = blockIdx.y, b = bh / H, hh = bh % H;
-  const int t0 = c * kChunk, L = min(kChunk, S - t0);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gq = lane / 4, tq = lane % 4, rb = warp % 4, ch = warp / 4;
-  extern __shared__ __align__(16) unsigned char gate_raw[];
-  GateSmem& sm = *reinterpret_cast<GateSmem*>(gate_raw);
-  const GateView gv(gates, bh, nc);
-  const bf16* q_bc = q + b * qs.b + t0 * qs.s + hh * qs.h;
-  const bf16* k_bc = k + b * ks.b + t0 * ks.s + hh * ks.h;
-  const int ns = (D + kTile - 1) / kTile;
-  auto load = [&](int step, int st) {
-    load_tile<kWideThreads>(sm.ring[st][0], q_bc, qs.s, 0, L, step * kTile, D);
-    load_tile<kWideThreads>(sm.ring[st][1], k_bc, ks.s, 0, L, step * kTile, D);
-  };
-  load(0, 0);
-  mma::cp_async_commit();
-
-  if (warp == 0) {
-    for (int u = lane; u < kChunk; u += 32) {
-      const bool live = u < L;
-      sm.li[u] = live ? log_i[b * is.b + (long)(t0 + u) * is.s + hh * is.h]
-                      : 0.f;
-      sm.b[u] = live ? log_f[b * fs.b + (long)(t0 + u) * fs.s + hh * fs.h]
-                     : 0.f;
+  const int t0 = c * LC, L = min(LC, S - t0), ns = (D + 63) / 64;
+  const int t = threadIdx.x;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = wg::aligned_smem(smem_raw);
+  const uint32_t ring = wg::smem_addr(base);
+  const uint32_t full = ring + G::BAR, empty = full + 8 * SG;
+  float* b_s = reinterpret_cast<float*>(base + G::F_OFF);
+  float* li_s = b_s + LC;
+  if (t == 0) {
+    for (int s = 0; s < SG; ++s) {
+      wg::mbar_init(full + 8 * s, 1);
+      wg::mbar_init(empty + 8 * s, 4 * kWG);
     }
-    __syncwarp();
-    if (lane == 0)
-      for (int u = 1; u < L; ++u) sm.b[u] += sm.b[u - 1];
-    __syncwarp();
-    for (int u = lane; u < kChunk; u += 32) {
-      const float bt = sm.b[u];
-      float x = 0.f;
-      if (u < L) {
-        x = -3.402823466e38f;
-        for (int s = 0; s <= u; ++s) x = fmaxf(x, bt - sm.b[s] + sm.li[s]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (t < LC) {
+    const bool live = t < L;
+    li_s[t] = live ? log_i[b * is.b + (long)(t0 + t) * is.s + hh * is.h]
+                   : 0.f;
+    b_s[t] = live ? log_f[b * fs.b + (long)(t0 + t) * fs.s + hh * fs.h]
+                  : 0.f;
+  }
+  __syncthreads();
+
+  if (t >= 128 * kWG) {                     // the producer warp
+    if (t == 128 * kWG) {
+      for (int j = 0; j < ns; ++j) {
+        const int s = j % SG;
+        const uint32_t st = ring + s * G::STAGE;
+        wg::mbar_wait(empty + 8 * s, ((j / SG) & 1) ^ 1);
+        if (kLoads) {
+          wg::mbar_expect_tx(full + 8 * s, G::STAGE);
+          load_tokens(st, &q_map, q_slots, full + 8 * s, 64 * j, t0, hh, b);
+          load_tokens(st + kBox, &k_map, k_slots, full + 8 * s, 64 * j, t0,
+                      hh, b);
+        } else {
+          wg::mbar_arrive(full + 8 * s);
+        }
       }
-      gv.tok[kB * gv.Sp + t0 + u] = bt;
-      gv.tok[kLi * gv.Sp + t0 + u] = sm.li[u];
-      gv.tok[kX * gv.Sp + t0 + u] = x;
-      if (u == L - 1) {
-        gv.last[2 * c] = bt;
-        gv.last[2 * c + 1] = x;
-      }
+    }
+    return;
+  }
+
+  const GateView<LC> gv(gates, bh, nc);
+  if (t == 0) {
+    float run = b_s[0];
+    for (int u = 1; u < L; ++u) {
+      run += b_s[u];
+      b_s[u] = run;
+    }
+  }
+  wg::named_sync(1, 128 * kWG);
+  if (t < LC) {
+    const float bt = b_s[t], b_last = b_s[L - 1];
+    float x = 0.f, a = kNoWeight;
+    if (t < L) {
+      x = -3.402823466e38f;
+      for (int s = 0; s <= t; ++s) x = fmaxf(x, bt - b_s[s] + li_s[s]);
+      a = b_last - bt + li_s[t];
+    }
+    gv.tok[kB * gv.Sp + t0 + t] = bt;
+    gv.tok[kLi * gv.Sp + t0 + t] = li_s[t];
+    gv.tok[kX * gv.Sp + t0 + t] = x;
+    gv.tok[kA * gv.Sp + t0 + t] = a;
+    if (t == L - 1) {
+      gv.last[2 * c] = bt;
+      gv.last[2 * c + 1] = x;
     }
   }
 
-  float acc[4][4] = {};
-  for (int step = 0; step < ns; ++step) {
-    const int st = step & 1;
-    if (step + 1 < ns) load(step + 1, st ^ 1);
-    mma::cp_async_commit();
-    mma::cp_async_wait<1>();
-    __syncthreads();                            // the step's slices landed
-    if (kCompute)
-      mma_step<false>(acc, sm.ring[st][0], sm.ring[st][1], nullptr);
-    __syncthreads();                            // stage st free to refill
-  }
-  mma::cp_async_wait<0>();
-  float* sc = gv.scores + (long)c * kChunk * kChunk;
-  const int r0 = 16 * rb + gq;
+  const int wgi = t / 128, w = (t % 128) / 32, lane = t % 32;
+  const int gq = lane / 4, tq = lane % 4;
+  float acc[LC / 2];
 #pragma unroll
-  for (int nb = 0; nb < 4; ++nb) {
-    const int s0 = 32 * ch + nb * 8 + 2 * tq;
-    *reinterpret_cast<float2*>(sc + r0 * kChunk + s0) =
-        make_float2(acc[nb][0], acc[nb][1]);
-    *reinterpret_cast<float2*>(sc + (r0 + 8) * kChunk + s0) =
-        make_float2(acc[nb][2], acc[nb][3]);
+  for (int x = 0; x < LC / 2; ++x) acc[x] = 0.f;
+  for (int j = 0; j < ns; ++j) {
+    const int s = j % SG;
+    const uint32_t st = ring + s * G::STAGE;
+    wg::mbar_wait(full + 8 * s, (j / SG) & 1);
+    wg::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      Mma<LC>::template ss<0, 0>(
+          acc, wg::sw128_desc(st + wgi * 64 * 128 + kk * 32),
+          wg::sw128_desc(st + kBox + kk * 32), j > 0 || kk > 0);
+    wg::wgmma_commit();
+    wg::wgmma_wait<0>();
+    wg::fence_regs(acc);
+    if (lane == 0) wg::mbar_arrive(empty + 8 * s);
+  }
+
+  // the raw scores -> scratch (rows and columns past S are zero: their
+  // boxes were zero-filled)
+  float* sc = gv.scores + (long)c * LC * LC;
+  const int r0 = 64 * wgi + 16 * w + gq;
+#pragma unroll
+  for (int nb = 0; nb < LC / 8; ++nb) {
+    const int col = 8 * nb + 2 * tq;
+    *reinterpret_cast<float2*>(sc + r0 * LC + col) =
+        make_float2(acc[4 * nb], acc[4 * nb + 1]);
+    *reinterpret_cast<float2*>(sc + (r0 + 8) * LC + col) =
+        make_float2(acc[4 * nb + 2], acc[4 * nb + 3]);
   }
 }
 
-constexpr int kStateThreads = 256;   // 8 warps: 16 rows x 32 columns each
-constexpr int kStateStages = 3;      // chunks of K and V in flight
-constexpr uint32_t kOnes = 0x3F803F80u;     // two bf16 1.0
-
-// Shared memory of the state pass: a ring of K and V tiles with their
-// tokens' b and log_i, the hi/lo planes of k * w and w for two chunks, the
-// chunk-start C tile's hi/lo planes on their way to scratch, and
-// (an nc-sized tail) the chunks' (b_last, row max), the m chain and the
-// chunks' decays.
-struct StateSmem {
-  bf16 k_s[kStateStages][kTileElems], v_s[kStateStages][kTileElems];
-  bf16 khi[2][kTileElems], klo[2][kTileElems];
-  bf16 chi[kTileElems], clo[kTileElems];   // the chunk-start tile, staged
-  float bt[kStateStages][kChunk], lt[kStateStages][kChunk];
-  float w[2][kChunk];
+// ---- 2b. the state pass
+// Shared memory (1024-aligned base, `stages` ring stages): [stages x (the
+// k box, then the hi plane of k*w in its place; the lo plane of k*w; V:
+// kStateN / 64 boxes)][the staged chunk-start tile: hi, lo planes,
+// kStateN / 64 boxes of [64 rows, 64 columns] each, box g warpgroup g's]
+// [full[S], ready[S], empty[S], staged[2], freed[2]][the nc-sized tail:
+// the chunks' (b_last, row max), the m chain, the decays].
+template <int LC>
+struct StateGeo {
+  static constexpr int BOX = Tok<LC>::BOX;
+  static constexpr int V_BYTES = kStateN / 64 * BOX;
+  static constexpr int STAGE = 2 * BOX + V_BYTES;
+  static constexpr int TILE_PLANE = kStateN / 64 * kAtomBytes;
+  static constexpr int FIXED = 2 * TILE_PLANE;
 };
 
-__host__ __device__ inline size_t state_smem(int nc) {
-  return sizeof(StateSmem) + (2 * (size_t)nc + 4 + 2 * nc + 1) * sizeof(float);
+template <int LC>
+__host__ __device__ inline size_t state_smem(int stages, int nc) {
+  using G = StateGeo<LC>;
+  return wg::kAlign + (size_t)stages * G::STAGE + G::FIXED + 24 * stages +
+         32 + (((2 * nc + 3) & ~3) + 2 * nc + 1) * sizeof(float);
 }
 
-// 2b. grid (B*H, row tiles, column tiles). Two __syncthreads a chunk: at the
-// top of chunk c the planes of c (formed during c - 1) and the K/V of c + 1
-// are ready; chunk c forms w of c + 1 (64 exps), splits its starting state
-// into shared memory and issues its product, then (second barrier) writes
-// the staged state to scratch in 16-byte rows (a thread's accumulator
-// fragments are 4-byte pieces of 8 rows: written as they are, they took
-// 0.07 ms of the 0.23 at B1 S2048 on an H100) and forms the planes of c + 1 while the
-// product runs.
-__global__ void __launch_bounds__(kStateThreads)
-mlstm_state_kernel(const bf16* __restrict__ k, const bf16* __restrict__ v,
-                   Strides ks, Strides vs, float* __restrict__ C,
+// Grid (B*H, row tiles of 64, column tiles of kStateN); warp-specialized:
+//  - the last warp: its lane 0 loads chunk c's k box (64 rows of C) and V
+//    (the block's columns) into stage c % S once chunk c - S's product is
+//    done (empty); its lane 1 stores each warpgroup's staged chunk-start
+//    planes to scratch by TMA (staged), and frees them once read (freed);
+//  - the transform warps (8, one a 16-byte piece: rows 8p .. 8p + 7)
+//    compute the m chain, then for each chunk, as soon as its loads land
+//    (full), form the hi/lo planes of k*w, w = exp(a_t - m'), a_t read
+//    from the gate scratch a chunk ahead (hi in place of the k box, lo
+//    beside it; the 128-byte swizzle of the box: piece p of token s at p ^
+//    (s % 8)), and for the column-0 tiles n's update from the planes'
+//    column sums (fp32; n_c written to scratch), then signal the stage
+//    (ready);
+//  - consumer warpgroup g owns rows [i0, i0 + 64) x columns [j0 + 64g, j0 +
+//    64g + 64) of C in registers (cr: rows i0 + 16w + gq (+8), columns j0 +
+//    64g + 8nb + 2tq (+1)) and walks the chunks in order: chunk c's product
+//    P = (k w)^T V (pr, scale_d 0 first; A = the planes [tokens][64 rows]
+//    M-major, B = V N-major) is issued, C_c staged as hi/lo planes (by
+//    warpgroup 1 before its product, by warpgroup 0 after it, so that one
+//    stages while the other's products run) and C scaled by the decay;
+//    then the wait and C += P, the reference's decay*C + (k w)^T V.
+// On the chain stay the products, their wait and C += P.
+template <int LC>
+__global__ void __launch_bounds__(kStateThreads, 1)
+mlstm_state_kernel(const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map,
+                   const __grid_constant__ CUtensorMap c_map, int k_slots,
+                   int v_slots, float* __restrict__ C,
                    const float* __restrict__ n_in,
                    const float* __restrict__ m_in,
                    const int* __restrict__ rows, long cb, long n_stride,
                    long mb, const float* __restrict__ gates,
-                   bf16* __restrict__ c_scr, float* __restrict__ n_scr,
-                   float* __restrict__ n_out, float* __restrict__ m_out,
-                   int S, int H, int D, int nc) {
+                   float* __restrict__ n_scr, float* __restrict__ n_out,
+                   float* __restrict__ m_out, int S, int H, int D, int nc,
+                   int stages) {
+  using G = StateGeo<LC>;
+  constexpr int kBox = G::BOX, kMma = 128 * kStateWG;
+  constexpr int kTransform = 256;                  // 8 warps, one a piece
   const int bh = blockIdx.x, b = bh / H, hh = bh % H;
-  const int i0 = blockIdx.y * kTile, j0 = blockIdx.z * kTile;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gq = lane / 4, tq = lane % 4, rb = warp % 4, ch = warp / 4;
-  const bool with_n = blockIdx.z == 0 && ch == 0;   // n: one warp a row block
+  const int i0 = blockIdx.y * 64, j0 = blockIdx.z * kStateN;
+  const int t = threadIdx.x, lane = t % 32;
   const long sb = rows ? rows[b] : b;
-  const GateView gv(const_cast<float*>(gates), bh, nc);
-  const int r_lo = i0 + rb * 16 + gq;             // this thread's rows
-  const int c_lo = j0 + ch * 32 + 2 * tq;         // and first column
-  const bool active = i0 + rb * 16 < D;
-  extern __shared__ __align__(16) unsigned char state_raw[];
-  StateSmem& sm = *reinterpret_cast<StateSmem*>(state_raw);
-  float* last_s = reinterpret_cast<float*>(state_raw + sizeof(StateSmem));
+  const GateView<LC> gv(const_cast<float*>(gates), bh, nc);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = wg::aligned_smem(smem_raw);
+  const uint32_t ring = wg::smem_addr(base);
+  const int R = stages * G::STAGE;
+  unsigned char* stg_g = base + R;
+  const uint32_t full = ring + R + G::FIXED;
+  const uint32_t ready = full + 8 * stages, empty = ready + 8 * stages;
+  const uint32_t staged = empty + 8 * stages, freed = staged + 16;
+  float* last_s = reinterpret_cast<float*>(base + R + G::FIXED +
+                                           24 * stages + 32);
   float* m_s = last_s + ((2 * nc + 3) & ~3);      // [nc + 1]
   float* dec_s = m_s + nc + 1;                    // [nc]
-
-  const bf16* k_bh = k + b * ks.b + hh * ks.h;
-  const bf16* v_bh = v + b * vs.b + hh * vs.h;
-  auto load = [&](int c) {
-    const int st = c % kStateStages, t0 = c * kChunk, L = min(kChunk, S - t0);
-    load_tile<kStateThreads>(sm.k_s[st], k_bh + t0 * ks.s, ks.s, 0, L, i0, D);
-    load_tile<kStateThreads>(sm.v_s[st], v_bh + t0 * vs.s, vs.s, 0, L, j0, D);
-    load_floats<kStateThreads>(sm.bt[st], gv.tok + kB * gv.Sp + t0, kChunk);
-    load_floats<kStateThreads>(sm.lt[st], gv.tok + kLi * gv.Sp + t0, kChunk);
-  };
-  // w_s = exp(b_last - b_s + log_i_s - m') of chunk c's tokens (0 past S)
-  auto weights = [&](int c) {
-    const int st = c % kStateStages, L = min(kChunk, S - c * kChunk);
-    if (tid < kChunk)
-      sm.w[c & 1][tid] =
-          tid < L ? expf(last_s[2 * c] - sm.bt[st][tid] + sm.lt[st][tid] -
-                         m_s[c + 1])
-                  : 0.f;
-  };
-  // k * w of chunk c -> hi and lo planes (the reference's fp32 product,
-  // then split)
-  auto planes = [&](int c) {
-    const int st = c % kStateStages;
-    const float* w = sm.w[c & 1];
-    bf16* hi_p = sm.khi[c & 1];
-    bf16* lo_p = sm.klo[c & 1];
-#pragma unroll 4
-    for (int it = 0; it < kTile * kTile / 2 / kStateThreads; ++it) {
-      const int i = tid + it * kStateThreads;
-      const int s = i / (kTile / 2), col = (i % (kTile / 2)) * 2;
-      const __nv_bfloat162 kk = *reinterpret_cast<const __nv_bfloat162*>(
-          &sm.k_s[st][s * kPitch + col]);
-      uint32_t hi, lo;
-      split2(__low2float(kk) * w[s], __high2float(kk) * w[s], hi, lo);
-      *reinterpret_cast<uint32_t*>(&hi_p[s * kPitch + col]) = hi;
-      *reinterpret_cast<uint32_t*>(&lo_p[s * kPitch + col]) = lo;
+  if (t == 0) {
+    for (int s = 0; s < stages; ++s) {
+      wg::mbar_init(full + 8 * s, 1);
+      wg::mbar_init(ready + 8 * s, kTransform / 32);
+      wg::mbar_init(empty + 8 * s, 4 * kStateWG);
     }
-  };
-
-  load(0);
-  mma::cp_async_commit();
-  if (nc > 1) load(1);
-  mma::cp_async_commit();
-  for (int i = tid; i < 2 * nc; i += kStateThreads) last_s[i] = gv.last[i];
+    for (int g = 0; g < kStateWG; ++g) {
+      wg::mbar_init(staged + 8 * g, 4);
+      wg::mbar_init(freed + 8 * g, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = t; i < 2 * nc; i += kStateThreads) last_s[i] = gv.last[i];
   __syncthreads();
-  if (tid == 0) {
-    m_chain(last_s, m_in[sb * mb + hh], nc, m_s);
-    for (int c = 0; c < nc; ++c)   // exp(b_last + m - m')
-      dec_s[c] = expf(last_s[2 * c] + m_s[c] - m_s[c + 1]);
+
+  if (t >= kMma + kTransform) {                   // the last warp
+    if (t == kMma + kTransform) {                 // lane 0: the loads
+      for (int c = 0; c < nc; ++c) {
+        const int s = c % stages;
+        const uint32_t st = ring + s * G::STAGE;
+        wg::mbar_wait(empty + 8 * s, ((c / stages) & 1) ^ 1);
+        if (kLoads) {
+          const int tc = c * LC;
+          wg::mbar_expect_tx(full + 8 * s, kBox + G::V_BYTES);
+          load_tokens(st, &k_map, k_slots, full + 8 * s, i0, tc, hh, b);
+#pragma unroll
+          for (int a = 0; a < kStateN / 64; ++a)
+            load_tokens(st + 2 * kBox + a * kBox, &v_map, v_slots,
+                        full + 8 * s, j0 + 64 * a, tc, hh, b);
+        } else {
+          wg::mbar_arrive(full + 8 * s);
+        }
+      }
+    } else if (t == kMma + kTransform + 1) {      // lane 1: the stores
+      const uint32_t stg = wg::smem_addr(stg_g);
+      for (int c = 0; c < nc; ++c) {
+        for (int g = kStateWG - 1; g >= 0; --g) {  // the order they stage in
+          wg::mbar_wait(staged + 8 * g, c & 1);
+          if (kLoads && j0 + 64 * g < D) {
+#pragma unroll
+            for (int pl = 0; pl < 2; ++pl)
+              tma_store_3d(&c_map, stg + pl * G::TILE_PLANE + g * kAtomBytes,
+                           j0 + 64 * g, i0, (bh * nc + c) * 2 + pl);
+            bulk_commit();
+            bulk_wait_read();
+          }
+          wg::mbar_arrive(freed + 8 * g);
+        }
+      }
+      bulk_wait();
+    }
+    return;
   }
 
-  // the C tile in accumulators: rows r_lo, r_lo + 8; columns c_lo + 8*nb
-  // (+1); n likewise in an n-block of ones
-  float acc[4][4], nacc[4];
-  float* c_bh = C + sb * cb + (long)hh * D * D;
+  if (t >= kMma) {                                // the transform warps
+    const int tt = t - kMma, p = tt / 32;
+    const bool with_n = blockIdx.z == 0;          // n: the column-0 tiles
+    if (tt == 0) {
+      m_chain(last_s, m_in[sb * mb + hh], nc, m_s);
+      for (int c = 0; c < nc; ++c)   // exp(b_last + m - m')
+        dec_s[c] = expf(last_s[2 * c] + m_s[c] - m_s[c + 1]);
+      if (blockIdx.y == 0 && blockIdx.z == 0) m_out[bh] = m_s[nc];
+    }
+    // lane 0: n of rows i0 + 8p .. i0 + 8p + 7
+    float nv[8];
+    const float* n_bh = n_in + sb * n_stride + (long)hh * D + i0 + 8 * p;
 #pragma unroll
-  for (int nb = 0; nb < 4; ++nb) {
-    const int col = c_lo + nb * 8;
+    for (int e = 0; e < 8; ++e)
+      nv[e] = with_n && lane == 0 && i0 + 8 * p + e < D ? n_bh[e] : 0.f;
+    constexpr int U = LC / 32;                    // tokens a lane
+    float a_next[U];
+    const float* a_g = gv.tok + kA * gv.Sp;
+#pragma unroll
+    for (int u = 0; u < U; ++u) a_next[u] = a_g[lane + 32 * u];
+    wg::named_sync(2, kTransform);                // the m chain
+    for (int c = 0; c < nc; ++c) {
+      const int s = c % stages;
+      unsigned char* st = base + s * G::STAGE;
+      float a_cur[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        a_cur[u] = a_next[u];
+        if (c + 1 < nc) a_next[u] = a_g[(c + 1) * LC + lane + 32 * u];
+      }
+      const float mn = m_s[c + 1];
+      float cs[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) cs[e] = 0.f;
+      wg::mbar_wait(full + 8 * s, (c / stages) & 1);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int tok = lane + 32 * u;
+        const float wt = expf(a_cur[u] - mn);   // the reference's exp(.. - m')
+        const int off = tok * 128 + ((p ^ (tok & 7)) << 4);
+        const uint4 kv = *reinterpret_cast<const uint4*>(st + off);
+        const uint32_t* k2 = reinterpret_cast<const uint32_t*>(&kv);
+        uint4 hv, lv;
+        uint32_t* h2 = reinterpret_cast<uint32_t*>(&hv);
+        uint32_t* l2 = reinterpret_cast<uint32_t*>(&lv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const __nv_bfloat162 kk =
+              *reinterpret_cast<const __nv_bfloat162*>(&k2[e]);
+          const float x0 = __fmul_rn(__low2float(kk), wt);
+          const float x1 = __fmul_rn(__high2float(kk), wt);
+          cs[2 * e] += x0;
+          cs[2 * e + 1] += x1;
+          split2(x0, x1, h2[e], l2[e]);
+        }
+        *reinterpret_cast<uint4*>(st + off) = hv;
+        *reinterpret_cast<uint4*>(st + kBox + off) = lv;
+      }
+      if (with_n) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+#pragma unroll
+          for (int o = 1; o < 32; o *= 2)
+            cs[e] += __shfl_xor_sync(kFull, cs[e], o);
+        if (lane == 0) {
+          const float dec = dec_s[c];
+          float* nc_out = n_scr + ((long)bh * nc + c) * D + i0 + 8 * p;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            if (i0 + 8 * p + e < D) nc_out[e] = nv[e];
+            nv[e] = __fadd_rn(__fmul_rn(dec, nv[e]), cs[e]);
+          }
+        }
+      }
+      proxy_fence();
+      __syncwarp();
+      if (lane == 0) wg::mbar_arrive(ready + 8 * s);
+    }
+    if (with_n && lane == 0) {
+      float* n_o = n_out + (long)bh * D + i0 + 8 * p;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (i0 + 8 * p + e < D) n_o[e] = nv[e];
+    }
+    return;
+  }
+
+  const int g = t / 128, w = (t % 128) / 32;
+  const int gq = lane / 4, tq = lane % 4;
+  float cr[32], pr[32];
+  float* c_bh = C + sb * cb + (long)hh * D * D;
+  const int r_lo = i0 + 16 * w + gq, c_lo = j0 + 64 * g + 2 * tq;
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb) {
 #pragma unroll
     for (int x = 0; x < 2; ++x) {
       float2 cv = make_float2(0.f, 0.f);
-      if (active && col < D)
-        cv = *reinterpret_cast<const float2*>(c_bh + (long)(r_lo + 8 * x) * D +
-                                              col);
-      acc[nb][2 * x] = cv.x;
-      acc[nb][2 * x + 1] = cv.y;
+      if (r_lo + 8 * x < D && c_lo + 8 * nb < D)
+        cv = *reinterpret_cast<const float2*>(
+            c_bh + (long)(r_lo + 8 * x) * D + c_lo + 8 * nb);
+      cr[4 * nb + 2 * x] = cv.x;
+      cr[4 * nb + 2 * x + 1] = cv.y;
+      pr[4 * nb + 2 * x] = pr[4 * nb + 2 * x + 1] = 0.f;
     }
   }
-  {
-    const float* n_bh = n_in + sb * n_stride + (long)hh * D;
-    const float n0 = active ? n_bh[r_lo] : 0.f;
-    const float n1 = active ? n_bh[r_lo + 8] : 0.f;
-    nacc[0] = nacc[1] = n0;
-    nacc[2] = nacc[3] = n1;
-  }
-  mma::cp_async_wait<1>();
-  __syncthreads();                                // chunk 0 and the chain
-  weights(0);
-  __syncthreads();
-  planes(0);
-
+  // C_c -> this warpgroup's box of the staging planes, once chunk c - 1's
+  // store has read it: row r = 16w + gq + 8x, the 16-byte piece nb ^ (r %
+  // 8); then the storer is told
+  auto stage_out = [&](int c) {
+    wg::mbar_wait(freed + 8 * g, (c & 1) ^ 1);
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int r = 16 * w + gq + 8 * x;
+        const int off = g * kAtomBytes + r * 128 + ((nb ^ gq) << 4) + tq * 4;
+        uint32_t hi, lo;
+        split2(cr[4 * nb + 2 * x], cr[4 * nb + 2 * x + 1], hi, lo);
+        *reinterpret_cast<uint32_t*>(stg_g + off) = hi;
+        *reinterpret_cast<uint32_t*>(stg_g + G::TILE_PLANE + off) = lo;
+      }
+    }
+    proxy_fence();
+    __syncwarp();
+    if (lane == 0) wg::mbar_arrive(staged + 8 * g);
+  };
   for (int c = 0; c < nc; ++c) {
-    mma::cp_async_wait<0>();
-    __syncthreads();   // planes of c and K/V of c + 1 ready; c - 1 done
-    if (c + 2 < nc) load(c + 2);
-    mma::cp_async_commit();
-    if (c + 1 < nc) weights(c + 1);
-    if (active) {
-      // the chunk's starting state -> shared memory as hi/lo planes
+    const int s = c % stages;
+    const uint32_t st = ring + s * G::STAGE;
+    wg::mbar_wait(ready + 8 * s, (c / stages) & 1);
+    if (g == 1) stage_out(c);
+    // P = (k w)^T V, hi and lo into one accumulator
+    wg::wgmma_fence();
 #pragma unroll
-      for (int nb = 0; nb < 4; ++nb) {
-#pragma unroll
-        for (int x = 0; x < 2; ++x) {
-          uint32_t hi, lo;
-          split2(acc[nb][2 * x], acc[nb][2 * x + 1], hi, lo);
-          const int o = (rb * 16 + gq + 8 * x) * kPitch + ch * 32 + nb * 8 +
-                        2 * tq;
-          *reinterpret_cast<uint32_t*>(&sm.chi[o]) = hi;
-          *reinterpret_cast<uint32_t*>(&sm.clo[o]) = lo;
-        }
-      }
-      if (with_n && tq == 0) {
-        float* nc_out = n_scr + ((long)bh * nc + c) * D;
-        nc_out[r_lo] = nacc[0];
-        nc_out[r_lo + 8] = nacc[2];
-      }
-      const float decay = dec_s[c];
-#pragma unroll
-      for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-        for (int x = 0; x < 4; ++x) acc[nb][x] *= decay;
-#pragma unroll
-      for (int x = 0; x < 4; ++x) nacc[x] *= decay;
-      // C += (k w)^T V: A = (k w)^T from the [s][i] planes (ldmatrix.trans),
-      // B = V [s][j] (ldmatrix.trans), hi and lo into one accumulator
-      if (kCompute) {
-        const bf16* hi_p = sm.khi[c & 1];
-        const bf16* lo_p = sm.klo[c & 1];
-        const bf16* v_t = sm.v_s[c % kStateStages];
-#pragma unroll
-        for (int kk = 0; kk < kChunk / 16; ++kk) {
-          uint32_t ahi[4], alo[4];
-          const int arow = kk * 16 + (lane & 7) + ((lane >> 4) << 3);
-          const int acol = rb * 16 + ((lane >> 3) & 1) * 8;
-          mma::ldmatrix_x4_trans(ahi, hi_p + arow * kPitch + acol);
-          mma::ldmatrix_x4_trans(alo, lo_p + arow * kPitch + acol);
-#pragma unroll
-          for (int nb = 0; nb < 4; nb += 2) {
-            uint32_t bv[4];
-            mma::ldmatrix_x4_trans(bv, v_t + (kk * 16 + (lane & 15)) * kPitch +
-                                           ch * 32 + nb * 8 + (lane >> 4) * 8);
-            mma::mma_bf16(acc[nb], ahi, bv[0], bv[1]);
-            mma::mma_bf16(acc[nb], alo, bv[0], bv[1]);
-            mma::mma_bf16(acc[nb + 1], ahi, bv[2], bv[3]);
-            mma::mma_bf16(acc[nb + 1], alo, bv[2], bv[3]);
-          }
-          if (with_n) {
-            mma::mma_bf16(nacc, ahi, kOnes, kOnes);
-            mma::mma_bf16(nacc, alo, kOnes, kOnes);
-          }
-        }
-      }
+    for (int kk = 0; kk < LC / 16; ++kk) {
+      const uint64_t vd =
+          wg::sw128_desc(st + 2 * kBox + g * kBox + kk * 16 * 128, kBox);
+      Mma<64>::ss<1, 1>(pr, wg::sw128_desc(st + kk * 16 * 128, kBox), vd,
+                        kk > 0);
+      Mma<64>::ss<1, 1>(pr, wg::sw128_desc(st + kBox + kk * 16 * 128, kBox),
+                        vd, 1);
     }
-    __syncthreads();                      // w of c + 1, staged state ready
-    {
-      // the staged tile -> scratch, rows of 64 bf16 in 16-byte pieces
-      bf16* chi = c_scr + ((long)bh * nc + c) * 2 * D * D;
+    wg::wgmma_commit();
+    if (g == 0) stage_out(c);
+    const float dec = dec_s[c];
 #pragma unroll
-      for (int it = 0; it < 2 * kTile * kTile / 8 / kStateThreads; ++it) {
-        const int i = tid + it * kStateThreads;
-        const int plane = i / (kTile * kTile / 8);
-        const int r = (i / (kTile / 8)) % kTile, c8 = (i % (kTile / 8)) * 8;
-        if (i0 + r < D && j0 + c8 < D && kLoads)
-          *reinterpret_cast<uint4*>(chi + (long)plane * D * D +
-                                    (long)(i0 + r) * D + j0 + c8) =
-              *reinterpret_cast<const uint4*>(
-                  (plane ? sm.clo : sm.chi) + r * kPitch + c8);
-      }
-    }
-    if (c + 1 < nc) planes(c + 1);
+    for (int x = 0; x < 32; ++x) cr[x] = __fmul_rn(cr[x], dec);
+    wg::wgmma_wait<0>();
+    wg::fence_regs(pr);
+    if (lane == 0) wg::mbar_arrive(empty + 8 * s);   // chunk c's stage is free
+#pragma unroll
+    for (int x = 0; x < 32; ++x) cr[x] = __fadd_rn(cr[x], pr[x]);
   }
-  mma::cp_async_wait<0>();
-  if (blockIdx.y == 0 && blockIdx.z == 0 && tid == 0) m_out[bh] = m_s[nc];
-  if (!active) return;
 #pragma unroll
-  for (int nb = 0; nb < 4; ++nb) {
-    const int col = c_lo + nb * 8;
-    if (col >= D) continue;
+  for (int nb = 0; nb < 8; ++nb) {
 #pragma unroll
     for (int x = 0; x < 2; ++x)
-      *reinterpret_cast<float2*>(c_bh + (long)(r_lo + 8 * x) * D + col) =
-          make_float2(acc[nb][2 * x], acc[nb][2 * x + 1]);
-  }
-  if (with_n && tq == 0) {
-    float* n_o = n_out + (long)bh * D;
-    n_o[r_lo] = nacc[0];
-    n_o[r_lo + 8] = nacc[2];
+      if (r_lo + 8 * x < D && c_lo + 8 * nb < D)
+        *reinterpret_cast<float2*>(c_bh + (long)(r_lo + 8 * x) * D + c_lo +
+                                   8 * nb) =
+            make_float2(cr[4 * nb + 2 * x], cr[4 * nb + 2 * x + 1]);
   }
 }
 
-// Shared memory of the output pass: a three-stage ring of Q and C_c's hi
-// and lo slices (two blocks an SM fit), the V tile, the score planes, the chunk's per-token gates and
-// row terms, and the chunks' (b_last, row max) (nc-sized tail).
-constexpr int kOutStages = 3;
-
-struct OutSmem {
-  bf16 ring[kOutStages][3][kTileElems];
-  float n_s[kOutStages][kTile];    // the slice's n_c
-  bf16 vt[kTileElems];
-  bf16 shi[kTileElems], slo[kTileElems];
-  float b[kChunk], li[kChunk], x[kChunk], m[kChunk], g[kChunk];
-  float rsum[2][kChunk];           // row sums of s, per column half
-  float qn[kChunk], den[kChunk];
-  float m0;
+// ---- 2c. the output pass
+// Shared memory (1024-aligned base, `stages` ring stages): [stages x (a
+// [LC, 64] slice of Q; C_c's hi and lo planes over the slice's 64 rows and
+// the block's kOutN columns, kOutN / 64 boxes each)][the V tile: kOutN /
+// 64 boxes][full[S], empty[S], the V tile's barrier][b, log_i, x, m, g,
+// q.n of the chunk's tokens; m0; n_c (D rounded up to 64); the nc-sized
+// tail: the chunks' (b_last, row max)].
+template <int LC>
+struct OutGeo {
+  static constexpr int Q_BYTES = Tok<LC>::BOX;
+  static constexpr int C_PLANE = kOutN / 64 * kAtomBytes;
+  static constexpr int STAGE = Q_BYTES + 2 * C_PLANE;
+  static constexpr int V_BYTES = kOutN / 64 * Tok<LC>::BOX;
 };
 
-__host__ __device__ inline size_t out_smem(int nc) {
-  return sizeof(OutSmem) + ((2 * (size_t)nc + 3) & ~(size_t)3) * sizeof(float);
+template <int LC>
+__host__ __device__ inline size_t out_smem(int stages, int nc, int D) {
+  using G = OutGeo<LC>;
+  return wg::kAlign + (size_t)stages * G::STAGE + G::V_BYTES +
+         16 * stages + 16 +
+         (6 * LC + 4 + (D + 63) / 64 * 64 + ((2 * nc + 3) & ~3)) *
+             sizeof(float);
 }
 
-// 2c. grid (nc, B*H, column tiles of h), all in parallel. The chunk's raw
-// scores come from the gate pass, decayed with the m chain up to the chunk;
-// then Q C_c over D in slices of 64 for the block's 64 columns, q.n on the
-// side, and s V.
-__global__ void __launch_bounds__(kWideThreads)
-mlstm_output_kernel(const bf16* __restrict__ q, const bf16* __restrict__ v,
-                    Strides qs, Strides vs, const float* __restrict__ m_in,
+// Grid (nc, B*H, column tiles of kOutN), all in parallel. Consumer
+// warpgroup g owns the chunk's tokens [64g, 64g + 64) as the M rows of
+// h[:, j0:j0 + kOutN] (acc: rows 64g + 16w + gq (+8), columns j0 + 8nb +
+// 2tq (+1)); the warp after them is the producer (the V tile once, then Q
+// and C_c slice by slice). The products of slice j run while q.n of slice
+// j is summed and slice j - 1's stage goes back.
+template <int LC>
+__global__ void __launch_bounds__(Tok<LC>::THREADS, 1)
+mlstm_output_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const __grid_constant__ CUtensorMap c_map, int q_slots,
+                    int v_slots, const float* __restrict__ m_in,
                     const int* __restrict__ rows, long mb,
                     const float* __restrict__ gates,
-                    const bf16* __restrict__ c_scr,
                     const float* __restrict__ n_scr, bf16* __restrict__ h_out,
-                    int S, int H, int D, int nc) {
+                    int S, int H, int D, int nc, int stages) {
+  using G = OutGeo<LC>;
+  constexpr int kWG = Tok<LC>::WG, kBox = Tok<LC>::BOX;
+  constexpr int kThreads = Tok<LC>::THREADS;
   const int c = blockIdx.x, bh = blockIdx.y, b = bh / H, hh = bh % H;
-  const int j0 = blockIdx.z * kTile;
-  const int t0 = c * kChunk, L = min(kChunk, S - t0);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gq = lane / 4, tq = lane % 4, rb = warp % 4, ch = warp / 4;
+  const int j0 = blockIdx.z * kOutN;
+  const int t0 = c * LC, L = min(LC, S - t0), ns = (D + 63) / 64;
+  const int t = threadIdx.x;
   const long sb = rows ? rows[b] : b;
-  extern __shared__ __align__(16) unsigned char out_raw[];
-  OutSmem& sm = *reinterpret_cast<OutSmem*>(out_raw);
-  float* last_s = reinterpret_cast<float*>(out_raw + sizeof(OutSmem));
-  const GateView gv(const_cast<float*>(gates), bh, nc);
-
-  const bf16* q_bc = q + b * qs.b + t0 * qs.s + hh * qs.h;
-  const bf16* v_bc = v + b * vs.b + t0 * vs.s + hh * vs.h;
-  const bf16* chi = c_scr + ((long)bh * nc + c) * 2 * D * D;
-  const bf16* clo = chi + (long)D * D;
+  const GateView<LC> gv(const_cast<float*>(gates), bh, nc);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = wg::aligned_smem(smem_raw);
+  const uint32_t ring = wg::smem_addr(base);
+  const int R = stages * G::STAGE;
+  const uint32_t v_s = ring + R;
+  const uint32_t full = v_s + G::V_BYTES, empty = full + 8 * stages;
+  const uint32_t vbar = empty + 8 * stages;
+  float* b_s = reinterpret_cast<float*>(base + R + G::V_BYTES + 16 * stages +
+                                        16);
+  float* li_s = b_s + LC;
+  float* x_s = li_s + LC;
+  float* m_s = x_s + LC;
+  float* g_s = m_s + LC;
+  float* qn_s = g_s + LC;
+  float* m0_s = qn_s + LC;
+  float* n_s = m0_s + 4;
+  float* last_s = n_s + ns * 64;
+  if (t == 0) {
+    for (int s = 0; s < stages; ++s) {
+      wg::mbar_init(full + 8 * s, 1);
+      wg::mbar_init(empty + 8 * s, 4 * kWG);
+    }
+    wg::mbar_init(vbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (t < LC) {
+    b_s[t] = gv.tok[kB * gv.Sp + t0 + t];
+    li_s[t] = gv.tok[kLi * gv.Sp + t0 + t];
+    x_s[t] = gv.tok[kX * gv.Sp + t0 + t];
+  }
   const float* n_c = n_scr + ((long)bh * nc + c) * D;
-  const int ns = (D + kTile - 1) / kTile;
-  auto load = [&](int step, int st) {
-    const int i0 = step * kTile;
-    load_tile<kWideThreads>(sm.ring[st][0], q_bc, qs.s, 0, L, i0, D);
-    load_tile<kWideThreads>(sm.ring[st][1], chi, D, i0, D, j0, D);
-    load_tile<kWideThreads>(sm.ring[st][2], clo, D, i0, D, j0, D);
-    load_floats<kWideThreads>(sm.n_s[st], n_c + i0, min(kTile, D - i0));
-  };
-  load(0, 0);
-  load_tile<kWideThreads>(sm.vt, v_bc, vs.s, 0, L, j0, D);
-  load_floats<kWideThreads>(sm.b, gv.tok + kB * gv.Sp + t0, kChunk);
-  load_floats<kWideThreads>(sm.li, gv.tok + kLi * gv.Sp + t0, kChunk);
-  load_floats<kWideThreads>(sm.x, gv.tok + kX * gv.Sp + t0, kChunk);
-  mma::cp_async_commit();
-  if (ns > 1) load(1, 1);
-  mma::cp_async_commit();
-  for (int i = tid; i < 2 * c; i += kWideThreads) last_s[i] = gv.last[i];
-  // the raw scores of this thread's fragments: rows r0, r0 + 8
-  const int r0 = 16 * rb + gq;
-  float s_f[4][4];
-  {
-    const float* sc = gv.scores + (long)c * kChunk * kChunk;
+  for (int i = t; i < ns * 64; i += kThreads) n_s[i] = i < D ? n_c[i] : 0.f;
+  for (int i = t; i < 2 * c; i += kThreads) last_s[i] = gv.last[i];
+  __syncthreads();
+
+  if (t >= 128 * kWG) {                     // the producer warp
+    if (t == 128 * kWG) {
+      if (kLoads) {
+        wg::mbar_expect_tx(vbar, G::V_BYTES);
 #pragma unroll
-    for (int nb = 0; nb < 4; ++nb) {
-      const int s0 = 32 * ch + nb * 8 + 2 * tq;
-      const float2 x0 = *reinterpret_cast<const float2*>(sc + r0 * kChunk + s0);
+        for (int a = 0; a < kOutN / 64; ++a)
+          load_tokens(v_s + a * kBox, &v_map, v_slots, vbar, j0 + 64 * a, t0,
+                      hh, b);
+      } else {
+        wg::mbar_arrive(vbar);
+      }
+      for (int j = 0; j < ns; ++j) {
+        const int s = j % stages;
+        const uint32_t st = ring + s * G::STAGE;
+        wg::mbar_wait(empty + 8 * s, ((j / stages) & 1) ^ 1);
+        if (kLoads) {
+          wg::mbar_expect_tx(full + 8 * s, G::STAGE);
+          load_tokens(st, &q_map, q_slots, full + 8 * s, 64 * j, t0, hh, b);
+#pragma unroll
+          for (int pl = 0; pl < 2; ++pl)
+#pragma unroll
+            for (int a = 0; a < kOutN / 64; ++a)
+              tma_load_3d(st + G::Q_BYTES + pl * G::C_PLANE + a * kAtomBytes,
+                          &c_map, full + 8 * s, j0 + 64 * a, 64 * j,
+                          (bh * nc + c) * 2 + pl);
+        } else {
+          wg::mbar_arrive(full + 8 * s);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wgi = t / 128, w = (t % 128) / 32, lane = t % 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const int r0 = 64 * wgi + 16 * w + gq;   // this thread's rows r0, r0 + 8
+  // the raw scores of this thread's fragments
+  float sf[LC / 2];
+  {
+    const float* sc = gv.scores + (long)c * LC * LC;
+#pragma unroll
+    for (int nb = 0; nb < LC / 8; ++nb) {
+      const int s0 = 8 * nb + 2 * tq;
+      const float2 x0 = *reinterpret_cast<const float2*>(sc + r0 * LC + s0);
       const float2 x1 =
-          *reinterpret_cast<const float2*>(sc + (r0 + 8) * kChunk + s0);
-      s_f[nb][0] = x0.x;
-      s_f[nb][1] = x0.y;
-      s_f[nb][2] = x1.x;
-      s_f[nb][3] = x1.y;
+          *reinterpret_cast<const float2*>(sc + (r0 + 8) * LC + s0);
+      sf[4 * nb] = x0.x;
+      sf[4 * nb + 1] = x0.y;
+      sf[4 * nb + 2] = x1.x;
+      sf[4 * nb + 3] = x1.y;
     }
   }
-  __syncthreads();
-  if (tid == 0) {                  // the m chain up to this chunk
+  if (t == 0) {                   // the m chain up to this chunk
     float m = m_in[sb * mb + hh];
     for (int cc = 0; cc < c; ++cc)
       m = fmaxf(last_s[2 * cc] + m, last_s[2 * cc + 1]);
-    sm.m0 = m;
+    *m0_s = m;
   }
-  mma::cp_async_wait<1>();
-  __syncthreads();
-  if (tid < kChunk) {              // m_t and g_t
-    const float inter = sm.b[tid] + sm.m0;
-    const float m_t = fmaxf(inter, sm.x[tid]);
-    sm.m[tid] = m_t;
-    sm.g[tid] = tid < L ? expf(inter - m_t) : 0.f;
+  wg::named_sync(1, 128 * kWG);
+  if (t < LC) {                   // m_t and g_t
+    const float inter = b_s[t] + *m0_s;
+    const float m_t = fmaxf(inter, x_s[t]);
+    m_s[t] = m_t;
+    g_s[t] = t < L ? expf(inter - m_t) : 0.f;
   }
-  __syncthreads();
-  // decay and mask the scores in registers, keep them as hi/lo planes,
-  // and the row sums
-  {
-    float rs[2] = {0.f, 0.f};
+  wg::named_sync(1, 128 * kWG);
+  // the scores decayed and masked, split into the hi/lo A fragments of
+  // s.V (k-step kk: n-blocks 2kk and 2kk + 1), and the row sums
+  uint32_t shi[LC / 16][4], slo[LC / 16][4];
+  float rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int nb = 0; nb < 4; ++nb) {
-      const int s0 = 32 * ch + nb * 8 + 2 * tq;
-#pragma unroll
-      for (int x = 0; x < 2; ++x) {
-        const int t = r0 + 8 * x;
-        float val[2];
-#pragma unroll
-        for (int y = 0; y < 2; ++y) {
-          const int s = s0 + y;
-          val[y] = 0.f;
-          if (t < L && s <= t)
-            val[y] = s_f[nb][2 * x + y] *
-                     expf(sm.b[t] - sm.b[s] + sm.li[s] - sm.m[t]);
-          rs[x] += val[y];
-        }
-        uint32_t hi, lo;
-        split2(val[0], val[1], hi, lo);
-        *reinterpret_cast<uint32_t*>(&sm.shi[t * kPitch + s0]) = hi;
-        *reinterpret_cast<uint32_t*>(&sm.slo[t * kPitch + s0]) = lo;
-      }
-    }
+  for (int nb = 0; nb < LC / 8; ++nb) {
+    const int s0 = 8 * nb + 2 * tq;
 #pragma unroll
     for (int x = 0; x < 2; ++x) {
-      rs[x] += __shfl_xor_sync(0xffffffffu, rs[x], 1);
-      rs[x] += __shfl_xor_sync(0xffffffffu, rs[x], 2);
+      const int tt = r0 + 8 * x;
+      float val[2];
+#pragma unroll
+      for (int y = 0; y < 2; ++y) {
+        const int s = s0 + y;
+        val[y] = 0.f;
+        if (tt < L && s <= tt)
+          val[y] = sf[4 * nb + 2 * x + y] *
+                   expf(b_s[tt] - b_s[s] + li_s[s] - m_s[tt]);
+        rs[x] += val[y];
+      }
+      split2(val[0], val[1], shi[nb / 2][(nb & 1) * 2 + x],
+             slo[nb / 2][(nb & 1) * 2 + x]);
     }
-    if (tq == 0) {
-      sm.rsum[ch][r0] = rs[0];
-      sm.rsum[ch][r0 + 8] = rs[1];
-    }
+  }
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    rs[x] += __shfl_xor_sync(kFull, rs[x], 1);
+    rs[x] += __shfl_xor_sync(kFull, rs[x], 2);
   }
 
-  // acc = Q C_c over D in slices (hi and lo planes); q.n on the side
-  float acc[4][4] = {};
-  float qn = 0.f;                                 // row tid / 4, quarter
-  const int t = tid / 4, part = tid % 4;
-  for (int step = 0; step < ns; ++step) {
-    const int st = step % kOutStages;
-    mma::cp_async_wait<1>();
-    __syncthreads();   // the step's tiles landed; step - 1's stage is free
-    if (step + 2 < ns) load(step + 2, (step + 2) % kOutStages);
-    mma::cp_async_commit();
-    const bf16* a_s = sm.ring[st][0];
-    if (kCompute)
-      mma_step<true>(acc, a_s, sm.ring[st][1], sm.ring[st][2]);
-    const int d0 = step * kTile;
-#pragma unroll 4
-    for (int d = part * 16; d < part * 16 + 16; ++d)
-      if (d0 + d < D)
-        qn = fmaf(__bfloat162float(a_s[t * kPitch + d]), sm.n_s[st][d], qn);
-  }
-  mma::cp_async_wait<0>();
-  qn += __shfl_xor_sync(0xffffffffu, qn, 1);
-  qn += __shfl_xor_sync(0xffffffffu, qn, 2);
-  if (part == 0) sm.qn[t] = qn;
-  __syncthreads();
-  if (tid < kChunk) {
-    const float nrm =
-        sm.g[tid] * sm.qn[tid] + (sm.rsum[0][tid] + sm.rsum[1][tid]);
-    sm.den[tid] =
-        fmaxf(fmaxf(fabsf(nrm), expf(-fminf(sm.m[tid], 30.f))), 1e-30f);
-  }
-  __syncthreads();
-  // g * (q C_c) + s V (s as hi and lo planes), over the denominator
-  const float g0 = sm.g[r0], g1 = sm.g[r0 + 8];
+  // acc = Q C_c over D in slices of 64 (C_c's hi and lo planes N-major),
+  // and q.n on the side: thread t takes half of its row's 64 columns
+  float acc[kOutN / 2];
 #pragma unroll
-  for (int nb = 0; nb < 4; ++nb) {
-    acc[nb][0] *= g0;
-    acc[nb][1] *= g0;
-    acc[nb][2] *= g1;
-    acc[nb][3] *= g1;
+  for (int x = 0; x < kOutN / 2; ++x) acc[x] = 0.f;
+  float qn = 0.f;
+  const int rq = 64 * wgi + (t % 128) / 2, half = t % 2;
+  for (int j = 0; j < ns; ++j) {
+    const int s = j % stages;
+    const uint32_t st = ring + s * G::STAGE;
+    wg::mbar_wait(full + 8 * s, (j / stages) & 1);
+    wg::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t qd = wg::sw128_desc(st + wgi * 64 * 128 + kk * 32);
+      Mma<kOutN>::ss<0, 1>(
+          acc, qd, wg::sw128_desc(st + G::Q_BYTES + kk * 16 * 128, kAtomBytes),
+          j > 0 || kk > 0);
+      Mma<kOutN>::ss<0, 1>(
+          acc, qd,
+          wg::sw128_desc(st + G::Q_BYTES + G::C_PLANE + kk * 16 * 128,
+                         kAtomBytes),
+          1);
+    }
+    wg::wgmma_commit();
+    const unsigned char* qg = base + s * G::STAGE;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int p = half * 4 + i;
+      const uint4 qv = *reinterpret_cast<const uint4*>(
+          qg + rq * 128 + ((p ^ (rq & 7)) << 4));
+      const __nv_bfloat162* q2 = reinterpret_cast<const __nv_bfloat162*>(&qv);
+      const float* nn = n_s + 64 * j + 8 * p;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        qn = fmaf(__low2float(q2[e]), nn[2 * e], qn);
+        qn = fmaf(__high2float(q2[e]), nn[2 * e + 1], qn);
+      }
+    }
+    wg::wgmma_wait<1>();            // slice j - 1's products are done
+    if (j > 0 && lane == 0)
+      wg::mbar_arrive(empty + 8 * ((j - 1) % stages));
   }
-  if (kCompute) {
-    mma_step<true>(acc, sm.shi, sm.vt, nullptr);
-    mma_step<true>(acc, sm.slo, sm.vt, nullptr);
+  wg::wgmma_wait<0>();
+  wg::fence_regs(acc);
+  if (lane == 0) wg::mbar_arrive(empty + 8 * ((ns - 1) % stages));
+  qn += __shfl_xor_sync(kFull, qn, 1);
+  if (half == 0) qn_s[rq] = qn;
+  wg::named_sync(2 + wgi, 128);
+  float inv[2];
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const int tt = r0 + 8 * x;
+    const float nrm = __fadd_rn(__fmul_rn(g_s[tt], qn_s[tt]), rs[x]);
+    inv[x] = 1.f / fmaxf(fmaxf(fabsf(nrm), expf(-fminf(m_s[tt], 30.f))),
+                         1e-30f);
   }
-  const float d0 = sm.den[r0], d1 = sm.den[r0 + 8];
+  // g * (Q C_c) + s V (s from registers, hi and lo; V N-major)
+  const float g0 = g_s[r0], g1 = g_s[r0 + 8];
+#pragma unroll
+  for (int nb = 0; nb < kOutN / 8; ++nb) {
+    acc[4 * nb] = __fmul_rn(acc[4 * nb], g0);
+    acc[4 * nb + 1] = __fmul_rn(acc[4 * nb + 1], g0);
+    acc[4 * nb + 2] = __fmul_rn(acc[4 * nb + 2], g1);
+    acc[4 * nb + 3] = __fmul_rn(acc[4 * nb + 3], g1);
+  }
+  wg::mbar_wait(vbar, 0);
+  wg::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < LC / 16; ++kk) {
+    const uint64_t vd = wg::sw128_desc(v_s + kk * 16 * 128, kBox);
+    Mma<kOutN>::rs(acc, shi[kk], vd);
+    Mma<kOutN>::rs(acc, slo[kk], vd);
+  }
+  wg::wgmma_commit();
+  wg::wgmma_wait<0>();
+  wg::fence_regs(acc);
   bf16* h_bc = h_out + (((long)b * S + t0) * H + hh) * D;
 #pragma unroll
-  for (int nb = 0; nb < 4; ++nb) {
-    const int col = j0 + 32 * ch + nb * 8 + 2 * tq;
+  for (int nb = 0; nb < kOutN / 8; ++nb) {
+    const int col = j0 + 8 * nb + 2 * tq;
     if (col >= D) continue;
     if (r0 < L)
       *reinterpret_cast<uint32_t*>(h_bc + (long)r0 * H * D + col) =
-          mma::pack_bf16(acc[nb][0] / d0, acc[nb][1] / d0);
+          wg::pack_bf16(acc[4 * nb] * inv[0], acc[4 * nb + 1] * inv[0]);
     if (r0 + 8 < L)
       *reinterpret_cast<uint32_t*>(h_bc + (long)(r0 + 8) * H * D + col) =
-          mma::pack_bf16(acc[nb][2] / d1, acc[nb][3] / d1);
+          wg::pack_bf16(acc[4 * nb + 2] * inv[1], acc[4 * nb + 3] * inv[1]);
   }
 }
 
 // ---------------------------------------------------------------------------
 // 3. the fp32 chunk loop
 // ---------------------------------------------------------------------------
+constexpr int kLoopChunk = 64;  // tokens per chunk of the loop
 constexpr int kThreads = 256;   // threads per block
 constexpr int kDK = 32;         // head-dim columns of q and k per stream tile
 constexpr int kPad = kDK + 1;   // row stride of the q/k tiles (no conflicts)
 constexpr int kMaxDV = 32;      // widest value tile
-constexpr int kAccPerThread = kChunk * kMaxDV / kThreads;
+constexpr int kAccPerThread = kLoopChunk * kMaxDV / kThreads;
 
 __host__ __device__ inline size_t smem_floats(int D, int DV) {
-  return (size_t)D * DV        // C slice
-         + D                   // private n
-         + kChunk * kChunk     // decayed scores
-         + 2 * kChunk * kPad   // q and k stream tiles
-         + kChunk * DV         // v tile
-         + 5 * kChunk;         // b, log_i, m_t, g_t, nrm_t (w_s reuses g)
+  return (size_t)D * DV              // C slice
+         + D                         // private n
+         + kLoopChunk * kLoopChunk   // decayed scores
+         + 2 * kLoopChunk * kPad     // q and k stream tiles
+         + kLoopChunk * DV           // v tile
+         + 5 * kLoopChunk;           // b, log_i, m_t, g_t, nrm_t (w_s: g)
 }
 
 template <typename T>
@@ -882,15 +1227,15 @@ mlstm_chunkwise_kernel(const T* __restrict__ q, const T* __restrict__ k,
   extern __shared__ __align__(16) float smem[];
   float* c_s = smem;                         // [D][DV]
   float* n_s = c_s + (size_t)D * DV;         // [D]
-  float* sc = n_s + D;                       // [kChunk][kChunk]
-  float* q_s = sc + kChunk * kChunk;         // [kChunk][kPad]
-  float* k_s = q_s + kChunk * kPad;          // [kChunk][kPad]
-  float* v_s = k_s + kChunk * kPad;          // [kChunk][DV]
-  float* b_s = v_s + kChunk * DV;            // [kChunk] cumulative log_f
-  float* li_s = b_s + kChunk;                // [kChunk] log_i
-  float* m_s = li_s + kChunk;                // [kChunk] row stabilizer
-  float* g_s = m_s + kChunk;                 // [kChunk] inter scale, then w
-  float* nr_s = g_s + kChunk;                // [kChunk] n.q, then nrm
+  float* sc = n_s + D;                       // [kLoopChunk][kLoopChunk]
+  float* q_s = sc + kLoopChunk * kLoopChunk; // [kLoopChunk][kPad]
+  float* k_s = q_s + kLoopChunk * kPad;      // [kLoopChunk][kPad]
+  float* v_s = k_s + kLoopChunk * kPad;      // [kLoopChunk][DV]
+  float* b_s = v_s + kLoopChunk * DV;        // [kLoopChunk] cumulative log_f
+  float* li_s = b_s + kLoopChunk;            // [kLoopChunk] log_i
+  float* m_s = li_s + kLoopChunk;            // [kLoopChunk] row stabilizer
+  float* g_s = m_s + kLoopChunk;             // [kLoopChunk] inter scale, then w
+  float* nr_s = g_s + kLoopChunk;            // [kLoopChunk] n.q, then nrm
   __shared__ float m_run;
 
   float* c_g = C + sb * cb + (long)hh * D * D + j0;
@@ -906,8 +1251,8 @@ mlstm_chunkwise_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // score micro-tile of this thread: rows ty + 16 i, columns tx + 16 j
   const int ty = tid / 16, tx = tid % 16;
 
-  for (int t0 = 0; t0 < S; t0 += kChunk) {
-    const int L = min(kChunk, S - t0);
+  for (int t0 = 0; t0 < S; t0 += kLoopChunk) {
+    const int L = min(kLoopChunk, S - t0);
     __syncthreads();                         // previous chunk done
     if (tid < L) {
       li_s[tid] = log_i[b * is.b + (long)(t0 + tid) * is.s + hh * is.h];
@@ -935,7 +1280,7 @@ mlstm_chunkwise_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const bool any_pair = ty < L && tx < L;
     for (int d0 = 0; d0 < D; d0 += kDK) {
       __syncthreads();                       // tiles free to overwrite
-      for (int i = tid; i < kChunk * kDK; i += kThreads) {
+      for (int i = tid; i < kLoopChunk * kDK; i += kThreads) {
         const int t = i / kDK, dd = i % kDK;
         float qv = 0.f, kv = 0.f;
         if (t < L) {
@@ -990,10 +1335,10 @@ mlstm_chunkwise_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float val = 0.f;
         if (t < L && s <= t)
           val = sreg[i][j] * expf(b_s[t] - b_s[s] + li_s[s] - m_s[t]);
-        sc[t * kChunk + s] = val;
+        sc[t * kLoopChunk + s] = val;
       }
     }
-    for (int i = tid; i < kChunk * DV; i += kThreads) {
+    for (int i = tid; i < kLoopChunk * DV; i += kThreads) {
       const int s = i / DV, j = i % DV;
       v_s[i] = s < L ? paged::to_float(v_bh[(long)(t0 + s) * vs.s + j]) : 0.f;
     }
@@ -1001,7 +1346,7 @@ mlstm_chunkwise_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     if (tid < L) {
       float sum = 0.f;
-      for (int s = 0; s <= tid; ++s) sum += sc[tid * kChunk + s];
+      for (int s = 0; s <= tid; ++s) sum += sc[tid * kLoopChunk + s];
       nr_s[tid] = g_s[tid] * nr_s[tid] + sum;
     }
     __syncthreads();
@@ -1014,7 +1359,7 @@ mlstm_chunkwise_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int t = o / DV, j = o % DV;
         float pv = 0.f;
         for (int s = 0; s <= t; ++s)
-          pv = fmaf(sc[t * kChunk + s], v_s[s * DV + j], pv);
+          pv = fmaf(sc[t * kLoopChunk + s], v_s[s * DV + j], pv);
         const float a = g_s[t] * acc[r] + pv;
         const float den = fmaxf(fmaxf(fabsf(nr_s[t]),
                                       expf(-fminf(m_s[t], 30.f))), 1e-30f);
@@ -1031,7 +1376,7 @@ mlstm_chunkwise_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (tid < L) w_s[tid] = expf(b_last - b_s[tid] + li_s[tid] - m_new);
     for (int d0 = 0; d0 < D; d0 += kDK) {
       __syncthreads();                       // w ready, k tile free
-      for (int i = tid; i < kChunk * kDK; i += kThreads) {
+      for (int i = tid; i < kLoopChunk * kDK; i += kThreads) {
         const int t = i / kDK, dd = i % kDK;
         k_s[t * kPad + dd] =
             t < L ? paged::to_float(k_bh[(long)(t0 + t) * ks.s + d0 + dd])
@@ -1102,36 +1447,123 @@ int launch_decode(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// Ring stages of the state and output passes: as many as fit in a block's
+// shared memory beside their fixed parts and the nc-sized tails, at most 4
+// (0 or 1 when S is too long for two).
+template <int LC>
+int state_stages(int nc) {
+  const size_t fixed = state_smem<LC>(0, nc);
+  if (fixed >= (size_t)wg::kSmemLimit) return 0;
+  return std::min<int>(4, (int)((wg::kSmemLimit - fixed) /
+                                (StateGeo<LC>::STAGE + 24)));
+}
+
+template <int LC>
+int out_stages(int nc, int D) {
+  const size_t fixed = out_smem<LC>(0, nc, D);
+  if (fixed >= (size_t)wg::kSmemLimit) return 0;
+  return std::min<int>(4, (int)((wg::kSmemLimit - fixed) /
+                                (OutGeo<LC>::STAGE + 16)));
+}
+
+// The chunk-start planes of every (b, h) and chunk as one 3-D tensor map
+// [D columns, D rows, B*H*nc*2 planes], boxes of [64, 64, 1] with the
+// 128-byte swizzle (the state pass stores its tiles through it, the
+// output pass loads them); rows and columns past D are outside the map.
+cudaError_t planes_map(const void* ptr, int D, long planes, CUtensorMap* out) {
+  wg::MapKey k = wg::map_key(ptr, 3);
+  k.dims[0] = (cuuint64_t)D;
+  k.dims[1] = (cuuint64_t)D;
+  k.dims[2] = (cuuint64_t)planes;
+  k.strides[0] = (cuuint64_t)D * 2;
+  k.strides[1] = (cuuint64_t)D * D * 2;
+  k.box[0] = 64;
+  k.box[1] = 64;
+  k.box[2] = 1;
+  return wg::tensor_map(k, out);
+}
+
+// The three passes' kernels, grids, threads and shared memory over S
+// tokens (chunks of LC) at head dim D for B*H (batch row, head) pairs: 0
+// the gate pass, 1 the state pass, 2 the output pass.
+struct PassLaunch {
+  const void* kernel;
+  dim3 grid;
+  int threads;
+  size_t smem;
+  int stages, columns;
+};
+
+template <int LC>
+PassLaunch pass_launch(int pass, int BH, int S, int D) {
+  const int nc = (S + LC - 1) / LC;
+  if (pass == 0)
+    return {(const void*)mlstm_gate_kernel<LC>, dim3(nc, BH),
+            Tok<LC>::THREADS, GateGeo<LC>::kSmem, GateGeo<LC>::kStages, LC};
+  if (pass == 1) {
+    const int st = state_stages<LC>(nc);
+    return {(const void*)mlstm_state_kernel<LC>,
+            dim3(BH, (D + 63) / 64, (D + kStateN - 1) / kStateN),
+            kStateThreads, state_smem<LC>(st, nc), st, kStateN};
+  }
+  const int st = out_stages<LC>(nc, D);
+  return {(const void*)mlstm_output_kernel<LC>,
+          dim3(nc, BH, (D + kOutN - 1) / kOutN), Tok<LC>::THREADS,
+          out_smem<LC>(st, nc, D), st, kOutN};
+}
+
+PassLaunch pass_launch(int pass, int BH, int S, int D) {
+  return chunk_for(S) == kShortChunk ? pass_launch<kShortChunk>(pass, BH, S, D)
+                                     : pass_launch<kChunk>(pass, BH, S, D);
+}
+
+template <int LC>
 int launch_passes(const Args& a, cudaStream_t stream) {
   if (!a.gates || !a.c_scr || !a.n_scr) return (int)cudaErrorInvalidValue;
-  const int nc = (a.S + kChunk - 1) / kChunk;
-  const int BH = a.B * a.H, tiles = (a.D + kTile - 1) / kTile;
-  cudaError_t err = paged::reserve_smem(mlstm_gate_kernel, sizeof(GateSmem));
+  const int nc = (a.S + LC - 1) / LC;
+  const int BH = a.B * a.H;
+  PassLaunch p[3];
+  cudaError_t err = cudaSuccess;
+  for (int i = 0; i < 3 && err == cudaSuccess; ++i) {
+    p[i] = pass_launch<LC>(i, BH, a.S, a.D);
+    if (p[i].stages < 2) return (int)cudaErrorInvalidValue;
+    err = paged::reserve_smem(p[i].kernel, p[i].smem);
+  }
+  CUtensorMap q_map, k_map, v_map, c_map;
+  int q_slots = 0, k_slots = 0, v_slots = 0;
   if (err == cudaSuccess)
-    err = paged::reserve_smem(mlstm_state_kernel, state_smem(nc));
+    err = wg::strided_map(a.q, a.B, a.H, a.S, a.D, a.qs.b, a.qs.h, a.qs.s,
+                          LC, &q_map, &q_slots);
   if (err == cudaSuccess)
-    err = paged::reserve_smem(mlstm_output_kernel, out_smem(nc));
+    err = wg::strided_map(a.k, a.B, a.H, a.S, a.D, a.ks.b, a.ks.h, a.ks.s,
+                          LC, &k_map, &k_slots);
+  if (err == cudaSuccess)
+    err = wg::strided_map(a.v, a.B, a.H, a.S, a.D, a.vs.b, a.vs.h, a.vs.s,
+                          LC, &v_map, &v_slots);
+  if (err == cudaSuccess)
+    err = planes_map(a.c_scr, a.D, (long)BH * nc * 2, &c_map);
   if (err != cudaSuccess) return (int)err;
-  const bf16* q = reinterpret_cast<const bf16*>(a.q);
-  const bf16* k = reinterpret_cast<const bf16*>(a.k);
-  const bf16* v = reinterpret_cast<const bf16*>(a.v);
-  bf16* c_scr = reinterpret_cast<bf16*>(a.c_scr);
-  mlstm_gate_kernel<<<dim3(nc, BH), kWideThreads, sizeof(GateSmem),
-                      stream>>>(q, k, a.log_i, a.log_f, a.qs, a.ks, a.is,
-                                a.fs, a.gates, a.S, a.H, a.D, nc);
+  bf16* h = reinterpret_cast<bf16*>(a.h);
+  mlstm_gate_kernel<LC><<<p[0].grid, p[0].threads, p[0].smem, stream>>>(
+      q_map, k_map, q_slots, k_slots, a.log_i, a.log_f, a.is, a.fs, a.gates,
+      a.S, a.H, a.D, nc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  mlstm_state_kernel<<<dim3(BH, tiles, tiles), kStateThreads, state_smem(nc),
-                       stream>>>(
-      k, v, a.ks, a.vs, a.C, a.n_in, a.m_in, a.rows, a.cb, a.nb, a.mb,
-      a.gates, c_scr, a.n_scr, a.n_out, a.m_out, a.S, a.H, a.D, nc);
+  mlstm_state_kernel<LC><<<p[1].grid, p[1].threads, p[1].smem, stream>>>(
+      k_map, v_map, c_map, k_slots, v_slots, a.C, a.n_in, a.m_in, a.rows,
+      a.cb, a.nb, a.mb, a.gates, a.n_scr, a.n_out, a.m_out, a.S, a.H, a.D,
+      nc, p[1].stages);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  mlstm_output_kernel<<<dim3(nc, BH, tiles), kWideThreads, out_smem(nc),
-                        stream>>>(
-      q, v, a.qs, a.vs, a.m_in, a.rows, a.mb, a.gates, c_scr, a.n_scr,
-      reinterpret_cast<bf16*>(a.h), a.S, a.H, a.D, nc);
+  mlstm_output_kernel<LC><<<p[2].grid, p[2].threads, p[2].smem, stream>>>(
+      q_map, v_map, c_map, q_slots, v_slots, a.m_in, a.rows, a.mb, a.gates,
+      a.n_scr, h, a.S, a.H, a.D, nc, p[2].stages);
   return (int)cudaGetLastError();
+}
+
+int launch_passes(const Args& a, cudaStream_t stream) {
+  return chunk_for(a.S) == kShortChunk ? launch_passes<kShortChunk>(a, stream)
+                                       : launch_passes<kChunk>(a, stream);
 }
 
 int launch_loop(const Args& a, cudaStream_t stream) {
@@ -1165,12 +1597,14 @@ extern "C" {
 // distinct) maps batch row b to state row rows[b], or is null for rows[b]
 // = b. C is updated in place; h [B, S, H, D] (contiguous), n_out [B, H, D]
 // and m_out [B, H] are allocated by the caller. For bf16 with S > 1 the
-// caller also allocates the passes' scratch (mlstm_chunkwise_scratch gives
-// the sizes; q, k, v 16-byte aligned with strides of multiples of 8),
-// otherwise gates, c_scr and n_scr may be null. Returns cudaGetLastError()
-// after the launches (0 on success), or cudaErrorInvalidValue when D is
-// not a multiple of 32 up to 1024 or the scratch is missing. Allocates
-// nothing and does not synchronise: the launches go on `stream`.
+// caller also allocates the passes' scratch (mlstm_chunkwise_plan gives
+// the sizes; q, k, v 16-byte aligned with strides of multiples of 8, as
+// their tensor maps need), otherwise gates, c_scr and n_scr may be null.
+// Returns cudaGetLastError() after the launches (0 on success), or
+// cudaErrorInvalidValue when D is not a multiple of 32 up to 1024, the
+// scratch is missing, a tensor map is refused or S is too long for the
+// passes' shared memory. Allocates nothing and does not synchronise: the
+// launches go on `stream`.
 int mlstm_chunkwise_launch(
     const void* q, const void* k, const void* v, const float* log_i,
     const float* log_f, long long qsb, long long qss, long long qsh,
@@ -1193,17 +1627,35 @@ int mlstm_chunkwise_launch(
   return is_bf16 ? launch_passes(a, st) : launch_loop(a, st);
 }
 
-// The kernels a launch of (S, dtype) runs, and for the bf16 passes the
-// scratch they need per (batch row, head): floats of gates, bf16 elements
-// of chunk-start C planes, floats of chunk-start n (info[0..3]).
+// The kernels a launch of (S, dtype) runs, and for the bf16 passes (in
+// chunks of chunk_for(S)) the scratch they need per (batch row, head):
+// floats of gates, bf16 elements of chunk-start C planes, floats of
+// chunk-start n (info[0..3]).
 int mlstm_chunkwise_plan(int S, int D, int is_bf16, long long* info) {
-  const int nc = (S + kChunk - 1) / kChunk;
   const bool passes = is_bf16 && S > 1;
-  info[0] = S == 1 ? 1 : passes ? 3 : 1;
-  info[1] = passes ? gate_floats(nc) : 0;
+  const int LC = chunk_for(S), nc = (S + LC - 1) / LC;
+  info[0] = passes ? 3 : 1;
+  info[1] = passes ? gate_floats(nc, LC) : 0;
   info[2] = passes ? (long long)nc * 2 * D * D : 0;
   info[3] = passes ? (long long)nc * D : 0;
   return 0;
+}
+
+// info[0..5] of bf16 pass `pass` (0 gates, 1 states, 2 outputs) launched
+// over S tokens at head dim D: registers, local (spill) bytes, dynamic
+// shared memory, resident blocks per SM, tokens a chunk and columns a
+// block (its products' N); cudaErrorInvalidValue for another pass or an S
+// too long for its shared memory.
+int mlstm_chunkwise_pass_attributes(int S, int D, int pass, int* info) {
+  if (pass < 0 || pass > 2 || S < 2) return (int)cudaErrorInvalidValue;
+  const PassLaunch p = pass_launch(pass, 1, S, D);
+  if (p.stages < 2) return (int)cudaErrorInvalidValue;
+  cudaError_t err = paged::reserve_smem(p.kernel, p.smem);
+  if (err != cudaSuccess) return (int)err;
+  const int code = wg::attributes(p.kernel, p.smem, info, p.threads);
+  info[4] = kChunk;
+  info[5] = p.columns;
+  return code;
 }
 
 const char* mlstm_chunkwise_error_string(int code) {

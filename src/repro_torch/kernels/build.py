@@ -94,7 +94,9 @@ SIGNATURES = {
             _P, _P, _P,                  # scratch: gates, C planes, n (or null)
             _I, _I, _I, _I,              # B, S, H, D
             _I, _P],                     # is_bf16, stream
-        "mlstm_chunkwise_plan": [_I, _I, _I, _P]},   # S, D, is_bf16, info[4]
+        "mlstm_chunkwise_plan": [_I, _I, _I, _P],    # S, D, is_bf16, info[4]
+        "mlstm_chunkwise_pass_attributes": [
+            _I, _I, _I, _P]},            # S, D, pass, info[6]
     "mamba_scan": {"mamba_scan_launch": [
         _P, _L, _L,                  # x and its strides (batch, token)
         _P, _L, _L,                  # dt

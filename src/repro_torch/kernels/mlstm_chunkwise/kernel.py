@@ -9,12 +9,25 @@ tensor goes to the kernels, or the wrapper raises. q, k and v are read in
 place through their strides (unit last stride). ``C`` is updated in place
 at the state rows; the new ``n`` and ``m`` come back in fresh tensors,
 because every tile of a head reads the old ones. The C launcher picks the
-path: a decode step (S = 1) is one streaming kernel in either dtype; a bf16
-chunk runs three passes (gates, chunk-start states, outputs) whose scratch
-this wrapper allocates at the sizes ``mlstm_chunkwise_plan`` gives; an
-fp32 chunk runs the scalar chunk loop. Counters: ``launches`` (wrapper
-calls that launched), ``kernel_launches`` (CUDA kernels they launched) and
-``decode_launches`` (calls with S = 1).
+path: a decode step (S = 1) is one streaming kernel in either dtype; an
+fp32 chunk runs the scalar chunk loop (chunks of ``LOOP_CHUNK`` = 64
+tokens); a bf16 chunk runs three passes on the tensor cores (``wgmma``
+fed by TMA through ``mbarrier`` rings) in chunks of ``CHUNK`` = 128
+tokens (``SHORT_CHUNK`` = 64 up to ``SHORT_S`` = 512 tokens;
+``ref.chunk_length``): the gate pass (per chunk, in parallel: the raw
+scores Q K^T and the per-token gates), the state pass (per 64 x 128 tile
+of C, the chunks in order: each chunk's starting C stored to scratch as
+bf16 hi/lo planes by TMA, then C <- decay * C + (k w)^T V, the next
+chunks' k*w formed by a warpgroup of their own) and the output pass (per
+chunk and 128 columns of h, in parallel, from the gates, the raw scores
+and the chunk-start states). Their scratch, which this wrapper allocates at the
+sizes ``mlstm_chunkwise_plan`` gives, is the chunk-start states (nc x 2 x
+D x D bf16 and nc x D fp32 a (row, head): 37.7 MB at B1 S2048 D 384) and
+the gate pass's per-token values and raw scores. q, k and v go through
+tensor maps of their strides, which the library encodes at first use and
+caches. Counters: ``launches`` (wrapper calls that launched),
+``kernel_launches`` (CUDA kernels they launched) and ``decode_launches``
+(calls with S = 1).
 """
 from __future__ import annotations
 
@@ -25,7 +38,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.cost import Work, dtype_name, is_fake, record
-from repro_torch.kernels.mlstm_chunkwise.ref import CHUNK, mlstm_chunkwise_ref
+from repro_torch.kernels.mlstm_chunkwise.ref import (chunk_length,
+                                                     mlstm_chunkwise_ref)
 
 DTYPES = (torch.bfloat16, torch.float32)
 MAX_D = 1024
@@ -79,9 +93,9 @@ def _check(q, k, v, log_i, log_f, C, n, m, rows) -> None:
     if q.dtype == torch.bfloat16 and S > 1:
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16 or any(x % 8 for x in t.stride()[:3]):
-                raise ValueError(f"bf16 chunks read {name} in 16-byte copies: "
-                                 f"it must be 16-byte aligned with strides "
-                                 f"of multiples of 8 elements")
+                raise ValueError(f"bf16 chunks read {name} through a tensor "
+                                 f"map: it must be 16-byte aligned with "
+                                 f"strides of multiples of 8 elements")
 
 
 @functools.lru_cache(maxsize=None)
@@ -95,14 +109,35 @@ def plan(S: int, D: int, bf16: bool):
     return tuple(info)
 
 
+PASSES = ("gate", "state", "output")
+
+
+@functools.lru_cache(maxsize=None)
+def pass_attributes(S: int, D: int):
+    """{pass: registers, spill bytes, dynamic shared memory, resident
+    blocks per SM, tokens a chunk ("rows") and columns a block ("key_tile":
+    its products' N)} of the three bf16 passes over S tokens at head dim
+    D, as the library and the CUDA runtime report them (needs a card)."""
+    lib = build.library("mlstm_chunkwise")
+    out = {}
+    for i, name in enumerate(PASSES):
+        info = (ctypes.c_int * len(build.MMA_ATTRIBUTES))()
+        build.check("mlstm_chunkwise",
+                    lib.mlstm_chunkwise_pass_attributes(S, D, i, info))
+        out[name] = dict(zip(build.MMA_ATTRIBUTES, info))
+    return out
+
+
 def cost(B, S, H, D, dtype) -> Work:
     """#7's work (``kernels/cost.py``): q, k, v, the gates and h once,
     the batch's C rows read and written, n and m read and the new ones
-    written; per (row, head) and chunk of L tokens, 4*L*D*(L + D) (q.k and
-    s.v over the chunk, q.C and the k v^T update)."""
+    written; per (row, head) and chunk of L tokens (the kernel's chunks
+    for ``dtype``), 4*L*D*(L + D) (q.k and s.v over the chunk, q.C and the
+    k v^T update)."""
     elt = torch.empty((), dtype=dtype).element_size()
+    chunk = chunk_length(dtype, S)
     flops = sum(4 * L * D * (L + D) for L in
-                (min(CHUNK, S - t0) for t0 in range(0, S, CHUNK)))
+                (min(chunk, S - t0) for t0 in range(0, S, chunk)))
     return Work(flops=B * H * flops,
                 bytes=4 * B * S * H * D * elt + 2 * B * S * H * 4
                 + 2 * B * H * (D * D + D + 1) * 4, dtype=dtype_name(dtype))
@@ -121,7 +156,8 @@ def mlstm_chunkwise(q, k, v, log_i, log_f, C, n, m, *, rows=None):
         return (torch.empty((B, S, H, D), device=q.device, dtype=q.dtype),
                 torch.empty((B, H, D), **f32), torch.empty((B, H), **f32))
     if q.device.type == "cpu":
-        return mlstm_chunkwise_ref(q, k, v, log_i, log_f, C, n, m, rows=rows)
+        return mlstm_chunkwise_ref(q, k, v, log_i, log_f, C, n, m, rows=rows,
+                                   chunk=chunk_length(q.dtype, q.shape[1]))
     if q.device.type != "cuda":
         raise ValueError(f"no mlstm_chunkwise kernel for {q.device}")
     _check(q, k, v, log_i, log_f, C, n, m, rows)

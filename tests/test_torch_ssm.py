@@ -6,10 +6,12 @@ the JAX ones over a sequence cut into chunks of 37, 1 and 90 tokens with
 the state carried across (fp32; outputs and every state leaf); the row
 subset a slot decode runs; and a torch mirror of the CUDA kernels' design
 (the streaming decode step with its row groups merged in a permuted order;
-the bf16 chunk passes: gates with the m chain across chunks, chunk-start
-states in 64 x 64 tiles with k*w split into bf16 hi and lo parts, outputs
-computed over the chunks in reverse order) against the plain version, on
-ragged last chunks, S 1 with permuted state rows, D 32, 64 and 96; and a
+the bf16 chunk passes in chunks of 128 tokens: gates with the m chain
+across chunks, chunk-start states in 64 x 128 tiles with k*w split into
+bf16 hi and lo parts and n's column sums in the block's order, outputs
+computed over the chunks and 128-column tiles in reverse order) against
+the plain version, on ragged last chunks, S 1 with permuted state rows, D
+32, 64 and 96; and a
 mirror of the scalar chunk loop, which fp32 chunks still take (value
 tiles with private n/m, the head dim streamed in 32-column tiles). The
 CUDA kernels themselves run only on the GPU (``chip_smoke.py`` holds them
@@ -212,8 +214,12 @@ def test_conv_returns_the_last_inputs_as_state():
 # torch mirror of the CUDA kernels' design (csrc/mlstm_chunkwise.cu): the
 # streaming decode step and the three bf16 chunk passes
 # ---------------------------------------------------------------------------
-KCHUNK = MR.CHUNK      # tokens per chunk
-KTILE = 64             # rows and columns of C a state tile; h columns a tile
+KCHUNK = MR.CHUNK      # tokens per chunk of the bf16 passes
+SHORT_CHUNK = MR.SHORT_CHUNK   # and up to MR.SHORT_S tokens
+KTILE = 64             # rows of C a state block
+KSTATE_N = 128         # columns of C a state block
+KOUT_N = 128           # columns of h an output block
+NO_WEIGHT = -3.402823466e38   # a token past S: exp(NO_WEIGHT - m') = 0
 DEC_COLS = 32          # C columns a decode block
 DEC_ROW_GROUPS = 32    # its row groups (256 threads, float4 columns)
 # the split's relative error on a product with a bf16 operand (the source's
@@ -229,29 +235,33 @@ def _hi_lo(x):
 
 def _split_mm(a, b):
     """a @ b with a fp32 split into hi and lo bf16 parts and b exact in
-    bf16: two products into one fp32 accumulator, as two mma.sync."""
+    bf16: two products into one fp32 accumulator, as two wgmma."""
     hi, lo = _hi_lo(a)
     return hi.float() @ b + lo.float() @ b
 
 
-def mirror_gate_pass(q, k, li, lf, c):
-    """Pass a for one (row, head) and chunk c (all chunks in parallel): q,
-    k [S, D] (bf16 values), li, lf [S]. Returns the chunk's per-token b
-    (one lane's serial sum) and log_i, each token's row max over the chunk
-    (zero past S), its (b_last, row max) at the last token, and its raw
-    scores Q K^T [KCHUNK, KCHUNK] (exact products, fp32 sums; zero rows and
-    columns past S)."""
+def mirror_gate_pass(q, k, li, lf, c, LC):
+    """Pass a for one (row, head) and chunk c of LC tokens (all chunks in
+    parallel): q, k [S, D] (bf16 values), li, lf [S]. Returns the chunk's
+    per-token b
+    (one thread's serial sum), log_i, row max x over the chunk and carry
+    exponent a = b_last - b + log_i (zero, zero, zero and NO_WEIGHT past
+    S), its (b_last, row max) at the last token, and its raw scores Q K^T
+    [LC, LC] (exact products, fp32 sums; zero rows and columns past S,
+    whose boxes the copy fills with zeros)."""
     S = q.shape[0]
-    t0, L = c * KCHUNK, min(KCHUNK, S - c * KCHUNK)
-    b, lic, x = torch.zeros(KCHUNK), torch.zeros(KCHUNK), torch.zeros(KCHUNK)
+    t0, L = c * LC, min(LC, S - c * LC)
+    b, lic, x = torch.zeros(LC), torch.zeros(LC), torch.zeros(LC)
+    a = torch.full((LC,), NO_WEIGHT)
     b[:L], lic[:L] = lf[t0:t0 + L], li[t0:t0 + L]
     for u in range(1, L):
         b[u] = b[u] + b[u - 1]
     for u in range(L):
         x[u] = ((b[u] - b[:u + 1]) + lic[:u + 1]).max()
-    scores = torch.zeros((KCHUNK, KCHUNK))
+    a[:L] = (b[L - 1] - b[:L]) + lic[:L]
+    scores = torch.zeros((LC, LC))
     scores[:L, :L] = q[t0:t0 + L] @ k[t0:t0 + L].T
-    return {"b": b, "li": lic, "x": x}, (b[L - 1], x[L - 1]), scores
+    return {"b": b, "li": lic, "x": x, "a": a}, (b[L - 1], x[L - 1]), scores
 
 
 def m_chain(last, m):
@@ -265,13 +275,25 @@ def m_chain(last, m):
     return out + [m]
 
 
-def mirror_state_pass(k, v, gate, last, m0, C0, n0):
-    """Pass b for one (row, head): k, v [S, D] (bf16 values), C0 [D, D],
-    n0 [D]. Each 64 x 64 tile of C computes the m chain, then walks the
-    chunks in order in fp32: writes the chunk's starting C as hi/lo planes
-    (and n, from the column-0 tiles), then C <- decay * C + (k w)^T V with
-    k w split. Returns (C planes [nc, 2, D, D] bf16, n starts [nc, D], C',
-    n', m')."""
+def _colsum(kw):
+    """The transform warps' column sums of k*w [LC, 64] (n's update) in
+    their order: a warp a piece of 8 rows, each lane sums its tokens (lane
+    + 32u), then the warp's 32 lanes in a tree (shuffles)."""
+    part = torch.zeros((32, kw.shape[1]))
+    for u in range(kw.shape[0] // 32):
+        part = part + kw[32 * u:32 * (u + 1)]           # [lane, rows]
+    while part.shape[0] > 1:
+        part = part[0::2] + part[1::2]
+    return part[0]
+
+
+def mirror_state_pass(k, v, gate, last, m0, C0, n0, LC):
+    """Pass b for one (row, head) in chunks of LC: k, v [S, D] (bf16
+    values), C0 [D, D], n0 [D]. Each 64 x KSTATE_N tile of C computes the m chain, then walks
+    the chunks in order in fp32: writes the chunk's starting C as hi/lo
+    planes (and n, from the column-0 tiles), then C <- decay * C + P with P
+    = (k w)^T V, k w split, w = exp(a - m'). Returns (C planes [nc, 2, D,
+    D] bf16, n starts [nc, D], C', n', m')."""
     S, D = k.shape
     nc = len(last)
     ms = m_chain(last, m0)
@@ -280,40 +302,43 @@ def mirror_state_pass(k, v, gate, last, m0, C0, n0):
     C1, n1 = torch.zeros((D, D)), torch.zeros(D)
     for i0 in range(0, D, KTILE):
         rows = slice(i0, min(i0 + KTILE, D))
-        for j0 in range(0, D, KTILE):
-            cols = slice(j0, min(j0 + KTILE, D))
+        R = rows.stop - i0
+        for j0 in range(0, D, KSTATE_N):
+            cols = slice(j0, min(j0 + KSTATE_N, D))
             acc = C0[rows, cols].clone()
             nacc = n0[rows].clone()
             for c in range(nc):
-                t0 = c * KCHUNK
-                L = min(KCHUNK, S - t0)
-                b_last = last[c][0]
-                w = torch.exp(b_last - gate[c]["b"][:L] + gate[c]["li"][:L]
-                              - ms[c + 1])
-                decay = torch.exp(b_last + ms[c] - ms[c + 1])
+                t0 = c * LC
+                L = min(LC, S - t0)
+                w = torch.exp(gate[c]["a"] - ms[c + 1])     # 0 past S
+                decay = torch.exp(last[c][0] + ms[c] - ms[c + 1])
                 hi, lo = _hi_lo(acc)
                 planes[c, 0, rows, cols], planes[c, 1, rows, cols] = hi, lo
+                kt = torch.zeros((LC, KTILE))
+                kt[:L, :R] = k[t0:t0 + L, rows]
+                kw = kt * w[:, None]
+                vt = torch.zeros((LC, cols.stop - j0))
+                vt[:L] = v[t0:t0 + L, cols]
+                acc = acc * decay + _split_mm(kw.T, vt)[:R]
                 if j0 == 0:
                     n_starts[c, rows] = nacc
-                kw = k[t0:t0 + L, rows] * w[:, None]
-                acc = acc * decay + _split_mm(kw.T, v[t0:t0 + L, cols])
-                if j0 == 0:           # n: an n-block of ones
-                    nacc = nacc * decay + _split_mm(
-                        kw.T, torch.ones((L, 1)))[:, 0]
+                    nacc = nacc * decay + _colsum(kw)[:R]
             C1[rows, cols] = acc
             if j0 == 0:
                 n1[rows] = nacc
     return planes, n_starts, C1, n1, ms[nc]
 
 
-def mirror_output_pass(q, v, gate, last, m0, scores, planes, n_starts, c):
-    """Pass c for one (row, head) and chunk c, each 64-column tile of h on
-    its own (in any order): the m chain up to the chunk, the gate pass's
-    raw scores decayed and masked, kept as hi/lo planes; then h = (g * Q
-    C_c + S V) / den. Returns h of the chunk's tokens [L, D] in fp32."""
+def mirror_output_pass(q, v, gate, last, m0, scores, planes, n_starts, c,
+                       LC):
+    """Pass c for one (row, head) and chunk c of LC tokens, each
+    KOUT_N-column tile of h on its own (in any order): the m chain up to
+    the chunk, the gate pass's raw scores decayed and masked, split into
+    hi/lo parts; then h = (g * Q C_c + S V) / den, Q C_c over C_c's hi and
+    lo planes. Returns h of the chunk's tokens [L, D] in fp32."""
     S, D = q.shape
-    t0 = c * KCHUNK
-    L = min(KCHUNK, S - t0)
+    t0 = c * LC
+    L = min(LC, S - t0)
     qc, vc = q[t0:t0 + L], v[t0:t0 + L]
     m_c = m_chain(last[:c], m0)[c]
     b, li, x = (gate[c][f][:L] for f in ("b", "li", "x"))
@@ -328,8 +353,8 @@ def mirror_output_pass(q, v, gate, last, m0, scores, planes, n_starts, c):
         -torch.clamp(m, max=30.0))), min=1e-30)
     s_hi, s_lo = _hi_lo(s)
     h = torch.zeros((L, D))
-    for j0 in reversed(range(0, D, KTILE)):
-        cols = slice(j0, min(j0 + KTILE, D))
+    for j0 in reversed(range(0, D, KOUT_N)):
+        cols = slice(j0, min(j0 + KOUT_N, D))
         acc = qc @ planes[c, 0, :, cols].float() + \
             qc @ planes[c, 1, :, cols].float()
         acc = g[:, None] * acc + (s_hi.float() @ vc[:, cols]
@@ -385,20 +410,22 @@ def mirror_mlstm_chunkwise(q, k, v, li, lf, C, n, m, *, rows):
                     qs[0], ks[0], vs[0], li[bb, 0, hh], lf[bb, 0, hh],
                     C[sb, hh], n[sb, hh], m[sb, hh], perm)
                 continue
-            nc = -(-S // KCHUNK)
+            LC = MR.chunk_length(torch.bfloat16, S)
+            nc = -(-S // LC)
             gate, last, scores = zip(*[mirror_gate_pass(
-                qs, ks, li[bb, :, hh], lf[bb, :, hh], c) for c in range(nc)])
+                qs, ks, li[bb, :, hh], lf[bb, :, hh], c, LC)
+                for c in range(nc)])
             planes, n_starts, C1, n_out[bb, hh], m_out[bb, hh] = \
                 mirror_state_pass(ks, vs, gate, last, m[sb, hh], C[sb, hh],
-                                  n[sb, hh])
+                                  n[sb, hh], LC)
             C[sb, hh] = C1
             starts[bb, hh] = (planes, n_starts,
                               m_chain(last, m[sb, hh])[:nc])
             for c in reversed(range(nc)):
-                t0 = c * KCHUNK
-                h[bb, t0:t0 + KCHUNK, hh] = mirror_output_pass(
+                t0 = c * LC
+                h[bb, t0:t0 + LC, hh] = mirror_output_pass(
                     qs, vs, gate, last, m[sb, hh], scores[c], planes,
-                    n_starts, c)
+                    n_starts, c, LC)
     return (h, n_out, m_out), starts
 
 
@@ -418,15 +445,20 @@ def _carried_state(Bs, H, D):
     return C, n, m
 
 
-# (B, S, H, D, state, rows): ragged last chunks (150 = 64 + 64 + 22; 70),
-# a chunk shorter than one (37), decode (S 1) of permuted state rows of a
-# larger state, D 32, D 64 and D 96 (a 64-column tile and a 32-column one)
+# (B, S, H, D, state, rows): chunks of 128 past 512 tokens with a ragged
+# last one (1100 = 8 x 128 + 76), chunks of 64 up to 512 tokens (300 = 4
+# x 64 + 44; 150 = 64 + 64 + 22; 70; four whole chunks at 256; a chunk
+# shorter than one, 37), decode (S 1) of permuted state rows of a larger
+# state; D 32 and 64 (one row tile, part of a 128-column tile) and D 96 (a
+# row tile and a column box cut inside a 64-column swizzle atom)
 MIRROR_CASES = [
-    (2, 150, 2, 64, "carried", None),
+    (1, 1100, 1, 32, "carried", None),
+    (2, 300, 2, 64, "carried", None),
     (2, 150, 2, 64, "fresh", None),
     (3, 1, 2, 64, "carried", [4, 0, 2]),
     (1, 37, 1, 32, "fresh", None),
     (2, 70, 3, 96, "carried", [1, 0]),
+    (1, 256, 2, 96, "carried", None),
     (4, 1, 2, 96, "carried", [5, 3, 0, 1]),
 ]
 
@@ -434,9 +466,9 @@ MIRROR_CASES = [
 @pytest.mark.parametrize("case", MIRROR_CASES)
 def test_kernel_design_mirror_matches_plain(case):
     """The mirror of the decode kernel and of the three bf16 passes against
-    the plain version, on bf16 values: h within the split's error (1e-4
-    relative to the row's scale), the state within chip_smoke.py's state
-    limits, rows outside ``rows`` untouched."""
+    the plain version (in the kernel's chunks), on bf16 values: h within
+    the split's error (1e-4 relative to the row's scale), the state within
+    chip_smoke.py's state limits, rows outside ``rows`` untouched."""
     B, S, H, D, start, rows = case
     Bs = B if rows is None else max(rows) + 1
     bf = torch.bfloat16
@@ -450,7 +482,8 @@ def test_kernel_design_mirror_matches_plain(case):
         _carried_state(Bs, H, D)
     rows_t = None if rows is None else torch.tensor(rows)
     C_plain, C_mirror = C.clone(), C.clone()
-    want = MR.mlstm_chunkwise_ref(q, k, v, li, lf, C_plain, n, m, rows=rows_t)
+    want = MR.mlstm_chunkwise_ref(q, k, v, li, lf, C_plain, n, m, rows=rows_t,
+                                  chunk=MR.chunk_length(torch.bfloat16, S))
     got, starts = mirror_mlstm_chunkwise(q, k, v, li, lf, C_mirror, n, m,
                                          rows=rows_t)
     scale = want[0].abs().amax(-1, keepdim=True)
@@ -484,13 +517,14 @@ def test_state_pass_writes_each_chunks_starting_state(case):
                                        rows=None)
     for hh in range(H):
         planes, n_starts, m_c = starts[0, hh]
+        LC = MR.chunk_length(torch.bfloat16, S)
         for c in range(planes.shape[0]):
-            t0 = c * KCHUNK
+            t0 = c * LC
             Cp = C.clone()
             if t0:
                 _, n_p, m_p = MR.mlstm_chunkwise_ref(
                     q[:, :t0], k[:, :t0], v[:, :t0], li[:, :t0], lf[:, :t0],
-                    Cp, n, m)
+                    Cp, n, m, chunk=LC)
             else:
                 n_p, m_p = n, m
             c_start = planes[c, 0].float() + planes[c, 1].float()
@@ -499,10 +533,20 @@ def test_state_pass_writes_each_chunks_starting_state(case):
             _within_state_limits(m_c[c].reshape(1), m_p[0, hh].reshape(1), "m")
 
 
-def test_hi_lo_split_times_bf16_is_the_fp32_product():
+@pytest.mark.parametrize("what", ["product", "column sums"])
+def test_hi_lo_split_times_bf16_is_the_fp32_product(what):
     """hi = bf16(x), lo = bf16(x - hi): hi*b + lo*b (both products exact in
     fp32) is x*b within 2^-16 relative, the error the source states; bf16
-    alone is off by up to 2^-8."""
+    alone is off by up to 2^-8. And the state block's column sums of k*w
+    (n's update, fp32 in its thread order) are the plain sum over the
+    chunk's tokens within fp32 rounding."""
+    if what == "column sums":
+        kw = _torch(RNG.normal(size=(KCHUNK, KTILE)))
+        want = kw.double().sum(0)
+        got = _colsum(kw).double()
+        assert float(((got - want).abs() / kw.double().abs().sum(0))
+                     .max()) <= 8 * 2.0 ** -24
+        return
     x = _torch(RNG.normal(size=4096) * np.exp(RNG.normal(size=4096) * 3))
     b = _torch(RNG.normal(size=4096), torch.bfloat16).float()
     hi, lo = _hi_lo(x)
@@ -519,7 +563,8 @@ def test_hi_lo_split_times_bf16_is_the_fp32_product():
 
 
 def test_mirror_sizes_follow_the_source():
-    """The mirror's chunk, tile and decode-block sizes are the source's, and
+    """The mirror's chunk lengths, tile and decode-block sizes are the
+    source's (the passes' chunk and the plain version's CHUNK alike), and
     the source states the split's error the mirror holds it to."""
     import re
     src = (build.CSRC / "mlstm_chunkwise.cu").read_text()
@@ -529,20 +574,32 @@ def test_mirror_sizes_follow_the_source():
         assert m, name
         return m.group(1).split("//")[0].strip()
     assert int(const("kChunk")) == KCHUNK
-    assert int(const("kTile")) == KTILE
+    assert int(const("kShortChunk")) == SHORT_CHUNK
+    assert int(const("kShortS")) == MR.SHORT_S
+    assert "#define MLSTM_CHUNK 0" in src    # the chunk chosen by S
+    assert int(const("kLoopChunk")) == LOOP_KCHUNK == MR.LOOP_CHUNK
+    assert int(const("kStateN")) == KSTATE_N
+    assert const("kStateWG") == "kStateN / 64"
+    assert int(const("kOutN")) == KOUT_N
+    assert "blockIdx.y * 64" in src and KTILE == 64   # a state block's rows
+    assert "constexpr int U = LC / 32;" in src       # _colsum's lanes
+    assert float(re.search(r"constexpr float kNoWeight = ([-.0-9e]+)f;",
+                           src).group(1)) == NO_WEIGHT
     assert int(const("kDK")) == KDK          # the fp32 loop's stream tile
     assert int(const("kDecCols")) == DEC_COLS
     assert const("kDecRowGroups") == "kDecThreads / kDecGroups"
     assert int(const("kDecThreads")) // (DEC_COLS // 4) == DEC_ROW_GROUPS
     assert const("kDecGroups") == "kDecCols / 4"
     assert "about 2^-16" in src
-
+    # the token fields of the gate scratch, in the mirror's order
+    assert "enum TokenField { kB = 0, kLi = 1, kX = 2, kA = 3" in src
 
 # ---------------------------------------------------------------------------
 # torch mirror of the scalar chunk loop (csrc/mlstm_chunkwise.cu, path 3),
 # which fp32 chunks still take
 # ---------------------------------------------------------------------------
 KDK = 32     # the loop's head-dim stream tile
+LOOP_KCHUNK = MR.LOOP_CHUNK   # the loop's tokens per chunk
 
 
 def _mirror_tile(q, k, v, li, lf, C_tile, n_priv, m_priv):
@@ -551,8 +608,8 @@ def _mirror_tile(q, k, v, li, lf, C_tile, n_priv, m_priv):
     private state, walked over the chunks as the kernel does."""
     S, D = q.shape
     h = torch.zeros((S, v.shape[1]))
-    for t0 in range(0, S, KCHUNK):
-        L = min(KCHUNK, S - t0)
+    for t0 in range(0, S, LOOP_KCHUNK):
+        L = min(LOOP_KCHUNK, S - t0)
         b = lf[t0:t0 + L].clone()
         for t in range(1, L):                       # thread 0's serial sum
             b[t] = b[t] + b[t - 1]
@@ -562,7 +619,7 @@ def _mirror_tile(q, k, v, li, lf, C_tile, n_priv, m_priv):
             e = b[t] - b[:t + 1] + lis[:t + 1]
             m_t[t] = torch.maximum(b[t] + m_priv, e.max())
         g = torch.exp(b + m_priv - m_t)
-        scores = torch.zeros((KCHUNK, KCHUNK))
+        scores = torch.zeros((LOOP_KCHUNK, LOOP_KCHUNK))
         acc = torch.zeros((L, v.shape[1]))
         qn = torch.zeros(L)
         for d0 in range(0, D, KDK):                 # q and k stream tiles
@@ -760,6 +817,26 @@ def test_wrapper_checks_operands():
         call(ops, rows=_OnCuda(torch.tensor([0, 1, 2])))
     with pytest.raises(ValueError, match="contiguous"):
         call(ops[:5] + [ops[5].transpose(2, 3)] + ops[6:])
+
+
+def test_timeline_tool_stamps_apply_to_the_source():
+    """tools/mlstm_timeline.py stamps the state and output passes by text
+    substitution: each anchor is once in its pass, and the stamped source
+    differs from the source only by the added lines."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "tools" / "mlstm_timeline.py"
+    spec = importlib.util.spec_from_file_location("mlstm_timeline", path)
+    tl = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tl)
+    src = (build.CSRC / "mlstm_chunkwise.cu").read_text()
+    stamped = tl.stamped_source(src)
+    added = [ln for ln in stamped.splitlines() if ln not in src.splitlines()]
+    assert len(stamped.splitlines()) == len(src.splitlines()) + len(added)
+    assert all("STAMP(" in ln or "t_start = clock64()" in ln
+               or "float* trace = " in ln for ln in added), added
+    assert sum("STAMP(" in ln and not ln.startswith("#define")
+               for ln in added) >= len(tl.STATE_STAMPS) + len(tl.OUT_STAMPS) - 2
 
 
 def test_variants_tool_cuts_apply_to_the_source():

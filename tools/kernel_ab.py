@@ -62,6 +62,9 @@ MLSTM_CASES = [
     ("B1 S1000 fresh bf16", 1, 1000, "bfloat16", False, 384, None),
     ("B1 S37 carried bf16", 1, 37, "bfloat16", True, 384, None),
     ("B1 S512 carried bf16", 1, 512, "bfloat16", True, 384, None),
+    ("B4 S300 fresh bf16", 4, 300, "bfloat16", False, 384, None),
+    ("B1 S200 carried bf16", 1, 200, "bfloat16", True, 384, None),
+    ("B1 S512 carried bf16 D96", 1, 512, "bfloat16", True, 96, None),
     ("B8 S1 decode carried bf16", 8, 1, "bfloat16", True, 384,
      [3, 0, 7, 1, 6, 2, 9, 4]),
     ("B4 S1 decode carried bf16", 4, 1, "bfloat16", True, 384, [5, 2, 0, 3]),
@@ -311,7 +314,7 @@ def main(root: str) -> int:
                                "splits_other", "ms_other", "device_ms_other",
                                "registers", "spill_bytes", "smem_bytes",
                                "blocks_per_sm", "block", "bound_ms",
-                               "same_as_fused")
+                               "same_as_fused", "pass_ms", "chunk")
              if k in r}
             for r in cases.rows]
     print(json.dumps({"root": root, "device": cs.device_line(),

@@ -13,16 +13,21 @@ hold) and no compute (the kernels only stream their tiles), which say
 whether a kernel is bound by its loads or by its instruction stream. A
 source that defines ``MLSTM_CUT`` is cut by building it with
 ``-DMLSTM_CUT=1`` (loads) or ``2`` (compute); the scalar chunk loop, which
-does not, is cut by the text substitutions of ``LOOP_CUTS``. A JSON file
+does not, is cut by the text substitutions of ``LOOP_CUTS``. A source that
+defines ``MLSTM_CHUNK`` (the bf16 passes' chunk length, chosen by S when
+0) also gives the variants "chunk 64" and "chunk 128"
+(``-DMLSTM_CHUNK=64``, ``128``: one length at every S; the wrapper sizes
+the scratch from the library's plan). A JSON file
 of further variants, ``{name: {"sub": {old: new}, "flags": [...]}}``, adds
 its own (text substitutions in the source, extra nvcc flags). Each variant
 is built with the repository's nvcc flags into
 ``build/mlstm_variants/<root>/<variant>/`` and timed, twice in turns, at
 the xlstm-125m shapes (4 heads, head_dim 384, bf16) of the serving path:
-B1 S2048 and S512 chunks, B1 S37, and the decode of 8 rows. Prints, per
-variant and case, the device time a call from a profiler trace (both
-turns) and, for the source as it is, the device time of each of its
-kernels, and writes them to ``chiprun_out/mlstm_variants_<root>.json``.
+B1 S2048, S1000 and S512 chunks, B1 S37, the decode of 8 rows, a batch of 4 at
+S300 (the training forward's shape), B1 S200 and B1 S512 at head_dim 96.
+Prints, per variant and case, the device time a call from a profiler trace
+(both turns) and the device time of each of its kernels (the bf16 passes
+apart), and writes them to ``chiprun_out/mlstm_variants_<root>.json``.
 """
 from __future__ import annotations
 
@@ -47,18 +52,32 @@ LOOP_CUTS = {
         "      if (any_pair) {": "      if (any_pair && D < 0) {",
         "            sum = fmaf(qrow[dd], ccol[dd * DV], sum);":
             "            if (D < 0) sum = fmaf(qrow[dd], ccol[dd * DV], sum);",
-        "          pv = fmaf(sc[t * kChunk + s], v_s[s * DV + j], pv);":
-            "          if (D < 0) pv = fmaf(sc[t * kChunk + s], v_s[s * DV + j], pv);",
+        "          pv = fmaf(sc[t * kLoopChunk + s], v_s[s * DV + j], pv);":
+            "          if (D < 0) pv = fmaf(sc[t * kLoopChunk + s], v_s[s * DV + j], pv);",
         "          sum = fmaf(k_s[s * kPad + dd] * w_s[s], v_s[s * DV + j], sum);":
             "          if (D < 0) sum = fmaf(k_s[s * kPad + dd] * w_s[s], v_s[s * DV + j], sum);"},
 }
 VARIANTS = ("source", "no loads", "no compute")
-# (name, B, S, carried, state rows)
-CASES = [("B1 S2048 fresh", 1, 2048, False, None),
-         ("B1 S512 carried", 1, 512, True, None),
-         ("B1 S37 carried", 1, 37, True, None),
-         ("B8 S1 decode", 8, 1, True, [3, 0, 7, 1, 6, 2, 9, 4])]
-H, D = 4, 384
+CHUNK_VARIANTS = {"chunk 64": 64, "chunk 128": 128}
+# (name, B, S, carried, state rows, head_dim)
+CASES = [("B1 S2048 fresh", 1, 2048, False, None, 384),
+         ("B1 S1000 fresh", 1, 1000, False, None, 384),
+         ("B1 S512 carried", 1, 512, True, None, 384),
+         ("B1 S37 carried", 1, 37, True, None, 384),
+         ("B8 S1 decode", 8, 1, True, [3, 0, 7, 1, 6, 2, 9, 4], 384),
+         ("B4 S300 fresh", 4, 300, False, None, 384),
+         ("B1 S200 carried", 1, 200, True, None, 384),
+         ("B1 S512 carried D96", 1, 512, True, None, 96)]
+H = 4
+
+
+def variant_names(src: str, extra=None):
+    """The variants a source gives: the source, its two cuts, the forced
+    chunk lengths where the source defines MLSTM_CHUNK, then ``extra``'s."""
+    names = list(VARIANTS)
+    if "MLSTM_CHUNK" in src:
+        names += list(CHUNK_VARIANTS)
+    return (*names, *(extra or {}))
 
 
 def variant_source(src: str, name: str, extra=None):
@@ -72,6 +91,8 @@ def variant_source(src: str, name: str, extra=None):
                 raise ValueError(f"{name}: {old!r} not in the source")
             src = src.replace(old, new)
         return src, list(extra[name].get("flags", []))
+    if name in CHUNK_VARIANTS:
+        return src, [f"-DMLSTM_CHUNK={CHUNK_VARIANTS[name]}"]
     if "MLSTM_CUT" in src:
         return src, [f"-DMLSTM_CUT={VARIANTS.index(name)}"]
     for old, new in LOOP_CUTS[name].items():
@@ -146,13 +167,14 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     tag = "this" if root == Path(__file__).resolve().parents[1] else root.name
     extra = json.loads(Path(argv[2]).read_text()) if len(argv) > 2 else {}
-    names = (*VARIANTS, *extra)
+    names = variant_names((build.CSRC / "mlstm_chunkwise.cu").read_text(),
+                          extra)
     libs = build_variants(build, tag, names, extra)
     print(cs.device_line(), flush=True)
     cases = cs.Cases(torch)
     bf = torch.bfloat16
     inputs = []
-    for cname, B, S, carried, rows in CASES:
+    for cname, B, S, carried, rows, D in CASES:
         q = cases.randn((B, S, H * D), bf).view(B, S, H, D)
         k = (cases.randn((B, S, H * D), bf) / math.sqrt(D)).view(B, S, H, D)
         v = cases.randn((B, S, H * D), bf).view(B, S, H, D)
@@ -185,7 +207,7 @@ def main(argv) -> int:
                                      {"device_ms": [], "ms": []})
                 t["device_ms"].append(cs.device_ms(torch, run, 10))
                 t["ms"].append(cs.cuda_ms(torch, run, 10))
-                if name == "source" and "kernels" not in t:
+                if "kernels" not in t:
                     t["kernels"] = kernel_times(torch, run, 10)
     for name in names:
         print(f"{name}:")
