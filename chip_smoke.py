@@ -68,10 +68,13 @@ prints its seconds):
    of which may spill.
    The Mamba selective scan at jamba's shapes (d_inner 16384, d_state 16,
    bf16): fresh chunks of 2048 and 1000 steps, a carried chunk of 37, the
-   decode of 8 of 10 state rows, fp32, and the smoke config's d_inner 128;
-   each with its device time, also with the L2 flushed, and whether its
-   new state equals the plain version's bit for bit (which a decode step
-   must: its kernel keeps expf; the chunk kernel's ex2 does not).
+   decode of 8 of 10 state rows, fp32, the smoke config's d_inner 128,
+   and d_state 6 with B and C rows that no tensor map takes; each with its
+   device time, also with the L2 flushed, and whether its new state equals
+   the plain version's bit for bit (which a decode step must: its kernel
+   keeps expf; the chunk kernel's ex2 does not); and the registers,
+   spills, shared memory and blocks an SM of the library's four kernels,
+   none of which may spill.
    Tolerance, at valid query positions, elementwise: fp32
    ``|got - want| <= 2e-5 + 2e-5 * |want|``; bf16
    ``|got - want| <= 2**-7 * |want| + 0.05 * rms(want)``, one bf16 rounding
@@ -1121,10 +1124,11 @@ MAMBA_D, MAMBA_N = 16384, 16   # jamba: d_inner 2 x 8192, d_state 16
 
 
 def mamba_case(cs, name, B, S, dtype, carried, d=MAMBA_D, n=MAMBA_N,
-               rows=None, iters=10):
+               rows=None, iters=10, lead=32):
     """x a column view of the in_proj output, as mamba_mix passes it; dt
     (softplus'd) fp32 in init_mamba's range [0.001, 0.1]; Bc and Cc column
-    views of a fp32 x_proj output; A the S4D-real -(1..n) and D 1, as
+    views of a fp32 x_proj output (``lead`` columns of dt's rank before
+    them); A the S4D-real -(1..n) and D 1, as
     init_mamba draws them. From a zero state, or from the state a
     100-token prefix leaves (as in serving); ``rows`` maps batch rows to
     the rows of a larger state, as a slot decode does (the other rows must
@@ -1133,8 +1137,9 @@ def mamba_case(cs, name, B, S, dtype, carried, d=MAMBA_D, n=MAMBA_N,
     each call (``device_ms_cold``). Whether the new h equals the plain
     version's bit for bit is recorded (``h_bits_equal``); it must for a
     decode step (S 1), whose kernel keeps the reference's rounding (expf,
-    no contraction). The chunk kernel takes ex2.approx of dt * (A log2 e),
-    so its h is held to the limit alone."""
+    no contraction). The chunk kernel takes ex2.approx of dt * (A log2 e)
+    and updates h by one multiply-add, so its h is held to the limit
+    alone."""
     torch = cs.torch
     from repro_torch.kernels.mamba_scan.kernel import mamba_scan
     from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
@@ -1146,8 +1151,8 @@ def mamba_case(cs, name, B, S, dtype, carried, d=MAMBA_D, n=MAMBA_N,
         u = torch.rand((Bn, Sn, d), generator=cs.gen, device=DEVICE)
         dt = torch.exp(u * (math.log(0.1) - math.log(0.001))
                        + math.log(0.001))
-        dbc = cs.randn((Bn, Sn, 32 + 2 * n), torch.float32)
-        return x, dt, dbc[..., 32:32 + n], dbc[..., 32 + n:]
+        dbc = cs.randn((Bn, Sn, lead + 2 * n), torch.float32)
+        return x, dt, dbc[..., lead:lead + n], dbc[..., lead + n:]
 
     A = -torch.arange(1, n + 1, dtype=torch.float32,
                       device=DEVICE).expand(d, n).contiguous()
@@ -1196,9 +1201,18 @@ def mamba_cases(cs):
     """#6 at jamba's shapes (d_inner 16384, d_state 16): the engine's fresh
     first chunks (S 2048; S 1000, whose last 32-step tile is ragged), a
     chunk from a carried state (S 37), the decode of 8 of 10 state rows
-    (S 1, rows permuted; the other two must not change), fp32, and the smoke
-    config's d_inner 128."""
+    (S 1, rows permuted; the other two must not change), fp32, the smoke
+    config's d_inner 128, and d_state 6 with B and C column views whose
+    rows (17 floats) are no multiple of 16 bytes: the operands the chunk
+    kernel's tensor maps refuse, which its service warp copies. Every
+    kernel of the library is built without a spill."""
     torch = cs.torch
+    from repro_torch.kernels.mamba_scan.kernel import attributes
+    for name, attrs in attributes().items():
+        print(f"  mamba_scan {name} kernel: {attrs}", flush=True)
+        if attrs["spill_bytes"]:
+            raise AssertionError(f"mamba_scan {name}: ptxas spilled "
+                                 f"{attrs['spill_bytes']} bytes")
     bf, f32 = torch.bfloat16, torch.float32
     mamba_case(cs, "B1 S2048 fresh bf16", 1, 2048, bf, False, iters=5)
     mamba_case(cs, "B1 S1000 fresh bf16", 1, 1000, bf, False, iters=5)
@@ -1207,6 +1221,8 @@ def mamba_cases(cs):
                rows=[3, 0, 7, 1, 6, 2, 9, 4], iters=20)
     mamba_case(cs, "B1 S512 carried fp32", 1, 512, f32, True)
     mamba_case(cs, "B4 S100 carried fp32 d128", 4, 100, f32, True, d=128)
+    mamba_case(cs, "B2 S100 carried bf16 n6 B/C rows of 68 bytes", 2, 100,
+               bf, True, n=6, lead=5)
 
 
 def kernel_phase(torch):
@@ -3323,6 +3339,7 @@ def main() -> int:
             entry.update(
                 device_ms=row["device_ms"],
                 device_ms_cold=row["device_ms_cold"], **j_mamba,
+                attributes=ms_kernel.attributes(),
                 decode={k: dec[k] for k in (
                     "case", "ms", "device_ms", "device_ms_cold", "plain_ms",
                     "bound_ms", "bound_by", "h_bits_equal")})

@@ -158,6 +158,43 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* m,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* m,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* m,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(m)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// the committed stores have read their shared memory / are complete
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// the generic-proxy writes of this thread to shared memory, before an
+// asynchronous-proxy read (wgmma, a TMA store)
+__device__ __forceinline__ void proxy_fence() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* m,
                                             uint32_t bar, int c0, int c1,
                                             int c2, int c3) {
@@ -844,12 +881,15 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A bf16 tiled map with the 128-byte swizzle, keyed by what it encodes.
+// A tiled map, keyed by what it encodes: bf16 with the 128-byte swizzle
+// unless the key says otherwise (map_key's defaults).
 struct MapKey {
   const void* ptr;
   int device, rank;
   cuuint64_t dims[4], strides[3];
   cuuint32_t box[4];
+  CUtensorMapDataType dtype;
+  CUtensorMapSwizzle swizzle;
   bool operator==(const MapKey& o) const {
     return std::memcmp(this, &o, sizeof(MapKey)) == 0;
   }
@@ -881,9 +921,9 @@ inline cudaError_t tensor_map(MapKey key, CUtensorMap* out) {
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   CUtensorMap m;
   const CUresult res = encode(
-      &m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)key.rank,
+      &m, key.dtype, (cuuint32_t)key.rank,
       const_cast<void*>(key.ptr), key.dims, key.strides, key.box, elem,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, key.swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (res != CUDA_SUCCESS) return cudaErrorInvalidValue;
   if (cache.size() >= 4096) cache.clear();
@@ -897,6 +937,8 @@ inline MapKey map_key(const void* ptr, int rank) {
   std::memset(&k, 0, sizeof(k));   // padding bytes take part in the key
   k.ptr = ptr;
   k.rank = rank;
+  k.dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  k.swizzle = CU_TENSOR_MAP_SWIZZLE_128B;
   cudaGetDevice(&k.device);
   return k;
 }

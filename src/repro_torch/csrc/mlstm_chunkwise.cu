@@ -330,43 +330,6 @@ __device__ __forceinline__ void load_tokens(uint32_t dst, const CUtensorMap* m,
                   StridedTiles::coord(slots, 3, t0, h, b));
 }
 
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* m,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store_3d(const CUtensorMap* m,
-                                             uint32_t src, int c0, int c1,
-                                             int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(m)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-// the committed stores have read their shared memory / are complete
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// the generic-proxy writes of this thread to shared memory, before an
-// asynchronous-proxy read (wgmma, a TMA store)
-__device__ __forceinline__ void proxy_fence() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // d (+)= A.B for one warpgroup, m64nNk16, bf16 operands, fp32 accumulators
 // (N / 2 a thread, the m16n8 layout repeated over N / 8 column blocks):
 // ss() both operands from shared memory (kTransA: A M-major, kTransB: B
@@ -739,15 +702,16 @@ mlstm_state_kernel(const __grid_constant__ CUtensorMap k_map,
           if (kLoads && j0 + 64 * g < D) {
 #pragma unroll
             for (int pl = 0; pl < 2; ++pl)
-              tma_store_3d(&c_map, stg + pl * G::TILE_PLANE + g * kAtomBytes,
-                           j0 + 64 * g, i0, (bh * nc + c) * 2 + pl);
-            bulk_commit();
-            bulk_wait_read();
+              wg::tma_store_3d(&c_map,
+                               stg + pl * G::TILE_PLANE + g * kAtomBytes,
+                               j0 + 64 * g, i0, (bh * nc + c) * 2 + pl);
+            wg::bulk_commit();
+            wg::bulk_wait_read();
           }
           wg::mbar_arrive(freed + 8 * g);
         }
       }
-      bulk_wait();
+      wg::bulk_wait();
     }
     return;
   }
@@ -826,7 +790,7 @@ mlstm_state_kernel(const __grid_constant__ CUtensorMap k_map,
           }
         }
       }
-      proxy_fence();
+      wg::proxy_fence();
       __syncwarp();
       if (lane == 0) wg::mbar_arrive(ready + 8 * s);
     }
@@ -874,7 +838,7 @@ mlstm_state_kernel(const __grid_constant__ CUtensorMap k_map,
         *reinterpret_cast<uint32_t*>(stg_g + G::TILE_PLANE + off) = lo;
       }
     }
-    proxy_fence();
+    wg::proxy_fence();
     __syncwarp();
     if (lane == 0) wg::mbar_arrive(staged + 8 * g);
   };
@@ -1022,9 +986,9 @@ mlstm_output_kernel(const __grid_constant__ CUtensorMap q_map,
           for (int pl = 0; pl < 2; ++pl)
 #pragma unroll
             for (int a = 0; a < kOutN / 64; ++a)
-              tma_load_3d(st + G::Q_BYTES + pl * G::C_PLANE + a * kAtomBytes,
-                          &c_map, full + 8 * s, j0 + 64 * a, 64 * j,
-                          (bh * nc + c) * 2 + pl);
+              wg::tma_load_3d(
+                  st + G::Q_BYTES + pl * G::C_PLANE + a * kAtomBytes, &c_map,
+                  full + 8 * s, j0 + 64 * a, 64 * j, (bh * nc + c) * 2 + pl);
         } else {
           wg::mbar_arrive(full + 8 * s);
         }

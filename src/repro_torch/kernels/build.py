@@ -106,7 +106,8 @@ SIGNATURES = {
         _P, _L, _P,                  # h (in place), its batch stride, rows
         _P,                          # y
         _I, _I, _I, _I,              # B, S, d, n
-        _I, _P]},                    # is_bf16, stream
+        _I, _P],                     # is_bf16, stream
+        "mamba_scan_attributes": [_I, _P]},   # kernel, info[8]
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

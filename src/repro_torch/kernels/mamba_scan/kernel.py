@@ -15,6 +15,8 @@ ones also in ``mamba_scan.decode_launches``.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import build
@@ -108,3 +110,22 @@ def mamba_scan(x, dt, Bc, Cc, A, D, h, *, rows=None):
 
 mamba_scan.launches = 0
 mamba_scan.decode_launches = 0
+
+ATTRIBUTES = ("registers", "spill_bytes", "smem_bytes", "blocks_per_sm",
+              "threads", "lanes", "stages", "poly_of_8")
+KERNELS = ("chunk bf16", "chunk fp32", "decode bf16", "decode fp32")
+
+
+def attributes():
+    """Registers, spill bytes, dynamic shared memory, resident blocks per
+    SM, threads a block, lanes a channel, ring stages and states of every 8
+    whose exponential is the polynomial, of each kernel of the library
+    (``KERNELS``), as the library and the CUDA runtime report them (needs a
+    card)."""
+    lib = build.library("mamba_scan")
+    out = {}
+    for which, name in enumerate(KERNELS):
+        info = (ctypes.c_int * len(ATTRIBUTES))()
+        build.check("mamba_scan", lib.mamba_scan_attributes(which, info))
+        out[name] = dict(zip(ATTRIBUTES, info))
+    return out

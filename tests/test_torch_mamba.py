@@ -7,7 +7,8 @@ across (fp32, 1e-5; outputs and both state leaves); the row subset a slot
 decode runs, the other rows bit-identical; and a torch mirror of the two
 CUDA kernels (lanes a channel with each lane's part of y summed in an xor
 tree, channel blocks, time tiles staged with a ragged last tile, the chunk
-kernel's exp2, the decode kernel's rows) against the plain version. The
+kernel's exp2, its multiply-add update and its polynomial 2^v on a share
+of the states, the decode kernel's rows) against the plain version. The
 CUDA kernels themselves run only on the GPU (``chip_smoke.py`` holds them
 against the plain version there)."""
 import math
@@ -147,10 +148,61 @@ def test_softplus_matches_jax_at_large_arguments():
 # ---------------------------------------------------------------------------
 # torch mirror of csrc/mamba_scan.cu
 # ---------------------------------------------------------------------------
-# the source's shapes (tied to it by test_mirror_constants_are_the_sources)
-MAX_N, CHANNELS, TILE = 16, 64, 32      # kMaxN, kChannels, kTile
-CHUNK_LANES, DECODE_LANES = 2, 4        # MAMBA_LANES, kDecLanes
+SRC = (build.CSRC / "mamba_scan.cu").read_text()
+
+
+def _source_define(src, name):
+    m = re.search(r"#define " + name + r" (\d+)", src)
+    return int(m.group(1))
+
+
+def _source_constant(src, name, kind="int"):
+    m = re.search(r"constexpr " + kind + r" " + name + r" = (\d+);", src)
+    return int(m.group(1))
+
+
+def _poly_coefficients(src):
+    """kP1..kP5 of the source, as the fp32 values it compiles to."""
+    m = re.search(r"constexpr float kP1 = ([\d.e-]+)f, kP2 = ([\d.e-]+)f, "
+                  r"kP3 = ([\d.e-]+)f,\s+kP4 = ([\d.e-]+)f, "
+                  r"kP5 = ([\d.e-]+)f;", src)
+    return [float(np.float32(c)) for c in m.groups()]
+
+
+# the source's shapes and defaults (tied to it by
+# test_mirror_constants_are_the_sources)
+MAX_N, WALKERS, TILE = 16, 128, 32      # kMaxN, kWalkers, kTile
+CHUNK_LANES, POLY = 2, 0                # MAMBA_LANES, MAMBA_POLY
+DECODE_LANES, DECODE_CHANNELS = 4, 64   # kDecLanes, kDecChannels
+POLY_COEF = _poly_coefficients(SRC)     # kP1..kP5
+POLY_ULP = 2.15                         # exp2_poly's stated largest error
 LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
+
+
+def _fma(a, b, c):
+    """fp32 fmaf: the float64 product (exact) and sum, rounded once."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _exp2_poly(v):
+    """The source's exp2_poly: v clamped to [-127, 128], k = rint(v) by the
+    1.5 * 2^23 add, 2^f of f = v - k by the degree-5 polynomial in Horner
+    multiply-adds, 2^k from the exponent bits of v + 1.5 * 2^23 (0 at k =
+    -127), the product flushed to 0 below 2^-126."""
+    magic = torch.tensor(12582912.0)
+    v = v.clamp(-127.0, 128.0)
+    j = v + magic
+    f = v - (j - magic)
+    p = torch.full_like(f, POLY_COEF[4])
+    for ck in POLY_COEF[3::-1]:
+        p = _fma(p, f, torch.full_like(f, ck))
+    p = _fma(p, f, torch.ones_like(f))
+    bits = (j.view(torch.int32).long() << 23) + 0x3F800000
+    bits = bits & 0xFFFFFFFF
+    bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits)
+    scale = bits.to(torch.int32).view(torch.float32)
+    out = (p.double() * scale.double()).float()
+    return torch.where(out.abs() < 2.0 ** -126, torch.zeros_like(out), out)
 
 
 def _by_lane(v, lanes):
@@ -159,6 +211,13 @@ def _by_lane(v, lanes):
     out = v.new_zeros((v.shape[0], MAX_N))
     out[:, :v.shape[1]] = v
     return out.view(v.shape[0], lanes, MAX_N // lanes)
+
+
+def _poly_mask(lanes, poly):
+    """[L, P]: the states j = l*P + i whose exponential is the polynomial,
+    j % 8 >= 8 - poly (chosen by state index, whatever the lanes)."""
+    j = torch.arange(MAX_N).view(lanes, MAX_N // lanes)
+    return (j % 8) >= 8 - poly
 
 
 def _xor_tree(parts):
@@ -172,34 +231,48 @@ def _xor_tree(parts):
     return q[0]
 
 
-def _lane_step(hs, a, dtt, dtx, bv, cv, exp2):
+def _lane_step(hs, a, dtt, dtx, bv, cv, exp2, poly=0, decode=False):
     """One step of every lane of a block's channels: hs, a [c, L, P]; dtt,
-    dtx [c]; bv, cv [L, P]. The update rounded product by product; each
-    lane's part of y summed over its states as a running multiply-add."""
+    dtx [c]; bv, cv [L, P]. The decode kernel rounds the update product by
+    product; the chunk kernel's is one multiply-add, fma(da, h, dtx*B),
+    with the polynomial 2^v on the states of ``_poly_mask``. Each lane's
+    part of y is a running multiply-add over its states."""
     v = dtt[:, None, None] * a
-    da = torch.exp2(v) if exp2 else torch.exp(v)
-    hs = da * hs + dtx[:, None, None] * bv
+    if exp2:
+        da = torch.exp2(v)
+        if poly:
+            da = torch.where(_poly_mask(hs.shape[1], poly), _exp2_poly(v),
+                             da)
+    else:
+        da = torch.exp(v)
+    dtxb = dtx[:, None, None] * bv
+    hs = da * hs + dtxb if decode else _fma(da, hs, dtxb)
     part = torch.zeros(hs.shape[:2])
     for i in range(hs.shape[2]):
-        part = part + hs[..., i] * cv[:, i]
+        part = _fma(hs[..., i], cv[:, i], part)
     return hs, part
 
 
 def _cuda_mirror(x, dt, Bc, Cc, A, D, h, rows, *, lanes=CHUNK_LANES,
-                 channels=CHANNELS, tile=TILE, exp2=True):
+                 channels=None, tile=TILE, exp2=True, poly=POLY):
     """The two CUDA kernels, written out. S 1, the decode kernel: per
     (batch row, channel) DECODE_LANES lanes of the state row rows[b], expf,
-    y = tree(parts) + D*x. S >= 2, the chunk kernel: blocks of ``channels``
+    the update rounded product by product, y = tree(parts) + D*x. S >= 2,
+    the chunk kernel: blocks of ``channels`` (WALKERS // lanes by default)
     channels of one row (the last ragged), ``lanes`` lanes a channel
     holding their states from the first tile to the last, ``tile`` time
     steps staged at a time (the last tile ragged; B and C zero-padded to
     MAX_N), each lane's part of y kept a tile, then summed in the xor-tree
-    order and D*x added; the exponential 2^(dt * (A log2 e)) (``exp2``) or
+    order and D*x added by one multiply-add; the exponential 2^(dt * (A
+    log2 e)) (``exp2``; the polynomial on ``poly`` states of every 8) or
     exp(dt * A)."""
     B, S, d = x.shape
     n = A.shape[1]
-    if S == 1:
-        lanes, exp2 = DECODE_LANES, False
+    decode = S == 1
+    if decode:
+        lanes, exp2, poly = DECODE_LANES, False, 0
+        channels = DECODE_CHANNELS
+    channels = channels or WALKERS // lanes
     a_all = A * LOG2E if exp2 else A
     y = torch.empty((B, S, d), dtype=x.dtype)
     for b in range(B):
@@ -217,10 +290,12 @@ def _cuda_mirror(x, dt, Bc, Cc, A, D, h, rows, *, lanes=CHUNK_LANES,
                 parts = []
                 for t in range(nt):
                     hs, part = _lane_step(hs, a, dt_s[t], dt_s[t] * x_s[t],
-                                          b_s[t], c_s[t], exp2)
+                                          b_s[t], c_s[t], exp2, poly, decode)
                     parts.append(part)
-                y[b, t0:t0 + nt, ch] = (_xor_tree(torch.stack(parts))
-                                        + D[ch] * x_s).to(x.dtype)
+                tree = _xor_tree(torch.stack(parts))
+                dx = D[ch].expand_as(x_s)
+                y[b, t0:t0 + nt, ch] = (tree + dx * x_s if decode else
+                                        _fma(dx, x_s, tree)).to(x.dtype)
             h[r, ch] = hs.reshape(hs.shape[0], MAX_N)[:, :n]
     return y
 
@@ -228,9 +303,10 @@ def _cuda_mirror(x, dt, Bc, Cc, A, D, h, rows, *, lanes=CHUNK_LANES,
 def _check_mirror(B, S, d, n, rows, **kw):
     """The mirror against the plain version on inputs as mamba_mix passes
     them (x a bf16 column view, B and C column views of one fp32 tensor),
-    from a random state: h to 1e-6 (the same update; exp2 of the scaled A
-    or a CPU's vector exp moves it by a few ulps), y to bf16 rounding, the
-    state rows outside the batch untouched."""
+    from a random state: h to 1e-6 (the same recurrence; exp2 of the scaled
+    A, the polynomial, the contracted update or a CPU's vector exp move it
+    by a few ulps), y to bf16 rounding, the state rows outside the batch
+    untouched."""
     rng = np.random.default_rng(B * 100 + S + 7 * n)
     Bs = B if rows is None else max(rows) + 2
     x = torch.from_numpy(rng.normal(size=(B, S, 2 * d)).astype(
@@ -276,24 +352,96 @@ def test_cuda_loop_mirror_matches_plain(B, S, d, n, channels, tile, rows):
     (1, 23, 24, 1, 2, 16, 8, None, True),      # d_state 1: one state
     (3, 1, 40, 6, 2, 16, 8, [2, 4, 0], True),  # decode of 3 of 5, permuted
     (2, 32, 40, 16, 2, 16, 32, None, True),    # a chunk of exactly T steps
-    (1, 70, 72, 16, CHUNK_LANES, CHANNELS, TILE, [1], True),  # the source's
+    (1, 40, 48, 16, 1, 16, 8, None, True),     # L 1: no parts
+    (2, 19, 40, 6, 1, 16, 8, None, False),     # L 1, d_state 6, expf
+    (1, 70, 72, 16, CHUNK_LANES, None, TILE, [1], True),   # the source's
 ])
 def test_cuda_mirror_lanes_matches_plain(B, S, d, n, lanes, channels, tile,
                                          rows, exp2):
-    """The mirror at both lane counts, both exponentials, partial lanes,
+    """The mirror at every lane count, both exponentials, partial lanes,
     a permuted decode and whole tiles, against the plain version."""
     _check_mirror(B, S, d, n, rows, lanes=lanes, channels=channels,
                   tile=tile, exp2=exp2)
 
 
+@pytest.mark.parametrize("lanes", [1, 2, 4])
+@pytest.mark.parametrize("poly", [0, 1, 2])
+def test_cuda_mirror_poly_shares_match_plain(poly, lanes):
+    """The polynomial on 0, 1 and 2 states of every 8 at 1, 2 and 4 lanes
+    a channel (a ragged tile and channel block, d_state 16 and 6) against
+    the plain version."""
+    for n in (16, 6):
+        _check_mirror(1, 45, 40, n, None, lanes=lanes, channels=16, tile=16,
+                      poly=poly)
+
+
 def test_mirror_lanes_and_tiles_change_only_y_order():
-    """L 2 and L 4, and tiles of 8 and 32, walk the same recurrence: the
-    states agree to the last bit, y only to its summation order."""
-    (y2, h2), (y4, h4) = (_check_mirror(1, 37, 24, 16, None, lanes=lanes,
-                                        tile=tile)
-                          for lanes, tile in ((2, 8), (4, 32)))
-    assert torch.equal(h2, h4)
-    np.testing.assert_allclose(_np(y2), _np(y4), rtol=2 ** -7, atol=1e-5)
+    """L 1, 2 and 4, and tiles of 8 and 32, walk the same recurrence (the
+    polynomial chosen by state index): the states agree to the last bit, y
+    only to its summation order."""
+    runs = [_check_mirror(1, 37, 24, 16, None, lanes=lanes, tile=tile,
+                          poly=2)
+            for lanes, tile in ((1, 8), (2, 32), (4, 8))]
+    for y, h in runs[1:]:
+        assert torch.equal(h, runs[0][1])
+        np.testing.assert_allclose(_np(y), _np(runs[0][0]), rtol=2 ** -7,
+                                   atol=1e-5)
+
+
+def test_contracted_update_is_nearer_exact_than_the_plain_version():
+    """The chunk kernel's update is one multiply-add where the plain version
+    rounds da*h and dtx*B apart. Over 70 steps of 136 channels (the
+    source's lanes, three channel blocks, the last ragged), against the
+    recurrence in float64 on the same fp32 inputs (exp in float64): the
+    mirror's state is within h's limit (1e-6 relative, 1e-7) and no
+    farther from it than the plain version's, and y within bf16
+    rounding of the plain version's."""
+    rng = np.random.default_rng(4)
+    S, d, n = 70, 136, 16
+    x = torch.from_numpy(rng.normal(size=(1, S, 2 * d)).astype(
+        np.float32)).to(torch.bfloat16)[..., :d]
+    dt = torch.from_numpy(np.exp(rng.uniform(
+        math.log(1e-3), math.log(0.1), (1, S, d))).astype(np.float32))
+    dbc = torch.from_numpy(rng.normal(size=(1, S, 5 + 2 * n)).astype(
+        np.float32))
+    Bc, Cc = dbc[..., 5:5 + n], dbc[..., 5 + n:]
+    A = -torch.arange(1, n + 1, dtype=torch.float32).expand(d, n).contiguous()
+    D = torch.from_numpy(rng.normal(size=(d,)).astype(np.float32))
+    h0 = torch.from_numpy(rng.normal(size=(1, d, n)).astype(np.float32))
+    h_plain, h_mirror = h0.clone(), h0.clone()
+    want = mamba_scan_ref(x, dt, Bc, Cc, A, D, h_plain)
+    got = _cuda_mirror(x, dt, Bc, Cc, A, D, h_mirror, None)
+    exact = h0[0].double()
+    for t in range(S):
+        dtt = dt[0, t].double()[:, None]
+        exact = (torch.exp(dtt * A.double()) * exact
+                 + dtt * x[0, t].double()[:, None] * Bc[0, t].double())
+    err_mirror = (h_mirror[0].double() - exact).abs()
+    err_plain = (h_plain[0].double() - exact).abs()
+    assert bool((err_mirror <= 1e-7 + 1e-6 * exact.abs()).all())
+    assert err_mirror.max() <= err_plain.max()
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2 ** -7, atol=1e-5)
+
+
+def test_exp2_poly_within_its_bound_and_flushes_as_ex2_ftz():
+    """exp2_poly against 2^v in float64 over v in [-40, 0] and down to
+    -126: within the stated ulps of the correctly rounded result; exactly 1
+    at 0 and 2^-126 at -126; 0 below -126, where ex2.approx.ftz's result
+    would be subnormal and flushes."""
+    v = torch.cat([torch.linspace(-40.0, 0.0, 400001),
+                   torch.linspace(-126.0, -40.0, 20001),
+                   torch.tensor([-0.5, 0.5, -1e-30, -125.5])])
+    got = _exp2_poly(v).double()
+    want = torch.exp2(v.double())
+    ulp = torch.from_numpy(np.spacing(want.float().numpy()).astype(
+        np.float64))
+    err = ((got - want).abs() / ulp).max().item()
+    assert err <= POLY_ULP, err
+    assert f"{POLY_ULP} ulp" in SRC
+    edge = _exp2_poly(torch.tensor([0.0, -126.0, -126.0001, -126.4, -126.6,
+                                    -127.0, -150.0, -1e30]))
+    assert edge[0].item() == 1.0 and edge[1].item() == 2.0 ** -126
+    assert torch.equal(edge[2:], torch.zeros(6))
 
 
 def test_xor_tree_order():
@@ -306,22 +454,21 @@ def test_xor_tree_order():
     assert float(_xor_tree(p[:2])) == float(p[0] + p[1])
 
 
-def _source_define(src, name):
-    m = re.search(r"#define " + name + r" (\d+)", src)
-    return int(m.group(1))
-
-
 def test_mirror_constants_are_the_sources():
-    """The mirror's shapes are csrc/mamba_scan.cu's: states, channels a
-    block, steps a tile, lanes of each kernel, and the chunk kernel's
-    default exponential (exp2); the wrapper's MAX_N is the kernel's."""
-    src = (build.CSRC / "mamba_scan.cu").read_text()
-    for name, want in (("kMaxN", MAX_N), ("kChannels", CHANNELS),
-                       ("kTile", TILE), ("kDecLanes", DECODE_LANES)):
-        m = re.search(r"constexpr int " + name + r" = (\d+);", src)
-        assert m and int(m.group(1)) == want, name
-    assert _source_define(src, "MAMBA_LANES") == CHUNK_LANES
-    assert _source_define(src, "MAMBA_EXP2") == 1
+    """The mirror's shapes are csrc/mamba_scan.cu's: states, walker threads
+    a block, steps a tile, lanes of each kernel, the decode kernel's
+    channels a block, the chunk kernel's default exponential (exp2), its
+    share of polynomial states and the polynomial's coefficients; the
+    wrapper's MAX_N is the kernel's."""
+    for name, want in (("kMaxN", MAX_N), ("kWalkers", WALKERS),
+                       ("kTile", TILE), ("kDecLanes", DECODE_LANES),
+                       ("kDecChannels", DECODE_CHANNELS)):
+        assert _source_constant(SRC, name) == want, name
+    assert _source_define(SRC, "MAMBA_LANES") == CHUNK_LANES
+    assert _source_define(SRC, "MAMBA_POLY") == POLY
+    assert _source_define(SRC, "MAMBA_EXP2") == 1
+    assert "constexpr int kChannels = kWalkers / kLanes;" in SRC
+    assert len(POLY_COEF) == 5 and abs(POLY_COEF[0] - math.log(2)) < 1e-6
     assert MK.MAX_N == MAX_N
 
 
@@ -349,6 +496,33 @@ def test_variants_tool_switches_are_in_the_source():
             assert f"#ifndef {name}\n#define {name} " in src, flag
     assert [v[0] for v in mv.variants_of("one thread a channel")] == \
         ["source"]
+
+
+SASS = """
+        Function : _ZN4mamba_scan_decode_kernelI13__nv_bfloat16EEv
+        /*0000*/                   FFMA R1, R2, R3, R4 ;
+        /*0010*/                   BRA 0x0 ;
+        Function : _ZN4mamba_scan_chunk_kernelI13__nv_bfloat16EEv
+        /*0000*/                   LDS.128 R36, [R43+0x4000] ;
+        /*0010*/                   FMUL R4, R44, R83 ;
+        /*0020*/                   MUFU.EX2 R77, R4 ;
+        /*0030*/                   FFMA R77, R77, R20, R36 ;
+        /*0040*/              @!P0 BRA 0x0 ;
+        /*0050*/                   FFMA R5, R6, R7, R8 ;
+        /*0060*/                   BRA 0x50 ;
+        /*0070*/                   SYNCS.ARRIVE.TRANS64 RZ, [R60] ;
+        /*0080*/               @P1 BRA 0x0 ;
+"""
+
+
+def test_variants_tool_counts_the_walk_loop_of_the_chunk_kernel():
+    """tools/mamba_variants.py's SASS reading: of the bf16 chunk kernel's
+    innermost loops (backward branches holding no other), the one with the
+    most FFMA; the decode kernel and the enclosing tile loop are not
+    counted."""
+    ops = _variants_tool().walk_loop(SASS)
+    assert ops == {"LDS": 1, "FMUL": 1, "MUFU": 1, "FFMA": 1, "BRA": 1}
+    assert _variants_tool().walk_loop("no functions") == {}
 
 
 # ---------------------------------------------------------------------------

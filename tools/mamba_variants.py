@@ -11,34 +11,43 @@ and ``src/`` are imported. The variants are built with the repository's
 nvcc flags plus the variant's own into
 ``build/mamba_variants/<root>/<variant>/``:
 
-- ``source``: the source as it is (2 lanes a channel in the chunk
-  kernel, ``ex2.approx`` of dt * (A log2 e));
+- ``source``: the source as it is (its defaults: 2 lanes a channel in the
+  chunk kernel, every exponential on the SFU's ``ex2.approx``);
 - ``no loads`` (``-DMAMBA_CUT=1``): none of the loads of x, dt, B, C and
   the state;
 - ``exp as multiply`` (``-DMAMBA_CUT=2``): the exponential replaced by a
   multiply;
 - ``no state writes`` (``-DMAMBA_CUT=3``): no stores of y and the state;
-- ``expf`` (``-DMAMBA_EXP2=0``): the accurate ``expf`` of dt * A, which
-  gives the plain version's state bit for bit;
-- ``lanes 4`` (``-DMAMBA_LANES=4``): 4 lanes a channel, 4 states a lane;
-- ``expf lanes 4``: both.
+- ``expf`` (``-DMAMBA_EXP2=0``): the accurate ``expf`` of dt * A;
+- ``poly 0``, ``poly 1``, ``poly 2`` (``-DMAMBA_POLY=0/1/2``): that many
+  states of every 8 take the polynomial 2^v on the FMA pipe, the others
+  the SFU's ``ex2.approx``;
+- ``lanes 1``, ``lanes 2``, ``lanes 4`` (``-DMAMBA_LANES=1/2/4``): that
+  many lanes a channel, 16 / L states a lane.
 
 A source without these switches (one older than the lanes design) gives
-only ``source``. The cuts give wrong results and only their times mean
-anything; the others are also held to the plain
+only ``source``; one with the lanes and exponential switches but not
+``MAMBA_POLY`` drops the ``poly`` variants. The cuts give wrong results
+and only their times mean anything; the others are also held to the plain
 version with ``chip_smoke.py``'s limits (y and h), and each says whether
 its new h equals the plain version's bit for bit. Each variant is timed
 twice in turns at jamba's shapes (d_inner 16384, d_state 16): B1 S2048
 and S1000 fresh and S37 carried chunks in bf16, the decode of 8 of 10
-state rows (also with the L2 flushed before each call), and B1 S512 in
-fp32. Prints the device time a call from a profiler trace and writes the
-times to ``chiprun_out/mamba_variants_<root>.json``.
+state rows (also with the L2 flushed before each call), B1 S512 in fp32,
+and d_state 6 with B and C rows of 68 bytes (the operands the chunk
+kernel's tensor maps refuse). Prints the device time a call from a
+profiler trace, and the opcode counts of each variant's walk loop (the
+bf16 chunk kernel's, from ``cuobjdump -sass`` of its library, where the
+toolkit has it), and writes both to
+``chiprun_out/mamba_variants_<root>.json``.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import json
 import math
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -49,25 +58,33 @@ VARIANTS = [("source", [], True),
             ("exp as multiply", ["-DMAMBA_CUT=2"], False),
             ("no state writes", ["-DMAMBA_CUT=3"], False),
             ("expf", ["-DMAMBA_EXP2=0"], True),
-            ("lanes 4", ["-DMAMBA_LANES=4"], True),
-            ("expf lanes 4", ["-DMAMBA_EXP2=0", "-DMAMBA_LANES=4"], True)]
+            ("poly 0", ["-DMAMBA_POLY=0"], True),
+            ("poly 1", ["-DMAMBA_POLY=1"], True),
+            ("poly 2", ["-DMAMBA_POLY=2"], True),
+            ("lanes 1", ["-DMAMBA_LANES=1"], True),
+            ("lanes 2", ["-DMAMBA_LANES=2"], True),
+            ("lanes 4", ["-DMAMBA_LANES=4"], True)]
 SWITCHES = ("MAMBA_CUT", "MAMBA_EXP2", "MAMBA_LANES")
-# (name, B, S, dtype, carried, state rows)
-CASES = [("B1 S2048 fresh bf16", 1, 2048, "bfloat16", False, None),
-         ("B1 S1000 fresh bf16", 1, 1000, "bfloat16", False, None),
-         ("B1 S37 carried bf16", 1, 37, "bfloat16", True, None),
+# (name, B, S, dtype, carried, state rows, d_state, columns before B)
+CASES = [("B1 S2048 fresh bf16", 1, 2048, "bfloat16", False, None, 16, 32),
+         ("B1 S1000 fresh bf16", 1, 1000, "bfloat16", False, None, 16, 32),
+         ("B1 S37 carried bf16", 1, 37, "bfloat16", True, None, 16, 32),
          ("B8 S1 decode carried bf16", 8, 1, "bfloat16", True,
-          [3, 0, 7, 1, 6, 2, 9, 4]),
-         ("B1 S512 carried fp32", 1, 512, "float32", True, None)]
-D_INNER, D_STATE = 16384, 16
+          [3, 0, 7, 1, 6, 2, 9, 4], 16, 32),
+         ("B1 S512 carried fp32", 1, 512, "float32", True, None, 16, 32),
+         ("B2 S100 carried bf16 n6", 2, 100, "bfloat16", True, None, 6, 5)]
+D_INNER = 16384
 
 
 def variants_of(src: str):
     """The variants a source can build: all of them when it has the
-    switches, else only the source as it is."""
-    if all(s in src for s in SWITCHES):
-        return VARIANTS
-    return VARIANTS[:1]
+    switches (the ``poly`` ones where it has ``MAMBA_POLY``), else only the
+    source as it is."""
+    if not all(s in src for s in SWITCHES):
+        return VARIANTS[:1]
+    if "MAMBA_POLY" not in src:
+        return [v for v in VARIANTS if not v[0].startswith("poly")]
+    return VARIANTS
 
 
 def build_variants(build, tag, variants):
@@ -88,7 +105,8 @@ def build_variants(build, tag, variants):
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
         logs[name] = [ln.strip() for ln in log.splitlines()
-                      if "registers" in ln or "spill" in ln]
+                      if any(w in ln for w in ("registers", "spill",
+                                               "entry function"))]
         lib = ctypes.CDLL(str(so))
         for fn, argtypes in build.SIGNATURES["mamba_scan"].items():
             getattr(lib, fn).argtypes = argtypes
@@ -99,11 +117,12 @@ def build_variants(build, tag, variants):
     return libs, logs
 
 
-def case_inputs(cases, torch, B, S, dtype, carried, rows):
+def case_inputs(cases, torch, B, S, dtype, carried, rows, n, lead):
     """chip_smoke.py's #6 inputs: x a column view of the in_proj output,
-    dt in [0.001, 0.1], B and C column views, A = -(1..n), D = 1."""
+    dt in [0.001, 0.1], B and C column views after ``lead`` columns, A =
+    -(1..n), D = 1."""
     from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
-    d, n = D_INNER, D_STATE
+    d = D_INNER
     Bs = B if rows is None else max(rows) + 1
 
     def inputs(Bn, Sn):
@@ -111,8 +130,8 @@ def case_inputs(cases, torch, B, S, dtype, carried, rows):
         u = torch.rand((Bn, Sn, d), generator=cases.gen, device="cuda")
         dt = torch.exp(u * (math.log(0.1) - math.log(0.001))
                        + math.log(0.001))
-        dbc = cases.randn((Bn, Sn, 32 + 2 * n), torch.float32)
-        return x, dt, dbc[..., 32:32 + n], dbc[..., 32 + n:]
+        dbc = cases.randn((Bn, Sn, lead + 2 * n), torch.float32)
+        return x, dt, dbc[..., lead:lead + n], dbc[..., lead + n:]
 
     A = -torch.arange(1, n + 1, dtype=torch.float32,
                       device="cuda").expand(d, n).contiguous()
@@ -141,6 +160,52 @@ def parity(cs, torch, MK, name, args, A, Dp, h, rows_t, dn):
             "h_bits_equal": bool(torch.equal(h_got[idx], h_want[idx]))}
 
 
+CUOBJDUMP = "/usr/local/cuda/bin/cuobjdump"
+# "        /*0f70*/                   LDS.128 R36, [R43+0x4000] ;": the
+# address and the opcode, after an optional predicate
+SASS_LINE = re.compile(
+    r"\s+/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
+
+
+def walk_loop(sass: str):
+    """Opcode counts of the walk loop of the bf16 chunk kernel in
+    ``cuobjdump -sass`` output: of the innermost loops (a backward
+    branch's range holding no other), the one with the most FFMA."""
+    best = None
+    for sec in sass.split("Function : ")[1:]:
+        if "chunk_kernel" not in sec.splitlines()[0] or \
+                "bfloat16" not in sec.splitlines()[0]:
+            continue
+        ins, loops = [], []
+        for line in sec.splitlines():
+            m = SASS_LINE.match(line)
+            if not m:
+                continue
+            at = int(m.group(1), 16)
+            ins.append((at, m.group(3)))
+            b = re.search(r"BRA (?:`\(\.L_x_\d+\) )?0x([0-9a-f]+)", line)
+            if b and int(b.group(1), 16) < at:
+                loops.append((int(b.group(1), 16), at))
+        for lo, hi in loops:
+            if any(lo <= a and b <= hi and (a, b) != (lo, hi)
+                   for a, b in loops):
+                continue
+            ops = collections.Counter(op for a, op in ins if lo <= a <= hi)
+            if best is None or ops["FFMA"] > best["FFMA"]:
+                best = ops
+    return dict(best) if best else {}
+
+
+def sass_counts(lib: Path):
+    """The walk loop's opcode counts of a built library, or None where
+    cuobjdump is missing."""
+    if not Path(CUOBJDUMP).exists():
+        return None
+    out = subprocess.run([CUOBJDUMP, "-sass", str(lib)], capture_output=True,
+                         text=True, check=True).stdout
+    return walk_loop(out)
+
+
 def main(argv) -> int:
     root = Path(argv[1] if len(argv) > 1 else ".").resolve()
     sys.path.insert(0, str(root))
@@ -157,10 +222,19 @@ def main(argv) -> int:
     print(cs.device_line(), flush=True)
     for name, lines in logs.items():
         print(f"  {name}: " + " | ".join(lines))
+    sass = {}
+    for name, _, _ in variants:
+        ops = sass_counts(Path(libs[name]._name))
+        if ops:
+            sass[name] = ops
+            print(f"  {name}: walk loop {sum(ops.values())} instructions, "
+                  f"{ops.get('MUFU', 0)} MUFU, {ops.get('FFMA', 0)} FFMA, "
+                  f"{ops.get('FMUL', 0)} FMUL, {ops.get('LDS', 0)} LDS",
+                  flush=True)
     cases = cs.Cases(torch)
     inputs = [(cname, dn, case_inputs(cases, torch, B, S, getattr(torch, dn),
-                                      carried, rows))
-              for cname, B, S, dn, carried, rows in CASES]
+                                      carried, rows, n, lead))
+              for cname, B, S, dn, carried, rows, n, lead in CASES]
     times = {}
     for turn in range(2):
         for name, _, checked in variants:
@@ -194,6 +268,7 @@ def main(argv) -> int:
     out.mkdir(exist_ok=True)
     (out / f"mamba_variants_{tag}.json").write_text(json.dumps(
         {"root": str(root), "device": cs.device_line(), "ptxas": logs,
+         "walk_loop_sass": sass,
          "times": times}, indent=1))
     return 0
 
